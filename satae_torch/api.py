@@ -1,38 +1,59 @@
-"""Public serving API: the counterpart of satae/api.py's inference surface.
+"""Public API: the counterpart of satae/api.py's single-config fit and its
+inference surface.
 
-``SatAEPipeline`` loads a fitted pipeline (satae's ``.msgpack`` run
+``SatAEPipeline.fit(grid=False)`` runs satae's single-config pipeline
+(api.py:119-336): supervised-AE training at the reference-optimal alpha 35,
+lr 5e-3 with patience-15 early stopping, frozen-encoder latent extraction,
+MLP training at lr 1e-4 for ``MLPTrainConfig.epochs``, and the test-split
+score. It trains in float32 with TF32 off for cuDNN. On a CUDA device every
+linear layer's forward and backward runs on kernel K1, and extraction runs
+on K2 + K1; the convolutions, transposed convolutions, BatchNorm, losses and
+Adam are stock PyTorch ops, as they are XLA ops in satae.
+
+``SatAEPipeline`` also loads a fitted pipeline (satae's ``.msgpack`` run
 directory, or the reference notebook's ``.pt`` state_dicts) and serves
 ``encode``, ``predict`` and ``predict_proba`` through the fixed-chunk bulk
 path of satae (api.py:527-603): one upload, chunks of 64 images for inputs of
-up to 64, of 512 otherwise, padding rows sliced off.
+up to 64, of 512 otherwise, padding rows sliced off. On a CUDA device every
+chunk runs satae_torch.models.fast_infer on the hand-written kernels (K2 per
+conv layer, K1 per linear layer); with ``device="cpu"`` the same code runs
+the kernels' plain PyTorch versions.
 
 The device is explicit. ``device=None`` means the first CUDA device, and
 raises where there is none: the pipeline never drops to the CPU by itself.
-On a CUDA device every chunk runs satae_torch.models.fast_infer on the
-hand-written kernels (K2 per conv layer, K1 per linear layer); there is no
-switch to a plain path there. With ``device="cpu"`` the same code runs the
-kernels' plain PyTorch versions.
 
-Training (``fit``), ``evaluate``, ``save``, export, decoder serving
-(``decode``/``reconstruct``), bf16 compute and multi-device serving are
-later slices (ROADMAP.md §1).
+The grid sweeps and ``out_dir`` checkpoints of ``fit``, ``evaluate``,
+``save``, export, decoder serving (``decode``/``reconstruct``), bf16 compute
+and multi-device runs are later slices (ROADMAP.md §1).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import time
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from satae_torch.config import PipelineConfig, default_config
 from satae_torch.data.augment import normalize
+from satae_torch.data.ingest import RawDataset, load_dataset
+from satae_torch.data.pipeline import make_splits
 from satae_torch.io import checkpoint, convert
 from satae_torch.models import fast_infer
 from satae_torch.models.mlp import MLP
 from satae_torch.models.supervised_ae import SupervisedAE
+from satae_torch.train.extract import extract_features
+from satae_torch.train.fast_loop import train_mlp, train_supervised_ae
+from satae_torch.train.loop import LogFn
+
+# Reference-optimal single-config hyperparameters (satae/api.py:33-35)
+BEST_ALPHA = 35.0
+BEST_AE_LR = 5e-3
+BEST_MLP_LR = 1e-4
 
 
 def resolve_device(device=None) -> torch.device:
@@ -46,8 +67,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+@dataclasses.dataclass
+class FitSummary:
+    ae_val_loss: Optional[float]  # None for reuse_ae fits (no AE training)
+    ae_hparams: Dict[str, float]
+    mlp_val_acc: float
+    mlp_hparams: Dict[str, float]
+    test_acc: Optional[float] = None
+    # wall-clock seconds per stage: data / ae / extract / mlp / eval
+    stage_seconds: Optional[Dict[str, float]] = None
+
+
 class SatAEPipeline:
-    """Loaded autoencoder + MLP, served on ``device`` through the kernels."""
+    """Autoencoder + MLP, fitted or loaded, run on ``device`` through the
+    kernels."""
 
     def __init__(self, config: Optional[PipelineConfig] = None, device=None):
         self.config = config or default_config()
@@ -66,6 +99,103 @@ class SatAEPipeline:
         self.classes = None
         self._folded = None
         self._folded_src = None
+        # per-epoch train/val curves of the last fit, {"ae": ..., "mlp": ...}
+        # (None for a reused AE): satae draws them into out_dir instead
+        self.history: Optional[Dict[str, Optional[Dict[str, List[float]]]]] \
+            = None
+
+    # -- training ----------------------------------------------------------
+
+    def fit(self, raw: Optional[RawDataset] = None, *, grid: bool = False,
+            log: Optional[LogFn] = None, out_dir: Optional[str] = None,
+            reuse_ae: bool = False) -> FitSummary:
+        """Run the single-config pipeline on ``raw`` (default: the dataset
+        ``config.data`` names): AE training (alpha 35, lr 5e-3), latent
+        extraction, MLP training (lr 1e-4) and the test-split score, which
+        is the accuracy :meth:`predict` gives on the test split.
+
+        ``reuse_ae=True`` skips AE training and extracts through the loaded
+        autoencoder (:meth:`load` or :meth:`load_torch` first). The grid
+        sweeps (``grid=True``) and run-directory output (``out_dir``) are
+        not ported yet."""
+        if grid or out_dir is not None:
+            raise NotImplementedError(
+                "satae_torch fits the single reference-optimal config only: "
+                "the grid sweeps and out_dir checkpoints are a later slice "
+                "(ROADMAP.md §1 item 9)")
+        if reuse_ae and self.ae is None:
+            raise ValueError("reuse_ae=True requires a loaded autoencoder - "
+                             "call load() or load_torch() first")
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            return self._fit(raw, log, reuse_ae)
+
+    def _fit(self, raw: Optional[RawDataset], log: Optional[LogFn],
+             reuse_ae: bool) -> FitSummary:
+        cfg, dev = self.config, self.device
+        bs = cfg.data.batch_size
+        stage_t: Dict[str, float] = {}
+        t_mark = time.perf_counter()
+
+        def stage(name: str) -> None:
+            # every stage ends in a host read (epoch sums, latents,
+            # predictions), so no device work leaks across a mark
+            nonlocal t_mark
+            now = time.perf_counter()
+            stage_t[name] = round(now - t_mark, 2)
+            t_mark = now
+
+        splits = make_splits(raw or load_dataset(cfg.data), cfg.data)
+        self.classes = splits.classes
+        stage("data")
+
+        ae_res = None
+        if reuse_ae:
+            ae_hp = {"reused": True}
+        else:
+            ae_res = train_supervised_ae(
+                splits.train, splits.val, model_cfg=cfg.model,
+                data_cfg=cfg.data, alpha=BEST_ALPHA, lr=BEST_AE_LR,
+                device=dev, max_epochs=cfg.ae.max_epochs,
+                patience=cfg.ae.patience, seed=cfg.runtime.seed, log=log)
+            ae_hp = {"alpha": BEST_ALPHA, "lr": BEST_AE_LR}
+            ae = SupervisedAE(cfg.model, cfg.data.channels,
+                              cfg.data.image_size).to(dev)
+            ae.load_state_dict(ae_res.state_dict())
+            self.ae = ae.eval()
+        stage("ae")
+
+        Xtr, ytr = extract_features(self.ae.enc, splits.train, bs)
+        Xva, yva = extract_features(self.ae.enc, splits.val, bs)
+        Xte, yte = extract_features(self.ae.enc, splits.test, bs)
+        stage("extract")
+
+        mlp_res = train_mlp(
+            Xtr, ytr, Xva, yva, model_cfg=cfg.model, lr=BEST_MLP_LR,
+            device=dev, weight_decay=cfg.mlp.weight_decay,
+            epochs=cfg.mlp.epochs, batch_size=bs, seed=cfg.runtime.seed,
+            log=log)
+        mlp = MLP(cfg.model, input_dim=Xtr.shape[-1]).to(dev)
+        mlp.load_state_dict(mlp_res.state_dict())
+        self.mlp = mlp.eval()
+        self.history = {"ae": None if ae_res is None else ae_res.history,
+                        "mlp": mlp_res.history}
+        stage("mlp")
+
+        # the test split's already-extracted latents through the served
+        # (folded) MLP: test_acc is what predict() scores
+        _, fm = self._folded_weights()
+        with torch.no_grad():
+            logits = fast_infer.mlp_infer(fm, torch.from_numpy(Xte).to(dev))
+        test_preds = torch.argmax(logits, dim=-1).cpu().numpy()
+        test_acc = float((test_preds == yte).mean())
+        stage("eval")
+        return FitSummary(
+            None if ae_res is None else ae_res.best_val_loss, ae_hp,
+            mlp_res.best_val_acc, {"lr": BEST_MLP_LR}, test_acc,
+            stage_seconds=dict(stage_t))
 
     # -- loading -----------------------------------------------------------
 
@@ -137,8 +267,8 @@ class SatAEPipeline:
 
     def _require_fitted(self, mlp: bool = False) -> None:
         if self.ae is None:
-            raise RuntimeError("pipeline is not loaded — call load() or "
-                               "load_torch()")
+            raise RuntimeError("pipeline is not loaded — call fit(), load() "
+                               "or load_torch()")
         if mlp and self.mlp is None:
             raise RuntimeError("no classifier: only the autoencoder is "
                                "loaded (load_torch without mlp_pt)")
@@ -231,3 +361,13 @@ class SatAEPipeline:
             lambda z: torch.softmax(fast_infer.mlp_infer(fm, z), dim=-1))
         return torch.cat(probs).cpu().numpy()[:n]
 
+
+# -- module-level conveniences ---------------------------------------------
+
+def fit(config: Optional[PipelineConfig] = None, device=None,
+        **kwargs) -> SatAEPipeline:
+    """A new pipeline on ``device``, fitted (see :meth:`SatAEPipeline.fit`
+    for ``kwargs``)."""
+    pipe = SatAEPipeline(config, device)
+    pipe.fit(**kwargs)
+    return pipe

@@ -4,8 +4,8 @@ The five dataclasses keep the JAX package's fields and defaults, which are
 the reference notebook's literals (see that module for the citations), with
 one exception: ``RuntimeConfig.use_pallas`` is gone. It chose between the
 Pallas kernels and XLA in satae; in the port the device chooses. On a CUDA
-device the serving path always runs the hand-written kernels, and on the CPU
-it runs their plain PyTorch versions (satae_torch.kernels).
+device the serving and training paths always run the hand-written kernels,
+and on the CPU their plain PyTorch versions (satae_torch.kernels).
 
 ``PipelineConfig.compute_dtype`` returns a ``torch.dtype``.
 """

@@ -74,6 +74,10 @@ struct Im2colA {
                 : 0.f;
     }
   }
+
+  __device__ __forceinline__ void stage(int k0, ATileSmem& As) const {
+    stage_fetched_rows(*this, k0, As);
+  }
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -87,7 +91,9 @@ __global__ void __launch_bounds__(kThreads)
   const int M = batch * OH * OW;
   const Im2colA a(x, M, H, W, Cin, KH, KW, OH, OW, stride, pad,
                   blockIdx.x * kBM, threadIdx.x);
-  gemm_tile(a, w, scale, shift, out, M, Cout, KH * KW * Cin, act);
+  const int K = KH * KW * Cin;
+  const RowMajorB b(w, Cout, K, blockIdx.y * kBN, threadIdx.x);
+  gemm_tile(a, b, scale, shift, out, M, Cout, K, act);
 }
 
 }  // namespace satae

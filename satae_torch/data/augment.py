@@ -1,16 +1,71 @@
 """Input transforms: the counterpart of satae/data/augment.py.
 
-Only the val/test-time transform is ported so far; the training
-augmentation (flip, pad-4 crop, noise) comes with the training slice
-(ROADMAP.md §1 item 4).
+The training augmentation is the reference's: horizontal flip with p = 0.5,
+zero-pad 4 and a random crop back to the image size (offsets uniform in
+[0, 2p]), the uint8 -> [0, 1] scaling, and unclamped additive N(0, 0.03)
+noise. The deterministic core :func:`flip_crop` takes the flips and offsets
+as inputs and indexes the padded batch directly; satae's selection-matmul
+form of the same map is a TPU device choice (ROADMAP.md §1 item 4).
+
+The random draws come from a ``torch.Generator``, so they are not satae's
+(JAX's threefry or rbg streams); the flips, offsets and noise can be passed
+in to reproduce a given draw.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 
 def normalize(imgs_u8: torch.Tensor,
               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """uint8 (N,H,W,C) -> float [0,1], the same division as satae's."""
     return imgs_u8.to(dtype) / 255.0
+
+
+def flip_crop(x: torch.Tensor, flip: torch.Tensor, offsets: torch.Tensor,
+              crop_padding: int) -> torch.Tensor:
+    """Flip the images of x (N,H,W,C) where ``flip`` (bool, (N,) or (N,1)),
+    zero-pad by ``crop_padding`` and crop the (H, W) window at ``offsets``
+    (int (N, 2), (off_y, off_x) in [0, 2p]). The same map as satae's
+    ``flip_crop_select``, whose flip folds into the column index because
+    zero padding is symmetric."""
+    n, h, w, _ = x.shape
+    p = crop_padding
+    padded = F.pad(x, (0, 0, p, p, p, p))
+    offsets = offsets.to(device=x.device, dtype=torch.long)
+    iy = offsets[:, 0:1] + torch.arange(h, device=x.device)  # (N, H)
+    jx = offsets[:, 1:2] + torch.arange(w, device=x.device)  # (N, W)
+    jx = torch.where(flip.reshape(n, 1).to(x.device), (w + 2 * p - 1) - jx,
+                     jx)
+    rows = torch.arange(n, device=x.device)[:, None, None]
+    return padded[rows, iy[:, :, None], jx[:, None, :]]
+
+
+def augment_train_batch(imgs_u8: torch.Tensor, *, crop_padding: int = 4,
+                        noise_std: float = 0.03,
+                        generator: Optional[torch.Generator] = None,
+                        flip: Optional[torch.Tensor] = None,
+                        offsets: Optional[torch.Tensor] = None,
+                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """uint8 (N,H,W,C) -> augmented float32 (N,H,W,C) in ~[0,1] (+noise).
+
+    ``flip`` (bernoulli(0.5) per image), ``offsets`` (uniform integers in
+    [0, 2 * crop_padding]) and ``noise`` (standard normal, the batch's shape)
+    are drawn from ``generator`` on the batch's device unless given."""
+    n = imgs_u8.shape[0]
+    dev = imgs_u8.device
+    if flip is None:
+        flip = torch.rand((n, 1), generator=generator, device=dev) < 0.5
+    if offsets is None:
+        offsets = torch.randint(0, 2 * crop_padding + 1, (n, 2),
+                                generator=generator, device=dev)
+    x = flip_crop(normalize(imgs_u8), flip, offsets, crop_padding)
+    if noise_std:
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator, device=dev)
+        x = x + noise_std * noise.to(device=dev, dtype=x.dtype)
+    return x

@@ -30,11 +30,11 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-# source -> (launcher, number of int arguments). Every launcher takes five
-# device pointers (x, w, scale, shift, out), its int sizes, then the stream,
-# and returns cudaGetLastError().
-LAUNCHERS = {"fused_gemm": ("satae_fused_gemm", 4),
-             "conv_bn_act": ("satae_conv2d_bn_act", 12)}
+# source -> {launcher: number of int arguments}. Every launcher takes five
+# device pointers (x, w, scale, shift, out), its int arguments, then the
+# stream, and returns cudaGetLastError().
+LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": 4, "satae_fused_gemm_t": 6},
+             "conv_bn_act": {"satae_conv2d_bn_act": 12}}
 SOURCES = tuple(LAUNCHERS)
 # No --use_fast_math: expf in the sigmoid epilogue stays accurate.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -119,11 +119,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build_all()[name]))
-            fn_name, n_ints = LAUNCHERS[name]
-            fn = getattr(lib, fn_name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * n_ints
-                           + [ctypes.c_void_p])
+            for fn_name, n_ints in LAUNCHERS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = ([ctypes.c_void_p] * 5
+                               + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
             lib.satae_error_string.restype = ctypes.c_char_p
             lib.satae_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib

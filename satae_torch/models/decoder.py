@@ -4,8 +4,7 @@ Linear(latent -> 256*4*4), unflatten (NCHW, as the reference), then 4
 ConvTranspose2d(k3, s2, p1, output_padding 1) blocks 256->128->64->32->3,
 BN + ReLU after the first three, final sigmoid. Module names give the
 reference keys: ``decoder_input``, ``decoder.{3i+1}`` ConvTranspose2d,
-``decoder.{3i+2}`` BN. Eval-mode forward only; it is here so that the
-reference autoencoder state_dict loads ``strict=True``. Decoder serving
+``decoder.{3i+2}`` BN. It trains with the autoencoder; decoder serving
 (``decode``/``reconstruct``) is a later slice (ROADMAP.md §1 item 11).
 """
 
@@ -17,7 +16,6 @@ import torch
 from torch import nn
 
 from satae_torch.config import ModelConfig
-from satae_torch.models.encoder import require_eval
 from satae_torch.nn import layers as L
 
 
@@ -51,16 +49,14 @@ class Decoder(nn.Module):
                  self.decoder[3 * i + 2] if i < self.n_blocks - 1 else None)
                 for i in range(self.n_blocks)]
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, linear=L.linear) -> torch.Tensor:
         """z: (N, latent_dim) -> x_hat (N, H, W, C) in [0,1]."""
-        require_eval(self)
-        h = L.linear(z, self.decoder_input.weight, self.decoder_input.bias)
+        h = linear(z, self.decoder_input.weight, self.decoder_input.bias)
         h = h.reshape(-1, self.c0, self.spatial, self.spatial)
         h = h.permute(0, 2, 3, 1)
         for ct, bn in self.blocks():
             h = L.conv_transpose2d(h, ct.weight, ct.bias, ct.stride[0],
                                    ct.padding[0], ct.output_padding[0])
             if bn is not None:
-                h = L.relu(L.batchnorm(h, bn.weight, bn.bias, bn.running_mean,
-                                       bn.running_var, bn.eps))
+                h = L.relu(L.bn(h, bn))
         return L.sigmoid(h)

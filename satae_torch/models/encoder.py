@@ -7,8 +7,13 @@ Module names give the reference state_dict keys: ``encoder.{3i}`` conv,
 
 The forward takes NHWC images like satae, and flattens in the reference's
 NCHW order, so the projection weight is the reference's (satae's differs
-from it by the permutation in satae/io/torch_export.py). Eval mode only:
-training comes with a later slice (ROADMAP.md §1 item 3).
+from it by the permutation in satae/io/torch_export.py). In train mode the
+BatchNorm layers normalise with batch statistics and update their running
+buffers in satae's arithmetic (satae_torch.nn.layers.bn).
+
+The models' forwards take the linear function as ``linear``: the default is
+:func:`satae_torch.nn.layers.linear`, kernel K1 on the card; a reference run
+passes ``layers.linear_plain`` to hold K1 against stock PyTorch ops.
 """
 
 from __future__ import annotations
@@ -20,13 +25,6 @@ from torch import nn
 
 from satae_torch.config import ModelConfig
 from satae_torch.nn import layers as L
-
-
-def require_eval(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: only the eval-mode forward is ported "
-            "(call .eval()); training is a later slice (ROADMAP.md §1)")
 
 
 class Encoder(nn.Module):
@@ -58,14 +56,12 @@ class Encoder(nn.Module):
     def proj(self) -> nn.Linear:
         return self.encoder[3 * self.n_blocks + 1]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, linear=L.linear) -> torch.Tensor:
         """x: (N, H, W, C) float in [0,1] -> latent (N, latent_dim)."""
-        require_eval(self)
         h = x
         for conv, bn in self.blocks():
             h = L.conv2d(h, conv.weight, conv.bias, conv.stride[0],
                          conv.padding[0])
-            h = L.relu(L.batchnorm(h, bn.weight, bn.bias, bn.running_mean,
-                                   bn.running_var, bn.eps))
+            h = L.relu(L.bn(h, bn))
         h = h.permute(0, 3, 1, 2).flatten(1)
-        return L.linear(h, self.proj.weight, self.proj.bias)
+        return linear(h, self.proj.weight, self.proj.bias)

@@ -2,7 +2,9 @@
 
 Linear(in,128)+BatchNorm1d+ReLU+Dropout(0.3) -> Linear(128,64)+BatchNorm1d+
 ReLU -> Linear(64, classes), as ``net`` with the reference indices
-``net.{0,1,4,5,7}``. Eval-mode forward: dropout is the identity.
+``net.{0,1,4,5,7}``. In eval mode dropout is the identity; in train mode
+its mask is passed in (``dropout_mask``, as the tests inject satae's) or
+drawn from ``generator``.
 """
 
 from __future__ import annotations
@@ -13,7 +15,6 @@ import torch
 from torch import nn
 
 from satae_torch.config import ModelConfig
-from satae_torch.models.encoder import require_eval
 from satae_torch.nn import layers as L
 
 
@@ -34,6 +35,7 @@ class MLP(nn.Module):
                 mods.append(nn.Dropout(cfg.mlp_dropout))
         mods.append(nn.Linear(dims[-1], cfg.num_classes))
         self.net = nn.Sequential(*mods)
+        self.dropout_rate = cfg.mlp_dropout
 
     def hidden(self) -> List[Tuple[nn.Linear, nn.BatchNorm1d]]:
         return [(self.net[i], self.net[i + 1]) for i in self._hidden_idx]
@@ -42,12 +44,15 @@ class MLP(nn.Module):
     def out(self) -> nn.Linear:
         return self.net[len(self.net) - 1]
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor,
+                dropout_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                linear=L.linear) -> torch.Tensor:
         """z: (N, input_dim) latents -> logits (N, num_classes)."""
-        require_eval(self)
         h = z
-        for fc, bn in self.hidden():
-            h = L.linear(h, fc.weight, fc.bias)
-            h = L.relu(L.batchnorm(h, bn.weight, bn.bias, bn.running_mean,
-                                   bn.running_var, bn.eps))
-        return L.linear(h, self.out.weight, self.out.bias)
+        for i, (fc, bn) in enumerate(self.hidden()):
+            h = linear(h, fc.weight, fc.bias)
+            h = L.relu(L.bn(h, bn))
+            if i == 0 and self.training:  # after the first block only
+                h = L.dropout(h, self.dropout_rate, dropout_mask, generator)
+        return linear(h, self.out.weight, self.out.bias)

@@ -3,7 +3,9 @@
 ``enc`` (Encoder) + ``dec`` (Decoder) + ``classifier`` (Linear -> ReLU ->
 Linear, the internal head), the reference's module names, so its
 ``AE_GLOBAL_BEST.pt`` state_dict loads ``strict=True``. ``forward`` returns
-``(x_hat, logits, z)`` in eval mode; x and x_hat are NHWC.
+``(x_hat, logits, z)``; x and x_hat are NHWC. The head's Linear + ReLU is
+one ``linear(..., act="relu")``, one K1 launch on the card, as satae's
+``linear_pallas(z, w, b, "relu")``.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from torch import nn
 
 from satae_torch.config import ModelConfig
 from satae_torch.models.decoder import Decoder
-from satae_torch.models.encoder import Encoder, require_eval
+from satae_torch.models.encoder import Encoder
 from satae_torch.nn import layers as L
 
 
@@ -28,10 +30,9 @@ class SupervisedAE(nn.Module):
             nn.Linear(cfg.latent_dim, cfg.head_hidden), nn.ReLU(),
             nn.Linear(cfg.head_hidden, cfg.num_classes))
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, linear=L.linear
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        require_eval(self)
-        z = self.enc(x)
+        z = self.enc(x, linear)
         fc1, fc2 = self.classifier[0], self.classifier[2]
-        h = L.relu(L.linear(z, fc1.weight, fc1.bias))
-        return self.dec(z), L.linear(h, fc2.weight, fc2.bias), z
+        h = linear(z, fc1.weight, fc1.bias, "relu")
+        return self.dec(z, linear), linear(h, fc2.weight, fc2.bias), z

@@ -1,0 +1,102 @@
+"""``satae_torch.fit`` end to end on the CPU at a tiny config (channels
+(4, 8), latent 8, head 16, MLP (16, 8), 16x16 images, batch 8), synthetic
+data with 8 images per class, 2 AE and 2 MLP epochs: the FitSummary contract
+of satae, the fitted pipeline's predict, the reuse_ae flow and the refusals.
+"""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from satae import config as JC
+from satae.api import FitSummary as JaxFitSummary
+from satae.api import SatAEPipeline as JaxPipeline
+from satae.models.mlp import mlp_init
+from satae.models.supervised_ae import supervised_ae_init
+import satae_torch
+from satae_torch import config as TC
+from satae_torch.api import SatAEPipeline
+from satae_torch.data.ingest import load_dataset
+from satae_torch.data.pipeline import make_splits
+
+JCFG = JC.ModelConfig(latent_dim=8, encoder_channels=(4, 8), head_hidden=16,
+                      mlp_hidden=(16, 8))
+TCFG = TC.ModelConfig(**dataclasses.asdict(JCFG))
+CFG = TC.PipelineConfig(
+    data=TC.DataConfig(per_class=8, image_size=16, batch_size=8),
+    model=TCFG, ae=TC.AETrainConfig(max_epochs=2),
+    mlp=TC.MLPTrainConfig(epochs=2))
+STAGES = ["data", "ae", "extract", "mlp", "eval"]
+
+
+@pytest.fixture(scope="module")
+def test_split():
+    return make_splits(load_dataset(CFG.data), CFG.data).test
+
+
+def test_fit_end_to_end(test_split):
+    lines = []
+    pipe = SatAEPipeline(CFG, device="cpu")
+    summary = pipe.fit(log=lines.append)
+    assert isinstance(summary, satae_torch.FitSummary)
+    assert [f.name for f in dataclasses.fields(summary)] == [
+        f.name for f in dataclasses.fields(JaxFitSummary)]
+    assert list(summary.stage_seconds) == STAGES
+    assert summary.ae_hparams == {"alpha": 35.0, "lr": 5e-3}
+    assert summary.mlp_hparams == {"lr": 1e-4}
+    assert np.isfinite(summary.ae_val_loss)
+    assert 0.0 <= summary.mlp_val_acc <= 1.0
+    assert len(lines) == 2 + 2  # one line per epoch
+    assert [len(pipe.history[k]["train_loss"]) for k in ("ae", "mlp")] == [
+        2, 2]
+    assert not pipe.ae.training and not pipe.mlp.training
+    preds = pipe.predict(test_split.images)
+    assert preds.shape == (len(test_split),)
+    assert summary.test_acc == float((preds == test_split.labels).mean())
+    # the module-level fit: the same config and seed fit the same weights
+    again = satae_torch.fit(CFG, device="cpu")
+    np.testing.assert_array_equal(again.predict(test_split.images), preds)
+
+
+def test_reuse_ae_after_load_trains_only_the_mlp(tmp_path, test_split):
+    """A satae run directory loaded into the port: fit(reuse_ae=True) keeps
+    its autoencoder bit for bit and trains a new MLP on its latents."""
+    ae_p, ae_s = supervised_ae_init(jax.random.PRNGKey(0), JCFG,
+                                    image_size=16)
+    mlp_p, mlp_s = mlp_init(jax.random.PRNGKey(1), JCFG)
+    jp = JaxPipeline(JC.PipelineConfig(
+        data=JC.DataConfig(per_class=8, image_size=16, batch_size=8),
+        model=JCFG))
+    jp.ae_params, jp.ae_bn_state, jp.mlp_params, jp.mlp_bn_state = (
+        ae_p, ae_s, mlp_p, mlp_s)
+    jp.save(str(tmp_path))
+    pipe = SatAEPipeline(CFG, device="cpu").load(str(tmp_path))
+    ae_before = {k: v.clone() for k, v in pipe.ae.state_dict().items()}
+    mlp_before = {k: v.clone() for k, v in pipe.mlp.state_dict().items()}
+    summary = pipe.fit(reuse_ae=True)
+    assert summary.ae_val_loss is None
+    assert summary.ae_hparams == {"reused": True}
+    assert pipe.history["ae"] is None and pipe.history["mlp"]
+    assert list(summary.stage_seconds) == STAGES
+    for k, v in pipe.ae.state_dict().items():
+        assert torch.equal(v, ae_before[k]), k
+    assert any(not torch.equal(v, mlp_before[k])
+               for k, v in pipe.mlp.state_dict().items())
+    preds = pipe.predict(test_split.images)
+    assert summary.test_acc == float((preds == test_split.labels).mean())
+
+
+def test_fit_refusals(monkeypatch):
+    pipe = SatAEPipeline(CFG, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        pipe.fit(grid=True)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        pipe.fit(out_dir="run")
+    with pytest.raises(ValueError, match="reuse_ae"):
+        pipe.fit(reuse_ae=True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        satae_torch.fit(CFG)

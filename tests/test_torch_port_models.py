@@ -178,12 +178,27 @@ def test_mlp_matches_satae_eval_forward(mlp_trees):
 
 
 @pytest.mark.parametrize("module", [Encoder, Decoder, SupervisedAE, MLP])
-def test_training_forward_is_refused(module):
+def test_training_forward_updates_running_stats(module):
+    """Train mode normalises with batch statistics and moves every
+    BatchNorm's running buffers; eval mode leaves them as they are."""
+    torch.manual_seed(0)
     model = module(TCFG) if module is MLP else module(TCFG, 3, IMG)
-    arg = (torch.zeros(2, TCFG.latent_dim) if module in (Decoder, MLP)
-           else torch.zeros(2, IMG, IMG, 3))
-    with pytest.raises(NotImplementedError, match="eval"):
-        model(arg)
+    arg = (torch.randn(4, TCFG.latent_dim) if module in (Decoder, MLP)
+           else torch.rand(4, IMG, IMG, 3))
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    model.eval()(arg)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    out = model.train()(arg)
+    sum(o.sum() for o in (out if isinstance(out, tuple) else (out,))
+        ).backward()
+    bn_keys = [k for k in before if k.endswith("running_mean")]
+    assert bn_keys
+    for k in bn_keys:
+        assert not torch.equal(model.state_dict()[k], before[k]), k
+        nbt = k.replace("running_mean", "num_batches_tracked")
+        assert int(model.state_dict()[nbt]) == 1
+    assert all(p.grad is not None for p in model.parameters())
 
 
 @pytest.mark.parametrize("name", ["ae_global_best", "mlp_global_best"])

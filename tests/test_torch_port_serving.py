@@ -213,9 +213,14 @@ def test_port_imports_nothing_of_jax_or_satae():
         p.relative_to(pkg).with_suffix("").parts).removesuffix(".__init__")
         for p in pkg.rglob("*.py"))
     # modules already loaded at interpreter start-up are not the port's doing
+    assert "satae_torch.train.fast_loop" in mods
     code = ("import importlib, sys\n"
             "base = set(sys.modules)\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            "import satae_torch.train\n"
+            "from satae_torch.api import fit\n"
+            "from satae_torch import fit as top_fit\n"
+            "assert fit is top_fit\n"
             "bad = [m for m in set(sys.modules) - base "
             "if m in ('jax', 'flax', 'satae') "
             "or m.startswith(('jax.', 'flax.', 'satae.'))]\n"
