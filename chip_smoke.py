@@ -1,23 +1,36 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (satae_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # the smoke run, phases 1-11
+    python3 chip_smoke.py --ab PARENT_DIR  # A/B of the kernels' times
+    python3 chip_smoke.py --split-sweep    # K1's time for each split count
 
 Phases, in order; any failure exits non-zero:
 
 1. card   -- requires a CUDA device; prints nvidia-smi's name and power limit.
 2. build  -- compiles the hand-written kernels from satae_torch/csrc with nvcc
-             (sm_90a) and prints the build seconds and the ptxas report.
+             (sm_90a) and prints the build seconds and the ptxas report
+             (registers, shared memory, spills per instantiation); fails on
+             any spill.
 3. K1     -- fused_gemm against fused_matmul_plain (TF32 off) at every K1
              shape of the serving path plus the awkward shapes of the JAX
-             package's kernel tests, all three activations.
+             package's kernel tests and 8192x4096x64 (one split, all of K
+             in one block), all three activations; then the split-K
+             and ragged-K shapes (SPLIT_SHAPES) in every (trans_a, trans_b)
+             layout and activation, with each shape's plan printed, and
+             repeated calls held bitwise equal; a scale of the wrong length
+             is refused.
 4. K2     -- conv2d_bn_act against conv2d_bn_act_plain at the four encoder
-             layers of a 512-image chunk, non-trivial BatchNorm.
-             Tolerance for both: |err| <= 1e-4 + 1e-5 * |ref| elementwise.
-5. time   -- each kernel, its plain version and the one-call library
-             equivalent, at the serving shapes, with CUDA events, beside the
-             least time the card could take (from the H100 SXM data-sheet
-             peaks: 67 TFLOP/s float32 without tensor cores, 3.35 TB/s).
+             layers of a 512-image chunk, non-trivial BatchNorm, plus small
+             convs with Cin % 4 != 0 (4-byte copies) and ragged 32/64-wide
+             tiles; repeated calls at conv1 held bitwise equal.
+             Tolerance for K1 and K2: |err| <= 1e-4 + 1e-5 * |ref|.
+5. time   -- every K1 and K2 launch of a serving chunk: back-to-back ms
+             (CUDA events) and device us per launch (torch.profiler) of the
+             kernel and of the one-call library equivalent, the plain
+             version's ms, and two bounds, the larger of bytes at 3.35 TB/s
+             and operations at 165 TFLOP/s (3xTF32 on tensor cores: 495 / 3)
+             or at 67 TFLOP/s (float32 on CUDA cores), H100 SXM data sheet.
 6. serve  -- loads the committed full-width checkpoint
              benchmarks/full_run_hard_f32 through SatAEPipeline, rebuilds the
              synthetic-hard test split with the port's data modules, and runs
@@ -63,12 +76,23 @@ Phases, in order; any failure exits non-zero:
              chunks; losses finite and falling, test accuracy above chance;
              then predict through the fitted pipeline.
 11. train time -- each K1 launch of a batch-64 train step (forward and
-             backward) with CUDA events beside its bound, its plain version
-             and torch.matmul; the AE and MLP epoch bodies' step times; a
-             profile of a few AE steps.
+             backward), measured as in 5; the AE and MLP epoch bodies' step
+             times; a profile of a few AE steps.
 
 The second-to-last line holds the kernels' numbers as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
+
+``--ab PARENT_DIR`` times every K1 and K2 launch of phases 5 and 11 (ms and
+device us per launch) in the tree at PARENT_DIR (another checkout of this
+repository, with its own satae_torch) and in this one, in turns: parent,
+this, this, parent, each in a process of its own that builds that tree's
+kernels. It prints one line per launch and writes chiprun_out/ab.json.
+
+``--split-sweep`` times K1 at the long-K products (the serving projection
+512x4096x64 and the training one, 64x4096x64 with an (N, K) weight) for 1 to
+64 splits on 32- and 64-wide tiles, each plan held against torch.matmul
+within the tolerance above, beside the plan split_k_plan picks: the
+measurement the plan rests on. It writes chiprun_out/split_sweep.json.
 """
 
 from __future__ import annotations
@@ -81,15 +105,21 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 REPO = Path(__file__).resolve().parent
 CKPT = REPO / "benchmarks" / "full_run_hard_f32"
 F32_PEAK = 67e12  # FLOP/s, H100 SXM, CUDA cores, dense
+TF32X3_PEAK = 495e12 / 3  # FLOP/s: 3xTF32, three TF32 products per product
 HBM_PEAK = 3.35e12  # bytes/s, H100 SXM
 ACTS = ("none", "relu", "sigmoid")
 CHUNK = 512
 BATCH = 64  # the training batch of the default DataConfig
 PARITY_STEPS = 10
+# K1 shapes that split K (split_k_plan), with ragged M, N and K
+SPLIT_SHAPES = ((CHUNK, 4096, 64), (BATCH, 4096, 64), (BATCH, 4095, 64),
+                (100, 4100, 70), (33, 1000, 10))
+LAYOUTS = tuple(itertools.product((False, True), repeat=2))
 
 
 def check(ok: bool, what: str) -> None:
@@ -113,10 +143,154 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(ops: float, nbytes: float):
-    """(ms, 'operations' | 'bytes'): the least time for the work."""
-    t_ops, t_bytes = ops / F32_PEAK * 1e3, nbytes / HBM_PEAK * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+def bounds(ops: float, nbytes: float) -> dict:
+    """The least time for the work, ms: the larger of the bytes over the
+    memory rate and the operations over the peak rate, at 3xTF32's
+    (bound_ms, the kernels' arithmetic) and at float32's on CUDA cores
+    (bound_f32_ms), each with what bounds it."""
+    t_bytes = nbytes / HBM_PEAK * 1e3
+    out = {}
+    for key, peak in (("bound", TF32X3_PEAK), ("bound_f32", F32_PEAK)):
+        t_ops = ops / peak * 1e3
+        out[f"{key}_ms"] = max(t_ops, t_bytes)
+        out[f"{key}_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return out
+
+
+def device_us(fn, reps: int = 20) -> float:
+    """Device time per call of ``fn``, us: the kernels (and copies) it puts
+    on the card, summed over ``reps`` calls under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("Activity Buffer")) / reps
+
+
+def launch_specs():
+    """Every K1 and K2 launch of the main paths: (path, layer, kind, args).
+    Serving, per 512-image chunk: K2 conv0-3 (n, hw, cin, cout), then K1's
+    projection and MLP layers (m, k, n, act). A batch-64 train step, AE and
+    MLP: each linear layer's forward, dX and dW as K1 launches on the
+    buffers the step holds -- (a shape, b shape, trans_a, trans_b);
+    nn.Linear weights are (out, in)."""
+    chans = (3, 32, 64, 128, 256)
+    specs = [("serve", f"conv{i}", "k2", (CHUNK, 64 >> i, chans[i],
+                                         chans[i + 1])) for i in range(4)]
+    specs += [("serve", lab, "k1", (CHUNK, k, n, act)) for lab, k, n, act in (
+        ("proj", 4096, 64, "none"), ("fc0", 64, 128, "relu"),
+        ("fc1", 128, 64, "relu"), ("fc2", 64, 10, "none"))]
+    for step, layers in (
+            ("ae", [("proj", 4096, 64, True), ("dec_in", 64, 4096, True),
+                    ("fc1", 64, 128, True), ("fc2", 128, 10, True)]),
+            ("mlp", [("fc0", 64, 128, False), ("fc1", 128, 64, True),
+                     ("fc2", 64, 10, True)])):
+        for name, k, n, dx in layers:  # forward x (B, k) @ W^T, W (n, k)
+            specs.append((step, f"{name} fwd", "k1t",
+                          ((BATCH, k), (n, k), False, True)))
+            if dx:
+                specs.append((step, f"{name} dX", "k1t",
+                              ((BATCH, n), (n, k), False, False)))
+            specs.append((step, f"{name} dW", "k1t",
+                          ((BATCH, n), (BATCH, k), True, False)))
+    return specs
+
+
+def kernel_rows(mods, reference: bool = True) -> list:
+    """One row per launch of :func:`launch_specs`, on the kernels of
+    ``mods`` (a namespace with fused_gemm and conv2d_bn_act, and with
+    ``reference`` their plain versions too): back-to-back ms (CUDA events)
+    and device us per launch (torch.profiler) of the kernel, both bounds,
+    and with ``reference`` the plain version's ms and the one library call's
+    ms and device us (torch.matmul, or cuDNN's F.conv2d with bias,
+    channels-last; TF32 off)."""
+    import torch
+    import torch.nn.functional as F
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def rand(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(*shape, device=dev, generator=g) * (hi - lo) + lo
+
+    rows = []
+    for path, layer, kind, args in launch_specs():
+        if kind == "k2":
+            n, hw, cin, cout = args
+            x = rand(n, hw, hw, cin, lo=0.0)
+            w = rand(3, 3, cin, cout) / (9 * cin) ** 0.5
+            scale, shift = rand(cout, lo=0.5, hi=1.5), rand(cout, lo=-0.3,
+                                                            hi=0.3)
+            oh = hw // 2
+            m, k = n * oh * oh, 9 * cin
+            shape, trans, name = [n, hw, hw, cin, cout], None, "conv2d_bn_act"
+            nbytes = 4.0 * (x.numel() + w.numel() + 2 * cout + m * cout)
+            kern = lambda: mods.conv2d_bn_act(x, w, scale, shift, 2, 1,
+                                              "relu")
+            plain = lambda: mods.conv2d_bn_act_plain(x, w, scale, shift, 2,
+                                                     1, "relu")
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of NHWC
+            lib = lambda: F.conv2d(x_nchw, w_oihw, shift, stride=2, padding=1)
+            n_out = cout
+        else:
+            if kind == "k1":
+                m, k, n_out, act = args
+                a, b = torch.randn(m, k, device=dev, generator=g), \
+                    rand(k, n_out) / k ** 0.5
+                ta = tb = False
+                av, bv = a, b
+            else:
+                a_shape, b_shape, ta, tb = args
+                act = "none"
+                a = torch.randn(*a_shape, device=dev, generator=g)
+                b = torch.randn(*b_shape, device=dev, generator=g)
+                av, bv = (a.t() if ta else a), (b.t() if tb else b)
+                m, k, n_out = av.shape[0], av.shape[1], bv.shape[1]
+            shape, trans = [m, k, n_out], [ta, tb]
+            name = ("fused_gemm" if path == "serve" or layer.endswith("fwd")
+                    else "fused_gemm_bwd")
+            scale, shift = rand(n_out, lo=0.5, hi=1.5), rand(n_out, lo=-0.3,
+                                                            hi=0.3)
+            nbytes = 4.0 * (m * k + k * n_out + 2 * n_out + m * n_out)
+            kern = lambda: mods.fused_gemm(a, b, scale, shift, act, ta, tb)
+            plain = lambda: mods.fused_matmul_plain(av, bv, scale, shift, act)
+            lib = lambda: torch.matmul(av, bv)
+        reps = 20 if path == "serve" else 50
+        row = dict(kernel=name, path=path, layer=layer, shape=shape,
+                   trans=trans, ms=time_ms(kern, reps=reps),
+                   device_us=device_us(kern),
+                   **bounds(2.0 * m * k * n_out, nbytes))
+        if reference:
+            row.update(plain_ms=time_ms(plain, reps=reps),
+                       library_ms=time_ms(lib, reps=reps),
+                       library_device_us=device_us(lib))
+        rows.append(row)
+    return rows
+
+
+def print_rows(rows) -> None:
+    for r in rows:
+        ref = (f"  plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f} "
+               f"ms {r['library_device_us']:.1f} us" if "plain_ms" in r
+               else "")
+        print(f"  {r['kernel']:14s} {r['path']:5s} {r['layer']:10s} "
+              f"{str(r['shape']):24s} trans {str(r['trans']):14s} "
+              f"ms {r['ms']:.4f}  device {r['device_us']:.1f} us{ref}  "
+              f"bound {r['bound_ms']:.5f} ({r['bound_by']}), f32 "
+              f"{r['bound_f32_ms']:.5f} ({r['bound_f32_by']})", flush=True)
 
 
 def max_err(out, ref, what: str, atol: float = 1e-4,
@@ -179,8 +353,6 @@ def main() -> int:
 
     # -- 1. card ------------------------------------------------------------
     check(torch.cuda.is_available(), "no CUDA device")
-    import torch.nn.functional as F
-
     from satae_torch import kernels
     from satae_torch.api import SatAEPipeline
     from satae_torch.config import (AETrainConfig, DataConfig, MLPTrainConfig,
@@ -193,7 +365,7 @@ def main() -> int:
     from satae_torch.kernels.matmul import (fused_gemm, fused_matmul,
                                             fused_matmul_bwd,
                                             fused_matmul_bwd_plain,
-                                            fused_matmul_plain)
+                                            fused_matmul_plain, split_k_plan)
     from satae_torch.models.mlp import MLP
     from satae_torch.models.supervised_ae import SupervisedAE
     from satae_torch.nn import layers as L
@@ -203,10 +375,7 @@ def main() -> int:
     from satae_torch.train.optim import adam_init
     from satae_torch.train.steps import ae_train_step, mlp_train_step
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -217,7 +386,17 @@ def main() -> int:
     _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.2f} s ({_build.build_dir()})", flush=True)
-    print(_build.ptxas_report(), flush=True)
+    ptxas = _build.ptxas_report()
+    for r in ptxas:
+        print(f"  ptxas {r['kernel']}: {r['registers']} registers, "
+              f"{r['smem']} B static shared memory, spills "
+              f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded",
+              flush=True)
+    check(len(ptxas) == 10, f"{len(ptxas)} kernel instantiations in the "
+          "ptxas report, expected 10 (K1 8, K2 2)")
+    spilled = [r["kernel"] for r in ptxas
+               if r["spill_stores"] or r["spill_loads"]]
+    check(not spilled, f"ptxas spills registers in {spilled}")
 
     # The plain versions are the reference: full float32, no TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -232,10 +411,11 @@ def main() -> int:
 
     # -- 3. K1 --------------------------------------------------------------
     # serving path at chunk 512: projection, fc0, fc1 (BN folded), fc2
-    k1_path = [((CHUNK, 4096, 64), "none"), ((CHUNK, 64, 128), "relu"),
-               ((CHUNK, 128, 64), "relu"), ((CHUNK, 64, 10), "none")]
-    k1_shapes = [s for s, _ in k1_path] + [(64, 4096, 64), (64, 64, 128),
-                                           (7, 33, 10), (1, 64, 10)]
+    # ... plus 8192 x 4096 x 64, whose 128 tiles take one split: all of K in
+    # one block, the case that holds the per-slice accumulation
+    k1_shapes = [(CHUNK, 4096, 64), (CHUNK, 64, 128), (CHUNK, 128, 64),
+                 (CHUNK, 64, 10), (64, 4096, 64), (64, 64, 128), (7, 33, 10),
+                 (1, 64, 10), (8192, 4096, 64)]
     k1_err = 0.0
     for m, k, n in k1_shapes:
         x = torch.randn(m, k, device=dev, generator=g)
@@ -248,13 +428,46 @@ def main() -> int:
                 f"K1 {(m, k, n)} {act}"))
     print(f"K1 fused_gemm vs plain: {len(k1_shapes) * 3} cases, max |err| "
           f"{k1_err:.3g}", flush=True)
+    split_err, plans = 0.0, {}
+    for m, k, n in SPLIT_SHAPES:
+        a = torch.randn(m, k, device=dev, generator=g)
+        b = rand(k, n, lo=-1.0, hi=1.0) / k ** 0.5
+        scale, shift = affine(n)
+        for ta, tb in LAYOUTS:
+            a_buf = a.t().contiguous() if ta else a
+            b_buf = b.t().contiguous() if tb else b
+            for act in ACTS:
+                split_err = max(split_err, max_err(
+                    fused_gemm(a_buf, b_buf, scale, shift, act, ta, tb),
+                    fused_matmul_plain(a, b, scale, shift, act),
+                    f"K1 split-K {(m, k, n)} trans_a={ta} trans_b={tb} "
+                    f"{act}"))
+            first = fused_gemm(a_buf, b_buf, scale, shift, "relu", ta, tb)
+            same = all(torch.equal(first, fused_gemm(
+                a_buf, b_buf, scale, shift, "relu", ta, tb)) for _ in range(4))
+            check(same, f"K1 {(m, k, n)} trans_a={ta} trans_b={tb}: repeated "
+                  "calls differ bitwise")
+        plans[(m, k, n)] = split_k_plan(m, n, k)
+        tile_m, tile_n, splits, per = plans[(m, k, n)]
+        tiles = -(-m // tile_m) * -(-n // tile_n)
+        print(f"  K1 {(m, k, n)}: plan {tiles} tiles of {tile_m}x{tile_n} x "
+              f"{splits} splits of {per} = {tiles * splits} blocks", flush=True)
+    k1_err = max(k1_err, split_err)
+    try:  # a scale of the wrong length never reaches the kernel
+        fused_gemm(a, b, torch.ones(n + 1, device=dev))
+        check(False, "fused_gemm took a scale of the wrong length")
+    except ValueError:
+        pass
+    print(f"K1 split-K and ragged K vs plain: {len(SPLIT_SHAPES)} shapes x 4 "
+          f"layouts x 3 activations, max |err| {split_err:.3g}; 5 calls per "
+          "shape and layout bitwise equal", flush=True)
 
     # -- 4. K2 --------------------------------------------------------------
     chans = (3, 32, 64, 128, 256)
     k2_path = [(CHUNK, 64 >> i, chans[i], chans[i + 1]) for i in range(4)]
-    k2_inputs = []
     k2_err = 0.0
-    for n, hw, cin, cout in k2_path + [(3, 7, 5, 9)]:
+    for n, hw, cin, cout in k2_path + [(3, 7, 5, 9), (2, 9, 6, 40),
+                                       (3, 11, 8, 72)]:
         x = rand(n, hw, hw, cin)
         w = rand(3, 3, cin, cout, lo=-1.0, hi=1.0) / (9 * cin) ** 0.5
         scale, shift = affine(cout)
@@ -264,49 +477,25 @@ def main() -> int:
                 conv2d_bn_act(x, w, scale, shift, 2, 1, act),
                 conv2d_bn_act_plain(x, w, scale, shift, 2, 1, act),
                 f"K2 {(n, hw, hw, cin, cout)} {act}"))
-        if n == CHUNK:
-            k2_inputs.append((x, w, scale, shift))
-    print(f"K2 conv2d_bn_act vs plain: 7 cases, max |err| {k2_err:.3g}",
-          flush=True)
+        if (n, cin) == (CHUNK, 32):
+            conv1 = x, w, scale, shift
+    x, w, scale, shift = conv1
+    first = conv2d_bn_act(x, w, scale, shift, 2, 1, "relu")
+    check(all(torch.equal(first, conv2d_bn_act(x, w, scale, shift, 2, 1,
+                                               "relu")) for _ in range(4)),
+          "K2 conv1: repeated calls differ bitwise")
+    print(f"K2 conv2d_bn_act vs plain: 13 cases (Cin 3, 5 and 6: 4-byte "
+          f"copies; Cout 9, 40, 72: ragged 32/64-wide tiles), max |err| "
+          f"{k2_err:.3g}; conv1 5 calls bitwise equal", flush=True)
 
     # -- 5. time ------------------------------------------------------------
-    rows = []
-    for (m, k, n), act in k1_path:
-        x = torch.randn(m, k, device=dev, generator=g)
-        w = rand(k, n, lo=-1.0, hi=1.0) / k ** 0.5
-        scale, shift = affine(n)
-        b_ms, b_by = bound(2.0 * m * k * n, 4.0 * (m * k + k * n + 2 * n
-                                                   + m * n))
-        rows.append(dict(
-            kernel="fused_gemm", shape=[m, k, n], act=act,
-            ms=time_ms(lambda: fused_matmul(x, w, scale, shift, act)),
-            plain_ms=time_ms(lambda: fused_matmul_plain(x, w, scale, shift,
-                                                        act)),
-            library_ms=time_ms(lambda: torch.matmul(x, w)),
-            bound_ms=b_ms, bound_by=b_by))
-    for (n, hw, cin, cout), (x, w, scale, shift) in zip(k2_path, k2_inputs):
-        oh = hw // 2
-        w_oihw = w.permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last)
-        x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of the NHWC data
-        m, kk = n * oh * oh, 9 * cin
-        b_ms, b_by = bound(2.0 * m * kk * cout,
-                           4.0 * (x.numel() + w.numel() + 2 * cout
-                                  + m * cout))
-        rows.append(dict(
-            kernel="conv2d_bn_act", shape=[n, hw, hw, cin, cout], act="relu",
-            ms=time_ms(lambda: conv2d_bn_act(x, w, scale, shift, 2, 1,
-                                             "relu")),
-            plain_ms=time_ms(lambda: conv2d_bn_act_plain(x, w, scale, shift,
-                                                         2, 1, "relu")),
-            library_ms=time_ms(lambda: F.conv2d(x_nchw, w_oihw, shift,
-                                                stride=2, padding=1)),
-            bound_ms=b_ms, bound_by=b_by))
-    for r in rows:
-        print(f"  {r['kernel']:14s} {str(r['shape']):24s} "
-              f"ms {r['ms']:.4f}  plain {r['plain_ms']:.4f}  "
-              f"library {r['library_ms']:.4f}  bound {r['bound_ms']:.4f} "
-              f"({r['bound_by']})", flush=True)
+    all_rows = kernel_rows(SimpleNamespace(
+        fused_gemm=fused_gemm, fused_matmul_plain=fused_matmul_plain,
+        conv2d_bn_act=conv2d_bn_act, conv2d_bn_act_plain=conv2d_bn_act_plain))
+    rows = [r for r in all_rows if r["path"] == "serve"]
+    train_rows = [r for r in all_rows if r["path"] != "serve"]
+    print(f"per launch, serving chunk of {CHUNK} (card {card}):", flush=True)
+    print_rows(rows)
 
     # -- 6. serve -----------------------------------------------------------
     cfg = PipelineConfig(data=DataConfig(per_class=2000,
@@ -692,51 +881,9 @@ def main() -> int:
           f"{fit_pred_acc}, fit reported {summary.test_acc}")
 
     # -- 11. training times -------------------------------------------------
-    # one row per K1 launch of a batch-64 AE / MLP train step: (layer,
-    # A buffer, B buffer, trans_a, trans_b); nn.Linear weights are (out, in)
-    def train_launches(layers_):
-        out_ = []
-        for name, m, k, n, dx in layers_:  # forward x (m, k) @ W^T, W (n, k)
-            out_.append((f"{name} fwd", (m, k), (n, k), False, True))
-            if dx:
-                out_.append((f"{name} dX", (m, n), (n, k), False, False))
-            out_.append((f"{name} dW", (m, n), (m, k), True, False))
-        return out_
-
-    step_launches = {
-        "ae": train_launches([("proj", BATCH, 4096, 64, True),
-                              ("dec_in", BATCH, 64, 4096, True),
-                              ("fc1", BATCH, 64, 128, True),
-                              ("fc2", BATCH, 128, 10, True)]),
-        "mlp": train_launches([("fc0", BATCH, 64, 128, False),
-                               ("fc1", BATCH, 128, 64, True),
-                               ("fc2", BATCH, 64, 10, True)])}
-    train_rows = []
-    for step_name, ls in step_launches.items():
-        for label, a_shape, b_shape, ta, tb in ls:
-            a = torch.randn(*a_shape, device=dev, generator=g)
-            b = torch.randn(*b_shape, device=dev, generator=g)
-            av, bv = (a.t() if ta else a), (b.t() if tb else b)
-            m, k, n = av.shape[0], av.shape[1], bv.shape[1]
-            ones, zeros = torch.ones(n, device=dev), torch.zeros(n, device=dev)
-            b_ms, b_by = bound(2.0 * m * k * n,
-                               4.0 * (m * k + k * n + 2 * n + m * n))
-            train_rows.append(dict(
-                kernel="fused_gemm" if label.endswith("fwd")
-                else "fused_gemm_bwd",
-                step=step_name, layer=label, shape=[m, k, n],
-                trans=[ta, tb],
-                ms=time_ms(lambda: fused_gemm(a, b, ones, zeros, "none", ta,
-                                              tb), reps=50),
-                plain_ms=time_ms(lambda: fused_matmul_plain(av, bv, ones,
-                                                            zeros), reps=50),
-                library_ms=time_ms(lambda: torch.matmul(av, bv), reps=50),
-                bound_ms=b_ms, bound_by=b_by))
-    for r in train_rows:
-        print(f"  {r['step']:3s} {r['layer']:10s} {str(r['shape']):18s} "
-              f"trans {str(r['trans']):14s} ms {r['ms']:.4f}  plain "
-              f"{r['plain_ms']:.4f}  library {r['library_ms']:.4f}  bound "
-              f"{r['bound_ms']:.5f} ({r['bound_by']})", flush=True)
+    print(f"per launch, batch-{BATCH} train steps (measured in phase 5):",
+          flush=True)
+    print_rows(train_rows)
 
     def time_epoch_body(run, n_steps):
         run(2)  # warm-up
@@ -796,6 +943,9 @@ def main() -> int:
             "bound_by": ("operations" if 2 * ops_ms >= sum(
                 r["bound_ms"] for r in rs) else "bytes"),
             "library_ms": sum(r["library_ms"] for r in rs),
+            "device_us": sum(r["device_us"] for r in rs),
+            "library_device_us": sum(r["library_device_us"] for r in rs),
+            "bound_f32_ms": sum(r["bound_f32_ms"] for r in rs),
             "per": f"{per} ({len(rs)} launches)",
         }
 
@@ -807,7 +957,7 @@ def main() -> int:
         entry("fused_gemm_bwd", "satae_torch/csrc/fused_gemm.cu",
               "satae/kernels/matmul.py:100", bwd_err,
               [r for r in train_rows if r["kernel"] == "fused_gemm_bwd"
-               and r["step"] == "ae"], f"one batch-{BATCH} AE train step"),
+               and r["path"] == "ae"], f"one batch-{BATCH} AE train step"),
         entry("conv2d_bn_act", "satae_torch/csrc/conv_bn_act.cu",
               "satae/kernels/conv.py:36", k2_err,
               [r for r in rows if r["kernel"] == "conv2d_bn_act"],
@@ -815,7 +965,8 @@ def main() -> int:
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
-        card=card, torch=torch.__version__, build_s=build_s, rows=rows,
+        card=card, torch=torch.__version__, build_s=build_s, ptxas=ptxas,
+        split_plans={str(k): v for k, v in plans.items()}, rows=rows,
         accuracy=acc, recorded_accuracy=ref_acc, max_dz=dz, agree=agree,
         predict_images_per_s=ips, predict_ms=predict_ms, n_images=n_img,
         data_s=data_s, profile_wall_ms=wall_ms, profile_device_ms=dev_ms,
@@ -836,5 +987,139 @@ def main() -> int:
     return 0
 
 
+def card_line() -> str:
+    """nvidia-smi's name and power limit of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def kernel_times_main(root: str) -> int:
+    """The --ab child: :func:`kernel_rows` on the kernels of the satae_torch
+    under ``root``, as one JSON line."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    root_ = Path(root).resolve()
+    sys.path.insert(0, str(root_))
+    import satae_torch
+    from satae_torch.kernels import conv, matmul
+
+    pkg = Path(satae_torch.__file__).resolve()
+    check(pkg.is_relative_to(root_), f"satae_torch came from {pkg}, not "
+          f"from {root_}")
+    rows = kernel_rows(SimpleNamespace(fused_gemm=matmul.fused_gemm,
+                                       conv2d_bn_act=conv.conv2d_bn_act),
+                       reference=False)
+    print(json.dumps(rows), flush=True)
+    return 0
+
+
+def ab_main(parent: str) -> int:
+    """Every K1 and K2 launch timed in the tree at ``parent`` and in this
+    one, in turns parent, this, this, parent, one process each."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    check((Path(parent) / "satae_torch").is_dir(),
+          f"{parent} holds no satae_torch")
+    card = card_line()
+    print(card, flush=True)
+    runs = []
+    for label, root in (("parent", parent), ("change", REPO),
+                        ("change", REPO), ("parent", parent)):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--kernel-times",
+             str(root)], capture_output=True, text=True, timeout=900)
+        check(res.returncode == 0, f"kernel times in {root} failed:\n"
+              f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+        runs.append(dict(label=label, root=str(root),
+                         seconds=time.perf_counter() - t0,
+                         rows=json.loads(res.stdout.strip().splitlines()[-1])))
+        print(f"{label} ({root}): {runs[-1]['seconds']:.1f} s", flush=True)
+    print("device us per launch: parent (1st, 4th run) | change (2nd, 3rd) "
+          "| change / parent; back-to-back ms the same way", flush=True)
+    for i, r in enumerate(runs[0]["rows"]):
+        par = [runs[j]["rows"][i] for j in (0, 3)]
+        chg = [runs[j]["rows"][i] for j in (1, 2)]
+        us_p = sum(x["device_us"] for x in par) / 2
+        us_c = sum(x["device_us"] for x in chg) / 2
+        print(f"  {r['kernel']:14s} {r['path']:5s} {r['layer']:10s} "
+              f"{str(r['shape']):24s} us {par[0]['device_us']:.1f} "
+              f"{par[1]['device_us']:.1f} | {chg[0]['device_us']:.1f} "
+              f"{chg[1]['device_us']:.1f} | {us_c / us_p:.3f};  ms "
+              f"{par[0]['ms']:.4f} {par[1]['ms']:.4f} | {chg[0]['ms']:.4f} "
+              f"{chg[1]['ms']:.4f}", flush=True)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "ab.json").write_text(json.dumps(dict(card=card, runs=runs),
+                                            indent=1))
+    return 0
+
+
+def split_sweep_main() -> int:
+    """K1's device us per launch at the long-K products for each split count
+    and tile width, launched with that plan directly."""
+    import torch
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    from satae_torch.kernels import _build
+    from satae_torch.kernels.matmul import BK, _tile_counters, split_k_plan
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    lib = _build.load("fused_gemm")
+    counters = _tile_counters(dev)
+    rows = []
+    for m, k, n, tb in ((CHUNK, 4096, 64, False), (BATCH, 4096, 64, True)):
+        a = torch.randn(m, k, device=dev, generator=g)
+        b = (torch.rand(*((n, k) if tb else (k, n)), device=dev, generator=g)
+             * 2 - 1) / k ** 0.5
+        bv = b.t() if tb else b
+        ref = torch.matmul(a, bv)
+        lib_us = device_us(lambda: torch.matmul(a, bv), 50)
+        print(f"K1 {(m, k, n)} trans_b={tb}: plan {split_k_plan(m, n, k)}, "
+              f"torch.matmul {lib_us:.1f} us", flush=True)
+        for tile_n in (32, 64):
+            for want in (1, 2, 4, 8, 16, 32, 64):
+                kps = -(-(-(-k // want)) // BK) * BK
+                splits = -(-k // kps)
+                out = torch.empty(m, n, device=dev)
+                ws = torch.empty(splits * m * n, device=dev)
+                run = lambda: _build.launch(
+                    lib, "satae_fused_gemm", dev, a.data_ptr(), b.data_ptr(),
+                    0, 0, out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
+                    m, n, k, 0, 0, int(tb), tile_n, splits, kps)
+                run()
+                err = max_err(out, ref, f"K1 {(m, k, n)} tile_n {tile_n} "
+                              f"{splits} splits")
+                us = device_us(run, 50)
+                rows.append(dict(shape=[m, k, n], trans_b=tb, tile_n=tile_n,
+                                 splits=splits, k_per_split=kps,
+                                 device_us=us, max_abs_err=err,
+                                 library_device_us=lib_us))
+                print(f"  tile 64x{tile_n}, {splits:2d} splits of {kps:4d}: "
+                      f"{us:7.1f} us  max |err| {err:.3g}", flush=True)
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "split_sweep.json").write_text(json.dumps(
+        dict(card=card, rows=rows), indent=1))
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--split-sweep"]:
+        sys.exit(split_sweep_main())
+    if sys.argv[1:2] == ["--kernel-times"] and len(sys.argv) == 3:
+        sys.exit(kernel_times_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
+        sys.exit(ab_main(sys.argv[2]))
+    if len(sys.argv) > 1:
+        raise SystemExit(f"usage: {sys.argv[0]} [--ab PARENT_DIR | "
+                         "--split-sweep]")
     sys.exit(main())

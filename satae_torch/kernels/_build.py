@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,11 +31,12 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-# source -> {launcher: number of int arguments}. Every launcher takes five
-# device pointers (x, w, scale, shift, out), its int arguments, then the
-# stream, and returns cudaGetLastError().
-LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": 4, "satae_fused_gemm_t": 6},
-             "conv_bn_act": {"satae_conv2d_bn_act": 12}}
+# source -> {launcher: (device pointers, int arguments)}. A launcher takes
+# its pointers (x, w, scale, shift, out, then K1's split-K workspace and
+# counters), its int arguments, then the stream, and returns
+# cudaGetLastError().
+LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": (7, 9)},
+             "conv_bn_act": {"satae_conv2d_bn_act": (5, 13)}}
 SOURCES = tuple(LAUNCHERS)
 # No --use_fast_math: expf in the sigmoid epilogue stays accurate.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -101,28 +103,66 @@ def build_all() -> Dict[str, Path]:
     return libs
 
 
-def ptxas_report() -> str:
-    """The ptxas report (registers, spills, shared memory) of the build."""
-    out = build_dir()
-    lines = []
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def _demangle(names):
+    """C++ names of mangled symbols (c++filt where it is installed)."""
+    tool = shutil.which("c++filt")
+    if tool is None or not names:
+        return list(names)
+    res = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True)
+    out = res.stdout.splitlines()
+    return out if res.returncode == 0 and len(out) == len(names) else names
+
+
+def ptxas_report() -> list:
+    """One dict per kernel instantiation of the build, from ptxas -v:
+    kernel (demangled), registers, static shared memory bytes, spill store
+    and load bytes. Dynamic shared memory (the stage ring) is not in
+    ptxas's count."""
+    rows = []
     for name in SOURCES:
-        log = out / f"{name}.log"
-        if log.is_file():
-            lines += [ln for ln in log.read_text().splitlines()
-                      if "ptxas" in ln or "spill" in ln]
-    return "\n".join(lines)
+        log = build_dir() / f"{name}.log"
+        if not log.is_file():
+            continue
+        cur = None
+        for ln in log.read_text().splitlines():
+            m = _ENTRY.search(ln)
+            if m:
+                cur = dict(source=name, kernel=m.group(1), registers=None,
+                           smem=0, spill_stores=0, spill_loads=0)
+                rows.append(cur)
+            elif cur is not None:
+                if (m := _SPILLS.search(ln)):
+                    cur["spill_stores"] = int(m.group(1))
+                    cur["spill_loads"] = int(m.group(2))
+                if (m := _REGS.search(ln)):
+                    cur["registers"] = int(m.group(1))
+                if (m := _SMEM.search(ln)):
+                    cur["smem"] = int(m.group(1))
+    for row, pretty in zip(rows, _demangle([r["kernel"] for r in rows])):
+        row["kernel"] = pretty.split("(")[0]
+    return rows
 
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of kernel library ``name``, built on first use."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build_all()[name]))
-            for fn_name, n_ints in LAUNCHERS[name].items():
+            for fn_name, (n_ptrs, n_ints) in LAUNCHERS[name].items():
                 fn = getattr(lib, fn_name)
                 fn.restype = ctypes.c_int
-                fn.argtypes = ([ctypes.c_void_p] * 5
+                fn.argtypes = ([ctypes.c_void_p] * n_ptrs
                                + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
             lib.satae_error_string.restype = ctypes.c_char_p
             lib.satae_error_string.argtypes = [ctypes.c_int]
@@ -131,8 +171,11 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check_operands(what: str, device, **tensors) -> None:
-    """The kernels take contiguous float32 tensors on one CUDA device."""
+    """The kernels take contiguous float32 tensors on one CUDA device; a
+    tensor given as None is not checked."""
     for name, t in tensors.items():
+        if t is None:
+            continue
         if t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, expected "
                              f"{device}")
@@ -142,6 +185,21 @@ def check_operands(what: str, device, **tensors) -> None:
                 "only (bf16 inputs are a later slice, ROADMAP.md §2)")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device,
+           *args) -> None:
+    """Call launcher ``fn_name`` with ``args`` and the current stream of
+    ``device``, made the current device only when it is not already, and
+    raise on a refused launch."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    fn = getattr(lib, fn_name)
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    check(lib, rc, fn_name)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

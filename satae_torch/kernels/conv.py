@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from satae_torch.kernels import _build
-from satae_torch.kernels.matmul import ACTS, apply_act
+from satae_torch.kernels.matmul import ACTS, apply_act, tile_n_for
 
 
 def bn_fold(weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -63,14 +63,11 @@ def _conv_cuda(x, w, scale, shift, stride, padding, act):
     out = torch.empty((n, oh, ow, cout), device=x.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
-    lib = _build.load("conv_bn_act")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.satae_conv2d_bn_act(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            out.data_ptr(), n, h, wd, cin, kh, kw, cout, oh, ow, stride,
-            padding, ACTS.index(act), stream)
-    _build.check(lib, rc, "conv2d_bn_act")
+    _build.launch(_build.load("conv_bn_act"), "satae_conv2d_bn_act", x.device,
+                  x.data_ptr(), w.data_ptr(), scale.data_ptr(),
+                  shift.data_ptr(), out.data_ptr(), n, h, wd, cin, kh, kw,
+                  cout, oh, ow, stride, padding, ACTS.index(act),
+                  tile_n_for(cout))
     conv2d_bn_act.launches += 1
     return out
 

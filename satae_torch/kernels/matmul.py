@@ -38,12 +38,16 @@ def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
     return y
 
 
-def fused_matmul_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                       shift: torch.Tensor, act: str = "none") -> torch.Tensor:
+def fused_matmul_plain(x: torch.Tensor, w: torch.Tensor,
+                       scale: Optional[torch.Tensor], shift: torch.Tensor,
+                       act: str = "none") -> torch.Tensor:
     """The plain PyTorch version of K1: float32 product and epilogue, output
-    in x's dtype. ``w`` is (K, N); pass ``w.t()`` for an (N, K) weight."""
-    y = (x.float() @ w.float()) * scale.float() + shift.float()
-    return apply_act(y, act).to(x.dtype)
+    in x's dtype. ``w`` is (K, N); pass ``w.t()`` for an (N, K) weight. A
+    scale of None is 1."""
+    y = x.float() @ w.float()
+    if scale is not None:
+        y = y * scale.float()
+    return apply_act(y + shift.float(), act).to(x.dtype)
 
 
 def _act_grad(g: torch.Tensor, y: torch.Tensor, act: str) -> torch.Tensor:
@@ -56,16 +60,17 @@ def _act_grad(g: torch.Tensor, y: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def fused_matmul_bwd_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                           scale: torch.Tensor, y: torch.Tensor,
+                           scale: Optional[torch.Tensor], y: torch.Tensor,
                            act: str = "none",
                            needs: Sequence[bool] = (True, True, True, True),
                            w_nk: bool = False) -> Grads:
     """satae's ``_bwd`` (matmul.py:100-118) in plain PyTorch ops: the
     gradients (dx, dw, dscale, dshift) of act((x @ W) * scale + shift) for
     the cotangent g of its output y, W = w or w.T (``w_nk``). dw comes in
-    w's own layout; an entry whose ``needs`` flag is False is None."""
+    w's own layout; an entry whose ``needs`` flag is False is None. A scale
+    of None is 1 and has no gradient."""
     g = _act_grad(g, y, act)
-    gs = g * scale
+    gs = g if scale is None else g * scale
     w_kn = w.t() if w_nk else w
     dx = gs @ w_kn.t() if needs[0] else None
     dw = None
@@ -77,14 +82,76 @@ def fused_matmul_bwd_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return dx, dw, dscale, dshift
 
 
-def fused_gemm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-               shift: torch.Tensor, act: str = "none", trans_a: bool = False,
-               trans_b: bool = False) -> torch.Tensor:
+# K1's tiling (satae_torch/csrc/gemm_tile.cuh): 64-row tiles, K staged 32
+# deep; a split keeps >= 128 of K (4 slices) and the grid aims at about one
+# wave of blocks on a 132-SM card.
+TILE_M = 64
+BK = 32
+MIN_SPLIT_K = 128
+WAVE_BLOCKS = 128
+
+
+def tile_n_for(n: int) -> int:
+    """The N tile of K1 and K2: 32 columns when N fits, else 64."""
+    return 32 if n <= 32 else 64
+
+
+def split_k_plan(m: int, n: int, k: int) -> Tuple[int, int, int, int]:
+    """K1's plan for an (m, k) @ (k, n) product: (tile_m, tile_n, splits,
+    k_per_split). Split s covers K range [s * k_per_split, min(k, (s + 1) *
+    k_per_split)); every k_per_split is a multiple of BK. With the output's
+    tiles alone at WAVE_BLOCKS or more, or k below 2 * MIN_SPLIT_K, there is
+    one split; otherwise as many as reach about WAVE_BLOCKS blocks while
+    each keeps at least MIN_SPLIT_K of K, on 32-wide tiles: one block sums
+    each tile's S partials, at a rate one SM can read, so narrower tiles
+    halve that block's bytes (`chip_smoke.py --split-sweep`)."""
+    tile_n = tile_n_for(n)
+    tiles = -(-m // TILE_M) * -(-n // tile_n)
+    if tiles < WAVE_BLOCKS and k >= 2 * MIN_SPLIT_K:
+        tile_n = 32
+        tiles = -(-m // TILE_M) * -(-n // tile_n)
+    splits = min(-(-WAVE_BLOCKS // max(tiles, 1)), k // MIN_SPLIT_K)
+    if splits <= 1:
+        return TILE_M, tile_n, 1, max(-(-k // BK), 1) * BK
+    per_split = -(-k // splits)
+    k_per_split = -(-per_split // BK) * BK
+    return TILE_M, tile_n, -(-k // k_per_split), k_per_split
+
+
+def split_k_workspace(m: int, n: int, splits: int,
+                      device) -> Optional[torch.Tensor]:
+    """The float32 partials of a split-K launch, splits * m * n of them; None
+    for one split."""
+    if splits == 1:
+        return None
+    return torch.empty(splits * m * n, device=device, dtype=torch.float32)
+
+
+# one int32 counter per output tile of a split-K launch, per device; a
+# split-K plan has fewer than WAVE_BLOCKS tiles, and the kernel leaves every
+# counter at 0
+_counters = {}
+
+
+def _tile_counters(device: torch.device) -> torch.Tensor:
+    c = _counters.get(device)
+    if c is None:
+        c = _counters[device] = torch.zeros(WAVE_BLOCKS, dtype=torch.int32,
+                                            device=device)
+    return c
+
+
+def fused_gemm(x: torch.Tensor, w: torch.Tensor,
+               scale: Optional[torch.Tensor] = None,
+               shift: Optional[torch.Tensor] = None, act: str = "none",
+               trans_a: bool = False, trans_b: bool = False) -> torch.Tensor:
     """One launch of K1 on CUDA tensors: act((A @ B) * scale + shift) with
     A = x, or x read in place as its transpose (``trans_a``: x is a (K, M)
     buffer), and B = w, or w read in place as its transpose (``trans_b``: w
-    is an (N, K) buffer). Raises on a refused launch. The callers on the
-    training and serving paths count the launches."""
+    is an (N, K) buffer). A scale or shift of None is 1 or 0, and nothing is
+    allocated for it. The plan is :func:`split_k_plan`'s; a split-K launch
+    takes a workspace of splits * M * N floats. Raises on a refused launch.
+    The callers on the training and serving paths count the launches."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_gemm: K1 runs on CUDA tensors, x is on "
                          f"{x.device}")
@@ -97,25 +164,29 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if max(m * k, k * n, m * n) >= 2 ** 31:
         raise ValueError(f"fused_gemm: shape {(m, k, n)} exceeds int32 "
                          "indexing")
+    if any(t is not None and t.shape != (n,) for t in (scale, shift)):
+        raise ValueError(f"fused_gemm: scale/shift must be ({n},)")
     out = torch.empty((m, n), device=x.device, dtype=torch.float32)
     if m == 0 or n == 0:
         return out
-    lib = _build.load("fused_gemm")
-    ptrs = (x.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            out.data_ptr(), m, n, k, ACTS.index(act))
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if trans_a or trans_b:
-            rc = lib.satae_fused_gemm_t(*ptrs, int(trans_a), int(trans_b),
-                                        stream)
-        else:
-            rc = lib.satae_fused_gemm(*ptrs, stream)
-    _build.check(lib, rc, "fused_gemm")
+    _, tile_n, splits, k_per_split = split_k_plan(m, n, k)
+    ws = split_k_workspace(m, n, splits, x.device)
+    counters = None if ws is None else _tile_counters(x.device)
+    _build.launch(_build.load("fused_gemm"), "satae_fused_gemm", x.device,
+                  x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
+                  out.data_ptr(), _ptr(ws), _ptr(counters), m, n, k,
+                  ACTS.index(act), int(trans_a), int(trans_b), tile_n, splits,
+                  k_per_split)
     return out
 
 
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                     scale: torch.Tensor, y: torch.Tensor, act: str = "none",
+                     scale: Optional[torch.Tensor], y: torch.Tensor,
+                     act: str = "none",
                      needs: Sequence[bool] = (True, True, True, True),
                      w_nk: bool = False) -> Grads:
     """The backward of :func:`fused_matmul`, step by step as satae's
@@ -132,24 +203,21 @@ def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"fused_matmul_bwd: no kernel for device {x.device}")
     g = _act_grad(g, y, act)
-    gs = (g * scale).contiguous()  # a fresh tensor: contiguous() copies nothing
-    k = w.shape[1] if w_nk else w.shape[0]
-    n = g.shape[1]
+    gs = (g if scale is None else g * scale).contiguous()
 
-    def product(a, b, size, trans_a, trans_b):  # scale 1, shift 0, no act
-        out = fused_gemm(a, b, x.new_ones(size), x.new_zeros(size), "none",
-                         trans_a, trans_b)
+    def product(a, b, trans_a, trans_b):  # scale 1, shift 0, no act
+        out = fused_gemm(a, b, None, None, "none", trans_a, trans_b)
         fused_matmul_bwd.launches += 1
         return out
 
     dx = dw = dscale = None
     if needs[0]:  # dx (M, K) = gs @ W^T; an (N, K) weight is that B as it is
-        dx = product(gs, w, k, False, not w_nk)
+        dx = product(gs, w, False, not w_nk)
     if needs[1]:  # dw (N, K) = gs^T @ x, or dw (K, N) = x^T @ gs
-        dw = product(gs, x, k, True, False) if w_nk else \
-            product(x, gs, n, True, False)
+        dw = product(gs, x, True, False) if w_nk else \
+            product(x, gs, True, False)
     if needs[2]:
-        dscale = (g * product(x, w, n, False, w_nk)).sum(0)
+        dscale = (g * product(x, w, False, w_nk)).sum(0)
     dshift = g.sum(0) if needs[3] else None
     return dx, dw, dscale, dshift
 
@@ -183,12 +251,13 @@ class _FusedMatmul(torch.autograd.Function):
         return (*grads, None, None)
 
 
-def fused_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                 shift: torch.Tensor, act: str = "none", *,
-                 w_nk: bool = False) -> torch.Tensor:
+def fused_matmul(x: torch.Tensor, w: torch.Tensor,
+                 scale: Optional[torch.Tensor], shift: torch.Tensor,
+                 act: str = "none", *, w_nk: bool = False) -> torch.Tensor:
     """act((x @ W) * scale + shift) for x (M, K), per-column scale/shift
     (N,), and W = w, a row-major (K, N) weight, or W = w.T for an (N, K)
     weight with ``w_nk=True`` (an ``nn.Linear`` weight, read in place).
+    A scale of None is 1 (a linear layer: nothing is allocated for it).
     Differentiable in x, w, scale and shift (:func:`fused_matmul_bwd`).
 
     A CUDA x launches K1 (``fused_matmul.launches`` counts the forward
@@ -199,13 +268,14 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"fused_matmul: bad shapes x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}{' (N, K)' if w_nk else ''}")
     n = w.shape[1 - int(w_nk)]
-    if scale.shape != (n,) or shift.shape != (n,):
+    if (scale is not None and scale.shape != (n,)) or shift.shape != (n,):
         raise ValueError(f"fused_matmul: scale/shift must be ({n},), got "
-                         f"{tuple(scale.shape)}, {tuple(shift.shape)}")
+                         f"{None if scale is None else tuple(scale.shape)}, "
+                         f"{tuple(shift.shape)}")
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_matmul: no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w, scale, shift)):
+            t is not None and t.requires_grad for t in (x, w, scale, shift)):
         return _FusedMatmul.apply(x, w, scale, shift, act, w_nk)
     # nothing to differentiate (serving): skip the autograd node's host cost
     return _forward(x, w, scale, shift, act, w_nk)

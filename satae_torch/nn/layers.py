@@ -115,9 +115,10 @@ def dropout(x: torch.Tensor, rate: float,
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            act: str = "none") -> torch.Tensor:
     """act(x @ w.T + b) with w stored (out, in): satae's ``linear_pallas``,
-    scale 1 and shift = b. One K1 launch forward on a CUDA x, and K1
-    launches for its gradients; the plain versions on a CPU x."""
-    return fused_matmul(x, w, torch.ones_like(b), b, act, w_nk=True)
+    scale 1 (None: nothing allocated) and shift = b. One K1 launch forward
+    on a CUDA x, and K1 launches for its gradients; the plain versions on a
+    CPU x."""
+    return fused_matmul(x, w, None, b, act, w_nk=True)
 
 
 def linear_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
