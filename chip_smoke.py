@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (satae_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the smoke run, phases 1-11
+    python3 chip_smoke.py                  # the smoke run, phases 1-12
     python3 chip_smoke.py --ab PARENT_DIR  # A/B of the kernels' times
     python3 chip_smoke.py --split-sweep    # K1's time for each split count
 
@@ -78,6 +78,22 @@ Phases, in order; any failure exits non-zero:
 11. train time -- each K1 launch of a batch-64 train step (forward and
              backward), measured as in 5; the AE and MLP epoch bodies' step
              times; a profile of a few AE steps.
+12. grid  -- SatAEPipeline.fit(grid=True, out_dir=...) at the recorded
+             cross-framework gate (benchmarks/torch_pipeline_parity.py):
+             synthetic-hard per_class 256, full width, batch 64, seed 0, AE
+             alpha (20, 35) x lr (1e-3, 5e-3) for 15 epochs with patience
+             15, MLP lrs (1e-4, 1e-3, 1e-2) for 30 epochs. Launch counts
+             zeroed before and read after must equal those derived from the
+             configs, epochs, steps, eval batches, extraction chunks and
+             test batches; the stores hold satae's keys in strict JSON; the
+             winners are printed beside satae's recorded ones and the test
+             accuracy held within 0.03 of satae's recorded 0.7947
+             (benchmarks/torch_parity_pc256). A second fit on the same
+             directory must train nothing (0 backward launches) and give
+             the same summary and predictions; load + evaluate must score
+             fit_summary.json's test accuracy; save + load and export_torch
+             + load_torch must predict the same. Seconds per AE config and
+             per MLP lr are printed with the card line.
 
 The second-to-last line holds the kernels' numbers as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -101,6 +117,7 @@ import copy
 import itertools
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -926,6 +943,10 @@ def main() -> int:
     for t, count, key in tr_top:
         print(f"  {t:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
 
+    # -- 12. grid -----------------------------------------------------------
+    grid = grid_phase(card)
+    grid_launches = grid["launches"]
+
     # -- report -------------------------------------------------------------
     def entry(name, source, replaces, err, rs, per):
         ops_ms = sum(r["bound_ms"] for r in rs
@@ -933,9 +954,11 @@ def main() -> int:
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[name] + fit_launches[name],
+            "launches": (launches[name] + fit_launches[name]
+                         + grid_launches[name]),
             "launches_by_path": {"serve": launches[name],
-                                 "fit": fit_launches[name]},
+                                 "fit": fit_launches[name],
+                                 "grid": grid_launches[name]},
             "max_abs_err": err, "tolerance": "1e-4 + 1e-5*|ref|",
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
@@ -978,13 +1001,193 @@ def main() -> int:
         fit_expected_launches=expected, fit_predict_acc=fit_pred_acc,
         train_rows=train_rows, ae_step_ms=ae_step_ms,
         mlp_step_ms=mlp_step_ms, train_profile_wall_ms=tr_wall,
-        train_profile_device_ms=tr_dev, train_profile_top=tr_top,
+        train_profile_device_ms=tr_dev, train_profile_top=tr_top, grid=grid,
         **report), indent=1))
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def grid_phase(card: str) -> dict:
+    """Phase 12: the grid fit of the recorded cross-framework gate, its
+    resume, evaluate, save and export. Returns what chip_smoke.json keeps;
+    ``launches`` are the first fit's."""
+    import numpy as np
+    import torch
+
+    from satae_torch import kernels
+    from satae_torch.api import SatAEPipeline
+    from satae_torch.config import (AETrainConfig, DataConfig, MLPTrainConfig,
+                                    PipelineConfig, RuntimeConfig)
+    from satae_torch.data.ingest import load_dataset
+    from satae_torch.data.pipeline import make_splits
+    from satae_torch.train.extract import extract_chunk
+
+    gate = json.loads((REPO / "benchmarks" / "torch_parity_pc256" /
+                       "torch_pipeline_parity.json").read_text())
+    alphas = tuple(gate["ae_grid"]["alphas"])
+    ae_lrs = tuple(gate["ae_grid"]["lrs"])
+    mlp_lrs = tuple(gate["mlp_lrs"])
+    cfg = PipelineConfig(
+        data=DataConfig(per_class=gate["per_class"],
+                        synthetic_difficulty="hard"),
+        ae=AETrainConfig(alphas=alphas, learning_rates=ae_lrs,
+                         max_epochs=gate["ae_epochs"],
+                         patience=gate["ae_epochs"]),
+        mlp=MLPTrainConfig(learning_rates=mlp_lrs,
+                           epochs=gate["mlp_epochs"]),
+        runtime=RuntimeConfig(seed=gate["seed"]))
+    mcfg, bs = cfg.model, cfg.data.batch_size
+    raw = load_dataset(cfg.data)
+    splits = make_splits(raw, cfg.data)
+    test = splits.test
+    run = REPO / "chiprun_out" / "grid_run"
+    shutil.rmtree(run, ignore_errors=True)
+    print(f"grid: channels {mcfg.encoder_channels}, latent {mcfg.latent_dim}"
+          f", MLP {mcfg.mlp_hidden}, batch {bs}, synthetic-hard per_class "
+          f"{cfg.data.per_class} ({len(splits.train)} / {len(splits.val)} / "
+          f"{len(test)}), seed {cfg.runtime.seed}; AE alpha {alphas} x lr "
+          f"{ae_lrs}, {cfg.ae.max_epochs} epochs, patience {cfg.ae.patience};"
+          f" MLP lrs {mlp_lrs}, {cfg.mlp.epochs} epochs", flush=True)
+
+    def timed_fit(pipe):
+        """fit(grid=True, out_dir=run) with each log line's time stamp."""
+        lines = []
+        log = lambda ln: lines.append((time.perf_counter(), ln))
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = pipe.fit(raw, grid=True, out_dir=str(run), log=log)
+        torch.cuda.synchronize()
+        return summary, time.perf_counter() - t0, t0, lines, \
+            kernels.launch_counts()
+
+    pipe = SatAEPipeline(cfg)
+    summary, fit_s, t0, lines, launches = timed_fit(pipe)
+    for _, ln in lines:
+        print("  " + ln, flush=True)
+
+    # seconds per config: from one log line to the next; the first of each
+    # sweep from the sweep's start (after the data stage; after extraction)
+    st = summary.stage_seconds
+    ae_lines = [t for t, ln in lines if ln.startswith("alpha=")]
+    mlp_lines = [t for t, ln in lines if ln.startswith("lr=")]
+    ae_start = t0 + st["data"]
+    mlp_start = ae_start + st["ae"] + st["extract"]
+    per_ae = np.diff([ae_start] + ae_lines).tolist()
+    per_mlp = np.diff([mlp_start] + mlp_lines).tolist()
+    print(f"grid: {fit_s:.2f} s, stage_seconds {st}; seconds per AE config "
+          f"{[round(x, 2) for x in per_ae]}, per MLP lr "
+          f"{[round(x, 2) for x in per_mlp]}; card {card}", flush=True)
+
+    # the stores: satae's keys (GridResultStore.key: the hparams as JSON,
+    # names sorted), strict JSON
+    def strict(path):
+        return json.loads(path.read_text(), parse_constant=lambda c: check(
+            False, f"{path.name}: non-standard JSON constant {c}"))
+    ae_store = strict(run / "validation_losses.json")
+    mlp_store = strict(run / "mlp_results.json")
+    want_ae = [json.dumps({"alpha": a, "lr": lr}) for a in alphas
+               for lr in ae_lrs]
+    want_mlp = [json.dumps({"lr": lr}) for lr in mlp_lrs]
+    check(list(ae_store) == want_ae, f"validation_losses.json keys "
+          f"{list(ae_store)}, expected {want_ae}")
+    check(list(mlp_store) == want_mlp, f"mlp_results.json keys "
+          f"{list(mlp_store)}, expected {want_mlp}")
+
+    # launch counts, derived as for phase 10, per config and lr
+    n_tr, n_va, n_te = len(splits.train), len(splits.val), len(test)
+    steps, val_b, test_b = n_tr // bs, -(-n_va // bs), -(-n_te // bs)
+    chunks = sum(-(-n // extract_chunk(n, bs)) for n in (n_tr, n_va, n_te))
+    epochs_ae = [r["epochs_run"] for r in ae_store.values()]
+    check(epochs_ae == [cfg.ae.max_epochs] * len(want_ae),
+          f"AE epochs run {epochs_ae}: patience {cfg.ae.patience} cannot "
+          f"stop {cfg.ae.max_epochs} epochs early")
+    n_ae, n_lr, e_mlp = len(want_ae), len(want_mlp), cfg.mlp.epochs
+    n_lin_ae, n_lin_mlp = 4, len(mcfg.mlp_hidden) + 1
+    expected = {
+        "fused_gemm": (n_ae * cfg.ae.max_epochs * (steps + val_b) * n_lin_ae
+                       + chunks
+                       + n_lr * e_mlp * (steps + val_b) * n_lin_mlp
+                       + n_lr * test_b * n_lin_mlp + n_lin_mlp),
+        "fused_gemm_bwd": (n_ae * cfg.ae.max_epochs * steps * 2 * n_lin_ae
+                           + n_lr * e_mlp * steps * (2 * n_lin_mlp - 1)),
+        "conv2d_bn_act": chunks * len(mcfg.encoder_channels)}
+    print(f"grid: {n_ae} AE configs x {cfg.ae.max_epochs} epochs and {n_lr} "
+          f"MLP lrs x {e_mlp} epochs of {steps} steps, {val_b} val batches, "
+          f"{test_b} test batches, {chunks} extraction chunks; launches "
+          f"{launches}, expected {expected}", flush=True)
+    check(launches == expected, "grid launch counts differ from the configs,"
+          " steps, eval batches and extraction chunks")
+
+    # the outcome against satae's recorded run on the same arrays
+    rec = gate["satae"]
+    acc_gap = abs(summary.test_acc - rec["test_acc"])
+    print(f"grid: winners AE {summary.ae_hparams} (satae recorded "
+          f"{rec['ae_hparams']}), MLP {summary.mlp_hparams} (recorded "
+          f"{rec['mlp_hparams']}); AE best val loss {summary.ae_val_loss} "
+          f"(recorded {rec['ae_best_val_loss']}), MLP best val acc "
+          f"{summary.mlp_val_acc} (recorded {rec['mlp_best_val_acc']}), test "
+          f"accuracy {summary.test_acc} (recorded {rec['test_acc']}, gap "
+          f"{acc_gap:.4f}, band {gate['band']}); per-lr test accuracy "
+          f"{[r['test_acc'] for r in mlp_store.values()]}", flush=True)
+    check(acc_gap <= gate["band"], f"test accuracy {summary.test_acc} is "
+          f"{acc_gap:.4f} from satae's {rec['test_acc']}")
+    preds = pipe.predict(test.images)
+    check(float((preds == test.labels).mean()) == summary.test_acc,
+          "predict after the grid fit disagrees with its test accuracy")
+
+    # a second fit on the same run directory trains nothing
+    again = SatAEPipeline(cfg)
+    summary2, resume_s, _, lines2, launches2 = timed_fit(again)
+    expected2 = {"fused_gemm": chunks + n_lin_mlp, "fused_gemm_bwd": 0,
+                 "conv2d_bn_act": chunks * len(mcfg.encoder_channels)}
+    print(f"grid resume: {resume_s:.2f} s, {len(lines2)} log lines, "
+          f"launches {launches2}, expected {expected2}", flush=True)
+    check(len(lines2) == n_ae + n_lr
+          and all(ln.startswith("skip cached") for _, ln in lines2),
+          f"the resumed fit did not skip every config: {lines2}")
+    check(launches2 == expected2, "resumed fit launch counts")
+    for f in ("ae_hparams", "ae_val_loss", "mlp_hparams", "mlp_val_acc",
+              "test_acc"):
+        check(getattr(summary2, f) == getattr(summary, f),
+              f"resumed {f} {getattr(summary2, f)} != {getattr(summary, f)}")
+    check(np.array_equal(again.predict(test.images), preds),
+          "the resumed pipeline predicts differently")
+
+    # load + evaluate, save + load, export + load_torch
+    loaded = SatAEPipeline(cfg).load(str(run))
+    ev = loaded.evaluate(test)
+    recorded = json.loads((run / "fit_summary.json").read_text())["test_acc"]
+    check(float(ev["accuracy"]) == recorded, f"evaluate after load scores "
+          f"{ev['accuracy']}, fit_summary.json {recorded}")
+    loaded.save(str(run / "saved"))
+    check(np.array_equal(SatAEPipeline(cfg).load(str(run / "saved")).predict(
+        test.images), preds), "save + load predicts differently")
+    loaded.export_torch(str(run / "pt"))
+    check(np.array_equal(SatAEPipeline(cfg).load_torch(
+        str(run / "pt" / "AE_GLOBAL_BEST.pt"),
+        str(run / "pt" / "MLP_GLOBAL_BEST.pt")).predict(test.images), preds),
+        "export_torch + load_torch predicts differently")
+    print(f"grid: load + evaluate accuracy {float(ev['accuracy']):.6f} = "
+          "fit_summary.json; save + load and export_torch + load_torch "
+          "predict the same", flush=True)
+    print(ev["report"], flush=True)
+    shutil.rmtree(run)
+    return dict(config=dict(per_class=cfg.data.per_class, alphas=alphas,
+                            ae_lrs=ae_lrs, ae_epochs=cfg.ae.max_epochs,
+                            mlp_lrs=mlp_lrs, mlp_epochs=e_mlp,
+                            seed=cfg.runtime.seed),
+                fit_s=fit_s, stage_seconds=st, seconds_per_ae_config=per_ae,
+                seconds_per_mlp_lr=per_mlp, launches=launches,
+                expected_launches=expected, summary=summary.__dict__,
+                ae_results=ae_store, mlp_results=mlp_store,
+                recorded=rec, test_acc_gap=acc_gap, resume_s=resume_s,
+                resume_launches=launches2,
+                resume_stage_seconds=summary2.stage_seconds,
+                evaluate_accuracy=float(ev["accuracy"]),
+                confusion_matrix=ev["confusion_matrix"].tolist(), card=card)
 
 
 def card_line() -> str:

@@ -1,9 +1,21 @@
 """PyTorch/CUDA port of satae for NVIDIA Hopper GPUs (see README.md).
 
-``satae_torch.fit`` trains the single-config pipeline and
-``satae_torch.SatAEPipeline`` loads or serves a fitted one (encode, predict)
-on hand-written CUDA kernels (``satae_torch.kernels``). It imports neither
-JAX nor the ``satae`` package.
+``satae_torch.fit`` trains the pipeline (the grid sweeps or the single
+reference config, optionally into a run directory in satae's format), and
+``satae_torch.SatAEPipeline`` loads, saves, evaluates or serves a fitted one
+(``encode``, ``predict``) on hand-written CUDA kernels
+(``satae_torch.kernels``). It imports neither JAX nor the ``satae`` package.
 """
 
-from satae_torch.api import FitSummary, SatAEPipeline, fit  # noqa: F401
+from satae_torch.api import (FitSummary, SatAEPipeline, encode,  # noqa: F401
+                             fit, predict)
+from satae_torch.config import (  # noqa: F401
+    EUROSAT_CLASSES,
+    AETrainConfig,
+    DataConfig,
+    MLPTrainConfig,
+    ModelConfig,
+    PipelineConfig,
+    RuntimeConfig,
+    default_config,
+)

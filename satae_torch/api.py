@@ -1,39 +1,51 @@
-"""Public API: the counterpart of satae/api.py's single-config fit and its
-inference surface.
+"""Public API: the counterpart of satae/api.py.
 
-``SatAEPipeline.fit(grid=False)`` runs satae's single-config pipeline
-(api.py:119-336): supervised-AE training at the reference-optimal alpha 35,
-lr 5e-3 with patience-15 early stopping, frozen-encoder latent extraction,
-MLP training at lr 1e-4 for ``MLPTrainConfig.epochs``, and the test-split
-score. It trains in float32 with TF32 off for cuDNN. On a CUDA device every
-linear layer's forward and backward runs on kernel K1, and extraction runs
-on K2 + K1; the convolutions, transposed convolutions, BatchNorm, losses and
-Adam are stock PyTorch ops, as they are XLA ops in satae.
+``SatAEPipeline.fit`` runs satae's pipeline (api.py:119-336). With
+``grid=True`` that is the alpha x lr supervised-AE sweep with early stopping
+(45 configs by default), frozen-encoder latent extraction, the lr sweep of
+the MLP (11 lrs) with each lr's test accuracy, and the test-split score;
+with ``grid=False`` the single reference-optimal config (AE alpha 35, lr
+5e-3; MLP lr 1e-4). ``out_dir`` makes it a run directory in satae's format:
+the sweeps' resumable stores (``validation_losses.json``,
+``mlp_results.json``), the global-best ``.msgpack`` checkpoints with their
+selection meta, ``fit_summary.json``, ``classes.json`` and the encoder
+fingerprint that guards the MLP store (``mlp_provenance.json``). A run
+directory written by either package is loaded and resumed by the other.
+Training is float32 with TF32 off for cuDNN. On a CUDA device every linear
+layer's forward and backward runs on kernel K1, and extraction runs on K2 +
+K1; the convolutions, transposed convolutions, BatchNorm, losses and Adam
+are stock PyTorch ops, as they are XLA ops in satae.
 
-``SatAEPipeline`` also loads a fitted pipeline (satae's ``.msgpack`` run
-directory, or the reference notebook's ``.pt`` state_dicts) and serves
-``encode``, ``predict`` and ``predict_proba`` through the fixed-chunk bulk
-path of satae (api.py:527-603): one upload, chunks of 64 images for inputs of
-up to 64, of 512 otherwise, padding rows sliced off. On a CUDA device every
-chunk runs satae_torch.models.fast_infer on the hand-written kernels (K2 per
-conv layer, K1 per linear layer); with ``device="cpu"`` the same code runs
-the kernels' plain PyTorch versions.
+``SatAEPipeline`` also loads a fitted pipeline (:meth:`load`,
+:meth:`load_ae`, or the reference notebook's ``.pt`` state_dicts with
+:meth:`load_torch`), saves it (:meth:`save`, :meth:`export_torch`),
+evaluates a split (:meth:`evaluate`) and serves ``encode``, ``predict`` and
+``predict_proba`` through the fixed-chunk bulk path of satae
+(api.py:527-603): one upload, chunks of 64 images for inputs of up to 64,
+of 512 otherwise, padding rows sliced off. On a CUDA device every chunk
+runs satae_torch.models.fast_infer on the hand-written kernels (K2 per conv
+layer, K1 per linear layer); with ``device="cpu"`` the same code runs the
+kernels' plain PyTorch versions.
 
 The device is explicit. ``device=None`` means the first CUDA device, and
 raises where there is none: the pipeline never drops to the CPU by itself.
 
-The grid sweeps and ``out_dir`` checkpoints of ``fit``, ``evaluate``,
-``save``, export, decoder serving (``decode``/``reconstruct``), bf16 compute
-and multi-device runs are later slices (ROADMAP.md §1).
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md §1
+item: the vmap and sharded sweep engines (``runtime.parallel_configs``,
+``runtime.n_devices``), in-flight resume (``ae.checkpoint_every`` with
+``out_dir``), curve plots (``runtime.save_grid_curves``; satae's fit also
+draws ``*_best_curves.png`` into ``out_dir``, the port does not), decoder
+serving (``decode``/``reconstruct``) and bf16 compute.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,14 +53,18 @@ import torch
 from satae_torch.config import PipelineConfig, default_config
 from satae_torch.data.augment import normalize
 from satae_torch.data.ingest import RawDataset, load_dataset
-from satae_torch.data.pipeline import make_splits
+from satae_torch.data.pipeline import ArrayDataset, make_splits
+from satae_torch.eval import metrics as M
 from satae_torch.io import checkpoint, convert
 from satae_torch.models import fast_infer
 from satae_torch.models.mlp import MLP
 from satae_torch.models.supervised_ae import SupervisedAE
 from satae_torch.train.extract import extract_features
 from satae_torch.train.fast_loop import train_mlp, train_supervised_ae
+from satae_torch.train.gridsearch import ae_grid_search, mlp_grid_search
 from satae_torch.train.loop import LogFn
+from satae_torch.train.sweep_common import save_best_checkpoint
+from satae_torch.utils.strict_json import dump_strict_json
 
 # Reference-optimal single-config hyperparameters (satae/api.py:33-35)
 BEST_ALPHA = 35.0
@@ -97,6 +113,9 @@ class SatAEPipeline:
         self.ae: Optional[SupervisedAE] = None
         self.mlp: Optional[MLP] = None
         self.classes = None
+        # the run directory the autoencoder was loaded from (resolved), so
+        # fit and save into that directory keep its selection meta
+        self._ae_src_dir: Optional[str] = None
         self._folded = None
         self._folded_src = None
         # per-epoch train/val curves of the last fit, {"ae": ..., "mlp": ...}
@@ -109,33 +128,49 @@ class SatAEPipeline:
     def fit(self, raw: Optional[RawDataset] = None, *, grid: bool = False,
             log: Optional[LogFn] = None, out_dir: Optional[str] = None,
             reuse_ae: bool = False) -> FitSummary:
-        """Run the single-config pipeline on ``raw`` (default: the dataset
-        ``config.data`` names): AE training (alpha 35, lr 5e-3), latent
-        extraction, MLP training (lr 1e-4) and the test-split score, which
-        is the accuracy :meth:`predict` gives on the test split.
+        """Run the pipeline on ``raw`` (default: the dataset ``config.data``
+        names). ``grid=True`` runs the alpha x lr AE sweep of ``config.ae``
+        and the lr sweep of ``config.mlp``; ``grid=False`` the
+        reference-optimal config only (alpha 35, lr 5e-3; MLP lr 1e-4). The
+        test-split score is the accuracy :meth:`predict` gives there.
 
         ``reuse_ae=True`` skips AE training and extracts through the loaded
-        autoencoder (:meth:`load` or :meth:`load_torch` first). The grid
-        sweeps (``grid=True``) and run-directory output (``out_dir``) are
-        not ported yet."""
-        if grid or out_dir is not None:
+        autoencoder (:meth:`load`, :meth:`load_ae` or :meth:`load_torch`
+        first).
+
+        ``out_dir`` identifies one experiment, as in satae: the sweep stores
+        resume by hyperparameter key and assume the dataset and seed are
+        unchanged across runs that share it. The encoder -> MLP pairing is
+        fingerprint-guarded (``mlp_provenance.json``); a changed dataset or
+        seed is not."""
+        cfg = self.config
+        if grid and cfg.runtime.parallel_configs:
             raise NotImplementedError(
-                "satae_torch fits the single reference-optimal config only: "
-                "the grid sweeps and out_dir checkpoints are a later slice "
+                "runtime.parallel_configs: the vmap sweep engine is a later "
+                "slice (ROADMAP.md §1 item 13)")
+        if out_dir is not None and cfg.ae.checkpoint_every:
+            raise NotImplementedError(
+                "ae.checkpoint_every with out_dir: in-flight resume, which "
+                "needs Adam's state in satae's tree, is a later slice "
                 "(ROADMAP.md §1 item 9)")
+        if cfg.runtime.save_grid_curves:
+            raise NotImplementedError(
+                "runtime.save_grid_curves: the curve plots are a later "
+                "slice (ROADMAP.md §1 item 11)")
         if reuse_ae and self.ae is None:
             raise ValueError("reuse_ae=True requires a loaded autoencoder - "
-                             "call load() or load_torch() first")
+                             "call load(), load_ae() or load_torch() first")
         cudnn = torch.backends.cudnn
         with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                          deterministic=cudnn.deterministic,
                          allow_tf32=False):
-            return self._fit(raw, log, reuse_ae)
+            return self._fit(raw, grid, log, out_dir, reuse_ae)
 
-    def _fit(self, raw: Optional[RawDataset], log: Optional[LogFn],
+    def _fit(self, raw: Optional[RawDataset], grid: bool,
+             log: Optional[LogFn], out_dir: Optional[str],
              reuse_ae: bool) -> FitSummary:
         cfg, dev = self.config, self.device
-        bs = cfg.data.batch_size
+        bs, seed = cfg.data.batch_size, cfg.runtime.seed
         stage_t: Dict[str, float] = {}
         t_mark = time.perf_counter()
 
@@ -154,17 +189,25 @@ class SatAEPipeline:
         ae_res = None
         if reuse_ae:
             ae_hp = {"reused": True}
+        elif grid:
+            sweep = ae_grid_search(
+                splits.train, splits.val, model_cfg=cfg.model,
+                data_cfg=cfg.data, ae_cfg=cfg.ae, device=dev, seed=seed,
+                out_dir=out_dir, log=log)
+            ae_res, ae_hp = sweep.best, sweep.best_hparams
         else:
             ae_res = train_supervised_ae(
                 splits.train, splits.val, model_cfg=cfg.model,
                 data_cfg=cfg.data, alpha=BEST_ALPHA, lr=BEST_AE_LR,
                 device=dev, max_epochs=cfg.ae.max_epochs,
-                patience=cfg.ae.patience, seed=cfg.runtime.seed, log=log)
+                patience=cfg.ae.patience, seed=seed, log=log)
             ae_hp = {"alpha": BEST_ALPHA, "lr": BEST_AE_LR}
+        if ae_res is not None:
             ae = SupervisedAE(cfg.model, cfg.data.channels,
                               cfg.data.image_size).to(dev)
             ae.load_state_dict(ae_res.state_dict())
             self.ae = ae.eval()
+            self._ae_src_dir = None  # freshly trained or a sweep's winner
         stage("ae")
 
         Xtr, ytr = extract_features(self.ae.enc, splits.train, bs)
@@ -172,11 +215,20 @@ class SatAEPipeline:
         Xte, yte = extract_features(self.ae.enc, splits.test, bs)
         stage("extract")
 
-        mlp_res = train_mlp(
-            Xtr, ytr, Xva, yva, model_cfg=cfg.model, lr=BEST_MLP_LR,
-            device=dev, weight_decay=cfg.mlp.weight_decay,
-            epochs=cfg.mlp.epochs, batch_size=bs, seed=cfg.runtime.seed,
-            log=log)
+        if out_dir:
+            self._guard_mlp_store(out_dir)
+        if grid:
+            msweep = mlp_grid_search(
+                Xtr, ytr, Xva, yva, model_cfg=cfg.model, mlp_cfg=cfg.mlp,
+                device=dev, batch_size=bs, seed=seed, out_dir=out_dir,
+                log=log, test_x=Xte, test_y=yte)
+            mlp_res, mlp_hp = msweep.best, msweep.best_hparams
+        else:
+            mlp_res = train_mlp(
+                Xtr, ytr, Xva, yva, model_cfg=cfg.model, lr=BEST_MLP_LR,
+                device=dev, weight_decay=cfg.mlp.weight_decay,
+                epochs=cfg.mlp.epochs, batch_size=bs, seed=seed, log=log)
+            mlp_hp = {"lr": BEST_MLP_LR}
         mlp = MLP(cfg.model, input_dim=Xtr.shape[-1]).to(dev)
         mlp.load_state_dict(mlp_res.state_dict())
         self.mlp = mlp.eval()
@@ -192,28 +244,108 @@ class SatAEPipeline:
         test_preds = torch.argmax(logits, dim=-1).cpu().numpy()
         test_acc = float((test_preds == yte).mean())
         stage("eval")
-        return FitSummary(
+        summary = FitSummary(
             None if ae_res is None else ae_res.best_val_loss, ae_hp,
-            mlp_res.best_val_acc, {"lr": BEST_MLP_LR}, test_acc,
+            mlp_res.best_val_acc, mlp_hp, test_acc,
             stage_seconds=dict(stage_t))
+        if out_dir:
+            self._write_run_dir(Path(out_dir), summary, grid, reuse_ae,
+                                ae_res, mlp_res)
+        return summary
 
-    # -- loading -----------------------------------------------------------
+    def _write_run_dir(self, out: Path, summary: FitSummary, grid: bool,
+                       reuse_ae: bool, ae_res, mlp_res) -> None:
+        """What satae's fit writes into ``out_dir`` (api.py:284-326), its
+        curve plots aside."""
+        if not grid:
+            # the sweeps checkpointed their winners with the full selection
+            # meta (the 'diverged' marker included); only the single-config
+            # trainers write nothing themselves
+            if ae_res is not None:
+                save_best_checkpoint(out, "ae_global_best", *self._ae_trees(),
+                                     summary.ae_hparams, ae_res)
+            save_best_checkpoint(out, "mlp_global_best", *self._mlp_trees(),
+                                 summary.mlp_hparams, mlp_res)
+        if reuse_ae and self._ae_src_dir != str(out.resolve()):
+            # an encoder from elsewhere makes out_dir a complete run
+            # directory, overwriting a stale AE; the same-directory flow
+            # keeps the file, whose meta the sweep's resume protection reads
+            checkpoint.save_model(out / "ae_global_best.msgpack",
+                                  *self._ae_trees(),
+                                  meta=dict(summary.ae_hparams))
+        (out / "fit_summary.json").write_text(
+            dump_strict_json(dataclasses.asdict(summary), indent=2))
+        if self.classes:
+            (out / "classes.json").write_text(json.dumps(list(self.classes)))
 
-    def _install(self, ae_sd, mlp_sd) -> None:
+    def _guard_mlp_store(self, out_dir: str) -> None:
+        """Invalidate MLP artifacts trained on another encoder's latents
+        (satae/api.py:338-370). ``mlp_results.json`` and the
+        ``mlp_global_best`` resume competition assume the latents, hence the
+        encoder, are unchanged across runs sharing ``out_dir``. Each fit
+        stamps ``mlp_provenance.json`` with the sha1 of the encoder's
+        checkpoint bytes (satae's: the writer gives flax's bytes); a
+        mismatch clears the store and the global-best pair."""
+        ae_p, ae_s = self._ae_trees()
+        fp = hashlib.sha1(checkpoint.packb(
+            {"p": ae_p["encoder"], "s": ae_s["encoder"]})).hexdigest()
+        out = Path(out_dir)
+        prov = out / "mlp_provenance.json"
+        old = None
+        if prov.exists():
+            try:
+                old = json.loads(prov.read_text()).get("ae_fingerprint")
+            except (json.JSONDecodeError, OSError, AttributeError):
+                old = None
+        if old is not None and old != fp:
+            for name in ("mlp_results.json", "mlp_global_best.msgpack",
+                         "mlp_global_best.json"):
+                (out / name).unlink(missing_ok=True)
+        out.mkdir(parents=True, exist_ok=True)
+        prov.write_text(json.dumps({"ae_fingerprint": fp}))
+
+    # -- satae's trees -----------------------------------------------------
+
+    def _ae_trees(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        d = self.config.data
+        return convert.sae_from_torch_state_dict(
+            self.ae.state_dict(), self.config.model, d.channels, d.image_size)
+
+    def _mlp_trees(self) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        return convert.mlp_from_torch_state_dict(self.mlp.state_dict(),
+                                                 self.config.model)
+
+    # -- loading and saving ------------------------------------------------
+
+    def _install_ae(self, sd) -> None:
         d = self.config.data
         ae = SupervisedAE(self.config.model, d.channels, d.image_size)
-        ae.load_state_dict(ae_sd, strict=True)
+        ae.load_state_dict(sd, strict=True)
         self.ae = ae.to(self.device).eval()
-        if mlp_sd is not None:
-            mlp = MLP(self.config.model)
-            mlp.load_state_dict(mlp_sd, strict=True)
-            self.mlp = mlp.to(self.device).eval()
-        else:
-            self.mlp = None
+
+    def _install_mlp(self, sd) -> None:
+        mlp = MLP(self.config.model)
+        mlp.load_state_dict(sd, strict=True)
+        self.mlp = mlp.to(self.device).eval()
+
+    def load_ae(self, out_dir: str) -> "SatAEPipeline":
+        """Load only the autoencoder of a run directory, for
+        ``fit(reuse_ae=True)`` (the reference's phase-2 restart)."""
+        ae_file = Path(out_dir) / "ae_global_best.msgpack"
+        if not ae_file.exists():
+            raise FileNotFoundError(f"no AE checkpoint at {ae_file}")
+        cfg = self.config
+        self._install_ae(convert.to_tensors(convert.sae_to_torch_state_dict(
+            *checkpoint.load_model(ae_file), cfg.model, cfg.data.image_size)))
+        self._ae_src_dir = str(Path(out_dir).resolve())
+        classes_file = Path(out_dir) / "classes.json"
+        if classes_file.exists():
+            self.classes = tuple(json.loads(classes_file.read_text()))
+        return self
 
     def load(self, out_dir: str) -> "SatAEPipeline":
-        """Load a satae run directory (``ae_global_best.msgpack`` +
-        ``mlp_global_best.msgpack``, optional ``classes.json``)."""
+        """Load a run directory of either package (``ae_global_best.msgpack``
+        + ``mlp_global_best.msgpack``, optional ``classes.json``)."""
         ae_file = Path(out_dir) / "ae_global_best.msgpack"
         mlp_file = Path(out_dir) / "mlp_global_best.msgpack"
         missing = [str(p) for p in (ae_file, mlp_file) if not p.exists()]
@@ -221,26 +353,74 @@ class SatAEPipeline:
             raise FileNotFoundError(
                 f"no fitted pipeline under {out_dir!r} (missing: "
                 f"{', '.join(missing)})")
-        cfg = self.config
-        ae_p, ae_s = checkpoint.load_model(ae_file)
-        mlp_p, mlp_s = checkpoint.load_model(mlp_file)
-        self._install(
-            convert.to_tensors(convert.sae_to_torch_state_dict(
-                ae_p, ae_s, cfg.model, cfg.data.image_size)),
-            convert.to_tensors(convert.mlp_to_torch_state_dict(
-                mlp_p, mlp_s, cfg.model)))
-        classes_file = Path(out_dir) / "classes.json"
-        if classes_file.exists():
-            self.classes = tuple(json.loads(classes_file.read_text()))
+        self.load_ae(out_dir)
+        self._install_mlp(convert.to_tensors(convert.mlp_to_torch_state_dict(
+            *checkpoint.load_model(mlp_file), self.config.model)))
         return self
 
     def load_torch(self, ae_pt: str,
                    mlp_pt: Optional[str] = None) -> "SatAEPipeline":
         """Load the reference notebook's ``AE_GLOBAL_BEST.pt`` (and
-        ``MLP_GLOBAL_BEST.pt``) state_dicts, strictly."""
+        ``MLP_GLOBAL_BEST.pt``) state_dicts, strictly. Without ``mlp_pt``
+        the pipeline holds the autoencoder only."""
         load = lambda p: torch.load(p, map_location="cpu", weights_only=True)
-        self._install(load(ae_pt), None if mlp_pt is None else load(mlp_pt))
+        self._install_ae(load(ae_pt))
+        self._ae_src_dir = None  # a foreign checkpoint, no run directory
+        self.mlp = None
+        if mlp_pt is not None:
+            self._install_mlp(load(mlp_pt))
         return self
+
+    def save(self, out_dir: str) -> None:
+        """Write the loaded models as satae's ``.msgpack`` checkpoints (an
+        AE-only pipeline writes the autoencoder alone; reload it with
+        :meth:`load_ae`). Saving weights that did not come from this
+        directory also removes its ``*_global_best.json`` sidecars: they
+        describe the previous weights' sweep metrics, and would mislabel
+        the new checkpoints and compete in a later sweep's resume."""
+        self._require_fitted()
+        out = Path(out_dir)
+        same_src = self._ae_src_dir == str(out.resolve())
+        checkpoint.save_model(out / "ae_global_best.msgpack",
+                              *self._ae_trees())
+        if not same_src:
+            (out / "ae_global_best.json").unlink(missing_ok=True)
+        if self.mlp is not None:
+            checkpoint.save_model(out / "mlp_global_best.msgpack",
+                                  *self._mlp_trees())
+            if not same_src:
+                (out / "mlp_global_best.json").unlink(missing_ok=True)
+        if self.classes:
+            (out / "classes.json").write_text(json.dumps(list(self.classes)))
+
+    def export_torch(self, dest_dir: str) -> None:
+        """Write the models as the reference notebook's ``.pt`` state_dicts,
+        ``AE_GLOBAL_BEST.pt`` (+ ``MLP_GLOBAL_BEST.pt``): the dicts satae's
+        ``export_torch`` writes, the same keys and values, on the CPU,
+        ``num_batches_tracked`` 0."""
+        self._require_fitted()
+        dest = Path(dest_dir)
+        dest.mkdir(parents=True, exist_ok=True)
+        cfg = self.config
+        torch.save(convert.to_tensors(convert.sae_to_torch_state_dict(
+            *self._ae_trees(), cfg.model, cfg.data.image_size)),
+            dest / "AE_GLOBAL_BEST.pt")
+        if self.mlp is not None:
+            torch.save(convert.to_tensors(convert.mlp_to_torch_state_dict(
+                *self._mlp_trees(), cfg.model)), dest / "MLP_GLOBAL_BEST.pt")
+
+    def evaluate(self, ds: ArrayDataset) -> Dict[str, Any]:
+        """Confusion matrix, per-class metrics and the sklearn-layout report
+        over a split (the reference's final evaluation), from
+        :meth:`predict`."""
+        preds = self.predict_batched(ds.images)
+        k = self.config.model.num_classes
+        cm = M.confusion_matrix(ds.labels, preds, k)
+        out = M.per_class_metrics(cm)
+        out["confusion_matrix"] = cm
+        out["report"] = M.classification_report(
+            ds.labels, preds, k, target_names=self.classes, cm=cm)
+        return out
 
     # -- inference ---------------------------------------------------------
 
@@ -271,7 +451,8 @@ class SatAEPipeline:
                                "or load_torch()")
         if mlp and self.mlp is None:
             raise RuntimeError("no classifier: only the autoencoder is "
-                               "loaded (load_torch without mlp_pt)")
+                               "loaded (load_ae, or load_torch without "
+                               "mlp_pt)")
 
     def _folded_weights(self):
         """Folded, packed weights for the kernels, computed once per weight
@@ -371,3 +552,11 @@ def fit(config: Optional[PipelineConfig] = None, device=None,
     pipe = SatAEPipeline(config, device)
     pipe.fit(**kwargs)
     return pipe
+
+
+def encode(pipe: SatAEPipeline, images: np.ndarray) -> np.ndarray:
+    return pipe.encode(images)
+
+
+def predict(pipe: SatAEPipeline, images: np.ndarray) -> np.ndarray:
+    return pipe.predict(images)

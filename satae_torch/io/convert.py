@@ -1,10 +1,16 @@
-"""The weight carry-over: satae's parameter trees -> the reference state_dicts.
+"""The weight carry-over between satae's parameter trees and the reference
+state_dicts, both ways.
 
-The port's own copy of satae/io/torch_export.py (``sae_to_torch_state_dict``,
-``mlp_to_torch_state_dict``): it reads the numpy trees that
-:mod:`satae_torch.io.checkpoint` restores from satae's ``.msgpack``
-checkpoints and returns the reference ``SupervisedAutoencoder`` / ``MLP``
-state_dict layout that the port's modules load ``strict=True``:
+Forward, the port's own copy of satae/io/torch_export.py
+(``sae_to_torch_state_dict``, ``mlp_to_torch_state_dict``): it reads the
+numpy trees that :mod:`satae_torch.io.checkpoint` restores from satae's
+``.msgpack`` checkpoints and returns the reference ``SupervisedAutoencoder``
+/ ``MLP`` state_dict layout that the port's modules load ``strict=True``.
+Back, the port's own copy of satae/io/torch_import.py
+(``sae_from_torch_state_dict``, ``mlp_from_torch_state_dict``): a state_dict
+(tensors on any device, or numpy) -> satae's ``(params, bn_state)`` trees,
+which the port writes as checkpoints. Both ways are transposes and
+reindexing only, so a round trip is exact. The forward mapping:
 
   * conv weights: HWIO -> OIHW;
   * transposed-conv weights: satae keeps the spatially flipped
@@ -16,11 +22,14 @@ state_dict layout that the port's modules load ``strict=True``:
     output dim (and its bias) are reindexed from (H, W, C) to (C, H, W);
   * BatchNorm: scale/bias -> weight/bias, mean/var -> running_mean/var, and
     ``num_batches_tracked`` 0 (int64) so a strict load accepts the dict.
+
+The way back undoes each of these and drops ``num_batches_tracked`` (the
+BatchNorm momentum is a constant 0.1, so the counter changes nothing).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +41,9 @@ StateDict = Dict[str, np.ndarray]
 
 
 def _np(v: Any) -> np.ndarray:
+    """A tensor on any device, or array-like -> float32 numpy."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
     return np.asarray(v, np.float32)
 
 
@@ -106,6 +118,90 @@ def mlp_to_torch_state_dict(params: Params, state: Params, cfg: ModelConfig
         idx += 4 if i == 0 else 3
     _linear(sd, f"net.{idx}", params[f"fc{len(cfg.mlp_hidden)}"])
     return sd
+
+
+def _linear_back(sd: Mapping[str, Any], prefix: str) -> Dict[str, Any]:
+    return {"w": _np(sd[f"{prefix}.weight"]).T,
+            "b": _np(sd[f"{prefix}.bias"])}
+
+
+def _bn_back(sd: Mapping[str, Any], prefix: str) -> Tuple[Dict, Dict]:
+    params = {"scale": _np(sd[f"{prefix}.weight"]),
+              "bias": _np(sd[f"{prefix}.bias"])}
+    state = {"mean": _np(sd[f"{prefix}.running_mean"]),
+             "var": _np(sd[f"{prefix}.running_var"])}
+    return params, state
+
+
+def sae_from_torch_state_dict(sd: Mapping[str, Any], cfg: ModelConfig,
+                              in_ch: int = 3, image_size: int = 64
+                              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The reference ``SupervisedAutoencoder.state_dict()`` layout ->
+    satae's supervised-AE ``(params, bn_state)`` numpy trees."""
+    n = len(cfg.encoder_channels)
+    spatial = image_size // (2 ** n)
+    c_last = cfg.encoder_channels[-1]
+    got_in = int(_np(sd["enc.encoder.0.weight"]).shape[1])
+    if got_in != in_ch:
+        raise ValueError(
+            f"state_dict expects {got_in} input channels, caller declared "
+            f"{in_ch}: wrong checkpoint for this data config")
+
+    enc_p: Dict[str, Any] = {}
+    enc_s: Dict[str, Any] = {}
+    for i in range(n):
+        w = _np(sd[f"enc.encoder.{3 * i}.weight"])  # (O, I, kh, kw)
+        enc_p[f"conv{i}"] = {"w": w.transpose(2, 3, 1, 0),
+                             "b": _np(sd[f"enc.encoder.{3 * i}.bias"])}
+        enc_p[f"bn{i}"], enc_s[f"bn{i}"] = _bn_back(
+            sd, f"enc.encoder.{3 * i + 1}")
+    # encoder projection: (latent, C*H*W) -> input rows in HWC order,
+    # transposed to (H*W*C, latent)
+    w = _np(sd[f"enc.encoder.{3 * n + 1}.weight"])
+    w = w.reshape(-1, c_last, spatial, spatial).transpose(0, 2, 3, 1)
+    enc_p["proj"] = {"w": w.reshape(w.shape[0], -1).T,
+                     "b": _np(sd[f"enc.encoder.{3 * n + 1}.bias"])}
+
+    rev = tuple(reversed(cfg.encoder_channels))
+    dec_p: Dict[str, Any] = {}
+    dec_s: Dict[str, Any] = {}
+    # decoder projection: (C*H*W, latent) -> output rows (and bias) in HWC
+    # order, transposed to (latent, H*W*C)
+    w = _np(sd["dec.decoder_input.weight"])
+    w = w.reshape(rev[0], spatial, spatial, -1).transpose(1, 2, 0, 3)
+    b = _np(sd["dec.decoder_input.bias"])
+    b = b.reshape(rev[0], spatial, spatial).transpose(1, 2, 0).reshape(-1)
+    dec_p["proj"] = {"w": w.reshape(-1, w.shape[-1]).T, "b": b}
+
+    for i in range(n):
+        w = _np(sd[f"dec.decoder.{3 * i + 1}.weight"])  # (I, O, kh, kw)
+        # satae keeps the flipped equivalent-forward kernel (kh, kw, I, O)
+        dec_p[f"deconv{i}"] = {
+            "w": np.ascontiguousarray(w.transpose(2, 3, 0, 1)[::-1, ::-1]),
+            "b": _np(sd[f"dec.decoder.{3 * i + 1}.bias"]),
+        }
+        if i < n - 1:
+            dec_p[f"bn{i}"], dec_s[f"bn{i}"] = _bn_back(
+                sd, f"dec.decoder.{3 * i + 2}")
+
+    params = {"encoder": enc_p, "decoder": dec_p,
+              "head": {"fc1": _linear_back(sd, "classifier.0"),
+                       "fc2": _linear_back(sd, "classifier.2")}}
+    return params, {"encoder": enc_s, "decoder": dec_s}
+
+
+def mlp_from_torch_state_dict(sd: Mapping[str, Any], cfg: ModelConfig
+                              ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The reference ``MLP.state_dict()`` layout -> satae's MLP trees."""
+    params: Dict[str, Any] = {}
+    state: Dict[str, Any] = {}
+    idx = 0
+    for i in range(len(cfg.mlp_hidden)):
+        params[f"fc{i}"] = _linear_back(sd, f"net.{idx}")
+        params[f"bn{i}"], state[f"bn{i}"] = _bn_back(sd, f"net.{idx + 1}")
+        idx += 4 if i == 0 else 3
+    params[f"fc{len(cfg.mlp_hidden)}"] = _linear_back(sd, f"net.{idx}")
+    return params, state
 
 
 def to_tensors(sd: StateDict) -> Dict[str, torch.Tensor]:

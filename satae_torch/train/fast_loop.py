@@ -16,13 +16,16 @@ ends, which decides the same stop at the same epoch, so ``best_epoch``,
 Parameters start from PyTorch's default init drawn from a CPU generator
 seeded with ``seed`` (the same weights on every device); the augmentation
 and dropout draws come from a generator on the training device. The training
-set must hold at least one full batch. Checkpointed resume and data-parallel
-training are later slices (ROADMAP.md §1 items 9, 13).
+set must hold at least one full batch. A sweep uploads its data once
+(:func:`upload_ae_data`, :func:`upload_mlp_data`) and passes it to every
+config as ``device_data``, as satae's grid search does; without it each call
+uploads its own. Checkpointed resume and data-parallel training are later
+slices (ROADMAP.md §1 items 9, 13).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,15 +59,39 @@ def _check_full_batch(n: int, batch_size: int, what: str) -> None:
             "trainer trains on full batches only")
 
 
+def _up(a: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
+                                                        dtype=dtype)
+
+
+def upload_eval_batches(ds: ArrayDataset, batch_size: int,
+                        device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """A split as zero-weight padded batches on ``device``: (inputs
+    (nb, B, ...), int64 labels (nb, B), weights (nb, B))."""
+    x, y, w = hbm.padded_eval_batches(ds, batch_size)
+    return _up(x, device), _up(y, device, torch.long), _up(w, device)
+
+
 def upload_ae_data(train_ds: ArrayDataset, val_ds: ArrayDataset,
-                   batch_size: int, device: torch.device):
+                   batch_size: int, device: torch.device
+                   ) -> Tuple[torch.Tensor, ...]:
     """The train split (uint8 images, int64 labels) and the padded val
     batches on ``device``, uploaded once."""
-    val_imgs, val_labs, val_wts = hbm.padded_eval_batches(val_ds, batch_size)
-    up = lambda a, dtype=None: torch.from_numpy(np.ascontiguousarray(a)).to(
-        device=device, dtype=dtype)
-    return (up(train_ds.images), up(train_ds.labels, torch.long),
-            up(val_imgs), up(val_labs, torch.long), up(val_wts))
+    return (_up(train_ds.images, device),
+            _up(train_ds.labels, device, torch.long),
+            *upload_eval_batches(val_ds, batch_size, device))
+
+
+def upload_mlp_data(train_x: np.ndarray, train_y: np.ndarray,
+                    val_x: np.ndarray, val_y: np.ndarray, batch_size: int,
+                    device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The training latents (float32) and labels (int64) and the padded val
+    batches on ``device``, uploaded once."""
+    val = ArrayDataset(np.asarray(val_x, np.float32),
+                       np.asarray(val_y, np.int64))
+    return (_up(np.asarray(train_x, np.float32), device),
+            _up(train_y, device, torch.long),
+            *upload_eval_batches(val, batch_size, device))
 
 
 def train_supervised_ae(
@@ -80,11 +107,13 @@ def train_supervised_ae(
     patience: int = 15,
     seed: int = 0,
     log: Optional[LogFn] = None,
+    device_data: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> TrainResult:
-    """Train one (alpha, lr) supervised-AE config with early stopping."""
+    """Train one (alpha, lr) supervised-AE config with early stopping.
+    ``device_data``: :func:`upload_ae_data` of the same splits."""
     _check_full_batch(len(train_ds), data_cfg.batch_size, "train split")
-    images, labels, val_imgs, val_labs, val_wts = upload_ae_data(
-        train_ds, val_ds, data_cfg.batch_size, device)
+    images, labels, val_imgs, val_labs, val_wts = device_data or \
+        upload_ae_data(train_ds, val_ds, data_cfg.batch_size, device)
     model = SupervisedAE(model_cfg, data_cfg.channels, data_cfg.image_size)
     init_(model, torch.Generator().manual_seed(seed))
     model.to(device)
@@ -139,15 +168,13 @@ def train_mlp(
     batch_size: int = 64,
     seed: int = 0,
     log: Optional[LogFn] = None,
+    device_data: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> TrainResult:
-    """Train the latent MLP for ``epochs``; best epoch by val accuracy."""
+    """Train the latent MLP for ``epochs``; best epoch by val accuracy.
+    ``device_data``: :func:`upload_mlp_data` of the same arrays."""
     _check_full_batch(len(train_y), batch_size, "train set")
-    val = ArrayDataset(np.asarray(val_x, np.float32),
-                       np.asarray(val_y, np.int64))
-    vx, vy, vw = (torch.from_numpy(a).to(device)
-                  for a in hbm.padded_eval_batches(val, batch_size))
-    xs = torch.from_numpy(np.asarray(train_x, np.float32)).to(device)
-    ys = torch.from_numpy(np.asarray(train_y, np.int64)).to(device)
+    xs, ys, vx, vy, vw = device_data or upload_mlp_data(
+        train_x, train_y, val_x, val_y, batch_size, device)
     model = MLP(model_cfg, input_dim=train_x.shape[-1])
     init_(model, torch.Generator().manual_seed(seed))
     model.to(device)

@@ -89,14 +89,29 @@ def test_reuse_ae_after_load_trains_only_the_mlp(tmp_path, test_split):
     assert summary.test_acc == float((preds == test_split.labels).mean())
 
 
-def test_fit_refusals(monkeypatch):
-    pipe = SatAEPipeline(CFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pipe.fit(grid=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pipe.fit(out_dir="run")
+def test_fit_refusals(monkeypatch, tmp_path):
+    """What is not ported raises before any work, naming its ROADMAP item:
+    the vmap and sharded sweep engines, in-flight resume, curve plots; and
+    a fit never drops to the CPU by itself."""
+    run = tmp_path / "run"
+    rt = lambda **kw: dataclasses.replace(CFG, runtime=TC.RuntimeConfig(**kw))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        SatAEPipeline(rt(parallel_configs=True), device="cpu").fit(
+            grid=True, out_dir=str(run))
+    with pytest.raises(NotImplementedError, match="item 13"):
+        SatAEPipeline(rt(n_devices=2), device="cpu")
+    resume = dataclasses.replace(CFG, ae=dataclasses.replace(
+        CFG.ae, checkpoint_every=1))
+    for grid in (False, True):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            SatAEPipeline(resume, device="cpu").fit(grid=grid,
+                                                    out_dir=str(run))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        SatAEPipeline(rt(save_grid_curves=True), device="cpu").fit(
+            grid=True, out_dir=str(run))
     with pytest.raises(ValueError, match="reuse_ae"):
-        pipe.fit(reuse_ae=True)
+        SatAEPipeline(CFG, device="cpu").fit(reuse_ae=True)
+    assert not run.exists()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        satae_torch.fit(CFG)
+        satae_torch.fit(CFG, grid=True)
