@@ -74,10 +74,13 @@ Phases, in order; any failure exits non-zero:
              30). Launch counts zeroed before and read after must equal the
              counts derived from the steps, eval batches and extraction
              chunks; losses finite and falling, test accuracy above chance;
-             then predict through the fitted pipeline.
+             then predict through the fitted pipeline, and the same fit
+             again, which must repeat bit for bit (weights, summary).
 11. train time -- each K1 launch of a batch-64 train step (forward and
              backward), measured as in 5; the AE and MLP epoch bodies' step
-             times; a profile of a few AE steps.
+             times, the AE step with cuDNN's default and with its
+             deterministic algorithms (fit's) in turns; a profile of a few
+             AE steps each way.
 12. grid  -- SatAEPipeline.fit(grid=True, out_dir=...) at the recorded
              cross-framework gate (benchmarks/torch_pipeline_parity.py):
              synthetic-hard per_class 256, full width, batch 64, seed 0, AE
@@ -896,6 +899,20 @@ def main() -> int:
     fit_pred_acc = float((fit_preds == test.labels).mean())
     check(fit_pred_acc == summary.test_acc, f"predict after fit scores "
           f"{fit_pred_acc}, fit reported {summary.test_acc}")
+    t0 = time.perf_counter()
+    refit = SatAEPipeline(fit_cfg)
+    summary_again = refit.fit(raw, grid=False)
+    refit_s = time.perf_counter() - t0
+    differ = [k for a, b in ((fitted.ae, refit.ae), (fitted.mlp, refit.mlp))
+              for k, v in a.state_dict().items()
+              if not torch.equal(v, b.state_dict()[k])]
+    print(f"fit again: {refit_s:.2f} s; tensors that differ from the first "
+          f"fit: {len(differ)}", flush=True)
+    check(not differ, f"a second fit differs in {differ}")
+    for f in ("ae_val_loss", "mlp_val_acc", "test_acc"):
+        check(getattr(summary_again, f) == getattr(summary, f),
+              f"a second fit gives {f} {getattr(summary_again, f)}, the "
+              f"first {getattr(summary, f)}")
 
     # -- 11. training times -------------------------------------------------
     print(f"per launch, batch-{BATCH} train steps (measured in phase 5):",
@@ -911,16 +928,26 @@ def main() -> int:
         return (time.perf_counter() - t0_) / n_steps * 1e3
 
     n_time = 50
-    with cudnn.flags(enabled=True, benchmark=False, deterministic=False,
-                     allow_tf32=False):
-        ae = SupervisedAE(mcfg, dcfg.channels, dcfg.image_size)
-        init_(ae, torch.Generator().manual_seed(0))
-        ae.to(dev)
-        ae_opt = adam_init(list(ae.parameters()))
-        order = hbm.epoch_order(n_tr, BATCH, 0, 0)
-        ae_run = lambda n_: hbm.ae_train_epoch(
-            ae, ae_opt, imgs_tr, labs_tr, order[:n_], 35.0, 5e-3, dcfg, g)
-        ae_step_ms = time_epoch_body(ae_run, n_time)
+    ae = SupervisedAE(mcfg, dcfg.channels, dcfg.image_size)
+    init_(ae, torch.Generator().manual_seed(0))
+    ae.to(dev)
+    ae_opt = adam_init(list(ae.parameters()))
+    order = hbm.epoch_order(n_tr, BATCH, 0, 0)
+    ae_run = lambda n_: hbm.ae_train_epoch(
+        ae, ae_opt, imgs_tr, labs_tr, order[:n_], 35.0, 5e-3, dcfg, g)
+    # the AE step with cuDNN's default algorithms and with the deterministic
+    # ones fit asks for, in turns; then a profile of 5 steps each way
+    det_flags = lambda det: cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=det, allow_tf32=False)
+    step_ms = {False: [], True: []}
+    for det in (False, True, True, False):
+        with det_flags(det):
+            step_ms[det].append(time_epoch_body(ae_run, n_time))
+    ae_step_ms, ae_step_det_ms = (sum(step_ms[d]) / 2 for d in (False, True))
+    with det_flags(True):
+        det_wall, det_dev, det_events = profile_device(lambda: ae_run(5))
+    with det_flags(False):
+        tr_wall, tr_dev, tr_events = profile_device(lambda: ae_run(5))
         mlp = MLP(mcfg)
         init_(mlp, torch.Generator().manual_seed(1))
         mlp.to(dev)
@@ -929,16 +956,21 @@ def main() -> int:
         mlp_run = lambda n_: hbm.mlp_train_epoch(
             mlp, mlp_opt, xs, labs_tr, order[:n_], 1e-4, 1e-4, g)
         mlp_step_ms = time_epoch_body(mlp_run, n_time)
-        tr_wall, tr_dev, tr_events = profile_device(lambda: ae_run(5))
     tr_top = top_ops(tr_events, 12)
     print(f"train steps (epoch bodies, {n_time} steps of batch {BATCH}, "
           f"TF32 off): AE {ae_step_ms:.3f} ms/step "
-          f"({BATCH / ae_step_ms * 1e3:.1f} images/s), MLP "
+          f"({BATCH / ae_step_ms * 1e3:.1f} images/s) with cuDNN's default "
+          f"algorithms, {ae_step_det_ms:.3f} ms/step with the deterministic "
+          f"ones fit uses (runs in turns: default "
+          f"{[round(x, 3) for x in step_ms[False]]}, deterministic "
+          f"{[round(x, 3) for x in step_ms[True]]}); MLP "
           f"{mlp_step_ms:.3f} ms/step ({BATCH / mlp_step_ms * 1e3:.1f} "
           f"images/s); card {card}", flush=True)
     print(f"profile of 5 AE steps: wall {tr_wall:.3f} ms, device busy "
           f"{tr_dev:.3f} ms ({100 * tr_dev / tr_wall:.1f}%), idle "
           f"{100 * (1 - tr_dev / tr_wall):.1f}%, {len(tr_events)} device "
+          f"events; with the deterministic algorithms: wall {det_wall:.3f} "
+          f"ms, device busy {det_dev:.3f} ms, {len(det_events)} device "
           "events", flush=True)
     for t, count, key in tr_top:
         print(f"  {t:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
@@ -999,7 +1031,11 @@ def main() -> int:
         mlp_parity_other_lr=mlp_other_lr, fit_s=fit_s, fit_summary=summary.__dict__,
         fit_history=hist, fit_launches=fit_launches,
         fit_expected_launches=expected, fit_predict_acc=fit_pred_acc,
+        refit_s=refit_s,
         train_rows=train_rows, ae_step_ms=ae_step_ms,
+        ae_step_det_ms=ae_step_det_ms, ae_step_ms_in_turns=step_ms,
+        det_profile_wall_ms=det_wall, det_profile_device_ms=det_dev,
+        det_profile_top=top_ops(det_events, 12),
         mlp_step_ms=mlp_step_ms, train_profile_wall_ms=tr_wall,
         train_profile_device_ms=tr_dev, train_profile_top=tr_top, grid=grid,
         **report), indent=1))

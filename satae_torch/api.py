@@ -11,7 +11,10 @@ the sweeps' resumable stores (``validation_losses.json``,
 selection meta, ``fit_summary.json``, ``classes.json`` and the encoder
 fingerprint that guards the MLP store (``mlp_provenance.json``). A run
 directory written by either package is loaded and resumed by the other.
-Training is float32 with TF32 off for cuDNN. On a CUDA device every linear
+Training is float32, with TF32 off and only deterministic algorithms for
+cuDNN, so a fit repeats bit for bit on the card as it does on the CPU and
+as satae's does (a training run is chaotic: one nondeterministic
+convolution gradient moves its outcome). On a CUDA device every linear
 layer's forward and backward runs on kernel K1, and extraction runs on K2 +
 K1; the convolutions, transposed convolutions, BatchNorm, losses and Adam
 are stock PyTorch ops, as they are XLA ops in satae.
@@ -162,8 +165,7 @@ class SatAEPipeline:
                              "call load(), load_ae() or load_torch() first")
         cudnn = torch.backends.cudnn
         with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic,
-                         allow_tf32=False):
+                         deterministic=True, allow_tf32=False):
             return self._fit(raw, grid, log, out_dir, reuse_ae)
 
     def _fit(self, raw: Optional[RawDataset], grid: bool,

@@ -331,3 +331,23 @@ def test_grid_fit_without_out_dir_and_reuse_ae(tmp_path, splits):
         SatAEPipeline(CFG, device="cpu").load(str(tmp_path / "dst"))
         .predict(splits.test.images), reuse.predict(splits.test.images))
     shutil.rmtree(tmp_path / "dst")
+
+
+def test_fit_trains_with_deterministic_cudnn_and_tf32_off(monkeypatch):
+    """Every config of a grid fit trains with cuDNN's deterministic
+    algorithms and TF32 off (on the card that makes a fit repeat bit for
+    bit); the caller's settings come back afterwards."""
+    seen = []
+    real = tfast.train_supervised_ae
+
+    def spy(*args, **kw):
+        cudnn = torch.backends.cudnn
+        seen.append((cudnn.deterministic, cudnn.allow_tf32))
+        return real(*args, **kw)
+    monkeypatch.setattr(tfast, "train_supervised_ae", spy)
+    before = (torch.backends.cudnn.deterministic,
+              torch.backends.cudnn.allow_tf32)
+    SatAEPipeline(CFG, device="cpu").fit(grid=True)
+    assert seen == [(True, False)] * len(ALPHAS) * len(AE_LRS)
+    assert (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.allow_tf32) == before
