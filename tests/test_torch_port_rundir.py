@@ -242,6 +242,32 @@ def test_port_run_dir_loads_and_resumes_in_satae(port_run, test_split,
         assert (run / n).read_bytes() == data, n
 
 
+def test_single_config_fit_writes_satae_run_dir(test_split, tmp_path):
+    """fit(grid=False, out_dir=...) writes what satae's single-config fit
+    writes (its plots aside): both winners with their selection meta, the
+    summary and the classes; satae loads the directory and predicts the
+    same."""
+    run = tmp_path / "run"
+    pipe = SatAEPipeline(dataclasses.replace(CFG, ae=TC.AETrainConfig(
+        max_epochs=2), mlp=TC.MLPTrainConfig(epochs=2)), device="cpu")
+    summary = pipe.fit(out_dir=str(run))
+    assert sorted(f.name for f in run.iterdir()) == [
+        "ae_global_best.json", "ae_global_best.msgpack", "classes.json",
+        "fit_summary.json", "mlp_global_best.json", "mlp_global_best.msgpack",
+        "mlp_provenance.json"]
+    ae_meta = json.loads((run / "ae_global_best.json").read_text())
+    mlp_meta = json.loads((run / "mlp_global_best.json").read_text())
+    assert ae_meta["alpha"] == 35.0 and ae_meta["lr"] == 5e-3
+    assert ae_meta["best_val_loss"] == summary.ae_val_loss
+    assert mlp_meta["lr"] == 1e-4
+    assert mlp_meta["best_val_acc"] == summary.mlp_val_acc
+    assert json.loads((run / "fit_summary.json").read_text())[
+        "ae_hparams"] == summary.ae_hparams
+    np.testing.assert_array_equal(
+        JaxPipeline(JCFG_PIPE).load(str(run)).predict(test_split.images),
+        pipe.predict(test_split.images))
+
+
 # -- (e) from satae to the port ------------------------------------------------
 
 def test_satae_run_dir_resumes_in_the_port(satae_run, test_split, tmp_path,
