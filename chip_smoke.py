@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (satae_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the smoke run, phases 1-12
+    python3 chip_smoke.py                  # the smoke run, phases 1-16
     python3 chip_smoke.py --ab PARENT_DIR  # A/B of the kernels' times
     python3 chip_smoke.py --split-sweep    # K1's time for each split count
 
@@ -97,15 +97,44 @@ Phases, in order; any failure exits non-zero:
              fit_summary.json's test accuracy; save + load and export_torch
              + load_torch must predict the same. Seconds per AE config and
              per MLP lr are printed with the card line.
+13. bf16 kernels -- the bf16 instantiations of K1 (forward and backward)
+             and K2 against their plain versions on the same card: the
+             serving projection, every K1 launch of a batch-64 AE step in
+             its layout, small, odd-K, odd-N and odd-offset products (the
+             2-byte copies) in every layout, SPLIT_SHAPES in every layout
+             and activation, the backward against fused_matmul_bwd_plain,
+             K2 at the four encoder layers of a 512-image chunk and at Cin
+             3, 5, 6, 8 and Cout 9, 40, 72. Within one bf16 ulp of the
+             reference + 1e-6 and >= 99 % bit-equal; repeated calls bitwise
+             equal. Then every bf16 launch of the main paths timed as in 5,
+             beside bf16 cuBLAS / cuDNN and the bf16 bounds (2 bytes an
+             element, 989 TFLOP/s).
+14. bf16 serve -- benchmarks/full_run_hard_bf16 served with compute_dtype
+             "bfloat16": launches per dtype (K2 4 and K1 1 in bf16, K1 3 in
+             float32 per chunk), accuracy within 0.004 of satae's own bf16
+             serving (2,649 / 2,990), the same fold on the plain kernel
+             versions (latents within 2^-7 relative L2, predictions equal on
+             >= 99.9 %) and the plain modules in bf16 (>= 99 %); images/s.
+15. bf16 fit -- phase 10's fit in bf16, run twice (bit for bit), and under
+             throughput_config (batch 1024); exact launches per dtype,
+             float32 master state; then the AE and MLP steps at batch 1024,
+             bf16 and float32 in turns.
+16. bf16 grid -- phase 12 in bf16 into chiprun_out/grid_run_bf16: exact
+             launches per dtype, satae's recorded winners, and test accuracy
+             within the gate's band of satae's recorded one, or within two
+             standard errors of a 380-image accuracy if wider (a bf16 run
+             trains another model); resume, evaluate, save and export.
 
 The second-to-last line holds the kernels' numbers as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
-``--ab PARENT_DIR`` times every K1 and K2 launch of phases 5 and 11 (ms and
-device us per launch) in the tree at PARENT_DIR (another checkout of this
-repository, with its own satae_torch) and in this one, in turns: parent,
-this, this, parent, each in a process of its own that builds that tree's
-kernels. It prints one line per launch and writes chiprun_out/ab.json.
+``--ab PARENT_DIR`` times every K1 and K2 launch of phases 5, 11 and 13 that
+both trees have (ms and device us per launch) in the tree at PARENT_DIR
+(another checkout of this repository, with its own satae_torch) and in this
+one, in turns: parent, this, this, parent, each in a process of its own that
+builds that tree's kernels. The float32 outputs at the shapes of phases 3
+and 4 must be bitwise equal in all four runs. It prints one line per launch
+and writes chiprun_out/ab.json.
 
 ``--split-sweep`` times K1 at the long-K products (the serving projection
 512x4096x64 and the training one, 64x4096x64 with an (N, K) weight) for 1 to
@@ -117,6 +146,7 @@ measurement the plan rests on. It writes chiprun_out/split_sweep.json.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import itertools
 import json
 import math
@@ -129,8 +159,19 @@ from types import SimpleNamespace
 
 REPO = Path(__file__).resolve().parent
 CKPT = REPO / "benchmarks" / "full_run_hard_f32"
+CKPT_BF16 = REPO / "benchmarks" / "full_run_hard_bf16"
+# satae's own bf16 serving of CKPT_BF16 on the 2,990-image test split
+# (its XLA path on a CPU: 2,649 right); fit_summary.json's 0.885284 was
+# scored on a TPU
+SATAE_BF16_ACC = 2649 / 2990
+# what phases 10 and 12 gave on the H100 before the bf16 instantiations
+# existed (PERF.md §6): a fit repeats bit for bit and the float32 kernels
+# kept their arithmetic, so they give these again
+RECORDED_FIT_AE_VAL_LOSS = 1.9652304556856188
+RECORDED_GRID_TEST_ACC = 0.7894736842105263
 F32_PEAK = 67e12  # FLOP/s, H100 SXM, CUDA cores, dense
 TF32X3_PEAK = 495e12 / 3  # FLOP/s: 3xTF32, three TF32 products per product
+BF16_PEAK = 989e12  # FLOP/s, H100 SXM, bf16 on tensor cores, dense
 HBM_PEAK = 3.35e12  # bytes/s, H100 SXM
 ACTS = ("none", "relu", "sigmoid")
 CHUNK = 512
@@ -140,11 +181,61 @@ PARITY_STEPS = 10
 SPLIT_SHAPES = ((CHUNK, 4096, 64), (BATCH, 4096, 64), (BATCH, 4095, 64),
                 (100, 4100, 70), (33, 1000, 10))
 LAYOUTS = tuple(itertools.product((False, True), repeat=2))
+# phase 3's K1 shapes: the serving path at chunk 512 (projection, fc0, fc1
+# with BN folded, fc2), the JAX package's awkward ones, and 8192 x 4096 x 64,
+# whose 128 tiles take one split: all of K in one block, the case that holds
+# the per-slice accumulation
+K1_SHAPES = ((CHUNK, 4096, 64), (CHUNK, 64, 128), (CHUNK, 128, 64),
+             (CHUNK, 64, 10), (64, 4096, 64), (64, 64, 128), (7, 33, 10),
+             (1, 64, 10), (8192, 4096, 64))
+# phase 4's K2 shapes (n, hw, cin, cout): the four encoder layers of a
+# 512-image chunk, then Cin % 4 != 0 and ragged 32/64-wide tiles
+K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
+    zip((3, 32, 64, 128), (32, 64, 128, 256)))) + (
+        (3, 7, 5, 9), (2, 9, 6, 40), (3, 11, 8, 72))
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def counts(**given) -> dict:
+    """Launch counts as satae_torch.kernels.launch_counts() gives them, with
+    every kernel and dtype not in ``given`` at 0."""
+    names = ("fused_gemm", "fused_gemm_bwd", "conv2d_bn_act")
+    out = {n + s: 0 for s in ("", "_bf16") for n in names}
+    check(set(given) <= set(out), f"unknown kernel names {set(given)}")
+    out.update(given)
+    return out
+
+
+def fit_launches(n_split, bs: int, ep_ae: int, ep_mlp: int, mcfg,
+                 bf16: bool, n_lr: int = 1, test_b: int = 0) -> dict:
+    """The launches of a fit: ``ep_ae`` AE epochs (summed over its configs)
+    and ``ep_mlp`` MLP epochs (over its lrs) of n_train // bs steps and
+    ceil(n_val / bs) eval batches each; extraction of the three splits in
+    extract_chunk chunks; ``n_lr`` MLP sweeps scoring ``test_b`` test
+    batches each; the winner's final test evaluation. A linear layer is one
+    K1 launch forward and two backward (the MLP's first layer one: its input
+    needs no gradient); an extraction chunk one K2 launch per encoder layer
+    and one K1 launch. The AE's launches and extraction run in bf16 under
+    the bf16 recipe, the MLP's always in float32."""
+    from satae_torch.train.extract import extract_chunk
+
+    n_tr, n_va, n_te = n_split
+    steps, val_b = n_tr // bs, -(-n_va // bs)
+    chunks = sum(-(-n // extract_chunk(n, bs)) for n in (n_tr, n_va, n_te))
+    n_lin_ae, n_lin_mlp = 4, len(mcfg.mlp_hidden) + 1
+    s = "_bf16" if bf16 else ""
+    out = counts(
+        fused_gemm=(ep_mlp * (steps + val_b) * n_lin_mlp
+                    + n_lr * test_b * n_lin_mlp + n_lin_mlp),
+        fused_gemm_bwd=ep_mlp * steps * (2 * n_lin_mlp - 1))
+    out["fused_gemm" + s] += ep_ae * (steps + val_b) * n_lin_ae + chunks
+    out["fused_gemm_bwd" + s] += ep_ae * steps * 2 * n_lin_ae
+    out["conv2d_bn_act" + s] += chunks * len(mcfg.encoder_channels)
+    return out
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -163,14 +254,17 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bounds(ops: float, nbytes: float) -> dict:
+def bounds(ops: float, nbytes: float, bf16: bool = False) -> dict:
     """The least time for the work, ms: the larger of the bytes over the
     memory rate and the operations over the peak rate, at 3xTF32's
-    (bound_ms, the kernels' arithmetic) and at float32's on CUDA cores
-    (bound_f32_ms), each with what bounds it."""
+    (bound_ms, the float32 kernels' arithmetic) and at float32's on CUDA
+    cores (bound_f32_ms), or for bf16 operands at bf16's on the tensor cores
+    (bound_ms only), each with what bounds it."""
     t_bytes = nbytes / HBM_PEAK * 1e3
     out = {}
-    for key, peak in (("bound", TF32X3_PEAK), ("bound_f32", F32_PEAK)):
+    peaks = ((("bound", BF16_PEAK),) if bf16 else
+             (("bound", TF32X3_PEAK), ("bound_f32", F32_PEAK)))
+    for key, peak in peaks:
         t_ops = ops / peak * 1e3
         out[f"{key}_ms"] = max(t_ops, t_bytes)
         out[f"{key}_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -225,14 +319,24 @@ def launch_specs():
     return specs
 
 
-def kernel_rows(mods, reference: bool = True) -> list:
+def bf16_launch(path: str, layer: str) -> bool:
+    """Whether a launch of :func:`launch_specs` runs in bf16 under satae's
+    bf16 recipe: the serving chunk's convolutions and projection, and every
+    K1 launch of the AE step. The MLP stays float32."""
+    return path == "ae" or (path == "serve" and (layer.startswith("conv")
+                                                 or layer == "proj"))
+
+
+def kernel_rows(mods, reference: bool = True, bf16: bool = False) -> list:
     """One row per launch of :func:`launch_specs`, on the kernels of
     ``mods`` (a namespace with fused_gemm and conv2d_bn_act, and with
     ``reference`` their plain versions too): back-to-back ms (CUDA events)
-    and device us per launch (torch.profiler) of the kernel, both bounds,
+    and device us per launch (torch.profiler) of the kernel, its bounds,
     and with ``reference`` the plain version's ms and the one library call's
     ms and device us (torch.matmul, or cuDNN's F.conv2d with bias,
-    channels-last; TF32 off)."""
+    channels-last; TF32 off). With ``bf16`` the launches of the bf16 recipe
+    (:func:`bf16_launch`) on bf16 operands (scale and shift float32), the
+    library calls in bf16 too, each row's kernel named with ``_bf16``."""
     import torch
     import torch.nn.functional as F
 
@@ -240,22 +344,25 @@ def kernel_rows(mods, reference: bool = True) -> list:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
+    dt, size = (torch.bfloat16, 2.0) if bf16 else (torch.float32, 4.0)
 
     def rand(*shape, lo=-1.0, hi=1.0):
         return torch.rand(*shape, device=dev, generator=g) * (hi - lo) + lo
 
     rows = []
     for path, layer, kind, args in launch_specs():
+        if bf16 and not bf16_launch(path, layer):
+            continue
         if kind == "k2":
             n, hw, cin, cout = args
-            x = rand(n, hw, hw, cin, lo=0.0)
-            w = rand(3, 3, cin, cout) / (9 * cin) ** 0.5
+            x = rand(n, hw, hw, cin, lo=0.0).to(dt)
+            w = (rand(3, 3, cin, cout) / (9 * cin) ** 0.5).to(dt)
             scale, shift = rand(cout, lo=0.5, hi=1.5), rand(cout, lo=-0.3,
                                                             hi=0.3)
             oh = hw // 2
             m, k = n * oh * oh, 9 * cin
             shape, trans, name = [n, hw, hw, cin, cout], None, "conv2d_bn_act"
-            nbytes = 4.0 * (x.numel() + w.numel() + 2 * cout + m * cout)
+            nbytes = size * (x.numel() + w.numel() + m * cout) + 8.0 * cout
             kern = lambda: mods.conv2d_bn_act(x, w, scale, shift, 2, 1,
                                               "relu")
             plain = lambda: mods.conv2d_bn_act_plain(x, w, scale, shift, 2,
@@ -263,20 +370,21 @@ def kernel_rows(mods, reference: bool = True) -> list:
             w_oihw = w.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last view of NHWC
-            lib = lambda: F.conv2d(x_nchw, w_oihw, shift, stride=2, padding=1)
+            bias = shift.to(dt)
+            lib = lambda: F.conv2d(x_nchw, w_oihw, bias, stride=2, padding=1)
             n_out = cout
         else:
             if kind == "k1":
                 m, k, n_out, act = args
-                a, b = torch.randn(m, k, device=dev, generator=g), \
-                    rand(k, n_out) / k ** 0.5
+                a, b = torch.randn(m, k, device=dev, generator=g).to(dt), \
+                    (rand(k, n_out) / k ** 0.5).to(dt)
                 ta = tb = False
                 av, bv = a, b
             else:
                 a_shape, b_shape, ta, tb = args
                 act = "none"
-                a = torch.randn(*a_shape, device=dev, generator=g)
-                b = torch.randn(*b_shape, device=dev, generator=g)
+                a = torch.randn(*a_shape, device=dev, generator=g).to(dt)
+                b = torch.randn(*b_shape, device=dev, generator=g).to(dt)
                 av, bv = (a.t() if ta else a), (b.t() if tb else b)
                 m, k, n_out = av.shape[0], av.shape[1], bv.shape[1]
             shape, trans = [m, k, n_out], [ta, tb]
@@ -284,15 +392,16 @@ def kernel_rows(mods, reference: bool = True) -> list:
                     else "fused_gemm_bwd")
             scale, shift = rand(n_out, lo=0.5, hi=1.5), rand(n_out, lo=-0.3,
                                                             hi=0.3)
-            nbytes = 4.0 * (m * k + k * n_out + 2 * n_out + m * n_out)
+            nbytes = size * (m * k + k * n_out + m * n_out) + 8.0 * n_out
             kern = lambda: mods.fused_gemm(a, b, scale, shift, act, ta, tb)
             plain = lambda: mods.fused_matmul_plain(av, bv, scale, shift, act)
             lib = lambda: torch.matmul(av, bv)
         reps = 20 if path == "serve" else 50
-        row = dict(kernel=name, path=path, layer=layer, shape=shape,
-                   trans=trans, ms=time_ms(kern, reps=reps),
-                   device_us=device_us(kern),
-                   **bounds(2.0 * m * k * n_out, nbytes))
+        row = dict(kernel=name + ("_bf16" if bf16 else ""), path=path,
+                   layer=layer, shape=shape, trans=trans,
+                   dtype="bf16" if bf16 else "float32",
+                   ms=time_ms(kern, reps=reps), device_us=device_us(kern),
+                   **bounds(2.0 * m * k * n_out, nbytes, bf16))
         if reference:
             row.update(plain_ms=time_ms(plain, reps=reps),
                        library_ms=time_ms(lib, reps=reps),
@@ -306,11 +415,12 @@ def print_rows(rows) -> None:
         ref = (f"  plain {r['plain_ms']:.4f}  library {r['library_ms']:.4f} "
                f"ms {r['library_device_us']:.1f} us" if "plain_ms" in r
                else "")
-        print(f"  {r['kernel']:14s} {r['path']:5s} {r['layer']:10s} "
+        print(f"  {r['kernel']:19s} {r['path']:5s} {r['layer']:10s} "
               f"{str(r['shape']):24s} trans {str(r['trans']):14s} "
               f"ms {r['ms']:.4f}  device {r['device_us']:.1f} us{ref}  "
-              f"bound {r['bound_ms']:.5f} ({r['bound_by']}), f32 "
-              f"{r['bound_f32_ms']:.5f} ({r['bound_f32_by']})", flush=True)
+              f"bound {r['bound_ms']:.5f} ({r['bound_by']})"
+              + (f", f32 {r['bound_f32_ms']:.5f} ({r['bound_f32_by']})"
+                 if "bound_f32_ms" in r else ""), flush=True)
 
 
 def max_err(out, ref, what: str, atol: float = 1e-4,
@@ -326,6 +436,214 @@ def max_err(out, ref, what: str, atol: float = 1e-4,
     check(bad == 0, f"{what}: {bad} elements outside {atol:g} + {rtol:g}*|ref| "
           f"(max |err| {float(err.max()):.3g})")
     return float(err.max())
+
+
+def bf16_ulp(ref):
+    """One bf16 ulp of each value of ``ref`` (8 significant bits):
+    2^(floor(log2 |v|) - 7), between 2^-8 and 2^-7 of |v|; 0 at 0."""
+    import torch
+
+    r = ref.float().abs()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+    return torch.where(r > 0, ulp, torch.zeros_like(r))
+
+
+def ulp_err(out, ref, what: str, bound=None, min_equal: float = 0.99):
+    """A bf16 kernel's output against its plain version's on the same card:
+    |err| <= one bf16 ulp of ref (or ``bound``) + 1e-6 everywhere, and at
+    least ``min_equal`` of the values bit-equal. Returns (max |err|, share
+    bit-equal)."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape, f"{what}: shape {tuple(out.shape)} vs "
+          f"{tuple(ref.shape)}")
+    check(out.dtype == ref.dtype, f"{what}: dtype {out.dtype} vs {ref.dtype}")
+    check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+    err = (out.float() - ref.float()).abs()
+    lim = (bf16_ulp(ref) if bound is None else bound) + 1e-6
+    bad = int((err > lim).sum())
+    check(bad == 0, f"{what}: {bad} elements beyond one bf16 ulp + 1e-6 "
+          f"(max |err| {float(err.max()):.3g}, {float((err / lim).max()):.3g}"
+          " x the bound)")
+    equal = float((out == ref).float().mean())
+    check(equal >= min_equal, f"{what}: only {equal:.5f} bit-equal")
+    return float(err.max()), equal
+
+
+def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
+    """Phase 13: the bf16 instantiations of K1 (forward and backward) and K2
+    against their plain versions on the card, at every bf16 launch of the
+    main paths and the awkward shapes; repeated calls bitwise equal; then,
+    with ``timed``, their times beside the float32 kernels' and bf16
+    cuDNN/cuBLAS."""
+    import torch
+
+    from satae_torch.kernels.conv import conv2d_bn_act, conv2d_bn_act_plain
+    from satae_torch.kernels.matmul import (fused_gemm, fused_matmul,
+                                            fused_matmul_bwd_plain,
+                                            fused_matmul_plain)
+
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return torch.rand(*shape, device=dev, generator=g) * (hi - lo) + lo
+
+    def affine(n):
+        return rand(n, lo=0.5, hi=1.5), rand(n, lo=-0.3, hi=0.3)
+
+    def operands(m, k, n, ta=False, tb=False, offset=0):
+        """bf16 A (m, k) and B (k, n) in their buffers' layouts (A as a
+        (k, m) buffer with ``ta``, B as an (n, k) one with ``tb``), the
+        buffers starting ``offset`` elements into their storage."""
+        a = torch.randn(m, k, device=dev, generator=g).to(bf)
+        b = (rand(k, n, lo=-1.0, hi=1.0) / k ** 0.5).to(bf)
+
+        def buf(t, trans):
+            t = t.t().contiguous() if trans else t
+            if not offset:
+                return t
+            store = torch.empty(t.numel() + offset, device=dev, dtype=bf)
+            view = store[offset:].view(t.shape)
+            view.copy_(t)
+            return view
+        return a, b, buf(a, ta), buf(b, tb)
+
+    res = dict(k1=[], k2=[], bwd=[])
+    k1_err, k1_min_eq = 0.0, 1.0
+
+    def k1_case(what, m, k, n, ta, tb, acts, offset=0, repeat=False):
+        nonlocal k1_err, k1_min_eq
+        a, b, a_buf, b_buf = operands(m, k, n, ta, tb, offset)
+        scale, shift = affine(n)
+        for act in acts:
+            out = fused_gemm(a_buf, b_buf, scale, shift, act, ta, tb)
+            err, eq = ulp_err(out, fused_matmul_plain(a, b, scale, shift, act),
+                              f"bf16 K1 {what} {(m, k, n)} trans_a={ta} "
+                              f"trans_b={tb} offset {offset} {act}")
+            k1_err, k1_min_eq = max(k1_err, err), min(k1_min_eq, eq)
+            res["k1"].append(dict(what=what, shape=[m, k, n], trans=[ta, tb],
+                                  offset=offset, act=act, max_abs_err=err,
+                                  bit_equal=eq))
+        if repeat:
+            first = fused_gemm(a_buf, b_buf, scale, shift, "relu", ta, tb)
+            check(all(torch.equal(first, fused_gemm(
+                a_buf, b_buf, scale, shift, "relu", ta, tb))
+                for _ in range(4)), f"bf16 K1 {(m, k, n)} trans_a={ta} "
+                f"trans_b={tb}: repeated calls differ bitwise")
+
+    # the serving projection of a 512-image chunk, and 8192 rows (one split)
+    k1_case("serve proj", CHUNK, 4096, 64, False, False, ACTS, repeat=True)
+    k1_case("one split", 8192, 4096, 64, False, False, ("none",))
+    # every K1 launch of a batch-64 AE step, in its own layout
+    for path, layer, kind, args in launch_specs():
+        if path == "ae":
+            a_shape, b_shape, ta, tb = args
+            m, k = a_shape[::-1] if ta else a_shape
+            n = b_shape[0] if tb else b_shape[1]
+            k1_case(f"AE {layer}", m, k, n, ta, tb, ("none",), repeat=True)
+    # the small products of the JAX package's kernel tests, odd K and N (the
+    # 2-byte copies), a buffer at an odd element offset
+    for m, k, n in ((7, 33, 10), (1, 64, 10), (33, 1001, 11), (5, 17, 3)):
+        for ta, tb in LAYOUTS:
+            k1_case("small", m, k, n, ta, tb, ACTS)
+    for ta, tb in LAYOUTS:
+        k1_case("odd offset", 64, 4096, 64, ta, tb, ("none",), offset=1)
+        k1_case("odd offset", 33, 40, 24, ta, tb, ("relu",), offset=3)
+    # the split-K and ragged-K shapes in every layout and activation
+    for m, k, n in SPLIT_SHAPES:
+        for ta, tb in LAYOUTS:
+            k1_case("split-K", m, k, n, ta, tb, ACTS, repeat=True)
+    print(f"bf16 K1 vs plain: {len(res['k1'])} cases, max |err| "
+          f"{k1_err:.3g}, least share bit-equal {k1_min_eq:.5f}, tolerance "
+          "one bf16 ulp + 1e-6, >= 99 % bit-equal; repeated calls bitwise "
+          "equal", flush=True)
+
+    # the backward in bf16 (nn.Linear weight layout, scale with a gradient:
+    # the z recompute) against fused_matmul_bwd_plain on the kernel's y
+    bwd_err, bwd_min_eq = 0.0, 1.0
+    ae_fwd = [(BATCH, 4096, 64), (BATCH, 64, 4096), (BATCH, 64, 128),
+              (BATCH, 128, 10), (7, 33, 10), (1, 64, 10)]
+    for (m, k, n), act in itertools.product(ae_fwd, ACTS):
+        x = torch.randn(m, k, device=dev, generator=g).to(bf)
+        w = (rand(n, k, lo=-1.0, hi=1.0) / k ** 0.5).to(bf)
+        scale, shift = affine(n)
+        cot = torch.randn(m, n, device=dev, generator=g).to(bf)
+        leaves = [t.clone().requires_grad_() for t in (x, w, scale, shift)]
+        y = fused_matmul(*leaves, act, w_nk=True)
+        check(y.dtype == bf, f"bf16 K1 forward gives {y.dtype}")
+        y.backward(cot)
+        ref = fused_matmul_bwd_plain(cot, x, w, scale, y.detach(), act,
+                                     w_nk=True)
+        # dscale sums bf16 terms g * z, each z a rounding apart (one ulp),
+        # each product rounded to bf16 (|g| <= |cot| through every act)
+        z = fused_matmul_plain(x, w.t(), None, torch.zeros(n, device=dev))
+        bounds_ = [None, None,
+                   2.0 ** -6 * (cot.float().abs() * z.float().abs()).sum(0)
+                   + bf16_ulp(ref[2]), None]
+        for name, leaf, r, bnd in zip(("dx", "dw", "dscale", "dshift"),
+                                      leaves, ref, bounds_):
+            what = f"bf16 K1 backward {name} {(m, k, n)} {act}"
+            check(leaf.grad.dtype == r.dtype, f"{what}: {leaf.grad.dtype} "
+                  f"vs {r.dtype}")
+            if name == "dshift":
+                check(torch.equal(leaf.grad, r), f"{what}: differs")
+                continue
+            err, eq = ulp_err(leaf.grad, r, what, bound=bnd,
+                              min_equal=0.99 if name in ("dx", "dw") else 0.0)
+            bwd_err = max(bwd_err, err)
+            if name in ("dx", "dw"):
+                bwd_min_eq = min(bwd_min_eq, eq)
+        res["bwd"].append(dict(shape=[m, k, n], act=act))
+    print(f"bf16 K1 backward vs fused_matmul_bwd_plain: {len(res['bwd'])} "
+          f"cases, dx and dw within one bf16 ulp, least share bit-equal "
+          f"{bwd_min_eq:.5f}; dscale within 2^-6 of sum |g z| + one ulp; "
+          f"dshift equal; max |err| {bwd_err:.3g}", flush=True)
+
+    # K2: the four encoder layers of a 512-image chunk, Cin 5 and 6 (the
+    # 2- and 4-byte copies), Cin 8, ragged 32/64-wide tiles
+    chans = (3, 32, 64, 128, 256)
+    k2_err, k2_min_eq = 0.0, 1.0
+    for n, hw, cin, cout in ([(CHUNK, 64 >> i, chans[i], chans[i + 1])
+                              for i in range(4)]
+                             + [(3, 7, 5, 9), (2, 9, 6, 40), (3, 11, 8, 72),
+                                (2, 10, 3, 40)]):
+        x = rand(n, hw, hw, cin).to(bf)
+        w = (rand(3, 3, cin, cout, lo=-1.0, hi=1.0) / (9 * cin) ** 0.5).to(bf)
+        scale, shift = affine(cout)
+        for act in (("relu",) if n == CHUNK else ACTS):
+            out = conv2d_bn_act(x, w, scale, shift, 2, 1, act)
+            err, eq = ulp_err(out, conv2d_bn_act_plain(x, w, scale, shift, 2,
+                                                       1, act),
+                              f"bf16 K2 {(n, hw, hw, cin, cout)} {act}")
+            k2_err, k2_min_eq = max(k2_err, err), min(k2_min_eq, eq)
+            res["k2"].append(dict(shape=[n, hw, hw, cin, cout], act=act,
+                                  max_abs_err=err, bit_equal=eq))
+        if n == CHUNK and cin in (3, 32):  # the 2-byte and 16-byte copies
+            first = conv2d_bn_act(x, w, scale, shift, 2, 1, "relu")
+            check(all(torch.equal(first, conv2d_bn_act(
+                x, w, scale, shift, 2, 1, "relu")) for _ in range(4)),
+                f"bf16 K2 Cin {cin}: repeated calls differ bitwise")
+    print(f"bf16 K2 vs plain: {len(res['k2'])} cases, max |err| "
+          f"{k2_err:.3g}, least share bit-equal {k2_min_eq:.5f}; conv0 and "
+          "conv1 5 calls bitwise equal", flush=True)
+    res.update(k1_err=k1_err, k1_min_equal=k1_min_eq, bwd_err=bwd_err,
+               bwd_min_equal=bwd_min_eq, k2_err=k2_err, k2_min_equal=k2_min_eq)
+    if not timed:
+        return res
+
+    rows = kernel_rows(SimpleNamespace(
+        fused_gemm=fused_gemm, fused_matmul_plain=fused_matmul_plain,
+        conv2d_bn_act=conv2d_bn_act, conv2d_bn_act_plain=conv2d_bn_act_plain),
+        bf16=True)
+    print(f"per launch in bf16, serving chunk of {CHUNK} and a batch-{BATCH} "
+          f"AE step (bounds at 2 B an element and 989 TFLOP/s; card "
+          f"{card}):", flush=True)
+    print_rows(rows)
+    res["rows"] = rows
+    return res
 
 
 def profile_device(fn):
@@ -376,7 +694,7 @@ def main() -> int:
     from satae_torch import kernels
     from satae_torch.api import SatAEPipeline
     from satae_torch.config import (AETrainConfig, DataConfig, MLPTrainConfig,
-                                    PipelineConfig)
+                                    PipelineConfig, throughput_config)
     from satae_torch.data.augment import normalize
     from satae_torch.data.ingest import load_dataset
     from satae_torch.data.pipeline import make_splits
@@ -391,7 +709,6 @@ def main() -> int:
     from satae_torch.nn import layers as L
     from satae_torch.nn.init import init_
     from satae_torch.train import hbm
-    from satae_torch.train.extract import extract_chunk
     from satae_torch.train.optim import adam_init
     from satae_torch.train.steps import ae_train_step, mlp_train_step
 
@@ -412,8 +729,8 @@ def main() -> int:
               f"{r['smem']} B static shared memory, spills "
               f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded",
               flush=True)
-    check(len(ptxas) == 10, f"{len(ptxas)} kernel instantiations in the "
-          "ptxas report, expected 10 (K1 8, K2 2)")
+    check(len(ptxas) == 20, f"{len(ptxas)} kernel instantiations in the "
+          "ptxas report, expected 20 (K1 16, K2 4: float32 and bf16)")
     spilled = [r["kernel"] for r in ptxas
                if r["spill_stores"] or r["spill_loads"]]
     check(not spilled, f"ptxas spills registers in {spilled}")
@@ -430,14 +747,8 @@ def main() -> int:
         return rand(n, lo=0.5, hi=1.5), rand(n, lo=-0.3, hi=0.3)
 
     # -- 3. K1 --------------------------------------------------------------
-    # serving path at chunk 512: projection, fc0, fc1 (BN folded), fc2
-    # ... plus 8192 x 4096 x 64, whose 128 tiles take one split: all of K in
-    # one block, the case that holds the per-slice accumulation
-    k1_shapes = [(CHUNK, 4096, 64), (CHUNK, 64, 128), (CHUNK, 128, 64),
-                 (CHUNK, 64, 10), (64, 4096, 64), (64, 64, 128), (7, 33, 10),
-                 (1, 64, 10), (8192, 4096, 64)]
     k1_err = 0.0
-    for m, k, n in k1_shapes:
+    for m, k, n in K1_SHAPES:
         x = torch.randn(m, k, device=dev, generator=g)
         w = rand(k, n, lo=-1.0, hi=1.0) / k ** 0.5
         scale, shift = affine(n)
@@ -446,7 +757,7 @@ def main() -> int:
                 fused_matmul(x, w, scale, shift, act),
                 fused_matmul_plain(x, w, scale, shift, act),
                 f"K1 {(m, k, n)} {act}"))
-    print(f"K1 fused_gemm vs plain: {len(k1_shapes) * 3} cases, max |err| "
+    print(f"K1 fused_gemm vs plain: {len(K1_SHAPES) * 3} cases, max |err| "
           f"{k1_err:.3g}", flush=True)
     split_err, plans = 0.0, {}
     for m, k, n in SPLIT_SHAPES:
@@ -483,11 +794,8 @@ def main() -> int:
           "shape and layout bitwise equal", flush=True)
 
     # -- 4. K2 --------------------------------------------------------------
-    chans = (3, 32, 64, 128, 256)
-    k2_path = [(CHUNK, 64 >> i, chans[i], chans[i + 1]) for i in range(4)]
     k2_err = 0.0
-    for n, hw, cin, cout in k2_path + [(3, 7, 5, 9), (2, 9, 6, 40),
-                                       (3, 11, 8, 72)]:
+    for n, hw, cin, cout in K2_SHAPES:
         x = rand(n, hw, hw, cin)
         w = rand(3, 3, cin, cout, lo=-1.0, hi=1.0) / (9 * cin) ** 0.5
         scale, shift = affine(cout)
@@ -534,8 +842,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     n_chunks = -(-n_img // CHUNK)
-    check(launches == {"fused_gemm": 4 * n_chunks, "fused_gemm_bwd": 0,
-                       "conv2d_bn_act": 4 * n_chunks},
+    check(launches == counts(fused_gemm=4 * n_chunks,
+                             conv2d_bn_act=4 * n_chunks),
           f"launches on the serving path {launches}, expected "
           f"{4 * n_chunks} of each")
     acc = float((preds == test.labels).mean())
@@ -825,10 +1133,10 @@ def main() -> int:
         ae_parity = parity("AE", ae, ae_step, batches, 1e-5)
         ae_other_lr = [parity("AE", ae, ae_step, batches, lr, hold=False)
                        for lr in (1e-4, 5e-3)]
-        check(ae_parity["launches"] == {
-            "fused_gemm": PARITY_STEPS * n_lin_ae,
-            "fused_gemm_bwd": PARITY_STEPS * 2 * n_lin_ae,
-            "conv2d_bn_act": 0}, f"AE step launches {ae_parity['launches']}")
+        check(ae_parity["launches"] == counts(
+            fused_gemm=PARITY_STEPS * n_lin_ae,
+            fused_gemm_bwd=PARITY_STEPS * 2 * n_lin_ae),
+            f"AE step launches {ae_parity['launches']}")
         mlp = MLP(mcfg)
         init_(mlp, torch.Generator().manual_seed(1))
         batches = [dict(
@@ -844,75 +1152,16 @@ def main() -> int:
         mlp_parity = parity("MLP", mlp, mlp_step, batches, 1e-5)
         mlp_other_lr = [parity("MLP", mlp, mlp_step, batches, 1e-4,
                                hold=False)]
-        check(mlp_parity["launches"] == {
-            "fused_gemm": PARITY_STEPS * n_lin_mlp,
-            "fused_gemm_bwd": PARITY_STEPS * (2 * n_lin_mlp - 1),
-            "conv2d_bn_act": 0}, f"MLP step launches {mlp_parity['launches']}")
+        check(mlp_parity["launches"] == counts(
+            fused_gemm=PARITY_STEPS * n_lin_mlp,
+            fused_gemm_bwd=PARITY_STEPS * (2 * n_lin_mlp - 1)),
+            f"MLP step launches {mlp_parity['launches']}")
 
     # -- 10. fit ------------------------------------------------------------
-    print(f"fit: full width {mcfg.encoder_channels}, latent "
-          f"{mcfg.latent_dim}, MLP {mcfg.mlp_hidden}, batch {dcfg.batch_size},"
-          f" synthetic-hard per_class {dcfg.per_class}; cut: AE max_epochs "
-          f"{fit_cfg.ae.max_epochs} (of {AETrainConfig().max_epochs}), MLP "
-          f"epochs {fit_cfg.mlp.epochs} (of {MLPTrainConfig().epochs})",
-          flush=True)
-    fitted = SatAEPipeline(fit_cfg)
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    summary = fitted.fit(raw, grid=False, log=lambda ln: print("  " + ln,
-                                                                flush=True))
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    fit_launches = kernels.launch_counts()
-    hist = fitted.history
-    n_tr, n_va, n_te = len(splits.train), len(splits.val), len(splits.test)
-    steps = n_tr // dcfg.batch_size
-    val_b = -(-n_va // dcfg.batch_size)
-    chunks = sum(-(-n // extract_chunk(n, dcfg.batch_size))
-                 for n in (n_tr, n_va, n_te))
-    ep_ae, ep_mlp = len(hist["ae"]["train_loss"]), len(hist["mlp"]["train_loss"])
-    expected = {
-        "fused_gemm": (ep_ae * (steps + val_b) * n_lin_ae + chunks
-                       + ep_mlp * (steps + val_b) * n_lin_mlp + n_lin_mlp),
-        "fused_gemm_bwd": (ep_ae * steps * 2 * n_lin_ae
-                           + ep_mlp * steps * (2 * n_lin_mlp - 1)),
-        "conv2d_bn_act": chunks * len(mcfg.encoder_channels)}
-    print(f"fit: {fit_s:.2f} s, stage_seconds {summary.stage_seconds}; "
-          f"{ep_ae} AE + {ep_mlp} MLP epochs of {steps} steps, {val_b} val "
-          f"batches, {chunks} extraction chunks; launches {fit_launches}, "
-          f"expected {expected}", flush=True)
-    check(fit_launches == expected, "fit launch counts differ from the "
-          "steps, eval batches and extraction chunks")
-    for stage_, h in hist.items():
-        vals = [v for series in h.values() for v in series]
-        check(all(math.isfinite(v) for v in vals), f"{stage_}: a loss is "
-              "not finite")
-        check(h["train_loss"][1] < h["train_loss"][0],
-              f"{stage_}: mean train loss did not fall: {h['train_loss']}")
-    print(f"fit: AE train loss {hist['ae']['train_loss']}, MLP train loss "
-          f"{hist['mlp']['train_loss']}, AE best val loss "
-          f"{summary.ae_val_loss}, MLP best val acc {summary.mlp_val_acc}, "
-          f"test accuracy {summary.test_acc}", flush=True)
-    check(summary.test_acc > 1.0 / mcfg.num_classes,
-          f"test accuracy {summary.test_acc} is not above chance")
-    fit_preds = fitted.predict(test.images)
-    fit_pred_acc = float((fit_preds == test.labels).mean())
-    check(fit_pred_acc == summary.test_acc, f"predict after fit scores "
-          f"{fit_pred_acc}, fit reported {summary.test_acc}")
-    t0 = time.perf_counter()
-    refit = SatAEPipeline(fit_cfg)
-    summary_again = refit.fit(raw, grid=False)
-    refit_s = time.perf_counter() - t0
-    differ = [k for a, b in ((fitted.ae, refit.ae), (fitted.mlp, refit.mlp))
-              for k, v in a.state_dict().items()
-              if not torch.equal(v, b.state_dict()[k])]
-    print(f"fit again: {refit_s:.2f} s; tensors that differ from the first "
-          f"fit: {len(differ)}", flush=True)
-    check(not differ, f"a second fit differs in {differ}")
-    for f in ("ae_val_loss", "mlp_val_acc", "test_acc"):
-        check(getattr(summary_again, f) == getattr(summary, f),
-              f"a second fit gives {f} {getattr(summary_again, f)}, the "
-              f"first {getattr(summary, f)}")
+    fit = fit_phase(fit_cfg, raw, splits, "fit",
+                    recorded_val_loss=RECORDED_FIT_AE_VAL_LOSS)
+    fit_launches, summary, hist = fit["launches"], fit["summary"], fit["hist"]
+    n_tr = len(splits.train)
 
     # -- 11. training times -------------------------------------------------
     print(f"per launch, batch-{BATCH} train steps (measured in phase 5):",
@@ -979,19 +1228,77 @@ def main() -> int:
     grid = grid_phase(card)
     grid_launches = grid["launches"]
 
+    # -- 13. bf16 kernels ---------------------------------------------------
+    k13 = bf16_kernels_phase(card)
+
+    # -- 14. bf16 serve -----------------------------------------------------
+    serve16 = bf16_serve_phase(card, cfg.data, test, ips)
+
+    # -- 15. bf16 fit, the throughput recipe, step times ---------------------
+    bf16_rt = dataclasses.replace(fit_cfg.runtime, compute_dtype="bfloat16")
+    fit16 = fit_phase(dataclasses.replace(fit_cfg, runtime=bf16_rt), raw,
+                      splits, "bf16 fit")
+    tp_cfg = throughput_config(dataclasses.replace(fit_cfg, runtime=bf16_rt))
+    fit_tp = fit_phase(tp_cfg, raw, splits, "bf16 throughput fit",
+                       repeat=False)
+    # the recipe's step: the AE and MLP epoch bodies at batch 1024, the AE
+    # in bf16 and in float32 in turns, with fit's deterministic cuDNN
+    tb = tp_cfg.data.batch_size
+    order_tp = hbm.epoch_order(n_tr, tb, 0, 0)
+    n_tp = len(order_tp) - 2
+    ae_tp = {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = SupervisedAE(mcfg, dcfg.channels, dcfg.image_size)
+        init_(model, torch.Generator().manual_seed(0))
+        model.to(dev)
+        ae_tp[dt] = (model, adam_init(list(model.parameters())))
+    ae_tp_run = lambda dt: lambda n_: hbm.ae_train_epoch(
+        *ae_tp[dt], imgs_tr, labs_tr, order_tp[:n_], 20.0, 1e-4,
+        tp_cfg.data, g, dt)
+    tp_ms = {torch.float32: [], torch.bfloat16: []}
+    with det_flags(True):
+        for dt in (torch.float32, torch.bfloat16, torch.bfloat16,
+                   torch.float32):
+            tp_ms[dt].append(time_epoch_body(ae_tp_run(dt), n_tp))
+        mlp_tp = MLP(mcfg)
+        init_(mlp_tp, torch.Generator().manual_seed(1))
+        mlp_tp.to(dev)
+        mlp_tp_opt = adam_init(list(mlp_tp.parameters()))
+        mlp_tp_ms = time_epoch_body(lambda n_: hbm.mlp_train_epoch(
+            mlp_tp, mlp_tp_opt, xs, labs_tr, order_tp[:n_], 1e-4, 1e-4, g),
+            n_tp)
+    model, opt = ae_tp[torch.bfloat16]
+    check(all(t.dtype == torch.float32 for t in opt.mu + opt.nu)
+          and all(v.dtype == torch.float32 for v in
+                  model.state_dict().values() if v.is_floating_point()),
+          "bf16 steps: Adam's moments or the master state are not float32")
+    tp_f32_ms, tp_bf16_ms = (sum(tp_ms[d]) / 2 for d in tp_ms)
+    print(f"throughput recipe steps (epoch bodies, {n_tp} steps of batch "
+          f"{tb}, deterministic cuDNN, in turns f32, bf16, bf16, f32): AE "
+          f"bf16 {tp_bf16_ms:.3f} ms/step ({tb / tp_bf16_ms * 1e3:.1f} "
+          f"images/s), AE float32 {tp_f32_ms:.3f} ms/step "
+          f"({tb / tp_f32_ms * 1e3:.1f} images/s), runs "
+          f"{[round(x, 3) for x in tp_ms[torch.bfloat16]]} / "
+          f"{[round(x, 3) for x in tp_ms[torch.float32]]}; MLP (float32 in "
+          f"both) {mlp_tp_ms:.3f} ms/step ({tb / mlp_tp_ms * 1e3:.1f} "
+          f"images/s); Adam moments and master state float32 after the bf16 "
+          f"steps; card {card}", flush=True)
+
+    # -- 16. bf16 grid ------------------------------------------------------
+    grid16 = grid_phase(card, bf16=True)
+
     # -- report -------------------------------------------------------------
-    def entry(name, source, replaces, err, rs, per):
+    def entry(name, source, replaces, err, rs, per, paths):
         ops_ms = sum(r["bound_ms"] for r in rs
                      if r["bound_by"] == "operations")
-        return {
+        by_path = {p: sum(c[name] for c in cs) for p, cs in paths.items()}
+        out_ = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": (launches[name] + fit_launches[name]
-                         + grid_launches[name]),
-            "launches_by_path": {"serve": launches[name],
-                                 "fit": fit_launches[name],
-                                 "grid": grid_launches[name]},
-            "max_abs_err": err, "tolerance": "1e-4 + 1e-5*|ref|",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": err,
+            "tolerance": ("one bf16 ulp + 1e-6, >= 99 % bit-equal"
+                          if name.endswith("_bf16") else "1e-4 + 1e-5*|ref|"),
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
             "bound_ms": sum(r["bound_ms"] for r in rs),
@@ -1000,23 +1307,44 @@ def main() -> int:
             "library_ms": sum(r["library_ms"] for r in rs),
             "device_us": sum(r["device_us"] for r in rs),
             "library_device_us": sum(r["library_device_us"] for r in rs),
-            "bound_f32_ms": sum(r["bound_f32_ms"] for r in rs),
-            "per": f"{per} ({len(rs)} launches)",
+            "per": f"{per} ({len(rs)} launch{'' if len(rs) == 1 else 'es'})",
         }
+        if all("bound_f32_ms" in r for r in rs):
+            out_["bound_f32_ms"] = sum(r["bound_f32_ms"] for r in rs)
+        return out_
 
+    f32_paths = {"serve": [launches], "fit": [fit_launches],
+                 "grid": [grid_launches]}
+    bf16_paths = {"serve": [serve16["launches"]],
+                  "fit": [fit16["launches"], fit_tp["launches"]],
+                  "grid": [grid16["launches"]]}
+    rows16 = k13["rows"]
+    k1, k2 = "satae_torch/csrc/fused_gemm.cu", "satae_torch/csrc/conv_bn_act.cu"
+    chunk, step = f"one {CHUNK}-image serving chunk", \
+        f"one batch-{BATCH} AE train step"
     report = {"kernels": [
-        entry("fused_gemm", "satae_torch/csrc/fused_gemm.cu",
-              "satae/kernels/matmul.py:36", max(k1_err, layout_err),
-              [r for r in rows if r["kernel"] == "fused_gemm"],
-              f"one {CHUNK}-image serving chunk"),
-        entry("fused_gemm_bwd", "satae_torch/csrc/fused_gemm.cu",
-              "satae/kernels/matmul.py:100", bwd_err,
+        entry("fused_gemm", k1, "satae/kernels/matmul.py:36",
+              max(k1_err, layout_err),
+              [r for r in rows if r["kernel"] == "fused_gemm"], chunk,
+              f32_paths),
+        entry("fused_gemm_bwd", k1, "satae/kernels/matmul.py:100", bwd_err,
               [r for r in train_rows if r["kernel"] == "fused_gemm_bwd"
-               and r["path"] == "ae"], f"one batch-{BATCH} AE train step"),
-        entry("conv2d_bn_act", "satae_torch/csrc/conv_bn_act.cu",
-              "satae/kernels/conv.py:36", k2_err,
-              [r for r in rows if r["kernel"] == "conv2d_bn_act"],
-              f"one {CHUNK}-image serving chunk")]}
+               and r["path"] == "ae"], step, f32_paths),
+        entry("conv2d_bn_act", k2, "satae/kernels/conv.py:36", k2_err,
+              [r for r in rows if r["kernel"] == "conv2d_bn_act"], chunk,
+              f32_paths),
+        entry("fused_gemm_bf16", k1, "satae/kernels/matmul.py:36",
+              k13["k1_err"], [r for r in rows16 if r["kernel"] ==
+                              "fused_gemm_bf16" and r["path"] == "serve"],
+              chunk, bf16_paths),
+        entry("fused_gemm_bwd_bf16", k1, "satae/kernels/matmul.py:100",
+              k13["bwd_err"], [r for r in rows16
+                               if r["kernel"] == "fused_gemm_bwd_bf16"],
+              step, bf16_paths),
+        entry("conv2d_bn_act_bf16", k2, "satae/kernels/conv.py:36",
+              k13["k2_err"], [r for r in rows16
+                              if r["kernel"] == "conv2d_bn_act_bf16"],
+              chunk, bf16_paths)]}
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
@@ -1028,16 +1356,19 @@ def main() -> int:
         profile_top=top[:20], profile_us_per_launch=per_layer_us,
         layout_err=layout_err, bwd_err=bwd_err, ae_parity=ae_parity,
         ae_parity_other_lr=ae_other_lr, mlp_parity=mlp_parity,
-        mlp_parity_other_lr=mlp_other_lr, fit_s=fit_s, fit_summary=summary.__dict__,
-        fit_history=hist, fit_launches=fit_launches,
-        fit_expected_launches=expected, fit_predict_acc=fit_pred_acc,
-        refit_s=refit_s,
+        mlp_parity_other_lr=mlp_other_lr,
+        fit=fit_record(fit), bf16_kernels=k13, bf16_serve=serve16,
+        bf16_fit=fit_record(fit16), bf16_throughput_fit=fit_record(fit_tp),
+        throughput_step_ms={"ae_bf16": tp_ms[torch.bfloat16],
+                            "ae_float32": tp_ms[torch.float32],
+                            "mlp": mlp_tp_ms, "batch": tb},
         train_rows=train_rows, ae_step_ms=ae_step_ms,
         ae_step_det_ms=ae_step_det_ms, ae_step_ms_in_turns=step_ms,
         det_profile_wall_ms=det_wall, det_profile_device_ms=det_dev,
         det_profile_top=top_ops(det_events, 12),
         mlp_step_ms=mlp_step_ms, train_profile_wall_ms=tr_wall,
         train_profile_device_ms=tr_dev, train_profile_top=tr_top, grid=grid,
+        bf16_grid=grid16,
         **report), indent=1))
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1046,10 +1377,200 @@ def main() -> int:
     return 0
 
 
-def grid_phase(card: str) -> dict:
+def bf16_serve_phase(card: str, data_cfg, test, f32_ips: float) -> dict:
+    """Phase 14: the bf16-trained full-width model served in bf16 on the
+    test split: launch counts per dtype, accuracy against satae's own bf16
+    serving, the same fold on the plain kernel versions and the plain
+    modules (satae's layer-by-layer bf16) on the same card, images/s."""
+    import numpy as np
+    import torch
+
+    from satae_torch import kernels
+    from satae_torch.api import SatAEPipeline
+    from satae_torch.config import PipelineConfig, RuntimeConfig
+    from satae_torch.data.augment import normalize
+    from satae_torch.kernels.conv import conv2d_bn_act_plain
+    from satae_torch.kernels.matmul import fused_matmul_plain
+    from satae_torch.nn import layers as L
+
+    bf = torch.bfloat16
+    cfg = PipelineConfig(data=data_cfg,
+                         runtime=RuntimeConfig(compute_dtype="bfloat16"))
+    pipe = SatAEPipeline(cfg).load(str(CKPT_BF16))
+    n_img = len(test)
+    n_chunks = -(-n_img // CHUNK)
+    kernels.reset_launch_counts()
+    preds = pipe.predict(test.images)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    want = counts(conv2d_bn_act_bf16=4 * n_chunks, fused_gemm_bf16=n_chunks,
+                  fused_gemm=3 * n_chunks)
+    check(launches == want, f"bf16 serving launches {launches}, expected "
+          f"{want}")
+    acc = float((preds == test.labels).mean())
+    tpu_acc = json.loads((CKPT_BF16 / "fit_summary.json").read_text())[
+        "test_acc"]
+    gap = abs(acc - SATAE_BF16_ACC)
+    print(f"bf16 predict of {CKPT_BF16.name}: {n_img} test images, accuracy "
+          f"{acc:.6f} ({int(round(acc * n_img))} right; satae's own bf16 "
+          f"serving {SATAE_BF16_ACC:.6f}, gap {gap:.6f}, band 0.004; "
+          f"fit_summary.json {tpu_acc:.6f}, scored on a TPU), launches "
+          f"{launches}", flush=True)
+    check(gap <= 0.004, f"bf16 accuracy {acc} is {gap} from satae's "
+          f"{SATAE_BF16_ACC}")
+
+    z = torch.from_numpy(pipe.encode(test.images))
+    check(z.dtype == torch.float32 and tuple(z.shape) == (
+        n_img, cfg.model.latent_dim), f"bf16 latents {z.dtype} {z.shape}")
+    fe, fm = pipe._folded_weights()
+    with torch.no_grad():
+        x = normalize(torch.from_numpy(test.images).to(pipe.device), bf)
+        # the same fold on the plain versions of K2 and K1
+        h = x
+        for c in fe.convs:
+            h = conv2d_bn_act_plain(h, c.w, c.scale, c.shift, c.stride,
+                                    c.padding, "relu")
+        p = fe.proj
+        z_fold = fused_matmul_plain(h.reshape(n_img, -1), p.w, p.scale,
+                                    p.shift, p.act).float()
+        logits = z_fold
+        for lay in fm.layers:
+            logits = fused_matmul_plain(logits, lay.w, lay.scale, lay.shift,
+                                        lay.act)
+        preds_fold = torch.argmax(logits, -1).cpu().numpy()
+        # the plain modules: satae's bf16 arithmetic layer by layer
+        z_mod = pipe.ae.enc(x, L.linear_plain).float()
+        preds_mod = torch.argmax(pipe.mlp(z_mod, linear=L.linear_plain),
+                                 -1).cpu().numpy()
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    z_fold, z_mod = z_fold.cpu().numpy(), z_mod.cpu().numpy()
+    z = z.numpy()
+    gap_fold, gap_mod = rel(z, z_fold), rel(z, z_mod)
+    agree_fold = float((preds == preds_fold).mean())
+    agree_mod = float((preds == preds_mod).mean())
+    print(f"bf16 kernels vs the same fold on the plain versions: latents "
+          f"{gap_fold:.3g} relative L2 (bound 2^-7), predictions agree "
+          f"{agree_fold:.6f} (bound 0.999); vs the plain modules in bf16 "
+          f"(BatchNorm in bf16, two roundings per linear): latents "
+          f"{gap_mod:.3g}, predictions agree {agree_mod:.6f} (bound 0.99); "
+          f"plain modules score {float((preds_mod == test.labels).mean()):.6f}"
+          , flush=True)
+    check(gap_fold <= 2.0 ** -7, f"bf16 latents {gap_fold} from the plain "
+          "fold")
+    check(agree_fold >= 0.999, f"bf16 predictions agree {agree_fold} with "
+          "the plain fold")
+    check(agree_mod >= 0.99, f"bf16 predictions agree {agree_mod} with the "
+          "plain modules")
+
+    pipe.predict(test.images)  # warm-up
+    predict_ms = time_ms(lambda: pipe.predict(test.images), reps=10,
+                         warmup=1)
+    ips = n_img / (predict_ms / 1e3)
+    print(f"bf16 predict: {ips:.1f} images/s ({predict_ms:.3f} ms per call "
+          f"of {n_img} images); float32 (phase 6) {f32_ips:.1f} images/s; "
+          f"card {card}", flush=True)
+    return dict(launches=launches, accuracy=acc, satae_bf16_accuracy=(
+        SATAE_BF16_ACC), recorded_tpu_accuracy=tpu_acc, latent_gap_fold=(
+        gap_fold), agree_fold=agree_fold, latent_gap_modules=gap_mod,
+        agree_modules=agree_mod, predict_images_per_s=ips,
+        predict_ms=predict_ms, f32_images_per_s=f32_ips)
+
+
+def fit_record(fit: dict) -> dict:
+    """:func:`fit_phase`'s result as chip_smoke.json keeps it."""
+    return {k: (v.__dict__ if k == "summary" else v) for k, v in fit.items()}
+
+
+def fit_phase(cfg, raw, splits, what: str, repeat: bool = True,
+              recorded_val_loss=None) -> dict:
+    """SatAEPipeline(cfg).fit(raw, grid=False) with the launch counts zeroed
+    before and read after, held equal to :func:`fit_launches`; losses finite
+    and falling, test accuracy above chance, predict after the fit scoring
+    the fit's test accuracy, the master state float32; with ``repeat`` the
+    same fit again, which must repeat bit for bit. Returns what
+    chip_smoke.json keeps, the summary and history too."""
+    import torch
+
+    from satae_torch import kernels
+    from satae_torch.api import SatAEPipeline
+    from satae_torch.config import AETrainConfig, MLPTrainConfig
+
+    mcfg, dcfg, test = cfg.model, cfg.data, splits.test
+    print(f"{what}: full width {mcfg.encoder_channels}, latent "
+          f"{mcfg.latent_dim}, MLP {mcfg.mlp_hidden}, batch {dcfg.batch_size},"
+          f" compute {cfg.runtime.compute_dtype}, synthetic-hard per_class "
+          f"{dcfg.per_class}; cut: AE max_epochs {cfg.ae.max_epochs} (of "
+          f"{AETrainConfig().max_epochs}), MLP epochs {cfg.mlp.epochs} (of "
+          f"{MLPTrainConfig().epochs})", flush=True)
+    fitted = SatAEPipeline(cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = fitted.fit(raw, grid=False, log=lambda ln: print("  " + ln,
+                                                                flush=True))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    hist = fitted.history
+    ep_ae, ep_mlp = (len(hist[s]["train_loss"]) for s in ("ae", "mlp"))
+    n_split = (len(splits.train), len(splits.val), len(test))
+    expected = fit_launches(n_split, dcfg.batch_size, ep_ae, ep_mlp, mcfg,
+                            cfg.compute_dtype == torch.bfloat16)
+    print(f"{what}: {fit_s:.2f} s, stage_seconds {summary.stage_seconds}; "
+          f"{ep_ae} AE + {ep_mlp} MLP epochs of {n_split[0] // dcfg.batch_size}"
+          f" steps, splits {n_split}; launches {launches}, expected "
+          f"{expected}", flush=True)
+    check(launches == expected, f"{what}: launch counts differ from the "
+          "steps, eval batches and extraction chunks")
+    for stage_, h in hist.items():
+        vals = [v for series in h.values() for v in series]
+        check(all(math.isfinite(v) for v in vals), f"{what} {stage_}: a loss "
+              "is not finite")
+        check(h["train_loss"][1] < h["train_loss"][0],
+              f"{what} {stage_}: mean train loss did not fall: "
+              f"{h['train_loss']}")
+    master = [k for mod in (fitted.ae, fitted.mlp)
+              for k, v in mod.state_dict().items()
+              if v.is_floating_point() and v.dtype != torch.float32]
+    check(not master, f"{what}: master state not float32: {master}")
+    rec = ("" if recorded_val_loss is None else
+           f" (recorded before the bf16 kernels: {recorded_val_loss})")
+    print(f"{what}: AE train loss {hist['ae']['train_loss']}, MLP train loss "
+          f"{hist['mlp']['train_loss']}, AE best val loss "
+          f"{summary.ae_val_loss}{rec}, MLP best val acc "
+          f"{summary.mlp_val_acc}, test accuracy {summary.test_acc}; "
+          "parameters and BatchNorm stats float32", flush=True)
+    check(summary.test_acc > 1.0 / mcfg.num_classes,
+          f"{what}: test accuracy {summary.test_acc} is not above chance")
+    preds = fitted.predict(test.images)
+    pred_acc = float((preds == test.labels).mean())
+    check(pred_acc == summary.test_acc, f"{what}: predict after fit scores "
+          f"{pred_acc}, fit reported {summary.test_acc}")
+    out = dict(fit_s=fit_s, summary=summary, hist=hist, launches=launches,
+               expected_launches=expected, predict_acc=pred_acc)
+    if not repeat:
+        return out
+    t0 = time.perf_counter()
+    refit = SatAEPipeline(cfg)
+    summary_again = refit.fit(raw, grid=False)
+    out["refit_s"] = time.perf_counter() - t0
+    differ = [k for a, b in ((fitted.ae, refit.ae), (fitted.mlp, refit.mlp))
+              for k, v in a.state_dict().items()
+              if not torch.equal(v, b.state_dict()[k])]
+    print(f"{what} again: {out['refit_s']:.2f} s; tensors that differ from "
+          f"the first fit: {len(differ)}", flush=True)
+    check(not differ, f"{what}: a second fit differs in {differ}")
+    for f in ("ae_val_loss", "mlp_val_acc", "test_acc"):
+        check(getattr(summary_again, f) == getattr(summary, f),
+              f"{what}: a second fit gives {f} {getattr(summary_again, f)}, "
+              f"the first {getattr(summary, f)}")
+    return out
+
+
+def grid_phase(card: str, bf16: bool = False) -> dict:
     """Phase 12: the grid fit of the recorded cross-framework gate, its
-    resume, evaluate, save and export. Returns what chip_smoke.json keeps;
-    ``launches`` are the first fit's."""
+    resume, evaluate, save and export; with ``bf16`` (phase 16) the same
+    under satae's bf16 recipe, into a run directory of its own. Returns what
+    chip_smoke.json keeps; ``launches`` are the first fit's."""
     import numpy as np
     import torch
 
@@ -1074,14 +1595,16 @@ def grid_phase(card: str) -> dict:
                          patience=gate["ae_epochs"]),
         mlp=MLPTrainConfig(learning_rates=mlp_lrs,
                            epochs=gate["mlp_epochs"]),
-        runtime=RuntimeConfig(seed=gate["seed"]))
+        runtime=RuntimeConfig(seed=gate["seed"], compute_dtype=(
+            "bfloat16" if bf16 else "float32")))
+    what, sfx = ("bf16 grid", "_bf16") if bf16 else ("grid", "")
     mcfg, bs = cfg.model, cfg.data.batch_size
     raw = load_dataset(cfg.data)
     splits = make_splits(raw, cfg.data)
     test = splits.test
-    run = REPO / "chiprun_out" / "grid_run"
+    run = REPO / "chiprun_out" / ("grid_run" + sfx)
     shutil.rmtree(run, ignore_errors=True)
-    print(f"grid: channels {mcfg.encoder_channels}, latent {mcfg.latent_dim}"
+    print(f"{what}: channels {mcfg.encoder_channels}, latent {mcfg.latent_dim}"
           f", MLP {mcfg.mlp_hidden}, batch {bs}, synthetic-hard per_class "
           f"{cfg.data.per_class} ({len(splits.train)} / {len(splits.val)} / "
           f"{len(test)}), seed {cfg.runtime.seed}; AE alpha {alphas} x lr "
@@ -1113,7 +1636,7 @@ def grid_phase(card: str) -> dict:
     mlp_start = ae_start + st["ae"] + st["extract"]
     per_ae = np.diff([ae_start] + ae_lines).tolist()
     per_mlp = np.diff([mlp_start] + mlp_lines).tolist()
-    print(f"grid: {fit_s:.2f} s, stage_seconds {st}; seconds per AE config "
+    print(f"{what}: {fit_s:.2f} s, stage_seconds {st}; seconds per AE config "
           f"{[round(x, 2) for x in per_ae]}, per MLP lr "
           f"{[round(x, 2) for x in per_mlp]}; card {card}", flush=True)
 
@@ -1141,34 +1664,43 @@ def grid_phase(card: str) -> dict:
           f"AE epochs run {epochs_ae}: patience {cfg.ae.patience} cannot "
           f"stop {cfg.ae.max_epochs} epochs early")
     n_ae, n_lr, e_mlp = len(want_ae), len(want_mlp), cfg.mlp.epochs
-    n_lin_ae, n_lin_mlp = 4, len(mcfg.mlp_hidden) + 1
-    expected = {
-        "fused_gemm": (n_ae * cfg.ae.max_epochs * (steps + val_b) * n_lin_ae
-                       + chunks
-                       + n_lr * e_mlp * (steps + val_b) * n_lin_mlp
-                       + n_lr * test_b * n_lin_mlp + n_lin_mlp),
-        "fused_gemm_bwd": (n_ae * cfg.ae.max_epochs * steps * 2 * n_lin_ae
-                           + n_lr * e_mlp * steps * (2 * n_lin_mlp - 1)),
-        "conv2d_bn_act": chunks * len(mcfg.encoder_channels)}
-    print(f"grid: {n_ae} AE configs x {cfg.ae.max_epochs} epochs and {n_lr} "
+    n_lin_mlp = len(mcfg.mlp_hidden) + 1
+    expected = fit_launches((n_tr, n_va, n_te), bs,
+                            n_ae * cfg.ae.max_epochs, n_lr * e_mlp, mcfg,
+                            bf16, n_lr, test_b)
+    print(f"{what}: {n_ae} AE configs x {cfg.ae.max_epochs} epochs and {n_lr} "
           f"MLP lrs x {e_mlp} epochs of {steps} steps, {val_b} val batches, "
           f"{test_b} test batches, {chunks} extraction chunks; launches "
           f"{launches}, expected {expected}", flush=True)
-    check(launches == expected, "grid launch counts differ from the configs,"
+    check(launches == expected, f"{what} launch counts differ from the configs,"
           " steps, eval batches and extraction chunks")
 
-    # the outcome against satae's recorded run on the same arrays
+    # the outcome against satae's recorded (float32) run on the same arrays.
+    # A bf16 run trains another model, whose accuracy on the 380 test images
+    # carries their sampling error against the recorded one's: its band is
+    # the gate's, or two standard errors of that accuracy if wider, and its
+    # winners must be satae's.
     rec = gate["satae"]
     acc_gap = abs(summary.test_acc - rec["test_acc"])
-    print(f"grid: winners AE {summary.ae_hparams} (satae recorded "
+    band = gate["band"]
+    if bf16:
+        p_rec = rec["test_acc"]
+        band = max(band, 2 * math.sqrt(p_rec * (1 - p_rec) / len(test)))
+        check(summary.ae_hparams == rec["ae_hparams"]
+              and summary.mlp_hparams == rec["mlp_hparams"],
+              f"{what}: winners {summary.ae_hparams} {summary.mlp_hparams}, "
+              f"satae's {rec['ae_hparams']} {rec['mlp_hparams']}")
+    print(f"{what}: winners AE {summary.ae_hparams} (satae recorded "
           f"{rec['ae_hparams']}), MLP {summary.mlp_hparams} (recorded "
           f"{rec['mlp_hparams']}); AE best val loss {summary.ae_val_loss} "
           f"(recorded {rec['ae_best_val_loss']}), MLP best val acc "
           f"{summary.mlp_val_acc} (recorded {rec['mlp_best_val_acc']}), test "
           f"accuracy {summary.test_acc} (recorded {rec['test_acc']}, gap "
-          f"{acc_gap:.4f}, band {gate['band']}); per-lr test accuracy "
+          f"{acc_gap:.4f}, band {band:.4f}"
+          + ("" if bf16 else f"; recorded before the bf16 kernels: "
+             f"{RECORDED_GRID_TEST_ACC}") + "); per-lr test accuracy "
           f"{[r['test_acc'] for r in mlp_store.values()]}", flush=True)
-    check(acc_gap <= gate["band"], f"test accuracy {summary.test_acc} is "
+    check(acc_gap <= band, f"{what}: test accuracy {summary.test_acc} is "
           f"{acc_gap:.4f} from satae's {rec['test_acc']}")
     preds = pipe.predict(test.images)
     check(float((preds == test.labels).mean()) == summary.test_acc,
@@ -1177,9 +1709,11 @@ def grid_phase(card: str) -> dict:
     # a second fit on the same run directory trains nothing
     again = SatAEPipeline(cfg)
     summary2, resume_s, _, lines2, launches2 = timed_fit(again)
-    expected2 = {"fused_gemm": chunks + n_lin_mlp, "fused_gemm_bwd": 0,
-                 "conv2d_bn_act": chunks * len(mcfg.encoder_channels)}
-    print(f"grid resume: {resume_s:.2f} s, {len(lines2)} log lines, "
+    # extraction of the three splits and the winner's test evaluation
+    expected2 = counts(fused_gemm=n_lin_mlp)
+    expected2["fused_gemm" + sfx] += chunks
+    expected2["conv2d_bn_act" + sfx] += chunks * len(mcfg.encoder_channels)
+    print(f"{what} resume: {resume_s:.2f} s, {len(lines2)} log lines, "
           f"launches {launches2}, expected {expected2}", flush=True)
     check(len(lines2) == n_ae + n_lr
           and all(ln.startswith("skip cached") for _, ln in lines2),
@@ -1206,7 +1740,7 @@ def grid_phase(card: str) -> dict:
         str(run / "pt" / "AE_GLOBAL_BEST.pt"),
         str(run / "pt" / "MLP_GLOBAL_BEST.pt")).predict(test.images), preds),
         "export_torch + load_torch predicts differently")
-    print(f"grid: load + evaluate accuracy {float(ev['accuracy']):.6f} = "
+    print(f"{what}: load + evaluate accuracy {float(ev['accuracy']):.6f} = "
           "fit_summary.json; save + load and export_torch + load_torch "
           "predict the same", flush=True)
     print(ev["report"], flush=True)
@@ -1219,7 +1753,8 @@ def grid_phase(card: str) -> dict:
                 seconds_per_mlp_lr=per_mlp, launches=launches,
                 expected_launches=expected, summary=summary.__dict__,
                 ae_results=ae_store, mlp_results=mlp_store,
-                recorded=rec, test_acc_gap=acc_gap, resume_s=resume_s,
+                recorded=rec, test_acc_gap=acc_gap, band=band,
+                resume_s=resume_s,
                 resume_launches=launches2,
                 resume_stage_seconds=summary2.stage_seconds,
                 evaluate_accuracy=float(ev["accuracy"]),
@@ -1234,9 +1769,52 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def f32_digests(fused_gemm, conv2d_bn_act) -> dict:
+    """{case: sha256 of the output} of the float32 K1 and K2 at the shapes of
+    phases 3 and 4 (K1's split shapes in every layout), all activations, on
+    inputs drawn from a fixed seed: equal digests in two trees are bitwise
+    equal outputs."""
+    import hashlib
+
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return torch.rand(*shape, device=dev, generator=g) * (hi - lo) + lo
+
+    def digest(t):
+        torch.cuda.synchronize()
+        return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+    out = {}
+    for (m, k, n), layouts in itertools.chain(
+            ((s, ((False, False),)) for s in K1_SHAPES),
+            ((s, LAYOUTS) for s in SPLIT_SHAPES)):
+        a = torch.randn(m, k, device=dev, generator=g)
+        b = rand(k, n, lo=-1.0, hi=1.0) / k ** 0.5
+        scale, shift = rand(n, lo=0.5, hi=1.5), rand(n, lo=-0.3, hi=0.3)
+        for ta, tb in layouts:
+            a_buf = a.t().contiguous() if ta else a
+            b_buf = b.t().contiguous() if tb else b
+            for act in ACTS:
+                out[f"K1 {(m, k, n)} {ta} {tb} {act}"] = digest(fused_gemm(
+                    a_buf, b_buf, scale, shift, act, ta, tb))
+    for n, hw, cin, cout in K2_SHAPES:
+        x = rand(n, hw, hw, cin)
+        w = rand(3, 3, cin, cout, lo=-1.0, hi=1.0) / (9 * cin) ** 0.5
+        scale, shift = rand(cout, lo=0.5, hi=1.5), rand(cout, lo=-0.3, hi=0.3)
+        for act in (("relu",) if n == CHUNK else ACTS):
+            out[f"K2 {(n, hw, cin, cout)} {act}"] = digest(conv2d_bn_act(
+                x, w, scale, shift, 2, 1, act))
+    return out
+
+
 def kernel_times_main(root: str) -> int:
     """The --ab child: :func:`kernel_rows` on the kernels of the satae_torch
-    under ``root``, as one JSON line."""
+    under ``root`` (float32, and bf16 where that tree has the bf16
+    instantiations) and :func:`f32_digests`, as one JSON line."""
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
@@ -1248,16 +1826,21 @@ def kernel_times_main(root: str) -> int:
     pkg = Path(satae_torch.__file__).resolve()
     check(pkg.is_relative_to(root_), f"satae_torch came from {pkg}, not "
           f"from {root_}")
-    rows = kernel_rows(SimpleNamespace(fused_gemm=matmul.fused_gemm,
-                                       conv2d_bn_act=conv.conv2d_bn_act),
-                       reference=False)
-    print(json.dumps(rows), flush=True)
+    mods = SimpleNamespace(fused_gemm=matmul.fused_gemm,
+                           conv2d_bn_act=conv.conv2d_bn_act)
+    rows = kernel_rows(mods, reference=False)
+    if hasattr(matmul.fused_matmul, "launches_bf16"):
+        rows += kernel_rows(mods, reference=False, bf16=True)
+    print(json.dumps(dict(rows=rows, digests=f32_digests(
+        matmul.fused_gemm, conv.conv2d_bn_act))), flush=True)
     return 0
 
 
 def ab_main(parent: str) -> int:
-    """Every K1 and K2 launch timed in the tree at ``parent`` and in this
-    one, in turns parent, this, this, parent, one process each."""
+    """Every K1 and K2 launch that both trees have, timed in the tree at
+    ``parent`` and in this one, in turns parent, this, this, parent, one
+    process each; the float32 outputs at the shapes of phases 3 and 4 must
+    be bitwise equal in all four runs."""
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
@@ -1276,25 +1859,39 @@ def ab_main(parent: str) -> int:
               f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
         runs.append(dict(label=label, root=str(root),
                          seconds=time.perf_counter() - t0,
-                         rows=json.loads(res.stdout.strip().splitlines()[-1])))
+                         **json.loads(res.stdout.strip().splitlines()[-1])))
         print(f"{label} ({root}): {runs[-1]['seconds']:.1f} s", flush=True)
+    digests = runs[0]["digests"]
+    differ = [c for c in digests
+              if any(r["digests"].get(c) != digests[c] for r in runs[1:])]
+    print(f"float32 K1 and K2 outputs at the shapes of phases 3 and 4: "
+          f"{len(digests) - len(differ)} of {len(digests)} cases bitwise "
+          "equal in all four runs", flush=True)
+    check(not differ and all(len(r["digests"]) == len(digests)
+                             for r in runs),
+          f"float32 outputs differ from the parent tree's: {differ}")
+    key = lambda r: (r["kernel"], r["path"], r["layer"])
+    by_run = [{key(r): r for r in run["rows"]} for run in runs]
+    both = [k for k in by_run[1] if k in by_run[0]]
     print("device us per launch: parent (1st, 4th run) | change (2nd, 3rd) "
           "| change / parent; back-to-back ms the same way", flush=True)
-    for i, r in enumerate(runs[0]["rows"]):
-        par = [runs[j]["rows"][i] for j in (0, 3)]
-        chg = [runs[j]["rows"][i] for j in (1, 2)]
+    for k in both:
+        par = [by_run[j][k] for j in (0, 3)]
+        chg = [by_run[j][k] for j in (1, 2)]
         us_p = sum(x["device_us"] for x in par) / 2
         us_c = sum(x["device_us"] for x in chg) / 2
-        print(f"  {r['kernel']:14s} {r['path']:5s} {r['layer']:10s} "
-              f"{str(r['shape']):24s} us {par[0]['device_us']:.1f} "
+        print(f"  {k[0]:19s} {k[1]:5s} {k[2]:10s} "
+              f"{str(chg[0]['shape']):24s} us {par[0]['device_us']:.1f} "
               f"{par[1]['device_us']:.1f} | {chg[0]['device_us']:.1f} "
               f"{chg[1]['device_us']:.1f} | {us_c / us_p:.3f};  ms "
               f"{par[0]['ms']:.4f} {par[1]['ms']:.4f} | {chg[0]['ms']:.4f} "
               f"{chg[1]['ms']:.4f}", flush=True)
+    only = [k for k in by_run[1] if k not in by_run[0]]
+    print(f"launches in this tree only, not timed: {only}", flush=True)
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "ab.json").write_text(json.dumps(dict(card=card, runs=runs),
-                                            indent=1))
+    (out / "ab.json").write_text(json.dumps(dict(card=card, runs=runs,
+                                                 differ=differ), indent=1))
     return 0
 
 

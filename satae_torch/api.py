@@ -11,13 +11,17 @@ the sweeps' resumable stores (``validation_losses.json``,
 selection meta, ``fit_summary.json``, ``classes.json`` and the encoder
 fingerprint that guards the MLP store (``mlp_provenance.json``). A run
 directory written by either package is loaded and resumed by the other.
-Training is float32, with TF32 off and only deterministic algorithms for
-cuDNN, so a fit repeats bit for bit on the card as it does on the CPU and
-as satae's does (a training run is chaotic: one nondeterministic
-convolution gradient moves its outcome). On a CUDA device every linear
-layer's forward and backward runs on kernel K1, and extraction runs on K2 +
-K1; the convolutions, transposed convolutions, BatchNorm, losses and Adam
-are stock PyTorch ops, as they are XLA ops in satae.
+Training computes in ``RuntimeConfig.compute_dtype``, float32 or satae's
+bf16 recipe (bf16 compute, float32 master parameters, BatchNorm stats,
+Adam moments and selection metrics; the MLP in float32; with
+``config.throughput_config`` its batch 1024), with TF32 off and only
+deterministic algorithms for cuDNN, so a fit repeats bit for bit on the
+card as it does on the CPU and as satae's does (a training run is chaotic:
+one nondeterministic convolution gradient moves its outcome). On a CUDA
+device every linear layer's forward and backward runs on kernel K1 (its
+bf16 instantiation for the autoencoder's in bf16), and extraction runs on
+K2 + K1; the convolutions, transposed convolutions, BatchNorm, losses and
+Adam are stock PyTorch ops, as they are XLA ops in satae.
 
 ``SatAEPipeline`` also loads a fitted pipeline (:meth:`load`,
 :meth:`load_ae`, or the reference notebook's ``.pt`` state_dicts with
@@ -27,8 +31,9 @@ evaluates a split (:meth:`evaluate`) and serves ``encode``, ``predict`` and
 (api.py:527-603): one upload, chunks of 64 images for inputs of up to 64,
 of 512 otherwise, padding rows sliced off. On a CUDA device every chunk
 runs satae_torch.models.fast_infer on the hand-written kernels (K2 per conv
-layer, K1 per linear layer); with ``device="cpu"`` the same code runs the
-kernels' plain PyTorch versions.
+layer, K1 per linear layer; the encoder in the compute dtype, its weights
+cast once, the MLP on float32 latents, as satae's api.py:399-415); with
+``device="cpu"`` the same code runs the kernels' plain PyTorch versions.
 
 The device is explicit. ``device=None`` means the first CUDA device, and
 raises where there is none: the pipeline never drops to the CPU by itself.
@@ -37,8 +42,8 @@ Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md §1
 item: the vmap and sharded sweep engines (``runtime.parallel_configs``,
 ``runtime.n_devices``), in-flight resume (``ae.checkpoint_every`` with
 ``out_dir``), curve plots (``runtime.save_grid_curves``; satae's fit also
-draws ``*_best_curves.png`` into ``out_dir``, the port does not), decoder
-serving (``decode``/``reconstruct``) and bf16 compute.
+draws ``*_best_curves.png`` into ``out_dir``, the port does not) and
+decoder serving (``decode``/``reconstruct``).
 """
 
 from __future__ import annotations
@@ -104,10 +109,6 @@ class SatAEPipeline:
     def __init__(self, config: Optional[PipelineConfig] = None, device=None):
         self.config = config or default_config()
         rt = self.config.runtime
-        if rt.compute_dtype != "float32":
-            raise NotImplementedError(
-                "satae_torch serves in float32 only: bf16 inputs to the "
-                "kernels are a later slice (ROADMAP.md §1 item 12, §2)")
         if rt.n_devices:
             raise NotImplementedError(
                 "multi-device serving is a later slice (ROADMAP.md §1 "
@@ -173,6 +174,7 @@ class SatAEPipeline:
              reuse_ae: bool) -> FitSummary:
         cfg, dev = self.config, self.device
         bs, seed = cfg.data.batch_size, cfg.runtime.seed
+        dtype = cfg.compute_dtype
         stage_t: Dict[str, float] = {}
         t_mark = time.perf_counter()
 
@@ -195,14 +197,15 @@ class SatAEPipeline:
             sweep = ae_grid_search(
                 splits.train, splits.val, model_cfg=cfg.model,
                 data_cfg=cfg.data, ae_cfg=cfg.ae, device=dev, seed=seed,
-                out_dir=out_dir, log=log)
+                out_dir=out_dir, log=log, compute_dtype=dtype)
             ae_res, ae_hp = sweep.best, sweep.best_hparams
         else:
             ae_res = train_supervised_ae(
                 splits.train, splits.val, model_cfg=cfg.model,
                 data_cfg=cfg.data, alpha=BEST_ALPHA, lr=BEST_AE_LR,
                 device=dev, max_epochs=cfg.ae.max_epochs,
-                patience=cfg.ae.patience, seed=seed, log=log)
+                patience=cfg.ae.patience, seed=seed, log=log,
+                compute_dtype=dtype)
             ae_hp = {"alpha": BEST_ALPHA, "lr": BEST_AE_LR}
         if ae_res is not None:
             ae = SupervisedAE(cfg.model, cfg.data.channels,
@@ -212,9 +215,9 @@ class SatAEPipeline:
             self._ae_src_dir = None  # freshly trained or a sweep's winner
         stage("ae")
 
-        Xtr, ytr = extract_features(self.ae.enc, splits.train, bs)
-        Xva, yva = extract_features(self.ae.enc, splits.val, bs)
-        Xte, yte = extract_features(self.ae.enc, splits.test, bs)
+        Xtr, ytr = extract_features(self.ae.enc, splits.train, bs, dtype)
+        Xva, yva = extract_features(self.ae.enc, splits.val, bs, dtype)
+        Xte, yte = extract_features(self.ae.enc, splits.test, bs, dtype)
         stage("extract")
 
         if out_dir:
@@ -457,9 +460,10 @@ class SatAEPipeline:
                                "mlp_pt)")
 
     def _folded_weights(self):
-        """Folded, packed weights for the kernels, computed once per weight
-        set: refreshed when ``ae``/``mlp`` are reassigned or their tensors
-        change in place (``load_state_dict`` bumps their versions)."""
+        """Folded, packed weights for the kernels (the encoder's for the
+        compute dtype), computed once per weight set: refreshed when
+        ``ae``/``mlp`` are reassigned or their tensors change in place
+        (``load_state_dict`` bumps their versions)."""
         versions = tuple((t.data_ptr(), t._version)
                          for m in (self.ae, self.mlp) if m is not None
                          for t in m.state_dict().values())
@@ -467,7 +471,8 @@ class SatAEPipeline:
         if src is None or src[0] is not self.ae or src[1] is not self.mlp \
                 or src[2] != versions:
             self._folded = (
-                fast_infer.fold_encoder(self.ae.enc),
+                fast_infer.fold_encoder(self.ae.enc,
+                                        self.config.compute_dtype),
                 None if self.mlp is None else fast_infer.fold_mlp(self.mlp))
             self._folded_src = (self.ae, self.mlp, versions)
         return self._folded
@@ -482,8 +487,9 @@ class SatAEPipeline:
     def _serve_batched(self, images: np.ndarray, fe: fast_infer.FoldedEncoder,
                        head: Callable[[torch.Tensor], torch.Tensor]
                        ) -> List[torch.Tensor]:
-        """One upload, padded on the device to whole fixed-size chunks,
-        latents chained into ``head`` on the device. Returns per-chunk
+        """One upload, padded on the device to whole fixed-size chunks, each
+        encoded in the compute dtype, its latents chained into ``head`` on
+        the device as float32 (satae's api.py:569-570). Returns per-chunk
         outputs covering n + pad rows (padding rows never mix with real
         ones: eval-mode BN uses running stats, every layer is per image)."""
         imgs = self._to_uint8(np.asarray(images))
@@ -494,9 +500,11 @@ class SatAEPipeline:
                           device=self.device)
         dev[:n].copy_(torch.from_numpy(np.ascontiguousarray(imgs)))
         out = []
+        dtype = self.config.compute_dtype
         for lo in range(0, n + pad, chunk):
-            z = fast_infer.encoder_infer(fe, normalize(dev[lo:lo + chunk]))
-            out.append(head(z))
+            z = fast_infer.encoder_infer(fe, normalize(dev[lo:lo + chunk],
+                                                       dtype))
+            out.append(head(z.float()))
         return out
 
     def encode(self, images: np.ndarray) -> np.ndarray:

@@ -1,9 +1,11 @@
-// The GEMM epilogue that both hand-written kernels share:
+// The GEMM epilogue that both hand-written kernels share, in float32 for
+// float32 and bf16 operands alike:
 //   out = act(acc * scale[col] + shift[col])
 // It is the epilogue of satae/kernels/matmul.py::_mm_kernel. A plain linear
 // layer is scale = 1, shift = bias; an eval-mode BatchNorm folds into
 // scale = gamma * rsqrt(var + eps),
-// shift = beta - mean * scale (+ bias * scale).
+// shift = beta - mean * scale (+ bias * scale). A bf16 output is rounded
+// once, after the activation (gemm_tile.cuh's store).
 //
 // Built without --use_fast_math: expf stays the accurate libdevice routine so
 // the sigmoid matches torch.sigmoid to float32 rounding.

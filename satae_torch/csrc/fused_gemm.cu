@@ -1,4 +1,5 @@
-// K1 fused_gemm: out = act((A @ B) * scale + shift), float32.
+// K1 fused_gemm: out = act((A @ B) * scale + shift), operands and output
+// float32 or bf16, the product accumulated and the epilogue taken in float32.
 //
 // Replaces satae/kernels/matmul.py::_mm_kernel (the one pl.pallas_call of the
 // JAX package, matmul.py:71), in both directions of its custom VJP:
@@ -17,7 +18,9 @@
 // projection 512 x 4096 x 64 moves 9.4 MB (2.8 us at 3.35 TB/s) and does
 // 0.27 GFLOP (1.6 us), so it is bound by bytes; the batch-64 training
 // products (64 x 4096 x 64: 2.1 MB, 0.63 us) and the small MLP products are
-// bound by bytes too, and far below a launch's latency.
+// bound by bytes too, and far below a launch's latency. In bf16 (2 bytes an
+// element, 989 TFLOP/s dense on the tensor cores) every one of these is
+// bound by bytes: the serving projection moves 4.7 MB (1.4 us).
 //
 // What the design does about it. With N <= 64 and K = 4096 the output has
 // only 8 tiles (serving) or 1 (batch 64) of 64 x 64, so a tile per block
@@ -38,32 +41,48 @@
 // tiles, whose planes are half the bytes, and a split count near the optimum
 // of `chip_smoke.py --split-sweep`, which times every split count on an
 // H100.
+// In bf16 the partials stay float32 in the same workspace, and the last
+// block rounds their sum to bf16 once, after the epilogue.
 // The wrapper owns the workspace and the counters (one buffer per device,
 // kept zeroed by the kernel); the port launches on one stream, and two
 // concurrent split-K launches would share the counters.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
 
 namespace satae {
 
-using RowMajorA = KMajor<kBM>;
-using TransA = MNMajor<kBM>;
-template <int kBN>
-using RowMajorB = MNMajor<kBN>;
-template <int kBN>
-using TransB = KMajor<kBN>;
+template <class T>
+using RowMajorA = KMajor<T, kBM>;
+template <class T>
+using TransA = MNMajor<T, kBM>;
+template <class T, int kBN>
+using RowMajorB = MNMajor<T, kBN>;
+template <class T, int kBN>
+using TransB = KMajor<T, kBN>;
 
-// The last block of a tile: out = epilogue(sum of the S partials in split
-// order). The S planes stream through a ring of kRing plane-sized slots of
-// shared memory (the free stage ring) with cp.async, kRing - 1 planes in
-// flight; each thread copies, and then adds, only its own quads, so no block
-// barrier is needed. The same loads held in registers ran no faster and
-// raised the kernel's register count (fewer blocks per SM on the main loop).
-template <int kBN, int kRing>
+// Dynamic shared memory of a K1 block: the stage ring, or the output staging
+// tile, or the fix-up's two float32 plane slots, whichever is largest (in
+// float32 the ring always is).
+template <class ATile, class BTile, int kBN>
+__host__ __device__ constexpr int gemm_smem_bytes() {
+  return smem_bytes<ATile, BTile, kBN>() > 2 * 4 * kBM * kBN
+             ? smem_bytes<ATile, BTile, kBN>()
+             : 2 * 4 * kBM * kBN;
+}
+
+// The last block of a tile: out = epilogue(sum of the S float32 partials in
+// split order), rounded once to T. The S planes stream through a ring of
+// kRing plane-sized slots of shared memory (the free stage ring) with
+// cp.async, kRing - 1 planes in flight; each thread copies, and then adds,
+// only its own quads, so no block barrier is needed. The same loads held in
+// registers ran no faster and raised the kernel's register count (fewer
+// blocks per SM on the main loop).
+template <int kBN, int kRing, class T>
 __device__ __forceinline__ void reduce_partials(float* smem, const float* ws,
-                                                float* out, int M, int N,
-                                                int m0, int n0, int splits,
+                                                T* out, int M, int N, int m0,
+                                                int n0, int splits,
                                                 const float* scale,
                                                 const float* shift, int act) {
   constexpr int kPerRow = kBN / 4;
@@ -72,7 +91,8 @@ __device__ __forceinline__ void reduce_partials(float* smem, const float* ws,
   constexpr int kSlot = kQuads * kThreads * 4;  // floats: one plane's tile
   const int c = (threadIdx.x % kPerRow) * 4;
   const int nv = N - (n0 + c) < 4 ? N - (n0 + c) : 4;  // <= 0: no columns
-  const bool vec = N % 4 == 0 && aligned16(out) && aligned16(ws);
+  // a quad of the output is 4 * sizeof(T) bytes
+  const bool vec = N % 4 == 0 && aligned(out, 4 * sizeof(T)) && aligned16(ws);
   const size_t plane = static_cast<size_t>(M) * N;
   size_t off[kQuads];
   bool ok[kQuads];
@@ -123,16 +143,24 @@ __device__ __forceinline__ void reduce_partials(float* smem, const float* ws,
 #pragma unroll
   for (int i = 0; i < kQuads; ++i)
     if (ok[i])
-      store_quad(out, off[i], n0 + c, v[i], nv, vec, scale, shift, act);
+      store_vec<T, 4>(out, off[i], n0 + c, v[i], nv, vec, scale, shift, act);
 }
 
+// The minimum of one block per SM sets ptxas's occupancy target: with the
+// thread count alone ptxas (CUDA 12.8, sm_90a) held the float32 RowMajorA x
+// TransB 32-wide instantiation to 64 registers and spilled 20 bytes; with
+// it none of the 16 instantiations spills, and the shared memory still
+// limits every one to 4 blocks per SM or fewer.
 template <class ATile, class BTile, int kBN>
-__global__ void __launch_bounds__(kThreads)
-    fused_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_gemm_kernel(const typename ATile::Elem* __restrict__ x,
+                      const typename ATile::Elem* __restrict__ w,
                       const float* __restrict__ scale,
-                      const float* __restrict__ shift, float* __restrict__ out,
+                      const float* __restrict__ shift,
+                      typename ATile::Elem* __restrict__ out,
                       float* __restrict__ ws, int* __restrict__ counters,
                       int M, int N, int K, int act, int k_per_split) {
+  using T = typename ATile::Elem;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ bool last;
@@ -142,13 +170,14 @@ __global__ void __launch_bounds__(kThreads)
   const ATile a(x, M, K, m0);
   const BTile b(w, N, K, n0);
   Frag<kBN> f;
-  mainloop<ATile, BTile, kBN>(a, b, smem, k_begin, k_end, f);
+  mainloop<ATile, BTile, kBN>(a, b, reinterpret_cast<T*>(smem4), k_begin,
+                              k_end, f);
   stage_acc<kBN>(f, smem);
   if (gridDim.z == 1) {
     store_tile<kBN>(smem, out, M, N, m0, n0, scale, shift, act);
     return;
   }
-  // split-K: this block's raw partial into plane blockIdx.z of ws ...
+  // split-K: this block's raw float32 partial into plane blockIdx.z of ws ...
   store_tile<kBN>(smem, ws + blockIdx.z * static_cast<size_t>(M) * N, M, N,
                   m0, n0, nullptr, nullptr, kActNone);
   __threadfence();
@@ -160,7 +189,7 @@ __global__ void __launch_bounds__(kThreads)
   if (!last) return;
   // ... and the last of the tile's S blocks finishes it
   __threadfence();
-  constexpr int kRing = kStages * stage_floats<ATile, BTile>() / (kBM * kBN);
+  constexpr int kRing = gemm_smem_bytes<ATile, BTile, kBN>() / (4 * kBM * kBN);
   static_assert(kRing >= 2, "the fix-up needs two plane slots");
   reduce_partials<kBN, kRing < 8 ? kRing : 8>(smem, ws, out, M, N, m0, n0,
                                              gridDim.z, scale, shift, act);
@@ -173,42 +202,66 @@ __global__ void __launch_bounds__(kThreads)
 namespace {
 
 template <class ATile, class BTile, int kBN>
-int launch(const float* x, const float* w, const float* scale,
-           const float* shift, float* out, float* ws, int* counters, int M,
+int launch(const void* x, const void* w, const float* scale,
+           const float* shift, void* out, float* ws, int* counters, int M,
            int N, int K, int act, int splits, int k_per_split,
            cudaStream_t stream) {
-  constexpr int smem = smem_bytes<ATile, BTile, kBN>();
+  using T = typename ATile::Elem;
+  constexpr int smem = gemm_smem_bytes<ATile, BTile, kBN>();
   auto kernel = fused_gemm_kernel<ATile, BTile, kBN>;
   static unsigned allowed = 0;
   const cudaError_t err =
       allow_smem(reinterpret_cast<const void*>(kernel), smem, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, splits);
-  kernel<<<grid, kThreads, smem, stream>>>(x, w, scale, shift, out, ws,
-                                           counters, M, N, K, act,
-                                           k_per_split);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), scale, shift,
+      static_cast<T*>(out), ws, counters, M, N, K, act, k_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kBN>
-int launch_layout(const float* x, const float* w, const float* scale,
-                  const float* shift, float* out, float* ws, int* counters,
+template <class T, int kBN>
+int launch_layout(const void* x, const void* w, const float* scale,
+                  const float* shift, void* out, float* ws, int* counters,
                   int M, int N, int K, int act, int trans_a, int trans_b,
                   int splits, int k_per_split, cudaStream_t stream) {
   if (trans_a) {
-    return trans_b ? launch<TransA, TransB<kBN>, kBN>(
+    return trans_b ? launch<TransA<T>, TransB<T, kBN>, kBN>(
                          x, w, scale, shift, out, ws, counters, M, N, K, act,
                          splits, k_per_split, stream)
-                   : launch<TransA, RowMajorB<kBN>, kBN>(
+                   : launch<TransA<T>, RowMajorB<T, kBN>, kBN>(
                          x, w, scale, shift, out, ws, counters, M, N, K, act,
                          splits, k_per_split, stream);
   }
-  return trans_b ? launch<RowMajorA, TransB<kBN>, kBN>(
+  return trans_b ? launch<RowMajorA<T>, TransB<T, kBN>, kBN>(
                        x, w, scale, shift, out, ws, counters, M, N, K, act,
                        splits, k_per_split, stream)
-                 : launch<RowMajorA, RowMajorB<kBN>, kBN>(
+                 : launch<RowMajorA<T>, RowMajorB<T, kBN>, kBN>(
                        x, w, scale, shift, out, ws, counters, M, N, K, act,
                        splits, k_per_split, stream);
+}
+
+// Checks the plan, then launches the instantiation of T for it.
+template <class T>
+int launch_plan(const void* x, const void* w, const float* scale,
+                const float* shift, void* out, float* ws, int* counters,
+                int M, int N, int K, int act, int trans_a, int trans_b,
+                int tile_n, int splits, int k_per_split, void* stream) {
+  const bool plan_ok =
+      (tile_n == 32 || tile_n == 64) && splits >= 1 && k_per_split > 0 &&
+      static_cast<long long>(splits) * k_per_split >= K &&
+      (splits == 1 || (ws != nullptr && counters != nullptr &&
+                       k_per_split % kBK == 0 &&
+                       static_cast<long long>(splits - 1) * k_per_split < K));
+  if (!plan_ok) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return tile_n == 32
+             ? launch_layout<T, 32>(x, w, scale, shift, out, ws, counters, M,
+                                    N, K, act, trans_a, trans_b, splits,
+                                    k_per_split, s)
+             : launch_layout<T, 64>(x, w, scale, shift, out, ws, counters, M,
+                                    N, K, act, trans_a, trans_b, splits,
+                                    k_per_split, s);
 }
 
 }  // namespace
@@ -217,34 +270,36 @@ int launch_layout(const float* x, const float* w, const float* scale,
 
 extern "C" {
 
-// out (M, N) = act((A @ B) * scale + shift). A is x, a row-major (M, K)
-// buffer, or with trans_a x read as the transpose of a row-major (K, M)
-// buffer; B is w, row-major (K, N), or with trans_b the transpose of a
-// row-major (N, K) buffer. scale / shift may be null (1 / 0). The plan:
-// tile_n (32 or 64) columns per tile, `splits` K ranges of k_per_split (a
-// multiple of 32) each; with splits > 1, `ws` holds splits * M * N floats and
-// `counters` one zeroed int per tile. Launches on `stream` and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a plan the
-// kernel does not take.
+// out (M, N) = act((A @ B) * scale + shift), all float32. A is x, a
+// row-major (M, K) buffer, or with trans_a x read as the transpose of a
+// row-major (K, M) buffer; B is w, row-major (K, N), or with trans_b the
+// transpose of a row-major (N, K) buffer. scale / shift may be null (1 / 0).
+// The plan: tile_n (32 or 64) columns per tile, `splits` K ranges of
+// k_per_split (a multiple of 32) each; with splits > 1, `ws` holds splits *
+// M * N floats and `counters` one zeroed int per tile. Launches on `stream`
+// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for a plan the kernel does not take.
 int satae_fused_gemm(const float* x, const float* w, const float* scale,
                      const float* shift, float* out, float* ws, int* counters,
                      int M, int N, int K, int act, int trans_a, int trans_b,
                      int tile_n, int splits, int k_per_split, void* stream) {
-  const bool plan_ok =
-      (tile_n == 32 || tile_n == 64) && splits >= 1 && k_per_split > 0 &&
-      static_cast<long long>(splits) * k_per_split >= K &&
-      (splits == 1 || (ws != nullptr && counters != nullptr &&
-                       k_per_split % satae::kBK == 0 &&
-                       static_cast<long long>(splits - 1) * k_per_split < K));
-  if (!plan_ok) return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  return tile_n == 32
-             ? satae::launch_layout<32>(x, w, scale, shift, out, ws, counters,
-                                        M, N, K, act, trans_a, trans_b, splits,
-                                        k_per_split, s)
-             : satae::launch_layout<64>(x, w, scale, shift, out, ws, counters,
-                                        M, N, K, act, trans_a, trans_b, splits,
-                                        k_per_split, s);
+  return satae::launch_plan<float>(x, w, scale, shift, out, ws, counters, M,
+                                   N, K, act, trans_a, trans_b, tile_n,
+                                   splits, k_per_split, stream);
+}
+
+// satae_fused_gemm with bf16 x, w and out; scale, shift and the split-K
+// workspace stay float32, and out is rounded once (to nearest even) after
+// the float32 epilogue.
+int satae_fused_gemm_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                          const float* scale, const float* shift,
+                          __nv_bfloat16* out, float* ws, int* counters, int M,
+                          int N, int K, int act, int trans_a, int trans_b,
+                          int tile_n, int splits, int k_per_split,
+                          void* stream) {
+  return satae::launch_plan<__nv_bfloat16>(
+      x, w, scale, shift, out, ws, counters, M, N, K, act, trans_a, trans_b,
+      tile_n, splits, k_per_split, stream);
 }
 
 const char* satae_error_string(int code) {

@@ -9,7 +9,9 @@ form of the same map is a TPU device choice (ROADMAP.md §1 item 4).
 
 The random draws come from a ``torch.Generator``, so they are not satae's
 (JAX's threefry or rbg streams); the flips, offsets and noise can be passed
-in to reproduce a given draw.
+in to reproduce a given draw. With a bf16 ``dtype`` the scaling, the crop,
+the noise (drawn in bf16, as satae draws it, augment.py:84-93) and its
+scale run in bf16.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from satae_torch.nn.layers import const_like
 
 
 def normalize(imgs_u8: torch.Tensor,
@@ -50,12 +54,15 @@ def augment_train_batch(imgs_u8: torch.Tensor, *, crop_padding: int = 4,
                         generator: Optional[torch.Generator] = None,
                         flip: Optional[torch.Tensor] = None,
                         offsets: Optional[torch.Tensor] = None,
-                        noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """uint8 (N,H,W,C) -> augmented float32 (N,H,W,C) in ~[0,1] (+noise).
+                        noise: Optional[torch.Tensor] = None,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 (N,H,W,C) -> augmented (N,H,W,C) in ``dtype``, ~[0,1]
+    (+noise).
 
     ``flip`` (bernoulli(0.5) per image), ``offsets`` (uniform integers in
-    [0, 2 * crop_padding]) and ``noise`` (standard normal, the batch's shape)
-    are drawn from ``generator`` on the batch's device unless given."""
+    [0, 2 * crop_padding]) and ``noise`` (standard normal, the batch's
+    shape, cast to ``dtype``) are drawn from ``generator`` on the batch's
+    device unless given."""
     n = imgs_u8.shape[0]
     dev = imgs_u8.device
     if flip is None:
@@ -63,9 +70,10 @@ def augment_train_batch(imgs_u8: torch.Tensor, *, crop_padding: int = 4,
     if offsets is None:
         offsets = torch.randint(0, 2 * crop_padding + 1, (n, 2),
                                 generator=generator, device=dev)
-    x = flip_crop(normalize(imgs_u8), flip, offsets, crop_padding)
+    x = flip_crop(normalize(imgs_u8, dtype), flip, offsets, crop_padding)
     if noise_std:
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=dev)
-        x = x + noise_std * noise.to(device=dev, dtype=x.dtype)
+            noise = torch.randn(x.shape, generator=generator, device=dev,
+                                dtype=dtype)
+        x = x + const_like(noise_std, x) * noise.to(device=dev, dtype=dtype)
     return x

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version: K1
 ``fused_matmul`` (csrc/fused_gemm.cu) with its backward
 ``fused_matmul_bwd``, whose products are K1 launches too, and K2
-``conv2d_bn_act`` (csrc/conv_bn_act.cu). A CUDA tensor launches the kernel,
-a CPU tensor takes the plain version."""
+``conv2d_bn_act`` (csrc/conv_bn_act.cu), each with a float32 and a bf16
+instantiation. A CUDA tensor launches the kernel, a CPU tensor takes the
+plain version."""
 
 from __future__ import annotations
 
@@ -17,11 +18,16 @@ _WRAPPERS = {"fused_gemm": fused_matmul, "fused_gemm_bwd": fused_matmul_bwd,
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`:
-    ``fused_gemm`` counts K1's forward launches, ``fused_gemm_bwd`` the K1
-    launches of its backward."""
-    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+    ``fused_gemm`` counts K1's float32 forward launches, ``fused_gemm_bwd``
+    the float32 K1 launches of its backward, ``conv2d_bn_act`` K2's float32
+    launches, and each name with ``_bf16`` the launches of the bf16
+    instantiation."""
+    counts = {name: fn.launches for name, fn in _WRAPPERS.items()}
+    counts.update({f"{name}_bf16": fn.launches_bf16
+                   for name, fn in _WRAPPERS.items()})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
-        fn.launches = 0
+        fn.launches = fn.launches_bf16 = 0

@@ -34,9 +34,14 @@ BUILD_ROOT = _PKG / "_build"
 # source -> {launcher: (device pointers, int arguments)}. A launcher takes
 # its pointers (x, w, scale, shift, out, then K1's split-K workspace and
 # counters), its int arguments, then the stream, and returns
-# cudaGetLastError().
-LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": (7, 9)},
-             "conv_bn_act": {"satae_conv2d_bn_act": (5, 13)}}
+# cudaGetLastError(). Each kernel has a float32 and a bf16 launcher (x, w
+# and out bf16; scale, shift and the workspace float32).
+LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": (7, 9),
+                            "satae_fused_gemm_bf16": (7, 9)},
+             "conv_bn_act": {"satae_conv2d_bn_act": (5, 13),
+                             "satae_conv2d_bn_act_bf16": (5, 13)}}
+# the operand dtypes the kernels take, and each one's launcher suffix
+OPERAND_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 SOURCES = tuple(LAUNCHERS)
 # No --use_fast_math: expf in the sigmoid epilogue stays accurate.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -170,21 +175,38 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_operands(what: str, device, **tensors) -> None:
-    """The kernels take contiguous float32 tensors on one CUDA device; a
-    tensor given as None is not checked."""
-    for name, t in tensors.items():
+def check_dtypes(what: str, x: torch.Tensor, w: torch.Tensor,
+                 scale=None, shift=None) -> str:
+    """Refuse what no instantiation takes, on every device: x and w must be
+    a float32 or a bf16 pair (a bf16 x with a float32 w would silently
+    promote in the plain versions; the callers cast, as satae's do), scale
+    and shift float32 (None is not checked). Returns the launcher suffix of
+    the operands' dtype."""
+    if x.dtype not in OPERAND_DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"{what}: operands x {x.dtype} and w {w.dtype}; "
+                        "expected a float32 or a bf16 pair")
+    for name, t in (("scale", scale), ("shift", shift)):
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} is {t.dtype}, expected "
+                            "torch.float32")
+    return OPERAND_DTYPES[x.dtype]
+
+
+def check_operands(what: str, device, x: torch.Tensor, w: torch.Tensor,
+                   scale=None, shift=None) -> str:
+    """:func:`check_dtypes`, and the kernels take contiguous tensors on one
+    CUDA device (a scale or shift given as None is not checked). Returns the
+    launcher suffix of the operands' dtype."""
+    suffix = check_dtypes(what, x, w, scale, shift)
+    for name, t in (("x", x), ("w", w), ("scale", scale), ("shift", shift)):
         if t is None:
             continue
         if t.device != device:
             raise ValueError(f"{what}: {name} is on {t.device}, expected "
                              f"{device}")
-        if t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"{what}: {name} is {t.dtype}; the CUDA kernels take float32 "
-                "only (bf16 inputs are a later slice, ROADMAP.md §2)")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+    return suffix
 
 
 def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device,

@@ -9,6 +9,12 @@ patches in its loads and never writes an im2col matrix. On a CUDA tensor
 
 Layouts are the JAX package's: NHWC activations, HWIO weights. A PyTorch
 OIHW weight goes through :func:`pack_conv_weight` once, at load.
+
+x and w are both float32 or both bf16 (K2's bf16 instantiation,
+``satae_conv2d_bn_act_bf16``, counted in ``conv2d_bn_act.launches_bf16``),
+scale and shift float32; the sums and the epilogue are float32 and the
+output is in x's dtype, rounded once, as satae's ``conv2d_bn_act_infer``
+computes through ``fused_matmul``.
 """
 
 from __future__ import annotations
@@ -17,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from satae_torch.kernels import _build
-from satae_torch.kernels.matmul import ACTS, apply_act, tile_n_for
+from satae_torch.kernels.matmul import (ACTS, apply_act, count_launch,
+                                        tile_n_for)
 
 
 def bn_fold(weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
@@ -43,8 +50,9 @@ def _out_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int):
 def conv2d_bn_act_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                         shift: torch.Tensor, stride: int = 1,
                         padding: int = 0, act: str = "none") -> torch.Tensor:
-    """The plain PyTorch version of K2: F.conv2d, then the folded affine and
-    the activation. x NHWC, w HWIO; returns NHWC in x's dtype."""
+    """The plain PyTorch version of K2: F.conv2d in float32 (of the bf16
+    values, for bf16 operands), then the folded affine and the activation in
+    float32. x NHWC, w HWIO; returns NHWC in x's dtype, rounded once."""
     y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
                  stride=stride, padding=padding)
     y = y.permute(0, 2, 3, 1) * scale.float() + shift.float()
@@ -55,20 +63,21 @@ def _conv_cuda(x, w, scale, shift, stride, padding, act):
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     oh, ow = _out_hw(h, wd, kh, kw, stride, padding)
-    _build.check_operands("conv2d_bn_act", x.device, x=x, w=w, scale=scale,
-                          shift=shift)
+    suffix = _build.check_operands("conv2d_bn_act", x.device, x, w,
+                                   scale=scale, shift=shift)
     if max(x.numel(), n * oh * ow * cout) >= 2 ** 31:
         raise ValueError(f"conv2d_bn_act: input {tuple(x.shape)} exceeds "
                          "int32 indexing")
-    out = torch.empty((n, oh, ow, cout), device=x.device, dtype=torch.float32)
+    out = torch.empty((n, oh, ow, cout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
-    _build.launch(_build.load("conv_bn_act"), "satae_conv2d_bn_act", x.device,
+    _build.launch(_build.load("conv_bn_act"), "satae_conv2d_bn_act" + suffix,
+                  x.device,
                   x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                   shift.data_ptr(), out.data_ptr(), n, h, wd, cin, kh, kw,
                   cout, oh, ow, stride, padding, ACTS.index(act),
                   tile_n_for(cout))
-    conv2d_bn_act.launches += 1
+    count_launch(conv2d_bn_act, x.dtype)
     return out
 
 
@@ -76,10 +85,13 @@ def conv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                   shift: torch.Tensor, stride: int = 1, padding: int = 0,
                   act: str = "none") -> torch.Tensor:
     """act(conv2d(x, w) * scale + shift) for NHWC x and HWIO w, with the conv
-    bias and eval-mode BN folded into scale/shift (Cout,). Returns NHWC.
+    bias and eval-mode BN folded into scale/shift (Cout,). x and w are both
+    float32 or both bf16, scale and shift float32. Returns NHWC in x's
+    dtype.
 
-    A CUDA x launches K2 (``conv2d_bn_act.launches`` counts the launches); a
-    CPU x takes :func:`conv2d_bn_act_plain`."""
+    A CUDA x launches K2 (``conv2d_bn_act.launches`` counts the float32
+    launches, ``launches_bf16`` the bf16 ones); a CPU x takes
+    :func:`conv2d_bn_act_plain`."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
     if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[2]:
@@ -90,6 +102,7 @@ def conv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"conv2d_bn_act: scale/shift must be ({cout},)")
     if stride < 1 or padding < 0:
         raise ValueError("conv2d_bn_act: stride >= 1 and padding >= 0")
+    _build.check_dtypes("conv2d_bn_act", x, w, scale, shift)
     if x.device.type == "cuda":
         return _conv_cuda(x, w, scale, shift, stride, padding, act)
     if x.device.type == "cpu":
@@ -98,3 +111,4 @@ def conv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 
 conv2d_bn_act.launches = 0
+conv2d_bn_act.launches_bf16 = 0

@@ -15,6 +15,18 @@ W reaches the product as a row-major (K, N) buffer, or with ``w_nk=True`` as
 the (N, K) buffer an ``nn.Linear`` stores; K1 reads either layout, and each
 backward product, in place (its ``trans_a``/``trans_b`` flags), so no
 transposed copy of an operand is ever made.
+
+Operands are float32, or bf16 as in satae's bf16 recipe: x and w of one
+dtype (a mixed pair raises; the callers cast, as satae's layers do), scale
+and shift float32, the product accumulated and the epilogue taken in
+float32, the output in x's dtype, rounded once (``_mm_kernel``'s
+``preferred_element_type=jnp.float32`` and ``out_ref.dtype``). The backward
+runs in the cotangent's dtype as satae's ``_bwd`` does: the activation's
+gradient and ``g * scale`` in bf16, dX and dW as bf16 K1 launches, dscale
+and dshift in float32. Each wrapper counts float32 launches in ``launches``
+and bf16 launches in ``launches_bf16`` (``satae_torch.kernels.
+launch_counts`` names them ``fused_gemm_bf16`` and ``fused_gemm_bwd_bf16``),
+so a count shows which instantiation ran.
 """
 
 from __future__ import annotations
@@ -41,8 +53,9 @@ def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
 def fused_matmul_plain(x: torch.Tensor, w: torch.Tensor,
                        scale: Optional[torch.Tensor], shift: torch.Tensor,
                        act: str = "none") -> torch.Tensor:
-    """The plain PyTorch version of K1: float32 product and epilogue, output
-    in x's dtype. ``w`` is (K, N); pass ``w.t()`` for an (N, K) weight. A
+    """The plain PyTorch version of K1: float32 product (of the bf16 values,
+    exact in float32, for bf16 operands) and epilogue, output in x's dtype,
+    rounded once. ``w`` is (K, N); pass ``w.t()`` for an (N, K) weight. A
     scale of None is 1."""
     y = x.float() @ w.float()
     if scale is not None:
@@ -51,12 +64,19 @@ def fused_matmul_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def _act_grad(g: torch.Tensor, y: torch.Tensor, act: str) -> torch.Tensor:
-    """The cotangent through the activation, from its output y."""
+    """The cotangent through the activation, from its output y, in g's
+    dtype."""
     if act == "relu":
         return g * (y > 0).to(g.dtype)
     if act == "sigmoid":
         return g * y * (1.0 - y)
     return g
+
+
+def _mm_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as K1 computes it with scale 1 and shift 0: a float32 product,
+    rounded once to a's dtype."""
+    return (a.float() @ b.float()).to(a.dtype)
 
 
 def fused_matmul_bwd_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
@@ -66,19 +86,20 @@ def fused_matmul_bwd_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                            w_nk: bool = False) -> Grads:
     """satae's ``_bwd`` (matmul.py:100-118) in plain PyTorch ops: the
     gradients (dx, dw, dscale, dshift) of act((x @ W) * scale + shift) for
-    the cotangent g of its output y, W = w or w.T (``w_nk``). dw comes in
-    w's own layout; an entry whose ``needs`` flag is False is None. A scale
-    of None is 1 and has no gradient."""
+    the cotangent g of its output y, W = w or w.T (``w_nk``). dx and dw come
+    in g's dtype, dw in w's own layout, dscale and dshift in float32; an
+    entry whose ``needs`` flag is False is None. A scale of None is 1 and
+    has no gradient."""
     g = _act_grad(g, y, act)
-    gs = g if scale is None else g * scale
+    gs = g if scale is None else g * scale.to(g.dtype)
     w_kn = w.t() if w_nk else w
-    dx = gs @ w_kn.t() if needs[0] else None
+    dx = _mm_plain(gs, w_kn.t()) if needs[0] else None
     dw = None
     if needs[1]:
-        dw = gs.t() @ x if w_nk else x.t() @ gs
+        dw = _mm_plain(gs.t(), x) if w_nk else _mm_plain(x.t(), gs)
     # dscale needs the pre-epilogue product z = x @ W, recomputed
-    dscale = (g * (x @ w_kn)).sum(0) if needs[2] else None
-    dshift = g.sum(0) if needs[3] else None
+    dscale = (g * _mm_plain(x, w_kn)).sum(0).float() if needs[2] else None
+    dshift = g.sum(0).float() if needs[3] else None
     return dx, dw, dscale, dshift
 
 
@@ -120,8 +141,8 @@ def split_k_plan(m: int, n: int, k: int) -> Tuple[int, int, int, int]:
 
 def split_k_workspace(m: int, n: int, splits: int,
                       device) -> Optional[torch.Tensor]:
-    """The float32 partials of a split-K launch, splits * m * n of them; None
-    for one split."""
+    """The float32 partials of a split-K launch (of float32 or bf16
+    operands), splits * m * n of them; None for one split."""
     if splits == 1:
         return None
     return torch.empty(splits * m * n, device=device, dtype=torch.float32)
@@ -148,10 +169,12 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     """One launch of K1 on CUDA tensors: act((A @ B) * scale + shift) with
     A = x, or x read in place as its transpose (``trans_a``: x is a (K, M)
     buffer), and B = w, or w read in place as its transpose (``trans_b``: w
-    is an (N, K) buffer). A scale or shift of None is 1 or 0, and nothing is
-    allocated for it. The plan is :func:`split_k_plan`'s; a split-K launch
-    takes a workspace of splits * M * N floats. Raises on a refused launch.
-    The callers on the training and serving paths count the launches."""
+    is an (N, K) buffer), in x's dtype: float32, or bf16 for a bf16 pair
+    (its own instantiation, ``satae_fused_gemm_bf16``). A scale or shift of
+    None is 1 or 0, and nothing is allocated for it. The plan is
+    :func:`split_k_plan`'s; a split-K launch takes a workspace of splits * M
+    * N floats. Raises on a refused launch. The callers on the training and
+    serving paths count the launches."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_gemm: K1 runs on CUDA tensors, x is on "
                          f"{x.device}")
@@ -159,20 +182,21 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     n, kw = (w.shape[0], w.shape[1]) if trans_b else (w.shape[1], w.shape[0])
     if k != kw:
         raise ValueError(f"fused_gemm: inner sizes {k} and {kw} differ")
-    _build.check_operands("fused_gemm", x.device, x=x, w=w, scale=scale,
-                          shift=shift)
+    suffix = _build.check_operands("fused_gemm", x.device, x, w,
+                                   scale=scale, shift=shift)
     if max(m * k, k * n, m * n) >= 2 ** 31:
         raise ValueError(f"fused_gemm: shape {(m, k, n)} exceeds int32 "
                          "indexing")
     if any(t is not None and t.shape != (n,) for t in (scale, shift)):
         raise ValueError(f"fused_gemm: scale/shift must be ({n},)")
-    out = torch.empty((m, n), device=x.device, dtype=torch.float32)
+    out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     if m == 0 or n == 0:
         return out
     _, tile_n, splits, k_per_split = split_k_plan(m, n, k)
     ws = split_k_workspace(m, n, splits, x.device)
     counters = None if ws is None else _tile_counters(x.device)
-    _build.launch(_build.load("fused_gemm"), "satae_fused_gemm", x.device,
+    _build.launch(_build.load("fused_gemm"), "satae_fused_gemm" + suffix,
+                  x.device,
                   x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
                   out.data_ptr(), _ptr(ws), _ptr(counters), m, n, k,
                   ACTS.index(act), int(trans_a), int(trans_b), tile_n, splits,
@@ -182,6 +206,14 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """One launch of ``wrapper``'s kernel in ``dtype``'s instantiation."""
+    if dtype == torch.bfloat16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
@@ -194,20 +226,22 @@ def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     and dw = x^T @ gs (or gs^T @ x for an (N, K) weight) as one K1 launch
     each, and z = x @ W recomputed on K1 for dscale only when ``needs[2]``.
     The activation gradient, the scale product and the column sums stay
-    PyTorch ops, as they stay XLA ops outside the Pallas kernel in satae.
+    PyTorch ops, as they stay XLA ops outside the Pallas kernel in satae;
+    all but the float32 column sums run in g's dtype.
 
-    A CUDA x launches K1 (``fused_matmul_bwd.launches`` counts the
-    launches); a CPU x takes :func:`fused_matmul_bwd_plain`."""
+    A CUDA x launches K1 (``fused_matmul_bwd.launches`` counts the float32
+    launches, ``launches_bf16`` the bf16 ones); a CPU x takes
+    :func:`fused_matmul_bwd_plain`."""
     if x.device.type == "cpu":
         return fused_matmul_bwd_plain(g, x, w, scale, y, act, needs, w_nk)
     if x.device.type != "cuda":
         raise ValueError(f"fused_matmul_bwd: no kernel for device {x.device}")
     g = _act_grad(g, y, act)
-    gs = (g if scale is None else g * scale).contiguous()
+    gs = (g if scale is None else g * scale.to(g.dtype)).contiguous()
 
     def product(a, b, trans_a, trans_b):  # scale 1, shift 0, no act
         out = fused_gemm(a, b, None, None, "none", trans_a, trans_b)
-        fused_matmul_bwd.launches += 1
+        count_launch(fused_matmul_bwd, a.dtype)
         return out
 
     dx = dw = dscale = None
@@ -217,18 +251,19 @@ def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
         dw = product(gs, x, True, False) if w_nk else \
             product(x, gs, True, False)
     if needs[2]:
-        dscale = (g * product(x, w, False, w_nk)).sum(0)
-    dshift = g.sum(0) if needs[3] else None
+        dscale = (g * product(x, w, False, w_nk)).sum(0).float()
+    dshift = g.sum(0).float() if needs[3] else None
     return dx, dw, dscale, dshift
 
 
 fused_matmul_bwd.launches = 0
+fused_matmul_bwd.launches_bf16 = 0
 
 
 def _forward(x, w, scale, shift, act, w_nk):
     if x.device.type == "cuda":
         y = fused_gemm(x, w, scale, shift, act, False, w_nk)
-        fused_matmul.launches += 1
+        count_launch(fused_matmul, x.dtype)
         return y
     return fused_matmul_plain(x, w.t() if w_nk else w, scale, shift, act)
 
@@ -258,10 +293,13 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
     (N,), and W = w, a row-major (K, N) weight, or W = w.T for an (N, K)
     weight with ``w_nk=True`` (an ``nn.Linear`` weight, read in place).
     A scale of None is 1 (a linear layer: nothing is allocated for it).
-    Differentiable in x, w, scale and shift (:func:`fused_matmul_bwd`).
+    x and w are both float32 or both bf16, scale and shift float32; the
+    output is in x's dtype. Differentiable in x, w, scale and shift
+    (:func:`fused_matmul_bwd`).
 
-    A CUDA x launches K1 (``fused_matmul.launches`` counts the forward
-    launches); a CPU x takes :func:`fused_matmul_plain`."""
+    A CUDA x launches K1 (``fused_matmul.launches`` counts the float32
+    forward launches, ``launches_bf16`` the bf16 ones); a CPU x takes
+    :func:`fused_matmul_plain`."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[int(w_nk)]:
@@ -274,6 +312,7 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(shift.shape)}")
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"fused_matmul: no kernel for device {x.device}")
+    _build.check_dtypes("fused_matmul", x, w, scale, shift)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, scale, shift)):
         return _FusedMatmul.apply(x, w, scale, shift, act, w_nk)
@@ -282,3 +321,4 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 fused_matmul.launches = 0
+fused_matmul.launches_bf16 = 0

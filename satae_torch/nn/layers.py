@@ -14,6 +14,21 @@ against; no model path selects it by itself. The convolutions stay
 ``F.conv2d``/``F.conv_transpose2d`` in both directions: satae computes them
 in XLA, outside any Pallas kernel, and ``F.conv_transpose2d``'s native
 backward is the adjoint satae builds by hand (layers.py:171-192).
+
+bf16 compute follows satae's layers: the parameters stay float32 (the
+master copy) and each layer casts them to the activation's dtype at use
+(layers.py:55,60, :102,115, :237-241, :260-261), so the casts' backward
+hands float32 gradients to the parameters. The arithmetic is then the
+activation's: a bf16 conv or transposed conv rounds its product and then
+its bias add, BatchNorm normalises in bf16 (train mode takes its moments in
+float32 first), and satae's weakly typed constants (eps, the unbiased
+variance factor) are rounded to bf16 before they meet a bf16 tensor. No
+``torch.autocast``: its per-op policy (BatchNorm in float32, its own cast
+points) is not satae's arithmetic. One difference is kept on purpose:
+satae's training-time ``linear`` is XLA's dot with a bf16 result plus a
+bf16 bias, two roundings, while :func:`linear` runs K1, which rounds once
+after its float32 epilogue, as satae's ``_mm_kernel`` does. The tests'
+tolerances cover it (tests/test_torch_port_bf16.py).
 """
 
 from __future__ import annotations
@@ -27,20 +42,37 @@ from torch import nn
 from satae_torch.kernels.matmul import apply_act, fused_matmul
 
 
+def const_like(v: float, x: torch.Tensor):
+    """A constant as satae's weakly typed ones meet x: rounded to x's dtype
+    first (PyTorch would take a Python float into a bf16 op unrounded)."""
+    return v if x.dtype == torch.float32 else torch.tensor(v, dtype=x.dtype)
+
+
+def _with_bias(conv, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               **kw) -> torch.Tensor:
+    """conv(x, w) + b with w and b cast to x's dtype; in bf16 the product
+    and the bias add round apart, as satae's two XLA ops do."""
+    if x.dtype == torch.float32:
+        return conv(x, w, b, **kw)
+    return conv(x, w.to(x.dtype), **kw) + b.to(x.dtype)[:, None, None]
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            stride: int = 1, padding: int = 0) -> torch.Tensor:
-    """NHWC x, OIHW w -> NHWC; torch.nn.Conv2d semantics."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=stride, padding=padding)
+    """NHWC x, OIHW w -> NHWC in x's dtype; torch.nn.Conv2d semantics."""
+    y = _with_bias(F.conv2d, x.permute(0, 3, 1, 2), w, b, stride=stride,
+                   padding=padding)
     return y.permute(0, 2, 3, 1)
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                      stride: int = 2, padding: int = 1,
                      output_padding: int = 1) -> torch.Tensor:
-    """NHWC x, (in, out, kh, kw) w -> NHWC; torch.nn.ConvTranspose2d
-    semantics (k3/s2/p1/op1 doubles H and W)."""
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, b, stride=stride,
-                           padding=padding, output_padding=output_padding)
+    """NHWC x, (in, out, kh, kw) w -> NHWC in x's dtype;
+    torch.nn.ConvTranspose2d semantics (k3/s2/p1/op1 doubles H and W)."""
+    y = _with_bias(F.conv_transpose2d, x.permute(0, 3, 1, 2), w, b,
+                   stride=stride, padding=padding,
+                   output_padding=output_padding)
     return y.permute(0, 2, 3, 1)
 
 
@@ -48,9 +80,10 @@ def batchnorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               mean: torch.Tensor, var: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
     """Eval-mode BatchNorm over the last (channel) axis with running stats,
-    in satae's order of operations."""
-    y = (x - mean) * torch.rsqrt(var + eps)
-    return y * weight + bias
+    in satae's order of operations, in x's dtype."""
+    dt = x.dtype
+    y = (x - mean.to(dt)) * torch.rsqrt(var.to(dt) + const_like(eps, x))
+    return y * weight.to(dt) + bias.to(dt)
 
 
 def batchnorm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -58,9 +91,10 @@ def batchnorm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     momentum: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
     """Train-mode BatchNorm over the last (channel) axis in satae's
     arithmetic (layers.py:219-242): one-pass float32 moments,
-    var = max(E[x^2] - E[x]^2, 0), normalisation with that biased variance,
-    and the running stats updated in place with the unbiased variance
-    var * n / (n - 1). Gradients flow through the batch moments.
+    var = max(E[x^2] - E[x]^2, 0), cast to x's dtype, normalisation with
+    that biased variance in x's dtype, and the running stats updated in
+    place with the unbiased variance var * n / (n - 1). Gradients flow
+    through the batch moments.
 
     Not ``F.batch_norm(training=True)``: its moments come from another
     algorithm (Welford), which rounds differently."""
@@ -72,13 +106,13 @@ def batchnorm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     mean, var = mean32.to(x.dtype), var32.to(x.dtype)
     n = x.numel() // x.shape[-1]
     with torch.no_grad():
-        unbiased = var * (n / max(n - 1, 1))
+        unbiased = var * const_like(n / max(n - 1, 1), x)
         running_mean.copy_((1 - momentum) * running_mean
                            + momentum * mean.to(running_mean.dtype))
         running_var.copy_((1 - momentum) * running_var
                           + momentum * unbiased.to(running_var.dtype))
-    y = (x - mean) * torch.rsqrt(var + eps)
-    return y * weight + bias
+    y = (x - mean) * torch.rsqrt(var + const_like(eps, x))
+    return y * weight.to(x.dtype) + bias.to(x.dtype)
 
 
 def bn(x: torch.Tensor, module: nn.modules.batchnorm._BatchNorm
@@ -115,17 +149,23 @@ def dropout(x: torch.Tensor, rate: float,
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            act: str = "none") -> torch.Tensor:
     """act(x @ w.T + b) with w stored (out, in): satae's ``linear_pallas``,
-    scale 1 (None: nothing allocated) and shift = b. One K1 launch forward
+    scale 1 (None: nothing allocated) and shift = b, in x's dtype (w and b
+    cast to it, the shift handed to K1 in float32). One K1 launch forward
     on a CUDA x, and K1 launches for its gradients; the plain versions on a
     CPU x."""
-    return fused_matmul(x, w, None, b, act, w_nk=True)
+    return fused_matmul(x, w.to(x.dtype), None, b.to(x.dtype).float(), act,
+                        w_nk=True)
 
 
 def linear_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  act: str = "none") -> torch.Tensor:
     """:func:`linear` on stock PyTorch ops (``F.linear``, cuBLAS on the
-    card): the reference K1 is held against, never the main path."""
-    return apply_act(F.linear(x, w, b), act)
+    card): the reference K1 is held against, never the main path. In bf16
+    it is satae's training-time ``linear``: the product rounded, then the
+    bias add."""
+    if x.dtype == torch.float32:
+        return apply_act(F.linear(x, w, b), act)
+    return apply_act(F.linear(x, w.to(x.dtype)) + b.to(x.dtype), act)
 
 
 relu = torch.relu

@@ -7,7 +7,9 @@ fast_infer (BatchNorm and bias folded once; on a CUDA device one K2 launch
 per conv layer and one K1 launch for the projection per chunk, on the CPU
 their plain versions). The chunk follows satae's rule (extract.py:76-80):
 at least ``batch_size`` and 2048 images, but never past the split rounded up
-to a whole batch.
+to a whole batch. With a bf16 ``compute_dtype`` the encoder runs in bf16
+(bf16 K2 and K1) and the latents reach the host as float32, as satae's do
+(extract.py:24-32, 92), for the float32 MLP.
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ def extract_chunk(n: int, batch_size: int) -> int:
 
 
 @torch.no_grad()
-def extract_features(enc: Encoder, ds: ArrayDataset, batch_size: int = 64
+def extract_features(enc: Encoder, ds: ArrayDataset, batch_size: int = 64,
+                     compute_dtype: torch.dtype = torch.float32
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """Returns (X (N, latent_dim) float32, y (N,) int32) on the host, from
-    ``enc`` on its own device in eval mode."""
+    ``enc`` on its own device in eval mode, computing in
+    ``compute_dtype``."""
     device = next(enc.parameters()).device
     n = len(ds)
     if n == 0:
@@ -42,8 +46,9 @@ def extract_features(enc: Encoder, ds: ArrayDataset, batch_size: int = 64
     imgs = torch.zeros((n + pad,) + ds.images.shape[1:], dtype=torch.uint8,
                        device=device)
     imgs[:n].copy_(torch.from_numpy(np.ascontiguousarray(ds.images)))
-    fe = fast_infer.fold_encoder(enc)
-    zs = [fast_infer.encoder_infer(fe, normalize(imgs[lo:lo + chunk]))
+    fe = fast_infer.fold_encoder(enc, compute_dtype)
+    zs = [fast_infer.encoder_infer(fe, normalize(imgs[lo:lo + chunk],
+                                                 compute_dtype))
           for lo in range(0, n + pad, chunk)]
-    X = torch.cat(zs)[:n].cpu().numpy()
+    X = torch.cat(zs)[:n].float().cpu().numpy()
     return X, np.asarray(ds.labels, np.int32)

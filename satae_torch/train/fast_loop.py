@@ -19,7 +19,11 @@ and dropout draws come from a generator on the training device. The training
 set must hold at least one full batch. A sweep uploads its data once
 (:func:`upload_ae_data`, :func:`upload_mlp_data`) and passes it to every
 config as ``device_data``, as satae's grid search does; without it each call
-uploads its own. Checkpointed resume and data-parallel training are later
+uploads its own. ``compute_dtype`` is satae's: the AE computes in it
+(bf16 for the bf16 recipe) while its parameters, BatchNorm stats, Adam's
+moments and the selection metrics stay float32, so a bf16 run's snapshots
+and checkpoints are the float32 ones a float32 run writes. The MLP trains
+in float32. Checkpointed resume and data-parallel training are later
 slices (ROADMAP.md §1 items 9, 13).
 """
 
@@ -108,9 +112,11 @@ def train_supervised_ae(
     seed: int = 0,
     log: Optional[LogFn] = None,
     device_data: Optional[Tuple[torch.Tensor, ...]] = None,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> TrainResult:
-    """Train one (alpha, lr) supervised-AE config with early stopping.
-    ``device_data``: :func:`upload_ae_data` of the same splits."""
+    """Train one (alpha, lr) supervised-AE config with early stopping,
+    computing in ``compute_dtype``. ``device_data``: :func:`upload_ae_data`
+    of the same splits."""
     _check_full_batch(len(train_ds), data_cfg.batch_size, "train split")
     images, labels, val_imgs, val_labs, val_wts = device_data or \
         upload_ae_data(train_ds, val_ds, data_cfg.batch_size, device)
@@ -132,9 +138,10 @@ def train_supervised_ae(
         order = hbm.epoch_order(len(train_ds), data_cfg.batch_size, seed,
                                 epoch)
         tsum = _host(hbm.ae_train_epoch(model, opt, images, labels, order,
-                                        alpha, lr, data_cfg, gen))
+                                        alpha, lr, data_cfg, gen,
+                                        compute_dtype))
         vsum = _host(hbm.ae_eval_sums(model, val_imgs, val_labs, val_wts,
-                                      alpha))
+                                      alpha, compute_dtype))
         for k in ("loss", "mse", "ce", "acc"):
             history[f"train_{k}"].append(tsum[k] / n_counted)
             history[f"val_{k}"].append(vsum[k] / vsum["n"])

@@ -11,7 +11,9 @@ keys, so a sweep resumes a run directory of either package; the selection
 contract is satae_torch.train.sweep_common's.
 
 The data is uploaded once per sweep and every config trains on it
-(satae_torch.train.fast_loop). satae's per-batch ``engine="steps"``, its
+(satae_torch.train.fast_loop). The AE sweep computes in ``compute_dtype``
+(satae's; the stores, keys and checkpoints are the same in bf16, the master
+parameters being float32); the MLP sweep is float32. satae's per-batch ``engine="steps"``, its
 in-flight resume (``AETrainConfig.checkpoint_every``) and its per-config
 curve plots are not ported.
 """
@@ -62,9 +64,10 @@ def ae_grid_search(
     out_dir: Optional[str] = None,
     log: Optional[LogFn] = None,
     engine: str = "scan",
+    compute_dtype: torch.dtype = torch.float32,
 ) -> SweepResult:
     """Sequential alpha x lr sweep with per-config result flushing and a
-    global-best checkpoint."""
+    global-best checkpoint, each config computing in ``compute_dtype``."""
     _scan_only(engine)
     if out_dir and ae_cfg.checkpoint_every:
         raise NotImplementedError(
@@ -97,7 +100,8 @@ def ae_grid_search(
                 train_ds, val_ds, model_cfg=model_cfg, data_cfg=data_cfg,
                 alpha=alpha, lr=lr, device=device,
                 max_epochs=ae_cfg.max_epochs, patience=ae_cfg.patience,
-                seed=seed + cfg_idx, device_data=device_data)
+                seed=seed + cfg_idx, device_data=device_data,
+                compute_dtype=compute_dtype)
             # offer (checkpoint save) strictly before the store flush: a
             # crash between the two costs a retrain on resume, never a
             # cached-but-uncheckpointed winner left out of selection

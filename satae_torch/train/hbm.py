@@ -12,6 +12,11 @@ Epoch accounting is satae's:
     metric sums are per-sample weighted;
   * eval: the split is zero-padded to whole batches with zero-weight rows,
     so the weighted sums equal unpadded evaluation.
+
+The AE bodies take satae's ``compute_dtype`` as ``dtype``; their sums
+accumulate in float32 whatever it is (the differences and logits taken in
+``dtype`` first, hbm.py:216-222), so the selection metrics do not depend on
+it. The MLP bodies are float32.
 """
 
 from __future__ import annotations
@@ -65,15 +70,17 @@ def _zeros(keys, device) -> Sums:
 def ae_train_epoch(model: SupervisedAE, opt: AdamState, images: torch.Tensor,
                    labels: torch.Tensor, order: np.ndarray, alpha: float,
                    lr: float, data_cfg: DataConfig,
-                   generator: Optional[torch.Generator]) -> Sums:
-    """One AE epoch over the device-resident uint8 ``images`` in ``order``;
-    returns per-sample weighted metric sums (divide by ``order.size``)."""
+                   generator: Optional[torch.Generator],
+                   dtype: torch.dtype = torch.float32) -> Sums:
+    """One AE epoch over the device-resident uint8 ``images`` in ``order``,
+    computing in ``dtype``; returns per-sample weighted float32 metric sums
+    (divide by ``order.size``)."""
     msum = _zeros(("loss", "mse", "ce", "acc"), images.device)
     for idx in torch.from_numpy(order).to(images.device):
         metrics, _ = ae_train_step(
             model, opt, images.index_select(0, idx),
             labels.index_select(0, idx), alpha, lr, data_cfg,
-            generator=generator)
+            generator=generator, dtype=dtype)
         for k in msum:
             msum[k] += metrics[k] * idx.numel()
     return msum
@@ -82,13 +89,14 @@ def ae_train_epoch(model: SupervisedAE, opt: AdamState, images: torch.Tensor,
 @torch.no_grad()
 def ae_eval_sums(model: SupervisedAE, images: torch.Tensor,
                  labels: torch.Tensor, weights: torch.Tensor,
-                 alpha: float) -> Sums:
-    """Weighted metric sums over padded eval batches (nb, B, ...), as
-    satae's ``ae_eval_body``: divide by the returned ``n``."""
+                 alpha: float, dtype: torch.dtype = torch.float32) -> Sums:
+    """Weighted float32 metric sums over padded eval batches (nb, B, ...),
+    the model run in ``dtype``, as satae's ``ae_eval_body``: divide by the
+    returned ``n``."""
     model.eval()
     msum = _zeros(("loss", "mse", "ce", "acc", "n"), images.device)
     for imgs_u8, labs, wts in zip(images, labels, weights):
-        imgs = normalize(imgs_u8)
+        imgs = normalize(imgs_u8, dtype)
         x_hat, logits, _ = model(imgs)
         se = torch.sum(torch.square((x_hat - imgs).float())
                        * wts[:, None, None, None]) / x_hat[0].numel()

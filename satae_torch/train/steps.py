@@ -17,6 +17,12 @@ never passes it.
 The train steps return ``(metrics, grads)``: metric tensors stay on the
 device until the caller reads them, and ``grads`` are the gradients the
 update used, in ``model.parameters()`` order.
+
+``dtype`` is the AE steps' compute dtype, satae's ``compute_dtype``: the
+batch is normalised and augmented in it and the model runs in it, while
+the parameters, BatchNorm running stats, Adam's moments and the metrics stay
+float32 (the losses accumulate in float32). The MLP steps are float32, as
+satae's are.
 """
 
 from __future__ import annotations
@@ -44,11 +50,12 @@ def ae_train_step(model: SupervisedAE, opt: AdamState, imgs_u8: torch.Tensor,
                   flip: Optional[torch.Tensor] = None,
                   offsets: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None,
-                  linear=L.linear) -> StepOut:
+                  linear=L.linear,
+                  dtype: torch.dtype = torch.float32) -> StepOut:
     imgs = augment_train_batch(imgs_u8, crop_padding=data_cfg.crop_padding,
                                noise_std=data_cfg.noise_std,
                                generator=generator, flip=flip,
-                               offsets=offsets, noise=noise)
+                               offsets=offsets, noise=noise, dtype=dtype)
     model.train()
     x_hat, logits, _ = model(imgs, linear)
     total, mse, ce = joint_ae_loss(x_hat, logits, imgs, labels, alpha)
@@ -61,8 +68,9 @@ def ae_train_step(model: SupervisedAE, opt: AdamState, imgs_u8: torch.Tensor,
 
 @torch.no_grad()
 def ae_eval_step(model: SupervisedAE, imgs_u8: torch.Tensor,
-                 labels: torch.Tensor, alpha: float) -> Metrics:
-    imgs = normalize(imgs_u8)
+                 labels: torch.Tensor, alpha: float,
+                 dtype: torch.dtype = torch.float32) -> Metrics:
+    imgs = normalize(imgs_u8, dtype)
     model.eval()
     x_hat, logits, _ = model(imgs)
     total, mse, ce = joint_ae_loss(x_hat, logits, imgs, labels, alpha)

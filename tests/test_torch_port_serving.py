@@ -186,6 +186,29 @@ def test_full_test_split_matches_satae_float32():
     assert int((ours == test.labels).sum()) == 2644
 
 
+@pytest.mark.slow
+def test_full_test_split_matches_satae_bf16():
+    """The committed bf16-trained model served in bf16 on the whole test
+    split. satae's bf16 serving (its XLA path, BatchNorm in bf16, two
+    roundings per linear) gets 2,649 of 2,990 right; the port folds BatchNorm
+    from the bf16-rounded parameters into a float32 epilogue and rounds once
+    per layer, as satae's kernel path does, so it differs from satae's XLA
+    path by a few images (2,648 measured): within 12 (the band chip_smoke.py
+    holds the card to), predictions equal on >= 99 % (99.4 % measured)."""
+    ckpt = str(REPO / "benchmarks" / "full_run_hard_bf16")
+    cfg = JC.DataConfig(per_class=2000, synthetic_difficulty="hard")
+    test = jax_make_splits(jax_load_dataset(cfg), cfg).test
+    tp = SatAEPipeline(TC.PipelineConfig(runtime=TC.RuntimeConfig(
+        compute_dtype="bfloat16")), device="cpu").load(ckpt)
+    ours = tp.predict(test.images)
+    theirs = JaxPipeline(JC.PipelineConfig(
+        data=cfg, runtime=JC.RuntimeConfig(compute_dtype="bfloat16"))).load(
+            ckpt).predict(test.images)
+    assert int((theirs == test.labels).sum()) == 2649
+    assert abs(int((ours == test.labels).sum()) - 2649) <= 12
+    assert float((ours == theirs).mean()) >= 0.99
+
+
 @pytest.mark.parametrize("difficulty", ["easy", "hard"])
 def test_synthetic_data_and_splits_byte_identical(difficulty):
     for a, b in zip(make_synthetic_eurosat(6, 16, 3, difficulty),
@@ -238,9 +261,14 @@ def test_no_silent_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SatAEPipeline()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         SatAEPipeline(TC.PipelineConfig(runtime=TC.RuntimeConfig(
-            compute_dtype="bfloat16")), device="cpu")
+            compute_dtype="bfloat16")))
+    # bf16 compute is ported: asked for the CPU, it builds there in bf16
+    pipe = SatAEPipeline(TC.PipelineConfig(runtime=TC.RuntimeConfig(
+        compute_dtype="bfloat16")), device="cpu")
+    assert pipe.device == torch.device("cpu")
+    assert pipe.config.compute_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SatAEPipeline(TC.PipelineConfig(runtime=TC.RuntimeConfig(
             n_devices=2)), device="cpu")
