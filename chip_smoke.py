@@ -120,10 +120,12 @@ Phases, in order; any failure exits non-zero:
              float32 master state; then the AE and MLP steps at batch 1024,
              bf16 and float32 in turns.
 16. bf16 grid -- phase 12 in bf16 into chiprun_out/grid_run_bf16: exact
-             launches per dtype, satae's recorded winners, and test accuracy
-             within the gate's band of satae's recorded one, or within two
-             standard errors of a 380-image accuracy if wider (a bf16 run
-             trains another model); resume, evaluate, save and export.
+             launches per dtype; satae's winners and test accuracy within
+             the gate's band (0.03) of satae's own bf16 grid fit of the same
+             gate (scripts/satae_pc256_gate_bfloat16.json, from
+             scripts/satae_gate_reference.py on a CPU), the gap to satae's
+             recorded float32 0.7947 printed beside; resume, evaluate, save
+             and export.
 
 The second-to-last line holds the kernels' numbers as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -169,6 +171,9 @@ SATAE_BF16_ACC = 2649 / 2990
 # kept their arithmetic, so they give these again
 RECORDED_FIT_AE_VAL_LOSS = 1.9652304556856188
 RECORDED_GRID_TEST_ACC = 0.7894736842105263
+# satae's bf16 grid fit of the pc256 gate on a CPU, phase 16's reference
+# (scripts/satae_gate_reference.py writes it)
+SATAE_GATE_BF16 = REPO / "scripts" / "satae_pc256_gate_bfloat16.json"
 F32_PEAK = 67e12  # FLOP/s, H100 SXM, CUDA cores, dense
 TF32X3_PEAK = 495e12 / 3  # FLOP/s: 3xTF32, three TF32 products per product
 BF16_PEAK = 989e12  # FLOP/s, H100 SXM, bf16 on tensor cores, dense
@@ -563,7 +568,7 @@ def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
 
     # the backward in bf16 (nn.Linear weight layout, scale with a gradient:
     # the z recompute) against fused_matmul_bwd_plain on the kernel's y
-    bwd_err, bwd_min_eq = 0.0, 1.0
+    bwd_err, bwd_min_eq, dsc_min_eq = 0.0, 1.0, 1.0
     ae_fwd = [(BATCH, 4096, 64), (BATCH, 64, 4096), (BATCH, 64, 128),
               (BATCH, 128, 10), (7, 33, 10), (1, 64, 10)]
     for (m, k, n), act in itertools.product(ae_fwd, ACTS):
@@ -577,12 +582,18 @@ def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
         y.backward(cot)
         ref = fused_matmul_bwd_plain(cot, x, w, scale, y.detach(), act,
                                      w_nk=True)
-        # dscale sums bf16 terms g * z, each z a rounding apart (one ulp),
-        # each product rounded to bf16 (|g| <= |cot| through every act)
+        # dscale sums the bf16 terms g * z in the same reduction on both
+        # sides, so only the rows where K1's z differs from the plain z (by
+        # one ulp at most, held above) move it: by |g| ulp(z) and two ulps
+        # of the term's rounding each (|g| <= |cot| through every act); the
+        # sum's rounding to bf16 adds two ulps of dscale
         z = fused_matmul_plain(x, w.t(), None, torch.zeros(n, device=dev))
-        bounds_ = [None, None,
-                   2.0 ** -6 * (cot.float().abs() * z.float().abs()).sum(0)
-                   + bf16_ulp(ref[2]), None]
+        z_k = fused_gemm(x, w, None, None, "none", False, True)
+        z_abs = torch.maximum(z.float().abs(), z_k.float().abs())
+        moved = torch.where(
+            z_k != z, cot.float().abs() * bf16_ulp(z_abs)
+            + 2 * bf16_ulp(cot.float().abs() * z_abs), torch.zeros_like(z_abs))
+        bounds_ = [None, None, moved.sum(0) + 2 * bf16_ulp(ref[2]), None]
         for name, leaf, r, bnd in zip(("dx", "dw", "dscale", "dshift"),
                                       leaves, ref, bounds_):
             what = f"bf16 K1 backward {name} {(m, k, n)} {act}"
@@ -596,10 +607,13 @@ def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
             bwd_err = max(bwd_err, err)
             if name in ("dx", "dw"):
                 bwd_min_eq = min(bwd_min_eq, eq)
+            else:
+                dsc_min_eq = min(dsc_min_eq, eq)
         res["bwd"].append(dict(shape=[m, k, n], act=act))
     print(f"bf16 K1 backward vs fused_matmul_bwd_plain: {len(res['bwd'])} "
           f"cases, dx and dw within one bf16 ulp, least share bit-equal "
-          f"{bwd_min_eq:.5f}; dscale within 2^-6 of sum |g z| + one ulp; "
+          f"{bwd_min_eq:.5f}; dscale within the summed rounding of the g z "
+          f"terms whose z differs, least share bit-equal {dsc_min_eq:.5f}; "
           f"dshift equal; max |err| {bwd_err:.3g}", flush=True)
 
     # K2: the four encoder layers of a 512-image chunk, Cin 5 and 6 (the
@@ -630,7 +644,8 @@ def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
           f"{k2_err:.3g}, least share bit-equal {k2_min_eq:.5f}; conv0 and "
           "conv1 5 calls bitwise equal", flush=True)
     res.update(k1_err=k1_err, k1_min_equal=k1_min_eq, bwd_err=bwd_err,
-               bwd_min_equal=bwd_min_eq, k2_err=k2_err, k2_min_equal=k2_min_eq)
+               bwd_min_equal=bwd_min_eq, dscale_min_equal=dsc_min_eq,
+               k2_err=k2_err, k2_min_equal=k2_min_eq)
     if not timed:
         return res
 
@@ -966,9 +981,9 @@ def main() -> int:
     bias = rand(10, lo=-0.3, hi=0.3).requires_grad_()
     pre = L.linear_plain(x, w, bias).detach()
     cot = torch.randn(BATCH, 10, device=dev, generator=g) * (pre.abs() > 1e-3)
-    before = fused_matmul_bwd.launches
+    before = fused_matmul_bwd.launches[""]
     got = torch.autograd.grad(L.linear(x, w, bias, "relu"), (x, w, bias), cot)
-    check(fused_matmul_bwd.launches - before == 2,
+    check(fused_matmul_bwd.launches[""] - before == 2,
           "a linear layer's backward is two K1 launches (dx, dw)")
     ref = torch.autograd.grad(L.linear_plain(x, w, bias, "relu"),
                               (x, w, bias), cot)
@@ -1675,31 +1690,32 @@ def grid_phase(card: str, bf16: bool = False) -> dict:
     check(launches == expected, f"{what} launch counts differ from the configs,"
           " steps, eval batches and extraction chunks")
 
-    # the outcome against satae's recorded (float32) run on the same arrays.
-    # A bf16 run trains another model, whose accuracy on the 380 test images
-    # carries their sampling error against the recorded one's: its band is
-    # the gate's, or two standard errors of that accuracy if wider, and its
-    # winners must be satae's.
-    rec = gate["satae"]
+    # the outcome against satae's run of the same gate on the same arrays:
+    # its recorded float32 run, or for bf16 its own bf16 run
+    # (scripts/satae_gate_reference.py), within the gate's band either way;
+    # the bf16 run's gap to the recorded float32 one is printed beside
+    f32_rec = gate["satae"]
+    rec = (json.loads(SATAE_GATE_BF16.read_text())["satae"] if bf16
+           else f32_rec)
     acc_gap = abs(summary.test_acc - rec["test_acc"])
     band = gate["band"]
+    print(f"{what}: winners AE {summary.ae_hparams} (satae "
+          f"{rec['ae_hparams']}), MLP {summary.mlp_hparams} (satae "
+          f"{rec['mlp_hparams']}); AE best val loss {summary.ae_val_loss} "
+          f"(satae {rec['ae_best_val_loss']}), MLP best val acc "
+          f"{summary.mlp_val_acc} (satae {rec['mlp_best_val_acc']}), test "
+          f"accuracy {summary.test_acc} (satae {rec['test_acc']}, gap "
+          f"{acc_gap:.4f}, band {band:.4f}"
+          + (f"; satae's recorded float32 {f32_rec['test_acc']}, gap "
+             f"{abs(summary.test_acc - f32_rec['test_acc']):.4f}" if bf16
+             else f"; recorded before the bf16 kernels: "
+             f"{RECORDED_GRID_TEST_ACC}") + "); per-lr test accuracy "
+          f"{[r['test_acc'] for r in mlp_store.values()]}", flush=True)
     if bf16:
-        p_rec = rec["test_acc"]
-        band = max(band, 2 * math.sqrt(p_rec * (1 - p_rec) / len(test)))
         check(summary.ae_hparams == rec["ae_hparams"]
               and summary.mlp_hparams == rec["mlp_hparams"],
               f"{what}: winners {summary.ae_hparams} {summary.mlp_hparams}, "
               f"satae's {rec['ae_hparams']} {rec['mlp_hparams']}")
-    print(f"{what}: winners AE {summary.ae_hparams} (satae recorded "
-          f"{rec['ae_hparams']}), MLP {summary.mlp_hparams} (recorded "
-          f"{rec['mlp_hparams']}); AE best val loss {summary.ae_val_loss} "
-          f"(recorded {rec['ae_best_val_loss']}), MLP best val acc "
-          f"{summary.mlp_val_acc} (recorded {rec['mlp_best_val_acc']}), test "
-          f"accuracy {summary.test_acc} (recorded {rec['test_acc']}, gap "
-          f"{acc_gap:.4f}, band {band:.4f}"
-          + ("" if bf16 else f"; recorded before the bf16 kernels: "
-             f"{RECORDED_GRID_TEST_ACC}") + "); per-lr test accuracy "
-          f"{[r['test_acc'] for r in mlp_store.values()]}", flush=True)
     check(acc_gap <= band, f"{what}: test accuracy {summary.test_acc} is "
           f"{acc_gap:.4f} from satae's {rec['test_acc']}")
     preds = pipe.predict(test.images)
@@ -1821,7 +1837,7 @@ def kernel_times_main(root: str) -> int:
     root_ = Path(root).resolve()
     sys.path.insert(0, str(root_))
     import satae_torch
-    from satae_torch.kernels import conv, matmul
+    from satae_torch.kernels import _build, conv, matmul
 
     pkg = Path(satae_torch.__file__).resolve()
     check(pkg.is_relative_to(root_), f"satae_torch came from {pkg}, not "
@@ -1829,7 +1845,7 @@ def kernel_times_main(root: str) -> int:
     mods = SimpleNamespace(fused_gemm=matmul.fused_gemm,
                            conv2d_bn_act=conv.conv2d_bn_act)
     rows = kernel_rows(mods, reference=False)
-    if hasattr(matmul.fused_matmul, "launches_bf16"):
+    if torch.bfloat16 in getattr(_build, "OPERAND_DTYPES", {}):
         rows += kernel_rows(mods, reference=False, bf16=True)
     print(json.dumps(dict(rows=rows, digests=f32_digests(
         matmul.fused_gemm, conv.conv2d_bn_act))), flush=True)

@@ -22,12 +22,10 @@ def launch_counts() -> Dict[str, int]:
     the float32 K1 launches of its backward, ``conv2d_bn_act`` K2's float32
     launches, and each name with ``_bf16`` the launches of the bf16
     instantiation."""
-    counts = {name: fn.launches for name, fn in _WRAPPERS.items()}
-    counts.update({f"{name}_bf16": fn.launches_bf16
-                   for name, fn in _WRAPPERS.items()})
-    return counts
+    return {name + suffix: n for name, fn in _WRAPPERS.items()
+            for suffix, n in fn.launches.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in _WRAPPERS.values():
-        fn.launches = fn.launches_bf16 = 0
+        fn.launches = dict.fromkeys(fn.launches, 0)

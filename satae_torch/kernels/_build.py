@@ -209,6 +209,12 @@ def check_operands(what: str, device, x: torch.Tensor, w: torch.Tensor,
     return suffix
 
 
+def launch_counter() -> Dict[str, int]:
+    """A wrapper's launch counts, one per instantiation, keyed by its
+    launcher suffix."""
+    return dict.fromkeys(OPERAND_DTYPES.values(), 0)
+
+
 def launch(lib: ctypes.CDLL, fn_name: str, device: torch.device,
            *args) -> None:
     """Call launcher ``fn_name`` with ``args`` and the current stream of

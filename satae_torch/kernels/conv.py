@@ -11,7 +11,7 @@ Layouts are the JAX package's: NHWC activations, HWIO weights. A PyTorch
 OIHW weight goes through :func:`pack_conv_weight` once, at load.
 
 x and w are both float32 or both bf16 (K2's bf16 instantiation,
-``satae_conv2d_bn_act_bf16``, counted in ``conv2d_bn_act.launches_bf16``),
+``satae_conv2d_bn_act_bf16``, counted in ``conv2d_bn_act.launches["_bf16"]``),
 scale and shift float32; the sums and the epilogue are float32 and the
 output is in x's dtype, rounded once, as satae's ``conv2d_bn_act_infer``
 computes through ``fused_matmul``.
@@ -89,9 +89,8 @@ def conv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     float32 or both bf16, scale and shift float32. Returns NHWC in x's
     dtype.
 
-    A CUDA x launches K2 (``conv2d_bn_act.launches`` counts the float32
-    launches, ``launches_bf16`` the bf16 ones); a CPU x takes
-    :func:`conv2d_bn_act_plain`."""
+    A CUDA x launches K2 (counted in ``conv2d_bn_act.launches``); a CPU x
+    takes :func:`conv2d_bn_act_plain`."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
     if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[2]:
@@ -102,13 +101,12 @@ def conv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"conv2d_bn_act: scale/shift must be ({cout},)")
     if stride < 1 or padding < 0:
         raise ValueError("conv2d_bn_act: stride >= 1 and padding >= 0")
-    _build.check_dtypes("conv2d_bn_act", x, w, scale, shift)
     if x.device.type == "cuda":
         return _conv_cuda(x, w, scale, shift, stride, padding, act)
     if x.device.type == "cpu":
+        _build.check_dtypes("conv2d_bn_act", x, w, scale, shift)
         return conv2d_bn_act_plain(x, w, scale, shift, stride, padding, act)
     raise ValueError(f"conv2d_bn_act: no kernel for device {x.device}")
 
 
-conv2d_bn_act.launches = 0
-conv2d_bn_act.launches_bf16 = 0
+conv2d_bn_act.launches = _build.launch_counter()

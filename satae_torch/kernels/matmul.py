@@ -23,10 +23,10 @@ float32, the output in x's dtype, rounded once (``_mm_kernel``'s
 ``preferred_element_type=jnp.float32`` and ``out_ref.dtype``). The backward
 runs in the cotangent's dtype as satae's ``_bwd`` does: the activation's
 gradient and ``g * scale`` in bf16, dX and dW as bf16 K1 launches, dscale
-and dshift in float32. Each wrapper counts float32 launches in ``launches``
-and bf16 launches in ``launches_bf16`` (``satae_torch.kernels.
-launch_counts`` names them ``fused_gemm_bf16`` and ``fused_gemm_bwd_bf16``),
-so a count shows which instantiation ran.
+and dshift in float32. Each wrapper's ``launches`` counts its launches per
+instantiation, keyed by the launcher suffix ("" float32, "_bf16" bf16;
+``satae_torch.kernels.launch_counts`` names them ``fused_gemm_bf16`` and so
+on), so a count shows which instantiation ran.
 """
 
 from __future__ import annotations
@@ -210,10 +210,7 @@ def _ptr(t: Optional[torch.Tensor]) -> int:
 
 def count_launch(wrapper, dtype: torch.dtype) -> None:
     """One launch of ``wrapper``'s kernel in ``dtype``'s instantiation."""
-    if dtype == torch.bfloat16:
-        wrapper.launches_bf16 += 1
-    else:
-        wrapper.launches += 1
+    wrapper.launches[_build.OPERAND_DTYPES[dtype]] += 1
 
 
 def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
@@ -229,9 +226,8 @@ def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     PyTorch ops, as they stay XLA ops outside the Pallas kernel in satae;
     all but the float32 column sums run in g's dtype.
 
-    A CUDA x launches K1 (``fused_matmul_bwd.launches`` counts the float32
-    launches, ``launches_bf16`` the bf16 ones); a CPU x takes
-    :func:`fused_matmul_bwd_plain`."""
+    A CUDA x launches K1 (counted in ``fused_matmul_bwd.launches``); a CPU
+    x takes :func:`fused_matmul_bwd_plain`."""
     if x.device.type == "cpu":
         return fused_matmul_bwd_plain(g, x, w, scale, y, act, needs, w_nk)
     if x.device.type != "cuda":
@@ -256,8 +252,7 @@ def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     return dx, dw, dscale, dshift
 
 
-fused_matmul_bwd.launches = 0
-fused_matmul_bwd.launches_bf16 = 0
+fused_matmul_bwd.launches = _build.launch_counter()
 
 
 def _forward(x, w, scale, shift, act, w_nk):
@@ -297,9 +292,8 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
     output is in x's dtype. Differentiable in x, w, scale and shift
     (:func:`fused_matmul_bwd`).
 
-    A CUDA x launches K1 (``fused_matmul.launches`` counts the float32
-    forward launches, ``launches_bf16`` the bf16 ones); a CPU x takes
-    :func:`fused_matmul_plain`."""
+    A CUDA x launches K1 (counted in ``fused_matmul.launches``); a CPU x
+    takes :func:`fused_matmul_plain`."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[int(w_nk)]:
@@ -310,9 +304,10 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"fused_matmul: scale/shift must be ({n},), got "
                          f"{None if scale is None else tuple(scale.shape)}, "
                          f"{tuple(shift.shape)}")
-    if x.device.type not in ("cuda", "cpu"):
+    if x.device.type == "cpu":  # a CUDA x is checked where K1 launches
+        _build.check_dtypes("fused_matmul", x, w, scale, shift)
+    elif x.device.type != "cuda":
         raise ValueError(f"fused_matmul: no kernel for device {x.device}")
-    _build.check_dtypes("fused_matmul", x, w, scale, shift)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, scale, shift)):
         return _FusedMatmul.apply(x, w, scale, shift, act, w_nk)
@@ -320,5 +315,4 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
     return _forward(x, w, scale, shift, act, w_nk)
 
 
-fused_matmul.launches = 0
-fused_matmul.launches_bf16 = 0
+fused_matmul.launches = _build.launch_counter()

@@ -261,17 +261,17 @@ def test_bf16_ae_steps_match_satae():
 
     Per-step loss within 1e-3 relative (measured <= 1.6e-4; the bf16
     roundings of the two frameworks fall in other places, satae's XLA
-    linears rounding twice and K1 once). First-step gradients are held
-    against what bf16 itself does to satae's: each tensor's relative L2 gap
-    to satae's bf16 gradient within max(3e-2, 2.5 x) the gap between satae's
-    bf16 and float32 gradients of the same batch (measured <= 1.9 x at this
-    seed, <= 2.2 x over seeds 0-2; a fixed 3e-2 alone held here at 0.0296,
-    and failed at other seeds where bf16 moves satae's own gradient by
-    0.1-0.35). The biases that feed a train-mode BatchNorm are left out:
-    their exact gradient is zero, what either computes is rounding noise.
-    The output layer's bias, a sum over every pixel, is the largest gap
-    (0.66): satae's bf16 sum accumulates in bf16 (0.41 from its own float32
-    gradient), the port's in float32 (0.001 from it)."""
+    linears rounding twice and K1 once). First-step gradients within 3e-2
+    relative L2 of satae's bf16 gradient, per tensor (measured <= 0.0296 at
+    this seed, the same under 1 and 3 torch threads; bf16 itself moves
+    satae's gradient 0.004-0.056 from its float32 one here, and 0.1-0.35 at
+    seeds 1-2, so the bound holds at this seed only). Two exceptions. The
+    biases that feed a train-mode BatchNorm are left out: their exact
+    gradient is zero, what either computes is rounding noise. The output
+    layer's bias is a sum over every pixel, which satae's bf16 step
+    accumulates in bf16 (0.41 from its own float32 gradient) and the port
+    in float32: it is held within 1e-2 of satae's float32 gradient instead
+    (measured 0.0012 at seeds 0-2)."""
     key = jax.random.PRNGKey(0)
     params, state = supervised_ae_init(key, JCFG, image_size=IMG)
     model = SupervisedAE(TCFG, 3, IMG)
@@ -314,12 +314,14 @@ def test_bf16_ae_steps_match_satae():
         rel = lambda a, b: float((a.float() - b.float()).norm()
                                  / b.float().norm())
         skip = _pre_bn_biases(model)
+        names = {m: n for n, m in model.named_modules()}
+        out_bias = f"{names[model.dec.blocks()[-1][0]]}.bias"
         for (name, prm), g in zip(model.named_parameters(), grads):
             assert g.dtype == torch.float32 == prm.dtype, name
-            if name not in skip:
-                bound = max(3e-2, 2.5 * rel(g16[name], g32[name]))
-                assert rel(g, g16[name]) <= bound, (name, rel(g, g16[name]),
-                                                    bound)
+            if name == out_bias:
+                assert rel(g, g32[name]) <= 1e-2, (name, rel(g, g32[name]))
+            elif name not in skip:
+                assert rel(g, g16[name]) <= 3e-2, (name, rel(g, g16[name]))
     assert all(t.dtype == torch.float32 for t in model.state_dict().values()
                if t.is_floating_point())
     assert all(m.dtype == torch.float32 for m in opt_t.mu + opt_t.nu)
@@ -419,3 +421,30 @@ def test_throughput_config_equals_satae():
         assert ours["data"]["batch_size"] == batch
     with pytest.raises(ValueError, match="multiple"):
         port_tp(TC.PipelineConfig(), 1000)
+
+
+def test_bf16_gate_reference_is_the_recorded_gate():
+    """scripts/satae_pc256_gate_bfloat16.json, the reference chip_smoke.py
+    holds the port's bf16 grid against, is satae's bf16 grid fit of the
+    recorded pc256 gate: the gate's configuration, every AE config and MLP
+    lr stored, and the summary's winner the store's best."""
+    import json
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent.parent
+    gate = json.loads((repo / "benchmarks" / "torch_parity_pc256" /
+                       "torch_pipeline_parity.json").read_text())
+    ref = json.loads((repo / "scripts" /
+                      "satae_pc256_gate_bfloat16.json").read_text())
+    assert ref["dtype"] == "bfloat16"
+    assert ref["config"] == {k: gate[k] for k in (
+        "per_class", "ae_epochs", "ae_grid", "mlp_lrs", "mlp_epochs", "seed")}
+    ae = ref["stores"]["validation_losses.json"]
+    assert list(ae) == [json.dumps({"alpha": a, "lr": lr})
+                        for a in gate["ae_grid"]["alphas"]
+                        for lr in gate["ae_grid"]["lrs"]]
+    assert list(ref["stores"]["mlp_results.json"]) == [
+        json.dumps({"lr": lr}) for lr in gate["mlp_lrs"]]
+    best = min(ae, key=lambda k: ae[k]["best_val_loss"])
+    assert json.loads(best) == ref["satae"]["ae_hparams"]
+    assert ae[best]["best_val_loss"] == ref["satae"]["ae_best_val_loss"]

@@ -18,6 +18,7 @@ import satae.kernels.matmul as KM
 from satae.kernels.conv import bn_fold as jax_bn_fold
 from satae.kernels.conv import conv2d_bn_act_infer
 from satae_torch.kernels import conv as TC
+from satae_torch.kernels import launch_counts
 from satae_torch.kernels import matmul as TM
 
 
@@ -98,9 +99,9 @@ def test_wrappers_validate_and_count_only_kernel_launches():
     with pytest.raises(ValueError, match="shapes"):
         TC.conv2d_bn_act(torch.zeros(1, 4, 4, 3), torch.zeros(3, 3, 2, 2),
                          one, zero)
-    before = (TM.fused_matmul.launches, TC.conv2d_bn_act.launches)
+    before = launch_counts()
     TM.fused_matmul(x, w, one, zero, "relu")
     TC.conv2d_bn_act(torch.zeros(1, 4, 4, 3), torch.zeros(3, 3, 3, 2), one,
                      zero, stride=2, padding=1)
     # the CPU path is the plain version: no kernel launched, none counted
-    assert (TM.fused_matmul.launches, TC.conv2d_bn_act.launches) == before
+    assert launch_counts() == before
