@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (satae_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the smoke run, phases 1-16
+    python3 chip_smoke.py                  # the smoke run, phases 1-20
     python3 chip_smoke.py --ab PARENT_DIR  # A/B of the kernels' times
     python3 chip_smoke.py --split-sweep    # K1's time for each split count
 
@@ -127,6 +127,35 @@ Phases, in order; any failure exits non-zero:
              recorded float32 0.7947 printed beside; resume, evaluate, save
              and export.
 
+17. decode -- (the decoder's and calibration's K1 products, NEW_K1_SPECS,
+             are timed in float32 and bf16 in phase 5) benchmarks/
+             full_run_hard_f32 and full_run_hard_bf16 reconstruct the test
+             split through reconstruct_batched: exact launches (K2 4 and K1
+             2 per chunk of 512 in the compute dtype; decode alone K1 1),
+             decode(encode(x)) equal to reconstruct(x), x_hat against the
+             plain modules on the card (TF32 off) within RECON_ATOL, the
+             mean reconstruction MSE within RECON_MSE_RTOL of satae's on
+             the CPU (scripts/satae_serving_reference.json), images/s.
+18. calibrate -- satae's CLI calibration: latent 128, 1,000 inits, the
+             first shuffled batch of 64 of the synthetic-hard train split
+             (per_class 2000), seed 0; K1 launches exactly 4 per init; the
+             median, p5 and p95 within calibrate_band of satae's CPU run of
+             the same experiment; the wall time.
+19. inflight -- fit(grid=False, out_dir=chiprun_out/inflight_run,
+             checkpoint_every=1) at full width, AE 4 epochs and MLP 2, on
+             synthetic-hard per_class 256, in a process of its own, killed
+             with SIGKILL once its in-flight state records epoch >= 1, then
+             run again: the rerun logs "resumed from", launches K1's
+             backward only for the AE epochs after the resume (the counts
+             derived as in 10), ends with a FitSummary equal to an
+             uninterrupted run's bit for bit, and leaves inflight/ empty.
+20. cli   -- satae_torch.cli.main in this process: fit (1 + 1 epochs,
+             per_class 256, --ckpt-every 1), calibrate --n-inits 50,
+             extract, export-torch, each with satae's artifacts and its
+             launches; prints which subcommands are not run here (they
+             draw figures or decode image files) and whether matplotlib,
+             PIL, libjpeg's headers and the native loader are present.
+
 The second-to-last line holds the kernels' numbers as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -186,13 +215,36 @@ PARITY_STEPS = 10
 SPLIT_SHAPES = ((CHUNK, 4096, 64), (BATCH, 4096, 64), (BATCH, 4095, 64),
                 (100, 4100, 70), (33, 1000, 10))
 LAYOUTS = tuple(itertools.product((False, True), repeat=2))
+# the K1 products this slice adds to the card: the decoder's input linear at
+# serving chunk 512 and calibration's latent-128 projection and decoder
+# input, nn.Linear weights (out, in) as the model launches them
+NEW_K1_SPECS = (
+    ("decode", "dec_in fwd", "k1t", ((CHUNK, 64), (4096, 64), False, True)),
+    ("calibrate", "proj fwd", "k1t",
+     ((BATCH, 4096), (128, 4096), False, True)),
+    ("calibrate", "dec_in fwd", "k1t",
+     ((BATCH, 128), (4096, 128), False, True)))
+# satae's CPU values that phases 17 and 18 are held against
+# (scripts/satae_serving_reference.py writes them)
+SATAE_SERVING_REF = REPO / "scripts" / "satae_serving_reference.json"
+# phase 17: the mean reconstruction MSE against satae's, relative: the CPU
+# test's bound (tests/test_torch_port_decode.py, PERF.md section 2)
+RECON_MSE_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# phase 17: x_hat of the kernel path against the plain modules on the card,
+# max |diff| and relative L2 (bf16: the fold and K1's single rounding
+# against BatchNorm and two roundings per linear in bf16, which a sigmoid
+# near 0.5 carries to 2^-4 at single pixels on the CPU)
+RECON_ATOL = {"float32": 1e-3, "bfloat16": 2.0 ** -3}
+RECON_REL_L2 = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 # phase 3's K1 shapes: the serving path at chunk 512 (projection, fc0, fc1
-# with BN folded, fc2), the JAX package's awkward ones, and 8192 x 4096 x 64,
+# with BN folded, fc2), the JAX package's awkward ones, 8192 x 4096 x 64,
 # whose 128 tiles take one split: all of K in one block, the case that holds
-# the per-slice accumulation
+# the per-slice accumulation, and the decoder's and calibration's products
+# (NEW_K1_SPECS)
 K1_SHAPES = ((CHUNK, 4096, 64), (CHUNK, 64, 128), (CHUNK, 128, 64),
              (CHUNK, 64, 10), (64, 4096, 64), (64, 64, 128), (7, 33, 10),
-             (1, 64, 10), (8192, 4096, 64))
+             (1, 64, 10), (8192, 4096, 64)) + tuple(
+    (a[0], a[1], b[0]) for _, _, _, (a, b, _, _) in NEW_K1_SPECS)
 # phase 4's K2 shapes (n, hw, cin, cout): the four encoder layers of a
 # 512-image chunk, then Cin % 4 != 0 and ragged 32/64-wide tiles
 K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
@@ -332,7 +384,8 @@ def bf16_launch(path: str, layer: str) -> bool:
                                                  or layer == "proj"))
 
 
-def kernel_rows(mods, reference: bool = True, bf16: bool = False) -> list:
+def kernel_rows(mods, reference: bool = True, bf16: bool = False,
+                specs=None) -> list:
     """One row per launch of :func:`launch_specs`, on the kernels of
     ``mods`` (a namespace with fused_gemm and conv2d_bn_act, and with
     ``reference`` their plain versions too): back-to-back ms (CUDA events)
@@ -341,7 +394,9 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False) -> list:
     ms and device us (torch.matmul, or cuDNN's F.conv2d with bias,
     channels-last; TF32 off). With ``bf16`` the launches of the bf16 recipe
     (:func:`bf16_launch`) on bf16 operands (scale and shift float32), the
-    library calls in bf16 too, each row's kernel named with ``_bf16``."""
+    library calls in bf16 too, each row's kernel named with ``_bf16``.
+    ``specs`` replaces :func:`launch_specs` (every one then timed in the
+    dtype asked for)."""
     import torch
     import torch.nn.functional as F
 
@@ -355,8 +410,8 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False) -> list:
         return torch.rand(*shape, device=dev, generator=g) * (hi - lo) + lo
 
     rows = []
-    for path, layer, kind, args in launch_specs():
-        if bf16 and not bf16_launch(path, layer):
+    for path, layer, kind, args in specs or launch_specs():
+        if bf16 and specs is None and not bf16_launch(path, layer):
             continue
         if kind == "k2":
             n, hw, cin, cout = args
@@ -549,6 +604,10 @@ def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
             m, k = a_shape[::-1] if ta else a_shape
             n = b_shape[0] if tb else b_shape[1]
             k1_case(f"AE {layer}", m, k, n, ta, tb, ("none",), repeat=True)
+    # the decoder's and calibration's products, in their layout
+    for path, layer, _, (a_shape, b_shape, ta, tb) in NEW_K1_SPECS:
+        k1_case(f"{path} {layer}", *a_shape, b_shape[0], ta, tb, ACTS,
+                repeat=True)
     # the small products of the JAX package's kernel tests, odd K and N (the
     # 2-byte copies), a buffer at an odd element offset
     for m, k, n in ((7, 33, 10), (1, 64, 10), (33, 1001, 11), (5, 17, 3)):
@@ -774,6 +833,13 @@ def main() -> int:
                 f"K1 {(m, k, n)} {act}"))
     print(f"K1 fused_gemm vs plain: {len(K1_SHAPES) * 3} cases, max |err| "
           f"{k1_err:.3g}", flush=True)
+    for _, layer, _, (a_shape, b_shape, _, _) in NEW_K1_SPECS:
+        (m, k), n = a_shape, b_shape[0]
+        tile_m, tile_n, splits_, per = split_k_plan(m, n, k)
+        tiles = -(-m // tile_m) * -(-n // tile_n)
+        print(f"  K1 {(m, k, n)} ({layer}): plan {tiles} tiles of "
+              f"{tile_m}x{tile_n} x {splits_} splits of {per} = "
+              f"{tiles * splits_} blocks", flush=True)
     split_err, plans = 0.0, {}
     for m, k, n in SPLIT_SHAPES:
         a = torch.randn(m, k, device=dev, generator=g)
@@ -839,6 +905,16 @@ def main() -> int:
     train_rows = [r for r in all_rows if r["path"] != "serve"]
     print(f"per launch, serving chunk of {CHUNK} (card {card}):", flush=True)
     print_rows(rows)
+    # the decoder's and calibration's products (phases 17, 18), timed here,
+    # where the profiler has traced little in this process
+    mods = SimpleNamespace(
+        fused_gemm=fused_gemm, fused_matmul_plain=fused_matmul_plain,
+        conv2d_bn_act=conv2d_bn_act, conv2d_bn_act_plain=conv2d_bn_act_plain)
+    new_rows = (kernel_rows(mods, specs=NEW_K1_SPECS)
+                + kernel_rows(mods, bf16=True, specs=NEW_K1_SPECS))
+    print("per launch, the decoder's and calibration's K1 products:",
+          flush=True)
+    print_rows(new_rows)
 
     # -- 6. serve -----------------------------------------------------------
     cfg = PipelineConfig(data=DataConfig(per_class=2000,
@@ -1302,6 +1378,28 @@ def main() -> int:
     # -- 16. bf16 grid ------------------------------------------------------
     grid16 = grid_phase(card, bf16=True)
 
+    # -- 17. decoder serving ------------------------------------------------
+    t_new = time.perf_counter()
+    decode = decode_phase(card, cfg.data, test)
+    phase_s = {17: time.perf_counter() - t_new}
+
+    # -- 18. calibration ----------------------------------------------------
+    t_new = time.perf_counter()
+    calib = calibrate_phase(card, splits, cfg.data)
+    phase_s[18] = time.perf_counter() - t_new
+
+    # -- 19. in-flight resume -----------------------------------------------
+    t_new = time.perf_counter()
+    inflight = inflight_phase(card)
+    phase_s[19] = time.perf_counter() - t_new
+
+    # -- 20. CLI ------------------------------------------------------------
+    t_new = time.perf_counter()
+    cli_res = cli_phase(card)
+    phase_s[20] = time.perf_counter() - t_new
+    print("seconds of phases 17-20: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in phase_s.items()), flush=True)
+
     # -- report -------------------------------------------------------------
     def entry(name, source, replaces, err, rs, per, paths):
         ops_ms = sum(r["bound_ms"] for r in rs
@@ -1328,11 +1426,18 @@ def main() -> int:
             out_["bound_f32_ms"] = sum(r["bound_f32_ms"] for r in rs)
         return out_
 
+    cli_launches = [v["launches"] for v in cli_res["subcommands"].values()]
     f32_paths = {"serve": [launches], "fit": [fit_launches],
-                 "grid": [grid_launches]}
+                 "grid": [grid_launches],
+                 "decode": [decode["float32"]["launches"],
+                            decode["float32"]["decode_launches"]],
+                 "calibrate": [calib["launches"]],
+                 "inflight": [inflight["launches"]], "cli": cli_launches}
     bf16_paths = {"serve": [serve16["launches"]],
                   "fit": [fit16["launches"], fit_tp["launches"]],
-                  "grid": [grid16["launches"]]}
+                  "grid": [grid16["launches"]],
+                  "decode": [decode["bfloat16"]["launches"],
+                             decode["bfloat16"]["decode_launches"]]}
     rows16 = k13["rows"]
     k1, k2 = "satae_torch/csrc/fused_gemm.cu", "satae_torch/csrc/conv_bn_act.cu"
     chunk, step = f"one {CHUNK}-image serving chunk", \
@@ -1383,7 +1488,9 @@ def main() -> int:
         det_profile_top=top_ops(det_events, 12),
         mlp_step_ms=mlp_step_ms, train_profile_wall_ms=tr_wall,
         train_profile_device_ms=tr_dev, train_profile_top=tr_top, grid=grid,
-        bf16_grid=grid16,
+        bf16_grid=grid16, new_k1_rows=new_rows, decode=decode,
+        calibrate=calib, inflight=inflight, cli=cli_res,
+        phase_seconds_17_20=phase_s,
         **report), indent=1))
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1775,6 +1882,344 @@ def grid_phase(card: str, bf16: bool = False) -> dict:
                 resume_stage_seconds=summary2.stage_seconds,
                 evaluate_accuracy=float(ev["accuracy"]),
                 confusion_matrix=ev["confusion_matrix"].tolist(), card=card)
+
+
+INFLIGHT_CHILD = r"""
+import json, sys
+from satae_torch import kernels
+from satae_torch.api import SatAEPipeline
+from satae_torch.config import (AETrainConfig, DataConfig, MLPTrainConfig,
+                                PipelineConfig)
+out, cache = sys.argv[1], sys.argv[2]
+cfg = PipelineConfig(
+    data=DataConfig(per_class=256, synthetic_difficulty="hard",
+                    cache_dir=cache),
+    ae=AETrainConfig(max_epochs=4, checkpoint_every=1),
+    mlp=MLPTrainConfig(epochs=2))
+kernels.reset_launch_counts()
+s = SatAEPipeline(cfg).fit(out_dir=out, log=lambda ln: print(ln, flush=True))
+print("RESULT " + json.dumps(dict(summary=s.__dict__,
+                                  launches=kernels.launch_counts())),
+      flush=True)
+"""
+
+
+def decode_phase(card: str, data_cfg, test) -> dict:
+    """Phase 17: reconstruct_batched and decode of the committed float32 and
+    bf16 models over the test split, on the kernels: exact launches, x_hat
+    against the plain modules on the card, the mean MSE against satae's on
+    the CPU, images/s."""
+    import numpy as np
+    import torch
+
+    from satae_torch import kernels
+    from satae_torch.api import SatAEPipeline
+    from satae_torch.config import PipelineConfig, RuntimeConfig
+    from satae_torch.data.augment import normalize
+    from satae_torch.nn import layers as L
+
+    ref = json.loads(SATAE_SERVING_REF.read_text())
+    n_img = len(test)
+    n_chunks = -(-n_img // CHUNK)
+    x_u8 = torch.from_numpy(test.images)
+    out = {}
+    for dtype, ckpt in (("float32", CKPT), ("bfloat16", CKPT_BF16)):
+        sfx = "_bf16" if dtype == "bfloat16" else ""
+        dt = getattr(torch, dtype)
+        cfg = PipelineConfig(data=data_cfg,
+                             runtime=RuntimeConfig(compute_dtype=dtype))
+        pipe = SatAEPipeline(cfg).load(str(ckpt))
+        kernels.reset_launch_counts()
+        rec = pipe.reconstruct_batched(test.images)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        want = counts(**{"conv2d_bn_act" + sfx: 4 * n_chunks,
+                         "fused_gemm" + sfx: 2 * n_chunks})
+        check(launches == want, f"{dtype} reconstruct launches {launches}, "
+              f"expected {want}")
+        check(rec.shape == (n_img, 64, 64, 3) and rec.dtype == np.float32
+              and bool(np.isfinite(rec).all()), f"{dtype} reconstructions "
+              f"{rec.shape} {rec.dtype}")
+        z = pipe.encode(test.images)
+        kernels.reset_launch_counts()
+        dec = pipe.decode(z)
+        torch.cuda.synchronize()
+        dec_launches = kernels.launch_counts()
+        check(dec_launches == counts(**{"fused_gemm" + sfx: n_chunks}),
+              f"{dtype} decode launches {dec_launches}")
+        # the same computation, but cuDNN may pick another algorithm for
+        # the transposed convolutions between calls
+        dec_gap = float(np.abs(dec - rec).max())
+        check(dec_gap <= (1e-5 if sfx == "" else 2.0 ** -8),
+              f"{dtype}: decode(encode(x)) is {dec_gap} from reconstruct(x)")
+        with torch.no_grad():  # the modules on stock PyTorch ops, TF32 off
+            x = normalize(x_u8.to(pipe.device), dt)
+            z_p = pipe.ae.enc(x, L.linear_plain).float()
+            rec_p = pipe.ae.dec(z_p.to(dt), L.linear_plain).float()
+        rec_p = rec_p.cpu().numpy()
+        diff = float(np.abs(rec - rec_p).max())
+        rel_l2 = float(np.linalg.norm(rec - rec_p) / np.linalg.norm(rec_p))
+        mse = float(np.mean(np.mean(np.square(
+            rec - test.images.astype(np.float32) / 255.0), axis=(1, 2, 3))))
+        r = ref[f"reconstruct_{dtype}"]
+        rel = abs(mse - r["satae_mean_mse"]) / r["satae_mean_mse"]
+        pipe.reconstruct_batched(test.images)  # warm-up
+        rec_ms = time_ms(lambda: pipe.reconstruct_batched(test.images),
+                         reps=10, warmup=1)
+        ips = n_img / (rec_ms / 1e3)
+        print(f"reconstruct_batched {dtype} ({ckpt.name}): {n_img} images, "
+              f"launches {launches}, decode {dec_launches}; x_hat vs the "
+              f"plain modules max |diff| {diff:.3g} (bound "
+              f"{RECON_ATOL[dtype]:g}), relative L2 {rel_l2:.3g} (bound "
+              f"{RECON_REL_L2[dtype]:g}); mean MSE {mse!r} (satae on the CPU "
+              f"{r['satae_mean_mse']!r}, relative gap {rel:.3g}, bound "
+              f"{RECON_MSE_RTOL[dtype]:g}); decode(encode(x)) max |diff| "
+              f"{dec_gap:.3g}; {ips:.1f} images/s ({rec_ms:.3f} "
+              f"ms per call); card {card}", flush=True)
+        check(diff <= RECON_ATOL[dtype] and rel_l2 <= RECON_REL_L2[dtype],
+              f"{dtype} reconstructions differ from the plain modules by "
+              f"{diff} (relative L2 {rel_l2})")
+        check(rel <= RECON_MSE_RTOL[dtype], f"{dtype} mean MSE {mse} vs "
+              f"satae's {r['satae_mean_mse']}")
+        out[dtype] = dict(launches=launches, decode_launches=dec_launches,
+                          decode_gap=dec_gap,
+                          max_abs_diff_plain=diff, rel_l2_plain=rel_l2,
+                          mean_mse=mse,
+                          satae_mean_mse=r["satae_mean_mse"], mse_rel_gap=rel,
+                          images_per_s=ips, reconstruct_ms=rec_ms)
+    return out
+
+
+def calibrate_band(ref: dict) -> dict:
+    """Phase 18's band for each of median, p5 and p95: three standard errors
+    of the difference of two independent draws of the experiment, each
+    with satae's bootstrap standard error, plus the spread the port's own
+    CPU calibration shows across augmentation seeds (one augmented batch
+    moves every ratio of a run together)."""
+    cal = ref["calibration"]
+    by_seed = cal["port_cpu_by_seed"].values()
+    return {k: 3.0 * math.sqrt(2.0) * cal["bootstrap_se"][k]
+            + (max(s[k] for s in by_seed) - min(s[k] for s in by_seed))
+            for k in ("median", "p5", "p95")}
+
+
+def calibrate_phase(card: str, splits, data_cfg) -> dict:
+    """Phase 18: satae's CLI calibration (latent 128, 1,000 inits, the first
+    shuffled batch of 64 of the train split, seed 0) on the card: 4 K1
+    launches per init exactly, median / p5 / p95 within the band of satae's
+    CPU run."""
+    import numpy as np
+    import torch
+
+    from satae_torch import kernels
+    from satae_torch.data.pipeline import iter_batches
+    from satae_torch.train.calibrate import (CalibrationSummary,
+                                             loss_ratio_calibration)
+
+    ref = json.loads(SATAE_SERVING_REF.read_text())
+    cal, band = ref["calibration"], calibrate_band(ref)
+    imgs, labels = next(iter_batches(splits.train, data_cfg.batch_size,
+                                     shuffle=True, seed=0))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ratios = loss_ratio_calibration(imgs, labels, data_cfg=data_cfg,
+                                    n_inits=cal["n_inits"], seed=0)
+    wall_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check(launches == counts(fused_gemm=4 * cal["n_inits"]),
+          f"calibration launches {launches}")
+    check(bool(np.isfinite(ratios).all()), "a calibration ratio is not finite")
+    s = CalibrationSummary.from_ratios(ratios)
+    gaps = {k: abs(getattr(s, k) - cal["satae"][k]) for k in band}
+    print(f"calibrate: {cal['n_inits']} inits at latent 128 in {wall_s:.2f} s "
+          f"({wall_s / cal['n_inits'] * 1e3:.3f} ms per init), launches "
+          f"{launches}; median {s.median:.4f} p5 {s.p5:.4f} p95 {s.p95:.4f} "
+          f"mean {s.mean:.4f}; satae on the CPU " + ", ".join(
+              f"{k} {cal['satae'][k]:.4f} (gap {gaps[k]:.4f}, band "
+              f"{band[k]:.4f})" for k in band) + f"; card {card}", flush=True)
+    for k in band:
+        check(gaps[k] <= band[k], f"calibration {k} {getattr(s, k)} is "
+              f"{gaps[k]} from satae's {cal['satae'][k]} (band {band[k]})")
+    return dict(launches=launches, wall_s=wall_s,
+                summary=dataclasses.asdict(s), satae=cal["satae"], band=band,
+                gaps=gaps)
+
+
+def inflight_phase(card: str) -> dict:
+    """Phase 19: a full-width fit(out_dir, checkpoint_every=1) in a process
+    of its own, killed with SIGKILL once its in-flight state records epoch
+    >= 1 and run again: the rerun resumes, launches K1's backward only for
+    the epochs after the resume, ends where an uninterrupted run ends, bit
+    for bit, and leaves inflight/ empty."""
+    import signal
+
+    from satae_torch.config import (DataConfig, MLPTrainConfig,
+                                    PipelineConfig)
+    from satae_torch.data.ingest import load_dataset
+    from satae_torch.data.pipeline import make_splits
+
+    base = REPO / "chiprun_out"
+    run, ref_run = base / "inflight_run", base / "inflight_ref"
+    cache = base / "inflight_cache"
+    for d in (run, ref_run):
+        shutil.rmtree(d, ignore_errors=True)
+    child = lambda out: subprocess.Popen(
+        [sys.executable, "-c", INFLIGHT_CHILD, str(out), str(cache)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=str(REPO))
+
+    def result(proc, what):
+        text, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"{what} failed:\n{text[-3000:]}")
+        line = [ln for ln in text.splitlines() if ln.startswith("RESULT ")]
+        check(len(line) == 1, f"{what} printed no result:\n{text[-3000:]}")
+        return text, json.loads(line[0][len("RESULT "):])
+
+    t0 = time.perf_counter()
+    ref_text, ref = result(child(ref_run), "the uninterrupted run")
+    ref_s = time.perf_counter() - t0
+    state = run / "inflight" / "ae_single.state.json"
+    proc, killed_at = child(run), None
+    t0 = time.perf_counter()
+    while proc.poll() is None and time.perf_counter() - t0 < 600:
+        try:
+            epoch = json.loads(state.read_text())["epoch"]
+        except (FileNotFoundError, json.JSONDecodeError, KeyError):
+            epoch = -1
+        if epoch >= 1:
+            proc.send_signal(signal.SIGKILL)
+            proc.wait()
+            killed_at = epoch
+            break
+        time.sleep(0.01)
+    check(killed_at is not None, "the run ended before its in-flight state "
+          "recorded epoch 1, or never got there")
+    t0 = time.perf_counter()
+    text, res = result(child(run), "the resumed run")
+    resume_s = time.perf_counter() - t0
+    resumed = [ln for ln in text.splitlines() if ln.startswith("resumed from")]
+    check(len(resumed) == 1, f"the rerun did not resume:\n{text[-3000:]}")
+    start = int(resumed[0].rsplit("epoch", 1)[1])
+    check(start >= killed_at + 1, f"resumed at epoch {start}, the kill came "
+          f"after epoch {killed_at} was flushed")
+    cfg = PipelineConfig(data=DataConfig(per_class=256,
+                                         synthetic_difficulty="hard"),
+                         mlp=MLPTrainConfig(epochs=2))
+    splits = make_splits(load_dataset(cfg.data), cfg.data)
+    n_split = (len(splits.train), len(splits.val), len(splits.test))
+    want = fit_launches(n_split, BATCH, 4 - start, 2, cfg.model, False)
+    ref_want = fit_launches(n_split, BATCH, 4, 2, cfg.model, False)
+    check(ref["launches"] == ref_want, f"uninterrupted run launches "
+          f"{ref['launches']}, expected {ref_want}")
+    check(res["launches"] == want, f"resumed run launches {res['launches']},"
+          f" expected {want} (AE epochs {start}-3 only)")
+    fields = ("ae_val_loss", "ae_hparams", "mlp_val_acc", "mlp_hparams",
+              "test_acc")
+    differ = [f for f in fields if res["summary"][f] != ref["summary"][f]]
+    left = list((run / "inflight").iterdir())
+    print(f"in-flight resume: SIGKILL after epoch {killed_at} was flushed, "
+          f"rerun resumed at epoch {start} ({resume_s:.2f} s; the "
+          f"uninterrupted run {ref_s:.2f} s); launches {res['launches']} "
+          f"(expected {want}); summary {res['summary']} vs uninterrupted "
+          f"{ref['summary']}, fields that differ {differ}; inflight/ holds "
+          f"{[p.name for p in left]}; card {card}", flush=True)
+    check(not differ, f"the resumed fit differs in {differ}")
+    check(not left, f"inflight/ not empty: {left}")
+    for d in (run, ref_run, cache):
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(killed_after_epoch=killed_at, resumed_at=start,
+                launches=res["launches"], expected_launches=want,
+                summary=res["summary"], reference_summary=ref["summary"],
+                resume_s=resume_s, reference_s=ref_s)
+
+
+def cli_phase(card: str) -> dict:
+    """Phase 20: satae_torch.cli.main in this process: fit (1 + 1 epochs,
+    per_class 256, --ckpt-every 1), calibrate --n-inits 50 (its histogram,
+    which satae draws whenever --out is set, only with matplotlib), extract
+    and export-torch, each with its artifacts and launches; the subcommands
+    that draw figures or decode image files are not run here."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from satae_torch import cli, kernels
+    from satae_torch.io import native_loader
+
+    run, cache = REPO / "chiprun_out" / "cli_run", \
+        REPO / "chiprun_out" / "cli_cache"
+    shutil.rmtree(run, ignore_errors=True)
+    common = ["--per-class", "256", "--synthetic-difficulty", "hard",
+              "--seed", "0", "--out", str(run), "--cache-dir", str(cache)]
+    plots = importlib.util.find_spec("matplotlib") is not None
+    res = {}
+
+    def sub(name, argv):
+        stdout = io.StringIO()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            cli.main([name] + argv + common)
+        res[name] = dict(seconds=time.perf_counter() - t0,
+                         launches=kernels.launch_counts())
+        return stdout.getvalue()
+
+    fit_out = sub("fit", ["--ae-epochs", "1", "--mlp-epochs", "1",
+                          "--ckpt-every", "1"])
+    summary = json.loads(fit_out[fit_out.index("{\n"):])
+    want = {"ae_global_best.json", "ae_global_best.msgpack", "classes.json",
+            "fit_summary.json", "metrics.jsonl", "mlp_global_best.json",
+            "mlp_global_best.msgpack", "mlp_provenance.json", "inflight"}
+    figures = {"ae_best_curves.png", "mlp_best_curves.png"}
+    names = {p.name for p in run.iterdir()}
+    check(names == (want | figures if plots else want), f"fit wrote {names}")
+    check(not list((run / "inflight").iterdir()), "fit left in-flight files")
+    check(list(summary) == ["ae_val_loss", "ae_hparams", "mlp_val_acc",
+                            "mlp_hparams", "test_acc", "stage_seconds"],
+          f"fit's JSON keys {list(summary)}")
+    if not plots:
+        log = (run / "metrics.jsonl").read_text()
+        check(all(f"{f} not written" in log for f in figures),
+              "fit did not log the figures it could not write")
+    cal_out = sub("calibrate", ["--n-inits", "50"])
+    check(list(json.loads(cal_out)) == ["median", "mean", "p5", "p95"],
+          f"calibrate printed {cal_out}")
+    check((run / "calibration.json").exists() and (
+        run / "ratio_histogram.png").exists() == plots,
+        "calibrate's artifacts")
+    sub("extract", [])
+    for split in ("train", "val", "test"):
+        check((run / f"latents_{split}.npz").exists(), f"no {split} latents")
+    sub("export-torch", [])
+    check(all((run / n).exists() for n in ("AE_GLOBAL_BEST.pt",
+                                           "MLP_GLOBAL_BEST.pt")),
+          "export-torch wrote no .pt files")
+    lc = {k: v["launches"] for k, v in res.items()}
+    check(all(lc["fit"][k] > 0 for k in ("fused_gemm", "fused_gemm_bwd",
+                                          "conv2d_bn_act")),
+          f"fit launches {lc['fit']}")
+    check(lc["calibrate"] == counts(fused_gemm=200),
+          f"calibrate launches {lc['calibrate']}")
+    check(lc["extract"]["conv2d_bn_act"] > 0 and lc["extract"][
+        "fused_gemm"] > 0, f"extract launches {lc['extract']}")
+    has = dict(matplotlib=plots,
+               PIL=importlib.util.find_spec("PIL") is not None,
+               jpeglib_h=Path("/usr/include/jpeglib.h").exists(),
+               gpp=shutil.which("g++") is not None,
+               native_loader=native_loader.native_available())
+    print("cli: " + "; ".join(
+        f"{k} {v['seconds']:.2f} s, launches "
+        f"{ {n: c for n, c in v['launches'].items() if c} }"
+        for k, v in res.items()) + f"; fit test accuracy "
+        f"{summary['test_acc']}; card {card}", flush=True)
+    print("cli: not run on the card: evaluate and report (they draw "
+          "figures; matplotlib "
+          f"{'present' if plots else 'absent'}), predict and reconstruct "
+          "(they decode image files and reconstruct writes PNGs); on this "
+          f"machine: {has}", flush=True)
+    shutil.rmtree(run)
+    shutil.rmtree(cache, ignore_errors=True)
+    return dict(subcommands=res, fit_summary=summary, machine=has)
 
 
 def card_line() -> str:

@@ -26,24 +26,35 @@ Adam are stock PyTorch ops, as they are XLA ops in satae.
 ``SatAEPipeline`` also loads a fitted pipeline (:meth:`load`,
 :meth:`load_ae`, or the reference notebook's ``.pt`` state_dicts with
 :meth:`load_torch`), saves it (:meth:`save`, :meth:`export_torch`),
-evaluates a split (:meth:`evaluate`) and serves ``encode``, ``predict`` and
-``predict_proba`` through the fixed-chunk bulk path of satae
-(api.py:527-603): one upload, chunks of 64 images for inputs of up to 64,
-of 512 otherwise, padding rows sliced off. On a CUDA device every chunk
-runs satae_torch.models.fast_infer on the hand-written kernels (K2 per conv
-layer, K1 per linear layer; the encoder in the compute dtype, its weights
-cast once, the MLP on float32 latents, as satae's api.py:399-415); with
-``device="cpu"`` the same code runs the kernels' plain PyTorch versions.
+evaluates a split (:meth:`evaluate`) and serves ``encode``, ``predict``,
+``predict_proba``, ``decode`` and ``reconstruct`` through the fixed-chunk
+bulk path of satae (api.py:527-655): one upload, chunks of 64 images (or
+latents) for inputs of up to 64, of 512 otherwise, padding rows sliced off.
+On a CUDA device every chunk runs satae_torch.models.fast_infer on the
+hand-written kernels (K2 per conv layer, K1 per linear layer; the encoder in
+the compute dtype, its weights cast once, the MLP on float32 latents, as
+satae's api.py:399-415); the decoder's input linear is one K1 launch and its
+transposed convolutions are ``F.conv_transpose2d``, as they are XLA ops in
+satae. With ``device="cpu"`` the same code runs the kernels' plain PyTorch
+versions.
+
+``ae.checkpoint_every`` with ``out_dir`` flushes the autoencoder's in-flight
+train state under ``out_dir/inflight/`` every N epochs, in satae's files, so
+a killed fit resumes mid-training (satae_torch.train.fast_loop). With
+``out_dir`` the fit also draws satae's ``ae_best_curves.png`` and
+``mlp_best_curves.png``; where matplotlib is not installed it logs which
+figure it did not write and goes on (figures the caller asks for, as
+``runtime.save_grid_curves``, raise ``ImportError`` there).
+``runtime.debug_nans`` raises ``FloatingPointError`` at the first
+non-finite loss or gradient of a train step (satae_torch.utils.profiling).
 
 The device is explicit. ``device=None`` means the first CUDA device, and
 raises where there is none: the pipeline never drops to the CPU by itself.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md §1
-item: the vmap and sharded sweep engines (``runtime.parallel_configs``,
-``runtime.n_devices``), in-flight resume (``ae.checkpoint_every`` with
-``out_dir``), curve plots (``runtime.save_grid_curves``; satae's fit also
-draws ``*_best_curves.png`` into ``out_dir``, the port does not) and
-decoder serving (``decode``/``reconstruct``).
+item: the vmap and sharded sweep engines and the multi-process runtime
+(``runtime.parallel_configs``, ``runtime.n_devices``, ``runtime.multihost``,
+item 8).
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ import dataclasses
 import hashlib
 import json
 import time
+import warnings
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -67,11 +79,12 @@ from satae_torch.io import checkpoint, convert
 from satae_torch.models import fast_infer
 from satae_torch.models.mlp import MLP
 from satae_torch.models.supervised_ae import SupervisedAE
-from satae_torch.train.extract import extract_features
+from satae_torch.train.extract import extract_features, make_decode_step
 from satae_torch.train.fast_loop import train_mlp, train_supervised_ae
 from satae_torch.train.gridsearch import ae_grid_search, mlp_grid_search
 from satae_torch.train.loop import LogFn
 from satae_torch.train.sweep_common import save_best_checkpoint
+from satae_torch.utils.profiling import debug_mode
 from satae_torch.utils.strict_json import dump_strict_json
 
 # Reference-optimal single-config hyperparameters (satae/api.py:33-35)
@@ -112,7 +125,13 @@ class SatAEPipeline:
         if rt.n_devices:
             raise NotImplementedError(
                 "multi-device serving is a later slice (ROADMAP.md §1 "
-                "item 13)")
+                "item 8)")
+        if rt.multihost:
+            # satae initialises its multi-process runtime here; a half-wired
+            # multi-host run must fail loudly, not train on 1/N of the data
+            raise NotImplementedError(
+                "runtime.multihost: the multi-process runtime is a later "
+                "slice (ROADMAP.md §1 item 8)")
         self.device = resolve_device(device)
         self.ae: Optional[SupervisedAE] = None
         self.mlp: Optional[MLP] = None
@@ -146,27 +165,24 @@ class SatAEPipeline:
         resume by hyperparameter key and assume the dataset and seed are
         unchanged across runs that share it. The encoder -> MLP pairing is
         fingerprint-guarded (``mlp_provenance.json``); a changed dataset or
-        seed is not."""
+        seed is not.
+
+        With ``config.ae.checkpoint_every`` and ``out_dir`` the AE training
+        flushes its in-flight state every N epochs (``inflight/``) and a
+        rerun resumes from it; the files are removed once the winner is
+        recorded."""
         cfg = self.config
         if grid and cfg.runtime.parallel_configs:
             raise NotImplementedError(
                 "runtime.parallel_configs: the vmap sweep engine is a later "
-                "slice (ROADMAP.md §1 item 13)")
-        if out_dir is not None and cfg.ae.checkpoint_every:
-            raise NotImplementedError(
-                "ae.checkpoint_every with out_dir: in-flight resume, which "
-                "needs Adam's state in satae's tree, is a later slice "
-                "(ROADMAP.md §1 item 9)")
-        if cfg.runtime.save_grid_curves:
-            raise NotImplementedError(
-                "runtime.save_grid_curves: the curve plots are a later "
-                "slice (ROADMAP.md §1 item 11)")
+                "slice (ROADMAP.md §1 item 8)")
         if reuse_ae and self.ae is None:
             raise ValueError("reuse_ae=True requires a loaded autoencoder - "
                              "call load(), load_ae() or load_torch() first")
         cudnn = torch.backends.cudnn
         with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=True, allow_tf32=False):
+                         deterministic=True, allow_tf32=False), \
+                debug_mode(cfg.runtime.debug_nans):
             return self._fit(raw, grid, log, out_dir, reuse_ae)
 
     def _fit(self, raw: Optional[RawDataset], grid: bool,
@@ -191,21 +207,31 @@ class SatAEPipeline:
         stage("data")
 
         ae_res = None
+        # the single config's in-flight state, removed only once its winner
+        # is written (in _write_run_dir): a kill during extraction or the MLP
+        # must not lose the AE training
+        inflight = None
+        curves = cfg.runtime.save_grid_curves
         if reuse_ae:
             ae_hp = {"reused": True}
         elif grid:
             sweep = ae_grid_search(
                 splits.train, splits.val, model_cfg=cfg.model,
                 data_cfg=cfg.data, ae_cfg=cfg.ae, device=dev, seed=seed,
-                out_dir=out_dir, log=log, compute_dtype=dtype)
+                out_dir=out_dir, log=log, compute_dtype=dtype,
+                save_curves=curves)
             ae_res, ae_hp = sweep.best, sweep.best_hparams
         else:
+            if out_dir and cfg.ae.checkpoint_every:
+                inflight = Path(out_dir) / "inflight" / "ae_single.msgpack"
             ae_res = train_supervised_ae(
                 splits.train, splits.val, model_cfg=cfg.model,
                 data_cfg=cfg.data, alpha=BEST_ALPHA, lr=BEST_AE_LR,
                 device=dev, max_epochs=cfg.ae.max_epochs,
                 patience=cfg.ae.patience, seed=seed, log=log,
-                compute_dtype=dtype)
+                compute_dtype=dtype,
+                checkpoint_path=None if inflight is None else str(inflight),
+                checkpoint_every=cfg.ae.checkpoint_every)
             ae_hp = {"alpha": BEST_ALPHA, "lr": BEST_AE_LR}
         if ae_res is not None:
             ae = SupervisedAE(cfg.model, cfg.data.channels,
@@ -226,7 +252,7 @@ class SatAEPipeline:
             msweep = mlp_grid_search(
                 Xtr, ytr, Xva, yva, model_cfg=cfg.model, mlp_cfg=cfg.mlp,
                 device=dev, batch_size=bs, seed=seed, out_dir=out_dir,
-                log=log, test_x=Xte, test_y=yte)
+                log=log, test_x=Xte, test_y=yte, save_curves=curves)
             mlp_res, mlp_hp = msweep.best, msweep.best_hparams
         else:
             mlp_res = train_mlp(
@@ -255,13 +281,14 @@ class SatAEPipeline:
             stage_seconds=dict(stage_t))
         if out_dir:
             self._write_run_dir(Path(out_dir), summary, grid, reuse_ae,
-                                ae_res, mlp_res)
+                                ae_res, mlp_res, inflight, log)
         return summary
 
     def _write_run_dir(self, out: Path, summary: FitSummary, grid: bool,
-                       reuse_ae: bool, ae_res, mlp_res) -> None:
-        """What satae's fit writes into ``out_dir`` (api.py:284-326), its
-        curve plots aside."""
+                       reuse_ae: bool, ae_res, mlp_res,
+                       inflight: Optional[Path],
+                       log: Optional[LogFn]) -> None:
+        """What satae's fit writes into ``out_dir`` (api.py:284-335)."""
         if not grid:
             # the sweeps checkpointed their winners with the full selection
             # meta (the 'diverged' marker included); only the single-config
@@ -271,6 +298,8 @@ class SatAEPipeline:
                                      summary.ae_hparams, ae_res)
             save_best_checkpoint(out, "mlp_global_best", *self._mlp_trees(),
                                  summary.mlp_hparams, mlp_res)
+            if inflight is not None:
+                checkpoint.clear_train_state(inflight)
         if reuse_ae and self._ae_src_dir != str(out.resolve()):
             # an encoder from elsewhere makes out_dir a complete run
             # directory, overwriting a stale AE; the same-directory flow
@@ -282,6 +311,30 @@ class SatAEPipeline:
             dump_strict_json(dataclasses.asdict(summary), indent=2))
         if self.classes:
             (out / "classes.json").write_text(json.dumps(list(self.classes)))
+        figures = []
+        if ae_res is not None and ae_res.history:
+            figures.append(("loss_curves", ae_res.history, "ae_best_curves",
+                            f"Best AE ({summary.ae_hparams})"))
+        if mlp_res.history:
+            figures.append(("accuracy_curves", mlp_res.history,
+                            "mlp_best_curves",
+                            f"Best MLP ({summary.mlp_hparams})"))
+        if not figures:
+            return
+        try:
+            from satae_torch.eval import plots
+        except ImportError:
+            # satae draws these unasked; without matplotlib the run directory
+            # is complete all the same
+            for _, _, name, _ in figures:
+                msg = f"matplotlib is not installed: {name}.png not written"
+                if log:
+                    log(msg)
+                else:
+                    warnings.warn(msg)
+            return
+        for fn, history, name, title in figures:
+            getattr(plots, fn)(history, out / f"{name}.png", title=title)
 
     def _guard_mlp_store(self, out_dir: str) -> None:
         """Invalidate MLP artifacts trained on another encoder's latents
@@ -367,11 +420,12 @@ class SatAEPipeline:
                    mlp_pt: Optional[str] = None) -> "SatAEPipeline":
         """Load the reference notebook's ``AE_GLOBAL_BEST.pt`` (and
         ``MLP_GLOBAL_BEST.pt``) state_dicts, strictly. Without ``mlp_pt``
-        the pipeline holds the autoencoder only."""
+        only the autoencoder is replaced: a loaded MLP stays, as in satae
+        (api.py:758-778); pair it with ``fit(reuse_ae=True)`` to train the
+        MLP on the notebook's encoder."""
         load = lambda p: torch.load(p, map_location="cpu", weights_only=True)
         self._install_ae(load(ae_pt))
         self._ae_src_dir = None  # a foreign checkpoint, no run directory
-        self.mlp = None
         if mlp_pt is not None:
             self._install_mlp(load(mlp_pt))
         return self
@@ -551,6 +605,53 @@ class SatAEPipeline:
             images, fe,
             lambda z: torch.softmax(fast_infer.mlp_infer(fm, z), dim=-1))
         return torch.cat(probs).cpu().numpy()[:n]
+
+    def _image_shape(self) -> Tuple[int, int, int]:
+        d = self.config.data
+        return d.image_size, d.image_size, d.channels
+
+    @torch.no_grad()
+    def decode(self, latents: np.ndarray) -> np.ndarray:
+        """Latents (N, latent_dim) -> reconstructed images (N, H, W, C),
+        float32 in [0, 1] (the decoder ends in a sigmoid): the inverse of
+        :meth:`encode`. One upload, fixed chunks as :meth:`encode`; each
+        chunk runs the eval-mode decoder in the compute dtype (its input
+        linear one K1 launch on the card)."""
+        self._require_fitted()
+        z = np.asarray(latents, np.float32)
+        ld = self.config.model.latent_dim
+        if z.ndim != 2 or z.shape[1] != ld:
+            raise ValueError(f"latents must be (N, {ld}), got {z.shape}")
+        n = len(z)
+        if n == 0:
+            return np.zeros((0,) + self._image_shape(), np.float32)
+        chunk = self._serve_chunk(n)
+        pad = (-n) % chunk
+        dev = torch.zeros((n + pad, ld), device=self.device)
+        dev[:n].copy_(torch.from_numpy(z))
+        step = make_decode_step(self.ae.dec, self.config.compute_dtype)
+        outs = [step(dev[lo:lo + chunk]) for lo in range(0, n + pad, chunk)]
+        return torch.cat(outs).cpu().numpy()[:n]
+
+    def reconstruct(self, images: np.ndarray) -> np.ndarray:
+        """Images -> the autoencoder's reconstructions ``x_hat``, float32 in
+        [0, 1], through the fixed-chunk path (:meth:`reconstruct_batched`).
+        An autoencoder alone (:meth:`load_ae`) serves it."""
+        return self.reconstruct_batched(images)
+
+    def reconstruct_batched(self, images: np.ndarray) -> np.ndarray:
+        """Encoder and decoder in eval mode, chunk by chunk on the device:
+        the folded encoder (K2 per conv layer and K1 for the projection on
+        the card), its float32 latents into the decoder with no host round
+        trip; one upload and one readback."""
+        self._require_fitted()
+        n = len(np.asarray(images))
+        if n == 0:
+            return np.zeros((0,) + self._image_shape(), np.float32)
+        fe, _ = self._folded_weights()
+        step = make_decode_step(self.ae.dec, self.config.compute_dtype)
+        outs = self._serve_batched(images, fe, step)
+        return torch.cat(outs).cpu().numpy()[:n]
 
 
 # -- module-level conveniences ---------------------------------------------

@@ -5,7 +5,7 @@ zero-pad 4 and a random crop back to the image size (offsets uniform in
 [0, 2p]), the uint8 -> [0, 1] scaling, and unclamped additive N(0, 0.03)
 noise. The deterministic core :func:`flip_crop` takes the flips and offsets
 as inputs and indexes the padded batch directly; satae's selection-matmul
-form of the same map is a TPU device choice (ROADMAP.md §1 item 4).
+form of the same map is a TPU device choice.
 
 The random draws come from a ``torch.Generator``, so they are not satae's
 (JAX's threefry or rbg streams); the flips, offsets and noise can be passed

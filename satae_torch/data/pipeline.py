@@ -3,13 +3,15 @@
 Same seeded numpy streams as satae, so the splits are byte-identical:
   * a per-class cap via a seeded permutation (``DataConfig.subsample_seed``);
   * a 70/15/15 permutation split with seed 42, sizes following
-    torch.random_split's fraction semantics.
+    torch.random_split's fraction semantics;
+  * :func:`iter_batches`, host batches in a ``default_rng(seed + epoch)``
+    order (the batch ``calibrate`` takes).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Iterator, Tuple
 
 import numpy as np
 
@@ -67,3 +69,24 @@ def make_splits(raw: RawDataset, cfg: DataConfig) -> Splits:
                                cfg.split_seed)
     mk = lambda idx: ArrayDataset(images[idx], labels[idx])
     return Splits(mk(tr), mk(va), mk(te), raw.classes)
+
+
+def iter_batches(ds: ArrayDataset, batch_size: int, *, shuffle: bool,
+                 seed: int = 0, epoch: int = 0, drop_remainder: bool = False
+                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """(images, labels) batches of ``ds``, shuffled by
+    ``default_rng(seed + epoch)``; the last batch may be short unless
+    ``drop_remainder``."""
+    n = len(ds)
+    if shuffle:
+        order = np.random.default_rng(seed + epoch).permutation(n)
+    else:
+        order = np.arange(n)
+    stop = (n // batch_size) * batch_size if drop_remainder else n
+    for lo in range(0, stop, batch_size):
+        idx = order[lo:lo + batch_size]
+        yield ds.images[idx], ds.labels[idx]
+
+
+def num_batches(n: int, batch_size: int, drop_remainder: bool = False) -> int:
+    return n // batch_size if drop_remainder else -(-n // batch_size)

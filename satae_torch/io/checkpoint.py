@@ -19,7 +19,10 @@ are the same in both packages. The trees are satae's layout
 
 :class:`GridResultStore` and :func:`save_model`'s sidecar write the same
 strict JSON as satae, with the same store keys, so a run directory written
-by either package is resumed by the other.
+by either package is resumed by the other. :func:`save_train_state` writes
+satae's in-flight pair (the ``{params, bn_state, opt_state}`` tree and its
+``.state.json`` meta), so a fit killed mid-training resumes in either
+package.
 """
 
 from __future__ import annotations
@@ -272,6 +275,43 @@ def load_model(path: str | Path) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         raise ValueError(f"{path}: not a satae model checkpoint (expected "
                          "'params' and 'bn_state')")
     return blob["params"], blob["bn_state"]
+
+
+def save_train_state(path: str | Path, *, params: Any, bn_state: Any,
+                     opt_state: Any, epoch: int,
+                     extra: Optional[Dict[str, Any]] = None) -> None:
+    """satae's mid-training snapshot: ``{params, bn_state, opt_state}``
+    (``opt_state`` satae's ``{"mu", "nu", "step"}``) at ``path`` and the
+    meta ``{"epoch": epoch, **extra}`` as strict JSON in ``.state.json``."""
+    save_pytree(path, {"params": params, "bn_state": bn_state,
+                       "opt_state": opt_state})
+    meta = {"epoch": int(epoch), **(extra or {})}
+    _atomic_write_text(Path(path).with_suffix(".state.json"),
+                       dump_strict_json(meta))
+
+
+def load_train_state(path: str | Path) -> Tuple[Any, Any, Any,
+                                                 Dict[str, Any]]:
+    """A :func:`save_train_state` pair -> (params, bn_state, opt_state,
+    meta), numpy trees."""
+    blob = unpackb(Path(path).read_bytes())
+    if not isinstance(blob, dict) or \
+            not {"params", "bn_state", "opt_state"} <= set(blob):
+        raise ValueError(f"{path}: not a satae train-state checkpoint")
+    meta = json_restore(
+        json.loads(Path(path).with_suffix(".state.json").read_text()))
+    return blob["params"], blob["bn_state"], blob["opt_state"], meta
+
+
+def clear_train_state(path: str | Path) -> None:
+    """Remove a :func:`save_train_state` pair and the trainer's best-epoch
+    snapshot (``<path>``, ``.state.json``, ``.best.msgpack``). Only once the
+    training's outcome is recorded elsewhere (the store or the global-best
+    checkpoint): earlier reopens the crash window the files close."""
+    path = Path(path)
+    for f in (path, path.with_suffix(".state.json"),
+              path.with_suffix(".best.msgpack")):
+        f.unlink(missing_ok=True)
 
 
 def load_grid_results(path: str | Path) -> Dict[str, Dict[str, Any]]:

@@ -25,11 +25,18 @@ reindexing only, so a round trip is exact. The forward mapping:
 
 The way back undoes each of these and drops ``num_batches_tracked`` (the
 BatchNorm momentum is a constant 0.1, so the counter changes nothing).
+
+Adam's moments have their parameters' shapes, and every map above is a
+transpose or a reindexing, so they travel the same way
+(:func:`opt_state_to_tree`, :func:`opt_state_from_tree`): the port keeps
+them as lists in ``named_parameters`` order, satae as
+``{"mu": params tree, "nu": params tree, "step": int32}``
+(satae/train/optim.py:21-27).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -207,3 +214,27 @@ def mlp_from_torch_state_dict(sd: Mapping[str, Any], cfg: ModelConfig
 def to_tensors(sd: StateDict) -> Dict[str, torch.Tensor]:
     """numpy state_dict -> torch tensors (copies, so leaves may be views)."""
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def opt_state_to_tree(names: Sequence[str], mu: Sequence[Any],
+                      nu: Sequence[Any], step: int,
+                      state_dict: Mapping[str, Any],
+                      to_trees: Callable[[Mapping[str, Any]], Tuple[Any, Any]]
+                      ) -> Dict[str, Any]:
+    """Adam's moments of the parameters ``names`` (the model's, in order) ->
+    satae's ``OptState`` tree. ``to_trees`` is the model's state_dict ->
+    trees map; ``state_dict`` fills the buffers it also reads."""
+    tree = lambda ms: to_trees({**state_dict, **dict(zip(names, ms))})[0]
+    return {"mu": tree(mu), "nu": tree(nu),
+            "step": np.asarray(step, np.int32)}
+
+
+def opt_state_from_tree(tree: Mapping[str, Any], bn_state: Any,
+                        names: Sequence[str],
+                        from_trees: Callable[[Any, Any], Mapping[str, Any]]
+                        ) -> Tuple[List[Any], List[Any], int]:
+    """satae's ``OptState`` tree -> (mu, nu, step), the moments in the
+    order of ``names``; ``from_trees`` is the trees -> state_dict map and
+    ``bn_state`` the BatchNorm tree it also reads."""
+    mu, nu = (from_trees(tree[k], bn_state) for k in ("mu", "nu"))
+    return [mu[n] for n in names], [nu[n] for n in names], int(tree["step"])

@@ -4,8 +4,9 @@ Linear(latent -> 256*4*4), unflatten (NCHW, as the reference), then 4
 ConvTranspose2d(k3, s2, p1, output_padding 1) blocks 256->128->64->32->3,
 BN + ReLU after the first three, final sigmoid. Module names give the
 reference keys: ``decoder_input``, ``decoder.{3i+1}`` ConvTranspose2d,
-``decoder.{3i+2}`` BN. It trains with the autoencoder; decoder serving
-(``decode``/``reconstruct``) is a later slice (ROADMAP.md §1 item 11).
+``decoder.{3i+2}`` BN. It trains with the autoencoder and serves
+``SatAEPipeline.decode``/``reconstruct`` (satae_torch.train.extract's
+``make_decode_step``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Frozen-encoder latent extraction: the counterpart of
-satae/train/extract.py's ``extract_features``.
+"""Frozen-encoder latent extraction and the decoder's serving step: the
+counterpart of satae/train/extract.py.
 
 The split is uploaded once, zero-padded on the device to whole chunks, and
 encoded chunk by chunk through the serving path of satae_torch.models.
@@ -10,11 +10,16 @@ at least ``batch_size`` and 2048 images, but never past the split rounded up
 to a whole batch. With a bf16 ``compute_dtype`` the encoder runs in bf16
 (bf16 K2 and K1) and the latents reach the host as float32, as satae's do
 (extract.py:24-32, 92), for the float32 MLP.
+
+:func:`make_decode_step` is satae's: latents cast to the compute dtype at
+entry, the eval-mode decoder (its input linear one K1 launch on the card,
+its transposed convolutions ``F.conv_transpose2d``), images back as
+float32.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +27,7 @@ import torch
 from satae_torch.data.augment import normalize
 from satae_torch.data.pipeline import ArrayDataset
 from satae_torch.models import fast_infer
+from satae_torch.models.decoder import Decoder
 from satae_torch.models.encoder import Encoder
 
 
@@ -52,3 +58,18 @@ def extract_features(enc: Encoder, ds: ArrayDataset, batch_size: int = 64,
           for lo in range(0, n + pad, chunk)]
     X = torch.cat(zs)[:n].float().cpu().numpy()
     return X, np.asarray(ds.labels, np.int32)
+
+
+def make_decode_step(dec: Decoder,
+                     compute_dtype: torch.dtype = torch.float32
+                     ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Latents (N, latent_dim) on ``dec``'s device -> images (N, H, W, C)
+    float32 in [0, 1], through ``dec`` (in eval mode, as the pipeline holds
+    its modules) computing in ``compute_dtype`` (what the decoder saw in
+    training: the encoder's activations in that dtype)."""
+
+    @torch.no_grad()
+    def decode(z: torch.Tensor) -> torch.Tensor:
+        return dec(z.to(compute_dtype)).float()
+
+    return decode

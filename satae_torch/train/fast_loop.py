@@ -23,12 +23,25 @@ uploads its own. ``compute_dtype`` is satae's: the AE computes in it
 (bf16 for the bf16 recipe) while its parameters, BatchNorm stats, Adam's
 moments and the selection metrics stay float32, so a bf16 run's snapshots
 and checkpoints are the float32 ones a float32 run writes. The MLP trains
-in float32. Checkpointed resume and data-parallel training are later
-slices (ROADMAP.md §1 items 9, 13).
+in float32. Data-parallel training is a later slice (ROADMAP.md §1
+item 8).
+
+``checkpoint_path`` with ``checkpoint_every=k`` is satae's in-flight resume
+(fast_loop.py:80-96, :168-196, :262-275): every k epochs the AE's
+parameters, BatchNorm stats, Adam's moments and step, the early-stopping
+book and history go to ``checkpoint_path`` (satae's train-state pair) and
+the best-epoch snapshot to ``.best.msgpack``; an existing pair at that path
+is resumed from, at the flushed epoch + 1. The files are satae's, so either
+package resumes the other's. The augmentation generator's state travels in
+the ``.state.json`` under a key satae ignores (``torch_generator``), so a
+resumed run repeats the uninterrupted one bit for bit; a pair written by
+satae has none, and the augmentation after it is the port's own stream
+(satae_torch.data.augment).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -36,6 +49,7 @@ import torch
 
 from satae_torch.config import DataConfig, ModelConfig
 from satae_torch.data.pipeline import ArrayDataset
+from satae_torch.io import checkpoint, convert
 from satae_torch.models.mlp import MLP
 from satae_torch.models.supervised_ae import SupervisedAE
 from satae_torch.nn.init import init_
@@ -113,10 +127,13 @@ def train_supervised_ae(
     log: Optional[LogFn] = None,
     device_data: Optional[Tuple[torch.Tensor, ...]] = None,
     compute_dtype: torch.dtype = torch.float32,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
 ) -> TrainResult:
     """Train one (alpha, lr) supervised-AE config with early stopping,
     computing in ``compute_dtype``. ``device_data``: :func:`upload_ae_data`
-    of the same splits."""
+    of the same splits. ``checkpoint_path``/``checkpoint_every``: the
+    in-flight resume of the module docstring."""
     _check_full_batch(len(train_ds), data_cfg.batch_size, "train split")
     images, labels, val_imgs, val_labs, val_wts = device_data or \
         upload_ae_data(train_ds, val_ds, data_cfg.batch_size, device)
@@ -133,8 +150,27 @@ def train_supervised_ae(
     best_val, best_val_acc, best_epoch = float("inf"), 0.0, -1
     best = _snapshot(model)
     bad = 0
-    epochs_run = 0
-    for epoch in range(max_epochs):
+    start_epoch = 0
+    inflight = _Inflight(checkpoint_path, model, opt, gen, model_cfg,
+                         data_cfg)
+    if inflight.exists():
+        meta, restored_best = inflight.restore()
+        best = restored_best or best
+        start_epoch = meta["epoch"] + 1
+        best_val = meta.get("best_val", best_val)
+        best_val_acc = meta.get("best_val_acc", best_val_acc)
+        best_epoch = meta.get("best_epoch", best_epoch)
+        bad = meta.get("bad", 0)
+        for k in history:
+            history[k] = list(meta.get("history", {}).get(k, []))
+        if log:
+            log(f"resumed from {checkpoint_path} at epoch {start_epoch}")
+    # a resumed run that had already stopped trains nothing; epochs_run
+    # stays the real count
+    epochs_run = start_epoch
+    if bad >= patience:
+        start_epoch = max_epochs
+    for epoch in range(start_epoch, max_epochs):
         order = hbm.epoch_order(len(train_ds), data_cfg.batch_size, seed,
                                 epoch)
         tsum = _host(hbm.ae_train_epoch(model, opt, images, labels, order,
@@ -157,10 +193,82 @@ def train_supervised_ae(
             bad = 0
         else:
             bad += 1
-            if bad >= patience:
-                break
+        if inflight.path is not None and checkpoint_every \
+                and (epoch + 1) % checkpoint_every == 0:
+            inflight.flush(epoch, best, dict(
+                best_val=best_val, best_val_acc=best_val_acc,
+                best_epoch=best_epoch, bad=bad, history=history))
+        if bad >= patience:
+            break
     return TrainResult(*best, best_val, best_val_acc, best_epoch, epochs_run,
                        history)
+
+
+class _Inflight:
+    """The in-flight files of one AE training at ``path`` (None: none):
+    satae's train-state pair and best-epoch snapshot, carried to and from
+    the model, its Adam state and its augmentation generator."""
+
+    def __init__(self, path: Optional[str], model: SupervisedAE, opt,
+                 gen: torch.Generator, model_cfg: ModelConfig,
+                 data_cfg: DataConfig):
+        self.path = None if path is None else Path(path)
+        self.model, self.opt, self.gen = model, opt, gen
+        self.names = [n for n, _ in model.named_parameters()]
+        self.to_trees = lambda sd: convert.sae_from_torch_state_dict(
+            sd, model_cfg, data_cfg.channels, data_cfg.image_size)
+        self.from_trees = lambda p, s: convert.to_tensors(
+            convert.sae_to_torch_state_dict(p, s, model_cfg,
+                                            data_cfg.image_size))
+
+    def exists(self) -> bool:
+        return self.path is not None and self.path.exists()
+
+    def best_file(self) -> Path:
+        return self.path.with_suffix(".best.msgpack")
+
+    def flush(self, epoch: int, best, extra: Dict) -> None:
+        """The best snapshot first, then the state/meta pair (satae's order:
+        a kill between them leaves the meta one flush old, and the resume
+        finds the improvement again instead of mislabelling stale
+        weights)."""
+        checkpoint.save_model(self.best_file(),
+                              *self.to_trees({**best[0], **best[1]}))
+        sd = self.model.state_dict()
+        params, bn_state = self.to_trees(sd)
+        opt_state = convert.opt_state_to_tree(
+            self.names, self.opt.mu, self.opt.nu, self.opt.step, sd,
+            self.to_trees)
+        state = self.gen.get_state().numpy().tobytes().hex()
+        checkpoint.save_train_state(
+            self.path, params=params, bn_state=bn_state, opt_state=opt_state,
+            epoch=epoch, extra={**extra, "torch_generator": state})
+
+    def restore(self):
+        """Load the pair into the model, Adam and the generator. Returns
+        (meta, the best snapshot as :func:`_snapshot` gives it, or None
+        where there is no snapshot file)."""
+        params, bn_state, opt_state, meta = checkpoint.load_train_state(
+            self.path)
+        self.model.load_state_dict(self.from_trees(params, bn_state))
+        mu, nu, step = convert.opt_state_from_tree(
+            opt_state, bn_state, self.names, self.from_trees)
+        with torch.no_grad():
+            for dst, src in zip(self.opt.mu + self.opt.nu, mu + nu):
+                dst.copy_(src)
+        self.opt.step = step
+        if "torch_generator" in meta:
+            self.gen.set_state(torch.frombuffer(
+                bytearray.fromhex(meta.pop("torch_generator")),
+                dtype=torch.uint8))
+        best = None
+        if self.best_file().exists():
+            sd = self.from_trees(*checkpoint.load_model(self.best_file()))
+            dev = next(self.model.parameters()).device
+            best = tuple({k: sd[k].to(dev) for k, _ in named}
+                         for named in (self.model.named_parameters(),
+                                       self.model.named_buffers()))
+        return meta, best
 
 
 def train_mlp(

@@ -13,14 +13,21 @@ contract is satae_torch.train.sweep_common's.
 The data is uploaded once per sweep and every config trains on it
 (satae_torch.train.fast_loop). The AE sweep computes in ``compute_dtype``
 (satae's; the stores, keys and checkpoints are the same in bf16, the master
-parameters being float32); the MLP sweep is float32. satae's per-batch ``engine="steps"``, its
-in-flight resume (``AETrainConfig.checkpoint_every``) and its per-config
-curve plots are not ported.
+parameters being float32); the MLP sweep is float32.
+
+With ``AETrainConfig.checkpoint_every`` and ``out_dir`` each AE config also
+flushes its in-flight train state every N epochs under satae's names,
+``out_dir/inflight/ae_a{alpha:g}_lr{lr:g}.msgpack``, so a kill mid-config
+retrains at most N epochs of it; the files go once the config is recorded
+(satae/train/gridsearch.py:86-106, :138). ``save_curves`` draws satae's
+per-config figures under ``out_dir/curves/`` (matplotlib required). satae's
+per-batch ``engine="steps"`` is a later slice (ROADMAP.md §1 item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -30,7 +37,7 @@ from satae_torch.config import (AETrainConfig, DataConfig, MLPTrainConfig,
                                 ModelConfig)
 from satae_torch.data.pipeline import ArrayDataset
 from satae_torch.io import convert
-from satae_torch.io.checkpoint import GridResultStore
+from satae_torch.io.checkpoint import GridResultStore, clear_train_state
 from satae_torch.models.mlp import MLP
 from satae_torch.train import fast_loop, hbm
 from satae_torch.train.loop import LogFn, TrainResult
@@ -49,7 +56,7 @@ def _scan_only(engine: str) -> None:
         raise NotImplementedError(
             f"engine={engine!r}: satae_torch sweeps with the scan engine "
             "only; satae's per-batch steps engine is a later slice "
-            "(ROADMAP.md §1 item 9)")
+            "(ROADMAP.md §1 item 5)")
 
 
 def ae_grid_search(
@@ -65,15 +72,11 @@ def ae_grid_search(
     log: Optional[LogFn] = None,
     engine: str = "scan",
     compute_dtype: torch.dtype = torch.float32,
+    save_curves: bool = False,
 ) -> SweepResult:
     """Sequential alpha x lr sweep with per-config result flushing and a
     global-best checkpoint, each config computing in ``compute_dtype``."""
     _scan_only(engine)
-    if out_dir and ae_cfg.checkpoint_every:
-        raise NotImplementedError(
-            "AETrainConfig.checkpoint_every: in-flight resume, which needs "
-            "Adam's state in satae's tree, is a later slice (ROADMAP.md §1 "
-            "item 9)")
     device_data = fast_loop.upload_ae_data(train_ds, val_ds,
                                            data_cfg.batch_size, device)
     book = SweepBook(
@@ -87,12 +90,23 @@ def ae_grid_search(
             convert.sae_to_torch_state_dict(p, s, model_cfg,
                                             data_cfg.image_size)))
 
+    def inflight_path(alpha: float, lr: float) -> Optional[Path]:
+        if out_dir and ae_cfg.checkpoint_every:
+            return (Path(out_dir) / "inflight" /
+                    f"ae_a{alpha:g}_lr{lr:g}.msgpack")
+        return None
+
     cfg_idx = -1
     for alpha in ae_cfg.alphas:
         for lr in ae_cfg.learning_rates:
             cfg_idx += 1
             key = GridResultStore.key(alpha=alpha, lr=lr)
+            ckpt = inflight_path(alpha, lr)
             if book.cached(key):
+                # also the files a kill between the store flush and their
+                # removal left behind
+                if ckpt is not None:
+                    clear_train_state(ckpt)
                 if log:
                     log(f"skip cached alpha={alpha} lr={lr}")
                 continue
@@ -101,7 +115,12 @@ def ae_grid_search(
                 alpha=alpha, lr=lr, device=device,
                 max_epochs=ae_cfg.max_epochs, patience=ae_cfg.patience,
                 seed=seed + cfg_idx, device_data=device_data,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype,
+                checkpoint_path=None if ckpt is None else str(ckpt),
+                checkpoint_every=ae_cfg.checkpoint_every,
+                # per-epoch lines (and the resume point) only for the
+                # checkpointed configs, as satae logs them
+                log=log if ckpt is not None else None)
             # offer (checkpoint save) strictly before the store flush: a
             # crash between the two costs a retrain on resume, never a
             # cached-but-uncheckpointed winner left out of selection
@@ -111,6 +130,14 @@ def ae_grid_search(
                               "best_val_acc": res.best_val_acc,
                               "best_epoch": res.best_epoch,
                               "epochs_run": res.epochs_run})
+            if ckpt is not None:
+                clear_train_state(ckpt)  # the config is recorded
+            if save_curves and out_dir and res.history:
+                from satae_torch.eval import plots
+                plots.loss_curves(
+                    res.history,
+                    Path(out_dir) / "curves" / f"ae_alpha{alpha:g}_lr{lr:g}.png",
+                    title=f"AE alpha={alpha:g} lr={lr:g}")
             if log:
                 log(f"alpha={alpha} lr={lr}: val_loss={res.best_val_loss:.4f} "
                     f"({res.epochs_run} epochs)")
@@ -133,6 +160,7 @@ def mlp_grid_search(
     engine: str = "scan",
     test_x: Optional[np.ndarray] = None,
     test_y: Optional[np.ndarray] = None,
+    save_curves: bool = False,
 ) -> SweepResult:
     """The lr sweep over the latent MLP; global best by val accuracy. With
     test_x/test_y each lr's summary also records its best epoch's test
@@ -173,6 +201,11 @@ def mlp_grid_search(
             summary["test_acc"] = float(sums["acc"]) / float(sums["n"])
         book.offer(res, {"lr": lr})  # checkpoint before the store flush
         book.record(key, summary)
+        if save_curves and out_dir and res.history:
+            from satae_torch.eval import plots
+            plots.lr_curves(res.history,
+                            Path(out_dir) / "curves" / f"mlp_lr{lr:g}.png",
+                            title=f"MLP lr={lr:g}")
         if log:
             log(f"lr={lr}: val_acc={res.best_val_acc:.4f}")
 

@@ -16,7 +16,10 @@ never passes it.
 
 The train steps return ``(metrics, grads)``: metric tensors stay on the
 device until the caller reads them, and ``grads`` are the gradients the
-update used, in ``model.parameters()`` order.
+update used, in ``model.parameters()`` order. Under
+satae_torch.utils.profiling's ``debug_mode`` (``RuntimeConfig.debug_nans``)
+a step checks its loss before the backward and its gradients after it, and
+raises ``FloatingPointError`` at the first non-finite one.
 
 ``dtype`` is the AE steps' compute dtype, satae's ``compute_dtype``: the
 batch is normalised and augmented in it and the model runs in it, while
@@ -38,9 +41,14 @@ from satae_torch.models.supervised_ae import SupervisedAE
 from satae_torch.nn import layers as L
 from satae_torch.train.losses import accuracy, cross_entropy, joint_ae_loss
 from satae_torch.train.optim import AdamState, adam_update
+from satae_torch.utils.profiling import check_finite
 
 Metrics = Dict[str, torch.Tensor]
 StepOut = Tuple[Metrics, Tuple[torch.Tensor, ...]]
+
+
+def _grad_names(model: torch.nn.Module):
+    return [f"gradient of {n}" for n, _ in model.named_parameters()]
 
 
 def ae_train_step(model: SupervisedAE, opt: AdamState, imgs_u8: torch.Tensor,
@@ -59,8 +67,10 @@ def ae_train_step(model: SupervisedAE, opt: AdamState, imgs_u8: torch.Tensor,
     model.train()
     x_hat, logits, _ = model(imgs, linear)
     total, mse, ce = joint_ae_loss(x_hat, logits, imgs, labels, alpha)
+    check_finite("AE train step", ["loss"], [total])
     params = list(model.parameters())
     grads = torch.autograd.grad(total, params)
+    check_finite("AE train step", _grad_names(model), grads)
     adam_update(params, grads, opt, lr)
     return ({"loss": total.detach(), "mse": mse.detach(), "ce": ce.detach(),
              "acc": accuracy(logits.detach(), labels)}, grads)
@@ -86,8 +96,10 @@ def mlp_train_step(model: MLP, opt: AdamState, x: torch.Tensor,
     model.train()
     logits = model(x, dropout_mask, generator, linear)
     loss = cross_entropy(logits, labels)
+    check_finite("MLP train step", ["loss"], [loss])
     params = list(model.parameters())
     grads = torch.autograd.grad(loss, params)
+    check_finite("MLP train step", _grad_names(model), grads)
     adam_update(params, grads, opt, lr, weight_decay=weight_decay)
     return ({"loss": loss.detach(),
              "acc": accuracy(logits.detach(), labels)}, grads)

@@ -1,7 +1,8 @@
 """``satae_torch.fit`` end to end on the CPU at a tiny config (channels
 (4, 8), latent 8, head 16, MLP (16, 8), 16x16 images, batch 8), synthetic
 data with 8 images per class, 2 AE and 2 MLP epochs: the FitSummary contract
-of satae, the fitted pipeline's predict, the reuse_ae flow and the refusals.
+of satae, the fitted pipeline's predict, the reuse_ae flow, the refusals,
+``debug_nans`` and ``load_torch`` keeping a loaded MLP.
 """
 
 import dataclasses
@@ -91,27 +92,99 @@ def test_reuse_ae_after_load_trains_only_the_mlp(tmp_path, test_split):
 
 def test_fit_refusals(monkeypatch, tmp_path):
     """What is not ported raises before any work, naming its ROADMAP item:
-    the vmap and sharded sweep engines, in-flight resume, curve plots; and
-    a fit never drops to the CPU by itself."""
+    the vmap and sharded sweep engines and the multi-process runtime (item
+    8); and a fit never drops to the CPU by itself. In-flight resume and the
+    grid's curve figures, refused until they were ported, now run."""
     run = tmp_path / "run"
     rt = lambda **kw: dataclasses.replace(CFG, runtime=TC.RuntimeConfig(**kw))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         SatAEPipeline(rt(parallel_configs=True), device="cpu").fit(
             grid=True, out_dir=str(run))
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         SatAEPipeline(rt(n_devices=2), device="cpu")
-    resume = dataclasses.replace(CFG, ae=dataclasses.replace(
-        CFG.ae, checkpoint_every=1))
-    for grid in (False, True):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            SatAEPipeline(resume, device="cpu").fit(grid=grid,
-                                                    out_dir=str(run))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        SatAEPipeline(rt(save_grid_curves=True), device="cpu").fit(
-            grid=True, out_dir=str(run))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        SatAEPipeline(rt(multihost=True), device="cpu")
     with pytest.raises(ValueError, match="reuse_ae"):
         SatAEPipeline(CFG, device="cpu").fit(reuse_ae=True)
     assert not run.exists()
+    # a 1 x 1 grid: alpha 20, lr 1e-3; MLP lr 1e-4
+    small = dataclasses.replace(
+        CFG, ae=dataclasses.replace(CFG.ae, alphas=(20.0,),
+                                    learning_rates=(1e-3,)),
+        mlp=dataclasses.replace(CFG.mlp, learning_rates=(1e-4,)))
+    resume = dataclasses.replace(small, ae=dataclasses.replace(
+        small.ae, checkpoint_every=1))
+    for grid in (False, True):
+        out = tmp_path / f"resume_{grid}"
+        SatAEPipeline(resume, device="cpu").fit(grid=grid, out_dir=str(out))
+        assert (out / "ae_global_best.msgpack").exists()
+        assert not list((out / "inflight").iterdir())
+    curves = tmp_path / "curves"
+    SatAEPipeline(dataclasses.replace(small, runtime=TC.RuntimeConfig(
+        save_grid_curves=True)), device="cpu").fit(grid=True,
+                                                   out_dir=str(curves))
+    assert sorted(f.name for f in (curves / "curves").iterdir()) == [
+        "ae_alpha20_lr0.001.png", "mlp_lr0.0001.png"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         satae_torch.fit(CFG, grid=True)
+
+
+def _poison_first_batch(monkeypatch):
+    """A NaN in the first augmented training batch of the next fit."""
+    from satae_torch.train import steps
+    orig, calls = steps.augment_train_batch, [0]
+
+    def augment(*a, **k):
+        x = orig(*a, **k)
+        calls[0] += 1
+        if calls[0] == 1:
+            x = x.clone()
+            x[0, 0, 0, 0] = float("nan")
+        return x
+    monkeypatch.setattr(steps, "augment_train_batch", augment)
+
+
+def test_debug_nans_raises_at_the_first_non_finite_step(monkeypatch):
+    """runtime.debug_nans, as satae's jax_debug_nans: a fit whose first
+    batch holds a NaN raises FloatingPointError; the same fit without the
+    flag runs to its end (its losses NaN)."""
+    cfg = dataclasses.replace(CFG, runtime=TC.RuntimeConfig(debug_nans=True))
+    _poison_first_batch(monkeypatch)
+    with pytest.raises(FloatingPointError, match="non-finite loss in the AE"):
+        SatAEPipeline(cfg, device="cpu").fit()
+    _poison_first_batch(monkeypatch)
+    pipe = SatAEPipeline(CFG, device="cpu")
+    summary = pipe.fit()
+    assert not np.isfinite(pipe.history["ae"]["train_loss"][0])
+    assert 0.0 <= summary.test_acc <= 1.0
+    # the MLP steps are checked too, and a finite fit passes the checks
+    fine = SatAEPipeline(cfg, device="cpu").fit()
+    assert np.isfinite(fine.ae_val_loss)
+
+
+def test_load_torch_without_mlp_keeps_the_loaded_mlp(tmp_path, test_split):
+    """load() then load_torch(ae_pt) replaces the autoencoder only, as in
+    satae: predict still works and equals satae's after the same calls."""
+    ae_p, ae_s = supervised_ae_init(jax.random.PRNGKey(0), JCFG,
+                                    image_size=16)
+    mlp_p, mlp_s = mlp_init(jax.random.PRNGKey(1), JCFG)
+    jcfg = JC.PipelineConfig(
+        data=JC.DataConfig(per_class=8, image_size=16, batch_size=8),
+        model=JCFG)
+    jp = JaxPipeline(jcfg)
+    jp.ae_params, jp.ae_bn_state, jp.mlp_params, jp.mlp_bn_state = (
+        ae_p, ae_s, mlp_p, mlp_s)
+    jp.save(str(tmp_path / "run"))
+    other_p, other_s = supervised_ae_init(jax.random.PRNGKey(2), JCFG,
+                                          image_size=16)
+    jp.ae_params, jp.ae_bn_state = other_p, other_s
+    jp.export_torch(str(tmp_path / "pt"))
+    ae_pt = str(tmp_path / "pt" / "AE_GLOBAL_BEST.pt")
+    ours = SatAEPipeline(CFG, device="cpu").load(str(tmp_path / "run"))
+    mlp = ours.mlp
+    ours.load_torch(ae_pt)
+    assert ours.mlp is mlp
+    theirs = JaxPipeline(jcfg).load(str(tmp_path / "run")).load_torch(ae_pt)
+    np.testing.assert_array_equal(ours.predict(test_split.images),
+                                  theirs.predict(test_split.images))

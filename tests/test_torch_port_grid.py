@@ -250,18 +250,22 @@ def test_mlp_sweep_selects_as_satae(case, tmp_path, monkeypatch, splits):
     _run_both("mlp", MLP_CASES[case], tmp_path, monkeypatch, splits)
 
 
-def test_sweeps_refuse_unported_engines(splits):
+def test_sweeps_refuse_unported_engines(splits, tmp_path):
+    """satae's per-batch engine is refused (ROADMAP §1 item 5); in-flight
+    resume, refused until it was ported, now runs and leaves no files."""
     kw = dict(model_cfg=TCFG, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tgrid.ae_grid_search(splits.train, splits.val, data_cfg=TDATA,
                              ae_cfg=TAE, engine="steps", **kw)
     x, y = np.zeros((8, 8), np.float32), np.zeros(8, np.int32)
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         tgrid.mlp_grid_search(x, y, x, y, mlp_cfg=TMLP, engine="steps", **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tgrid.ae_grid_search(
-            splits.train, splits.val, data_cfg=TDATA, out_dir="unused",
-            ae_cfg=dataclasses.replace(TAE, checkpoint_every=1), **kw)
+    out = tmp_path / "run"
+    sweep = tgrid.ae_grid_search(
+        splits.train, splits.val, data_cfg=TDATA, out_dir=str(out),
+        ae_cfg=dataclasses.replace(TAE, checkpoint_every=1), **kw)
+    assert len(sweep.results) == len(TAE.alphas) * len(TAE.learning_rates)
+    assert not list((out / "inflight").iterdir())
 
 
 # -- the port's grid fit end to end --------------------------------------------
@@ -274,7 +278,8 @@ def test_grid_fit_writes_and_resumes_a_run_dir(tmp_path, monkeypatch, splits):
     assert sorted(p.name for p in run.iterdir()) == sorted([
         "ae_global_best.json", "ae_global_best.msgpack", "classes.json",
         "fit_summary.json", "mlp_global_best.json", "mlp_global_best.msgpack",
-        "mlp_provenance.json", "mlp_results.json", "validation_losses.json"])
+        "mlp_provenance.json", "mlp_results.json", "validation_losses.json",
+        "ae_best_curves.png", "mlp_best_curves.png"])
     ae_store = load_grid_results(run / "validation_losses.json")
     mlp_store = load_grid_results(run / "mlp_results.json")
     assert list(ae_store) == [JaxStore.key(alpha=a, lr=lr)

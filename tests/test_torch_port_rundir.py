@@ -244,17 +244,18 @@ def test_port_run_dir_loads_and_resumes_in_satae(port_run, test_split,
 
 def test_single_config_fit_writes_satae_run_dir(test_split, tmp_path):
     """fit(grid=False, out_dir=...) writes what satae's single-config fit
-    writes (its plots aside): both winners with their selection meta, the
-    summary and the classes; satae loads the directory and predicts the
-    same."""
+    writes: both winners with their selection meta, the summary, the
+    classes and the two curve figures; satae loads the directory and
+    predicts the same."""
     run = tmp_path / "run"
     pipe = SatAEPipeline(dataclasses.replace(CFG, ae=TC.AETrainConfig(
         max_epochs=2), mlp=TC.MLPTrainConfig(epochs=2)), device="cpu")
     summary = pipe.fit(out_dir=str(run))
     assert sorted(f.name for f in run.iterdir()) == [
-        "ae_global_best.json", "ae_global_best.msgpack", "classes.json",
-        "fit_summary.json", "mlp_global_best.json", "mlp_global_best.msgpack",
-        "mlp_provenance.json"]
+        "ae_best_curves.png", "ae_global_best.json",
+        "ae_global_best.msgpack", "classes.json", "fit_summary.json",
+        "mlp_best_curves.png", "mlp_global_best.json",
+        "mlp_global_best.msgpack", "mlp_provenance.json"]
     ae_meta = json.loads((run / "ae_global_best.json").read_text())
     mlp_meta = json.loads((run / "mlp_global_best.json").read_text())
     assert ae_meta["alpha"] == 35.0 and ae_meta["lr"] == 5e-3

@@ -237,6 +237,11 @@ def test_port_imports_nothing_of_jax_or_satae():
         for p in pkg.rglob("*.py"))
     # modules already loaded at interpreter start-up are not the port's doing
     assert "satae_torch.train.fast_loop" in mods
+    assert {"satae_torch.cli", "satae_torch.train.calibrate",
+            "satae_torch.data.ingest", "satae_torch.io.native_loader",
+            "satae_torch.eval.plots", "satae_torch.eval.parity_report",
+            "satae_torch.utils.logging", "satae_torch.utils.profiling"} \
+        <= set(mods)
     code = ("import importlib, sys\n"
             "base = set(sys.modules)\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
