@@ -14,8 +14,9 @@ Phases, in order; any failure exits non-zero:
              any spill.
 3. K1     -- fused_gemm against fused_matmul_plain (TF32 off) at every K1
              shape of the serving path plus the awkward shapes of the JAX
-             package's kernel tests and 8192x4096x64 (one split, all of K
-             in one block), all three activations; then the split-K
+             package's kernel tests, 8192x4096x64 (one split, all of K in
+             one block) and the decoder's and calibration's products (their
+             plans printed), all three activations; then the split-K
              and ragged-K shapes (SPLIT_SHAPES) in every (trans_a, trans_b)
              layout and activation, with each shape's plan printed, and
              repeated calls held bitwise equal; a scale of the wrong length
@@ -25,12 +26,15 @@ Phases, in order; any failure exits non-zero:
              convs with Cin % 4 != 0 (4-byte copies) and ragged 32/64-wide
              tiles; repeated calls at conv1 held bitwise equal.
              Tolerance for K1 and K2: |err| <= 1e-4 + 1e-5 * |ref|.
-5. time   -- every K1 and K2 launch of a serving chunk: back-to-back ms
-             (CUDA events) and device us per launch (torch.profiler) of the
-             kernel and of the one-call library equivalent, the plain
-             version's ms, and two bounds, the larger of bytes at 3.35 TB/s
-             and operations at 165 TFLOP/s (3xTF32 on tensor cores: 495 / 3)
-             or at 67 TFLOP/s (float32 on CUDA cores), H100 SXM data sheet.
+5. time   -- every K1 and K2 launch of a serving chunk, and the decoder's
+             and calibration's K1 launches: back-to-back ms (CUDA events)
+             and device us per launch (CUDA events around calls queued
+             behind a spin kernel, see device_us: a reading below its bound
+             fails the run) of the kernel and of the one-call library
+             equivalent, the plain version's ms, and two bounds, the larger
+             of bytes at 3.35 TB/s and operations at 165 TFLOP/s (3xTF32 on
+             tensor cores: 495 / 3) or at 67 TFLOP/s (float32 on CUDA
+             cores), H100 SXM data sheet.
 6. serve  -- loads the committed full-width checkpoint
              benchmarks/full_run_hard_f32 through SatAEPipeline, rebuilds the
              synthetic-hard test split with the port's data modules, and runs
@@ -127,11 +131,14 @@ Phases, in order; any failure exits non-zero:
              recorded float32 0.7947 printed beside; resume, evaluate, save
              and export.
 
-17. decode -- (the decoder's and calibration's K1 products, NEW_K1_SPECS,
-             are timed in float32 and bf16 in phase 5) benchmarks/
-             full_run_hard_f32 and full_run_hard_bf16 reconstruct the test
-             split through reconstruct_batched: exact launches (K2 4 and K1
-             2 per chunk of 512 in the compute dtype; decode alone K1 1),
+Phases 17-20 run with PyTorch's default TF32 flags, as a user's process has
+them (phases 3-16 turn TF32 off for the plain references); the entry points
+turn it off for their convolutions themselves.
+
+17. decode -- benchmarks/full_run_hard_f32 and full_run_hard_bf16
+             reconstruct the test split through reconstruct_batched: exact
+             launches (K2 4 and K1 2 per chunk of 512 in the compute dtype;
+             decode alone K1 1),
              decode(encode(x)) equal to reconstruct(x), x_hat against the
              plain modules on the card (TF32 off) within RECON_ATOL, the
              mean reconstruction MSE within RECON_MSE_RTOL of satae's on
@@ -139,8 +146,13 @@ Phases, in order; any failure exits non-zero:
 18. calibrate -- satae's CLI calibration: latent 128, 1,000 inits, the
              first shuffled batch of 64 of the synthetic-hard train split
              (per_class 2000), seed 0; K1 launches exactly 4 per init; the
-             median, p5 and p95 within calibrate_band of satae's CPU run of
-             the same experiment; the wall time.
+             wall time. Held three ways: CAL_CARRIED inits and the augmented
+             batch made on the CPU give on the card the ratios the plain
+             versions give on the CPU, within 1e-5 relative (the CPU test
+             holds those to satae's); the card's 1,000 inits on that CPU
+             batch give the median, p5 and p95 of the port's CPU run on it
+             within 3*sqrt(2) of satae's bootstrap standard errors; and the
+             card's own run within calibrate_band of satae's CPU run.
 19. inflight -- fit(grid=False, out_dir=chiprun_out/inflight_run,
              checkpoint_every=1) at full width, AE 4 epochs and MLP 2, on
              synthetic-hard per_class 256, in a process of its own, killed
@@ -159,6 +171,11 @@ Phases, in order; any failure exits non-zero:
 The second-to-last line holds the kernels' numbers as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
+After phases 5 and 20 the profiler's capture is checked (profiler_check):
+sessions of one K1 launch as they open, after 50 ms of idle time, and after
+a spin kernel and that idle time, counting the sessions that lost device
+records, with the lead of the first record on the profiler's time line.
+
 ``--ab PARENT_DIR`` times every K1 and K2 launch of phases 5, 11 and 13 that
 both trees have (ms and device us per launch) in the tree at PARENT_DIR
 (another checkout of this repository, with its own satae_torch) and in this
@@ -176,6 +193,7 @@ measurement the plan rests on. It writes chiprun_out/split_sweep.json.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import itertools
@@ -215,15 +233,9 @@ PARITY_STEPS = 10
 SPLIT_SHAPES = ((CHUNK, 4096, 64), (BATCH, 4096, 64), (BATCH, 4095, 64),
                 (100, 4100, 70), (33, 1000, 10))
 LAYOUTS = tuple(itertools.product((False, True), repeat=2))
-# the K1 products this slice adds to the card: the decoder's input linear at
-# serving chunk 512 and calibration's latent-128 projection and decoder
-# input, nn.Linear weights (out, in) as the model launches them
-NEW_K1_SPECS = (
-    ("decode", "dec_in fwd", "k1t", ((CHUNK, 64), (4096, 64), False, True)),
-    ("calibrate", "proj fwd", "k1t",
-     ((BATCH, 4096), (128, 4096), False, True)),
-    ("calibrate", "dec_in fwd", "k1t",
-     ((BATCH, 128), (4096, 128), False, True)))
+# phase 18: the inits carried from the CPU to the card, and the relative
+# bound on their ratios (tests/test_torch_port_calibrate.py's)
+CAL_CARRIED, CAL_RTOL = 8, 1e-5
 # satae's CPU values that phases 17 and 18 are held against
 # (scripts/satae_serving_reference.py writes them)
 SATAE_SERVING_REF = REPO / "scripts" / "satae_serving_reference.json"
@@ -239,12 +251,12 @@ RECON_REL_L2 = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
 # phase 3's K1 shapes: the serving path at chunk 512 (projection, fc0, fc1
 # with BN folded, fc2), the JAX package's awkward ones, 8192 x 4096 x 64,
 # whose 128 tiles take one split: all of K in one block, the case that holds
-# the per-slice accumulation, and the decoder's and calibration's products
-# (NEW_K1_SPECS)
+# the per-slice accumulation, and the decoder's input at chunk 512 and
+# calibration's latent-128 projection and decoder input
 K1_SHAPES = ((CHUNK, 4096, 64), (CHUNK, 64, 128), (CHUNK, 128, 64),
              (CHUNK, 64, 10), (64, 4096, 64), (64, 64, 128), (7, 33, 10),
-             (1, 64, 10), (8192, 4096, 64)) + tuple(
-    (a[0], a[1], b[0]) for _, _, _, (a, b, _, _) in NEW_K1_SPECS)
+             (1, 64, 10), (8192, 4096, 64), (CHUNK, 64, 4096),
+             (BATCH, 4096, 128), (BATCH, 128, 4096))
 # phase 4's K2 shapes (n, hw, cin, cout): the four encoder layers of a
 # 512-image chunk, then Cin % 4 != 0 and ragged 32/64-wide tiles
 K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
@@ -328,9 +340,22 @@ def bounds(ops: float, nbytes: float, bf16: bool = False) -> dict:
     return out
 
 
-def device_us(fn, reps: int = 20) -> float:
-    """Device time per call of ``fn``, us: the kernels (and copies) it puts
-    on the card, summed over ``reps`` calls under torch.profiler."""
+# idle seconds on each side of the launches in a profiled session
+PROFILE_PAD_S = 0.05
+# what device_us met: readings taken again, and why
+DEVICE_US_RETRIES = {"not_backed_up": 0, "below_bound": 0}
+
+
+def device_records(fn, reps: int, pad_s: float = 0.0, warm: bool = False):
+    """The device records (kernels and copies) of ``reps`` calls of ``fn``
+    under torch.profiler, with ``pad_s`` idle seconds before the first
+    launch and after the card has finished, and with ``warm`` one spin
+    kernel launched as the session opens (its record left out); and the
+    lead, us: the first record's start less the first host operator's
+    (``aten::``) on the profiler's time line, a few us of launch latency
+    when nothing is lost and the clocks agree. CUPTI's "Activity Buffer
+    Request" marks the profiler's own buffer handling, not work of the
+    program."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -339,12 +364,97 @@ def device_us(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        if warm:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        time.sleep(pad_s)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("Activity Buffer")) / reps
+        time.sleep(pad_s)
+    events = prof.events()
+    records = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("Activity Buffer")
+               and "spin_kernel" not in e.name]
+    host = [e.time_range.start for e in events
+            if e.device_type == DeviceType.CPU and e.name.startswith("aten::")]
+    lead = (min(e.time_range.start for e in records) - min(host)
+            if records and host else None)
+    return records, lead
+
+
+def whole_calls(records, reps: int) -> bool:
+    """Whether ``records`` hold every call's: each device operation's name
+    appears a whole number of times per call, and at least one does."""
+    names = collections.Counter(e.name for e in records)
+    return bool(names) and all(c % reps == 0 for c in names.values())
+
+
+def device_us(fn, bound_us: float, what: str, reps: int = 20) -> float:
+    """Device time per call of ``fn``, us: CUDA events around ``reps``
+    calls queued behind a spin kernel, so that the card runs them back to
+    back without waiting for the host (the events' gap over ``reps``; the
+    card's own gaps between kernels, ~1 us, count). torch.profiler is not
+    used: late in a run it loses the records of whole calls
+    (profiler_check). A reading whose queue ran dry before the host had
+    launched every call is taken again behind a longer spin; one below
+    ``bound_us``, the least time the work could take, is taken again; the
+    fourth such reading fails the run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22  # ~2 ms at 1.98 GHz
+    for _ in range(4):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        backed_up = not start.query()
+        end.synchronize()
+        us = start.elapsed_time(end) * 1e3 / reps
+        if not backed_up:
+            DEVICE_US_RETRIES["not_backed_up"] += 1
+            cycles *= 4
+        elif us < bound_us:
+            DEVICE_US_RETRIES["below_bound"] += 1
+        else:
+            return us
+    check(False, f"device time of {what}: {us:.3f} us a call (queue backed "
+          f"up: {backed_up}), bound {bound_us:.3f} us")
+
+
+def profiler_check(sessions: int = 20, reps: int = 20) -> dict:
+    """Profiled sessions of ``reps`` K1 launches (the serving chunk's fc0,
+    512x64x128, one kernel a call) as they open; with PROFILE_PAD_S of idle
+    time around the launches; and with a spin kernel launched first and
+    that idle time: for each, how many of ``sessions`` lost device records
+    (:func:`whole_calls`) and the median lead of those that lost none
+    (:func:`device_records`), us."""
+    import statistics
+
+    import torch
+
+    from satae_torch.kernels.matmul import fused_gemm
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randn(CHUNK, 64, device=dev, generator=g)
+    b = torch.randn(64, 128, device=dev, generator=g)
+    scale, shift = torch.ones(128, device=dev), torch.zeros(128, device=dev)
+    fn = lambda: fused_gemm(a, b, scale, shift, "relu", False, False)
+    out = {}
+    for name, pad, warm in (("as_opened", 0.0, False),
+                            ("idle_50ms", PROFILE_PAD_S, False),
+                            ("spin_then_idle", PROFILE_PAD_S, True)):
+        runs = [device_records(fn, reps, pad, warm) for _ in range(sessions)]
+        leads = [lead for rec, lead in runs if whole_calls(rec, reps)]
+        out[name] = dict(lost=sessions - len(leads), median_lead_us=(
+            statistics.median(leads) if leads else None))
+    return out
 
 
 def launch_specs():
@@ -373,30 +483,36 @@ def launch_specs():
                               ((BATCH, n), (n, k), False, False)))
             specs.append((step, f"{name} dW", "k1t",
                           ((BATCH, n), (BATCH, k), True, False)))
+    # the decoder's input linear at serving chunk 512, and calibration's
+    # latent-128 projection and decoder input, per init
+    specs += [("decode", "dec_in fwd", "k1t",
+               ((CHUNK, 64), (4096, 64), False, True)),
+              ("calibrate", "proj fwd", "k1t",
+               ((BATCH, 4096), (128, 4096), False, True)),
+              ("calibrate", "dec_in fwd", "k1t",
+               ((BATCH, 128), (4096, 128), False, True))]
     return specs
 
 
 def bf16_launch(path: str, layer: str) -> bool:
     """Whether a launch of :func:`launch_specs` runs in bf16 under satae's
-    bf16 recipe: the serving chunk's convolutions and projection, and every
-    K1 launch of the AE step. The MLP stays float32."""
-    return path == "ae" or (path == "serve" and (layer.startswith("conv")
-                                                 or layer == "proj"))
+    bf16 recipe: the serving chunk's convolutions and projection, every K1
+    launch of the AE step, and the decoder's input. The MLP and calibration
+    stay float32."""
+    return path in ("ae", "decode") or (
+        path == "serve" and (layer.startswith("conv") or layer == "proj"))
 
 
-def kernel_rows(mods, reference: bool = True, bf16: bool = False,
-                specs=None) -> list:
+def kernel_rows(mods, reference: bool = True, bf16: bool = False) -> list:
     """One row per launch of :func:`launch_specs`, on the kernels of
     ``mods`` (a namespace with fused_gemm and conv2d_bn_act, and with
     ``reference`` their plain versions too): back-to-back ms (CUDA events)
-    and device us per launch (torch.profiler) of the kernel, its bounds,
+    and device us per launch (:func:`device_us`) of the kernel, its bounds,
     and with ``reference`` the plain version's ms and the one library call's
     ms and device us (torch.matmul, or cuDNN's F.conv2d with bias,
     channels-last; TF32 off). With ``bf16`` the launches of the bf16 recipe
     (:func:`bf16_launch`) on bf16 operands (scale and shift float32), the
-    library calls in bf16 too, each row's kernel named with ``_bf16``.
-    ``specs`` replaces :func:`launch_specs` (every one then timed in the
-    dtype asked for)."""
+    library calls in bf16 too, each row's kernel named with ``_bf16``."""
     import torch
     import torch.nn.functional as F
 
@@ -410,8 +526,8 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False,
         return torch.rand(*shape, device=dev, generator=g) * (hi - lo) + lo
 
     rows = []
-    for path, layer, kind, args in specs or launch_specs():
-        if bf16 and specs is None and not bf16_launch(path, layer):
+    for path, layer, kind, args in launch_specs():
+        if bf16 and not bf16_launch(path, layer):
             continue
         if kind == "k2":
             n, hw, cin, cout = args
@@ -457,15 +573,19 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False,
             plain = lambda: mods.fused_matmul_plain(av, bv, scale, shift, act)
             lib = lambda: torch.matmul(av, bv)
         reps = 20 if path == "serve" else 50
+        bnd = bounds(2.0 * m * k * n_out, nbytes, bf16)
+        what = f"{name} {path} {layer} {shape}"
         row = dict(kernel=name + ("_bf16" if bf16 else ""), path=path,
                    layer=layer, shape=shape, trans=trans,
                    dtype="bf16" if bf16 else "float32",
-                   ms=time_ms(kern, reps=reps), device_us=device_us(kern),
-                   **bounds(2.0 * m * k * n_out, nbytes, bf16))
-        if reference:
+                   ms=time_ms(kern, reps=reps),
+                   device_us=device_us(kern, bnd["bound_ms"] * 1e3, what),
+                   **bnd)
+        if reference:  # the library's floor: the bytes
             row.update(plain_ms=time_ms(plain, reps=reps),
                        library_ms=time_ms(lib, reps=reps),
-                       library_device_us=device_us(lib))
+                       library_device_us=device_us(
+                           lib, nbytes / HBM_PEAK * 1e6, f"library {what}"))
         rows.append(row)
     return rows
 
@@ -597,17 +717,15 @@ def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
     # the serving projection of a 512-image chunk, and 8192 rows (one split)
     k1_case("serve proj", CHUNK, 4096, 64, False, False, ACTS, repeat=True)
     k1_case("one split", 8192, 4096, 64, False, False, ("none",))
-    # every K1 launch of a batch-64 AE step, in its own layout
+    # every K1 launch of a batch-64 AE step and the decoder's input, in its
+    # own layout
     for path, layer, kind, args in launch_specs():
-        if path == "ae":
+        if kind == "k1t" and bf16_launch(path, layer):
             a_shape, b_shape, ta, tb = args
             m, k = a_shape[::-1] if ta else a_shape
             n = b_shape[0] if tb else b_shape[1]
-            k1_case(f"AE {layer}", m, k, n, ta, tb, ("none",), repeat=True)
-    # the decoder's and calibration's products, in their layout
-    for path, layer, _, (a_shape, b_shape, ta, tb) in NEW_K1_SPECS:
-        k1_case(f"{path} {layer}", *a_shape, b_shape[0], ta, tb, ACTS,
-                repeat=True)
+            k1_case(f"{path} {layer}", m, k, n, ta, tb,
+                    ("none",) if path == "ae" else ACTS, repeat=True)
     # the small products of the JAX package's kernel tests, odd K and N (the
     # 2-byte copies), a buffer at an odd element offset
     for m, k, n in ((7, 33, 10), (1, 64, 10), (33, 1001, 11), (5, 17, 3)):
@@ -725,21 +843,28 @@ def profile_device(fn):
     events by start). Device work = kernel and memcpy events on the card;
     busy time is the union of their intervals. CUPTI's "Activity Buffer
     Request" marks the profiler's own buffer handling, not work of the
-    program."""
+    program. The session opens with a spin kernel (its record left out) and
+    PROFILE_PAD_S of idle time, and closes with that idle time, outside the
+    wall time (profiler_check)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
     events = [e for e in sorted(prof.events(),
                                 key=lambda e: e.time_range.start)
               if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("Activity Buffer")]
+              and not e.name.startswith("Activity Buffer")
+              and "spin_kernel" not in e.name]
     busy_us, reach = 0.0, float("-inf")
     for lo, hi in sorted((e.time_range.start, e.time_range.end)
                          for e in events):
@@ -809,7 +934,10 @@ def main() -> int:
                if r["spill_stores"] or r["spill_loads"]]
     check(not spilled, f"ptxas spills registers in {spilled}")
 
-    # The plain versions are the reference: full float32, no TF32.
+    # The plain versions are the reference: full float32, no TF32. Phases
+    # 17-20 get PyTorch's defaults back.
+    tf32_defaults = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(0)
@@ -833,7 +961,9 @@ def main() -> int:
                 f"K1 {(m, k, n)} {act}"))
     print(f"K1 fused_gemm vs plain: {len(K1_SHAPES) * 3} cases, max |err| "
           f"{k1_err:.3g}", flush=True)
-    for _, layer, _, (a_shape, b_shape, _, _) in NEW_K1_SPECS:
+    for path, layer, _, (a_shape, b_shape, _, _) in launch_specs():
+        if path not in ("decode", "calibrate"):
+            continue
         (m, k), n = a_shape, b_shape[0]
         tile_m, tile_n, splits_, per = split_k_plan(m, n, k)
         tiles = -(-m // tile_m) * -(-n // tile_n)
@@ -902,19 +1032,17 @@ def main() -> int:
         fused_gemm=fused_gemm, fused_matmul_plain=fused_matmul_plain,
         conv2d_bn_act=conv2d_bn_act, conv2d_bn_act_plain=conv2d_bn_act_plain))
     rows = [r for r in all_rows if r["path"] == "serve"]
-    train_rows = [r for r in all_rows if r["path"] != "serve"]
+    train_rows = [r for r in all_rows if r["path"] in ("ae", "mlp")]
+    new_rows = [r for r in all_rows if r["path"] in ("decode", "calibrate")]
     print(f"per launch, serving chunk of {CHUNK} (card {card}):", flush=True)
     print_rows(rows)
-    # the decoder's and calibration's products (phases 17, 18), timed here,
-    # where the profiler has traced little in this process
-    mods = SimpleNamespace(
-        fused_gemm=fused_gemm, fused_matmul_plain=fused_matmul_plain,
-        conv2d_bn_act=conv2d_bn_act, conv2d_bn_act_plain=conv2d_bn_act_plain)
-    new_rows = (kernel_rows(mods, specs=NEW_K1_SPECS)
-                + kernel_rows(mods, bf16=True, specs=NEW_K1_SPECS))
     print("per launch, the decoder's and calibration's K1 products:",
           flush=True)
     print_rows(new_rows)
+    # the profiler's capture early in the run (phase 5 took ~100 readings)
+    prof_check = {"early": profiler_check()}
+    print(f"profiler check after phase 5, of 20 sessions each: "
+          f"{prof_check['early']}", flush=True)
 
     # -- 6. serve -----------------------------------------------------------
     cfg = PipelineConfig(data=DataConfig(per_class=2000,
@@ -981,12 +1109,18 @@ def main() -> int:
           f"{n_img} images); data generation {data_s:.2f} s on the host; "
           f"card {card}", flush=True)
 
-    wall_ms, dev_ms, events = profile_device(
-        lambda: pipe.predict(test.images))
     layers = {"conv2d_bn_act_kernel": ("conv0", "conv1", "conv2", "conv3"),
               "fused_gemm_kernel": ("proj", "fc0", "fc1", "fc2")}
-    seq = {k: [e.time_range.elapsed_us() for e in events if k in e.name]
-           for k in layers}
+    for _ in range(3):  # the profiler may lose records (profiler_check)
+        wall_ms, dev_ms, events = profile_device(
+            lambda: pipe.predict(test.images))
+        seq = {k: [e.time_range.elapsed_us() for e in events if k in e.name]
+               for k in layers}
+        if all(len(v) == 4 * n_chunks for v in seq.values()):
+            break
+    check(all(len(v) == 4 * n_chunks for v in seq.values()),
+          f"the profile of one predict holds {[len(v) for v in seq.values()]}"
+          f" K2 / K1 records, expected {4 * n_chunks} of each")
     # each chunk launches conv0..conv3, then proj, fc0, fc1, fc2, in order
     per_layer_us = {lab: sum(seq[k][i::4]) / len(seq[k][i::4])
                     for k, labs in layers.items()
@@ -1306,12 +1440,14 @@ def main() -> int:
           f"{[round(x, 3) for x in step_ms[True]]}); MLP "
           f"{mlp_step_ms:.3f} ms/step ({BATCH / mlp_step_ms * 1e3:.1f} "
           f"images/s); card {card}", flush=True)
+    k1_records = sum("fused_gemm_kernel" in e.name for e in tr_events)
     print(f"profile of 5 AE steps: wall {tr_wall:.3f} ms, device busy "
           f"{tr_dev:.3f} ms ({100 * tr_dev / tr_wall:.1f}%), idle "
           f"{100 * (1 - tr_dev / tr_wall):.1f}%, {len(tr_events)} device "
-          f"events; with the deterministic algorithms: wall {det_wall:.3f} "
-          f"ms, device busy {det_dev:.3f} ms, {len(det_events)} device "
-          "events", flush=True)
+          f"events, K1 records {k1_records} of the 5 x 12 launched (fewer: "
+          f"the profiler lost records, see profiler_check); with the "
+          f"deterministic algorithms: wall {det_wall:.3f} ms, device busy "
+          f"{det_dev:.3f} ms, {len(det_events)} device events", flush=True)
     for t, count, key in tr_top:
         print(f"  {t:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
 
@@ -1379,6 +1515,10 @@ def main() -> int:
     grid16 = grid_phase(card, bf16=True)
 
     # -- 17. decoder serving ------------------------------------------------
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32_defaults
+    print(f"phases 17-20 with PyTorch's default TF32 flags: matmul "
+          f"{tf32_defaults[0]}, cuDNN {tf32_defaults[1]}", flush=True)
     t_new = time.perf_counter()
     decode = decode_phase(card, cfg.data, test)
     phase_s = {17: time.perf_counter() - t_new}
@@ -1399,6 +1539,10 @@ def main() -> int:
     phase_s[20] = time.perf_counter() - t_new
     print("seconds of phases 17-20: " + ", ".join(
         f"{k} {v:.2f}" for k, v in phase_s.items()), flush=True)
+    prof_check["late"] = profiler_check()
+    print(f"profiler check after phase 20, of 20 sessions each: "
+          f"{prof_check['late']}; device_us took readings again "
+          f"{DEVICE_US_RETRIES}", flush=True)
 
     # -- report -------------------------------------------------------------
     def entry(name, source, replaces, err, rs, per, paths):
@@ -1488,7 +1632,10 @@ def main() -> int:
         det_profile_top=top_ops(det_events, 12),
         mlp_step_ms=mlp_step_ms, train_profile_wall_ms=tr_wall,
         train_profile_device_ms=tr_dev, train_profile_top=tr_top, grid=grid,
-        bf16_grid=grid16, new_k1_rows=new_rows, decode=decode,
+        bf16_grid=grid16,
+        new_k1_rows=new_rows + [r for r in rows16 if r["path"] == "decode"],
+        decode=decode, profiler_check=prof_check,
+        device_us_retries=DEVICE_US_RETRIES,
         calibrate=calib, inflight=inflight, cli=cli_res,
         phase_seconds_17_20=phase_s,
         **report), indent=1))
@@ -1952,10 +2099,16 @@ def decode_phase(card: str, data_cfg, test) -> dict:
         dec_gap = float(np.abs(dec - rec).max())
         check(dec_gap <= (1e-5 if sfx == "" else 2.0 ** -8),
               f"{dtype}: decode(encode(x)) is {dec_gap} from reconstruct(x)")
-        with torch.no_grad():  # the modules on stock PyTorch ops, TF32 off
-            x = normalize(x_u8.to(pipe.device), dt)
-            z_p = pipe.ae.enc(x, L.linear_plain).float()
-            rec_p = pipe.ae.dec(z_p.to(dt), L.linear_plain).float()
+        # the modules on stock PyTorch ops, TF32 off
+        matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.no_grad(), L.float32_convs():
+                x = normalize(x_u8.to(pipe.device), dt)
+                z_p = pipe.ae.enc(x, L.linear_plain).float()
+                rec_p = pipe.ae.dec(z_p.to(dt), L.linear_plain).float()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
         rec_p = rec_p.cpu().numpy()
         diff = float(np.abs(rec - rec_p).max())
         rel_l2 = float(np.linalg.norm(rec - rec_p) / np.linalg.norm(rec_p))
@@ -1990,17 +2143,22 @@ def decode_phase(card: str, data_cfg, test) -> dict:
     return out
 
 
+def init_band(ref: dict) -> dict:
+    """For each of median, p5 and p95: three standard errors of the
+    difference of two runs of the experiment on one augmented batch with
+    independent inits, each with satae's bootstrap standard error."""
+    se = ref["calibration"]["bootstrap_se"]
+    return {k: 3.0 * math.sqrt(2.0) * se[k] for k in ("median", "p5", "p95")}
+
+
 def calibrate_band(ref: dict) -> dict:
-    """Phase 18's band for each of median, p5 and p95: three standard errors
-    of the difference of two independent draws of the experiment, each
-    with satae's bootstrap standard error, plus the spread the port's own
-    CPU calibration shows across augmentation seeds (one augmented batch
-    moves every ratio of a run together)."""
-    cal = ref["calibration"]
-    by_seed = cal["port_cpu_by_seed"].values()
-    return {k: 3.0 * math.sqrt(2.0) * cal["bootstrap_se"][k]
-            + (max(s[k] for s in by_seed) - min(s[k] for s in by_seed))
-            for k in ("median", "p5", "p95")}
+    """Phase 18's band for the card's own run against satae's: the
+    :func:`init_band`, plus the spread the port's own CPU calibration shows
+    across augmentation seeds (one augmented batch moves every ratio of a
+    run together, and the card draws another batch than either CPU run)."""
+    by_seed = ref["calibration"]["port_cpu_by_seed"].values()
+    return {k: v + (max(s[k] for s in by_seed) - min(s[k] for s in by_seed))
+            for k, v in init_band(ref).items()}
 
 
 def calibrate_phase(card: str, splits, data_cfg) -> dict:
@@ -2012,8 +2170,12 @@ def calibrate_phase(card: str, splits, data_cfg) -> dict:
     import torch
 
     from satae_torch import kernels
+    from satae_torch.config import ModelConfig
+    from satae_torch.data.augment import augment_train_batch
     from satae_torch.data.pipeline import iter_batches
-    from satae_torch.train.calibrate import (CalibrationSummary,
+    from satae_torch.models.supervised_ae import SupervisedAE
+    from satae_torch.nn.init import init_
+    from satae_torch.train.calibrate import (CalibrationSummary, init_ratio,
                                              loss_ratio_calibration)
 
     ref = json.loads(SATAE_SERVING_REF.read_text())
@@ -2037,12 +2199,58 @@ def calibrate_phase(card: str, splits, data_cfg) -> dict:
           f"mean {s.mean:.4f}; satae on the CPU " + ", ".join(
               f"{k} {cal['satae'][k]:.4f} (gap {gaps[k]:.4f}, band "
               f"{band[k]:.4f})" for k in band) + f"; card {card}", flush=True)
+    # the batch augmented on the CPU and inits drawn there, as
+    # loss_ratio_calibration(seed=0, device="cpu") makes them: the first
+    # CAL_CARRIED on both sides, then the card's own 1,000 inits on it
+    dev = torch.device("cuda")
+    base = 1 << 32  # (seed + 1) << 32
+    x_cpu = augment_train_batch(
+        torch.from_numpy(imgs), crop_padding=data_cfg.crop_padding,
+        noise_std=data_cfg.noise_std,
+        generator=torch.Generator().manual_seed(0))
+    y_cpu = torch.from_numpy(np.asarray(labels)).long()
+    x_dev, y_dev = x_cpu.to(dev), y_cpu.to(dev)
+    model = SupervisedAE(ModelConfig(latent_dim=128), x_cpu.shape[-1],
+                         x_cpu.shape[1])
+    carried = []
+    for i in range(CAL_CARRIED):
+        init_(model.cpu(), torch.Generator().manual_seed(base + i))
+        on_cpu = float(init_ratio(model, x_cpu, y_cpu))
+        carried.append((on_cpu, float(init_ratio(model.to(dev), x_dev,
+                                                 y_dev))))
+    carried_rel = max(abs(c - p) / abs(p) for p, c in carried)
+    print(f"calibrate: {CAL_CARRIED} inits and the augmented batch made on "
+          f"the CPU, ratios on the card vs the plain versions on the CPU: "
+          f"max relative gap {carried_rel:.3g} (bound {CAL_RTOL:g}); "
+          f"{[c for _, c in carried]}", flush=True)
+    fixed = torch.empty(cal["n_inits"], device=dev)
+    for i in range(cal["n_inits"]):
+        init_(model, torch.Generator(device=dev).manual_seed(base + i))
+        fixed[i] = init_ratio(model, x_dev, y_dev)
+    sf = CalibrationSummary.from_ratios(fixed.cpu().numpy())
+    port0, fband = cal["port_cpu_by_seed"]["0"], init_band(ref)
+    fgaps = {k: abs(getattr(sf, k) - port0[k]) for k in fband}
+    print(f"calibrate: the card's {cal['n_inits']} inits on the CPU's "
+          f"augmented batch: " + ", ".join(
+              f"{k} {getattr(sf, k):.4f} (the port on the CPU {port0[k]:.4f},"
+              f" gap {fgaps[k]:.4f}, band {fband[k]:.4f})" for k in fband)
+          + f"; the card's own batch moves the median by "
+          f"{s.median - sf.median:+.4f}", flush=True)
+    check(carried_rel <= CAL_RTOL, f"calibration ratios on the card differ "
+          f"from the CPU's on the same inits and batch: {carried}")
+    for k in fband:
+        check(fgaps[k] <= fband[k], f"calibration {k} on the CPU's batch "
+              f"{getattr(sf, k)} is {fgaps[k]} from the port's CPU run "
+              f"{port0[k]} (band {fband[k]})")
     for k in band:
         check(gaps[k] <= band[k], f"calibration {k} {getattr(s, k)} is "
               f"{gaps[k]} from satae's {cal['satae'][k]} (band {band[k]})")
     return dict(launches=launches, wall_s=wall_s,
                 summary=dataclasses.asdict(s), satae=cal["satae"], band=band,
-                gaps=gaps)
+                gaps=gaps, carried=carried, carried_max_rel=carried_rel,
+                cpu_batch_summary=dataclasses.asdict(sf),
+                cpu_batch_port=port0, cpu_batch_band=fband,
+                cpu_batch_gaps=fgaps)
 
 
 def inflight_phase(card: str) -> dict:
@@ -2379,7 +2587,9 @@ def split_sweep_main() -> int:
              * 2 - 1) / k ** 0.5
         bv = b.t() if tb else b
         ref = torch.matmul(a, bv)
-        lib_us = device_us(lambda: torch.matmul(a, bv), 50)
+        floor_us = 4.0 * (m * k + k * n + m * n) / HBM_PEAK * 1e6
+        lib_us = device_us(lambda: torch.matmul(a, bv), floor_us,
+                           f"torch.matmul {(m, k, n)}", 50)
         print(f"K1 {(m, k, n)} trans_b={tb}: plan {split_k_plan(m, n, k)}, "
               f"torch.matmul {lib_us:.1f} us", flush=True)
         for tile_n in (32, 64):
@@ -2395,7 +2605,8 @@ def split_sweep_main() -> int:
                 run()
                 err = max_err(out, ref, f"K1 {(m, k, n)} tile_n {tile_n} "
                               f"{splits} splits")
-                us = device_us(run, 50)
+                us = device_us(run, floor_us, f"K1 {(m, k, n)} tile_n "
+                               f"{tile_n} {splits} splits", 50)
                 rows.append(dict(shape=[m, k, n], trans_b=tb, tile_n=tile_n,
                                  splits=splits, k_per_split=kps,
                                  device_us=us, max_abs_err=err,

@@ -79,6 +79,7 @@ from satae_torch.io import checkpoint, convert
 from satae_torch.models import fast_infer
 from satae_torch.models.mlp import MLP
 from satae_torch.models.supervised_ae import SupervisedAE
+from satae_torch.nn.layers import float32_convs
 from satae_torch.train.extract import extract_features, make_decode_step
 from satae_torch.train.fast_loop import train_mlp, train_supervised_ae
 from satae_torch.train.gridsearch import ae_grid_search, mlp_grid_search
@@ -179,9 +180,7 @@ class SatAEPipeline:
         if reuse_ae and self.ae is None:
             raise ValueError("reuse_ae=True requires a loaded autoencoder - "
                              "call load(), load_ae() or load_torch() first")
-        cudnn = torch.backends.cudnn
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=True, allow_tf32=False), \
+        with float32_convs(deterministic=True), \
                 debug_mode(cfg.runtime.debug_nans):
             return self._fit(raw, grid, log, out_dir, reuse_ae)
 
@@ -616,7 +615,8 @@ class SatAEPipeline:
         float32 in [0, 1] (the decoder ends in a sigmoid): the inverse of
         :meth:`encode`. One upload, fixed chunks as :meth:`encode`; each
         chunk runs the eval-mode decoder in the compute dtype (its input
-        linear one K1 launch on the card)."""
+        linear one K1 launch on the card, its transposed convolutions
+        cuDNN's with TF32 off)."""
         self._require_fitted()
         z = np.asarray(latents, np.float32)
         ld = self.config.model.latent_dim
@@ -630,8 +630,10 @@ class SatAEPipeline:
         dev = torch.zeros((n + pad, ld), device=self.device)
         dev[:n].copy_(torch.from_numpy(z))
         step = make_decode_step(self.ae.dec, self.config.compute_dtype)
-        outs = [step(dev[lo:lo + chunk]) for lo in range(0, n + pad, chunk)]
-        return torch.cat(outs).cpu().numpy()[:n]
+        with float32_convs():
+            outs = [step(dev[lo:lo + chunk])
+                    for lo in range(0, n + pad, chunk)]
+            return torch.cat(outs).cpu().numpy()[:n]
 
     def reconstruct(self, images: np.ndarray) -> np.ndarray:
         """Images -> the autoencoder's reconstructions ``x_hat``, float32 in
@@ -643,15 +645,16 @@ class SatAEPipeline:
         """Encoder and decoder in eval mode, chunk by chunk on the device:
         the folded encoder (K2 per conv layer and K1 for the projection on
         the card), its float32 latents into the decoder with no host round
-        trip; one upload and one readback."""
+        trip (TF32 off, as :meth:`decode`); one upload and one readback."""
         self._require_fitted()
         n = len(np.asarray(images))
         if n == 0:
             return np.zeros((0,) + self._image_shape(), np.float32)
         fe, _ = self._folded_weights()
         step = make_decode_step(self.ae.dec, self.config.compute_dtype)
-        outs = self._serve_batched(images, fe, step)
-        return torch.cat(outs).cpu().numpy()[:n]
+        with float32_convs():
+            outs = self._serve_batched(images, fe, step)
+            return torch.cat(outs).cpu().numpy()[:n]
 
 
 # -- module-level conveniences ---------------------------------------------

@@ -42,6 +42,19 @@ from torch import nn
 from satae_torch.kernels.matmul import apply_act, fused_matmul
 
 
+def float32_convs(deterministic: bool = False):
+    """A context in which cuDNN computes convolutions in float32, as satae
+    does: PyTorch's default (``cudnn.allow_tf32``) rounds their operands to
+    TF32. With ``deterministic`` cuDNN also takes its deterministic
+    algorithms. Every entry point that runs a convolution enters it (fit,
+    decode and reconstruct, calibration); the caller's flags come back on
+    exit."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=deterministic or cudnn.deterministic,
+                       allow_tf32=False)
+
+
 def const_like(v: float, x: torch.Tensor):
     """A constant as satae's weakly typed ones meet x: rounded to x's dtype
     first (PyTorch would take a Python float into a bf16 op unrounded)."""

@@ -29,6 +29,7 @@ from satae_torch.config import DataConfig, ModelConfig
 from satae_torch.data.augment import augment_train_batch
 from satae_torch.models.supervised_ae import SupervisedAE
 from satae_torch.nn.init import init_
+from satae_torch.nn.layers import float32_convs
 from satae_torch.train.losses import cross_entropy, mse_loss
 
 
@@ -37,9 +38,10 @@ def init_ratio(model: SupervisedAE, imgs: torch.Tensor,
                labels: torch.Tensor) -> torch.Tensor:
     """CE / MSE of ``model``'s train-mode forward (batch statistics) on the
     augmented batch ``imgs`` (the reconstruction target), a 0-d tensor on
-    the device."""
+    the device; the convolutions in float32 (TF32 off)."""
     model.train()
-    x_hat, logits, _ = model(imgs)
+    with float32_convs():
+        x_hat, logits, _ = model(imgs)
     return cross_entropy(logits, labels) / mse_loss(x_hat, imgs)
 
 

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import satae.kernels.matmul as KM
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch.kernels import launch_counts
 from satae_torch.kernels import matmul as TM
 

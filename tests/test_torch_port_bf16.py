@@ -29,6 +29,7 @@ from satae.models.supervised_ae import (supervised_ae_apply,
 from satae.train.losses import joint_ae_loss as jax_joint_loss
 from satae.train.optim import adam_init as jax_adam_init
 from satae.train.steps import ae_train_step_body
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch import config as TC
 from satae_torch.api import SatAEPipeline
 from satae_torch.data.ingest import load_dataset

@@ -25,6 +25,7 @@ from satae.data.pipeline import iter_batches as jax_iter_batches
 from satae.data.pipeline import num_batches as jax_num_batches
 from satae.models.supervised_ae import supervised_ae_init
 from satae.train import calibrate as jcal
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch import config as TC
 from satae_torch.data.pipeline import ArrayDataset, iter_batches, num_batches
 from satae_torch.io import convert

@@ -30,6 +30,7 @@ from satae.data.synthetic import make_synthetic_eurosat
 from satae.eval import parity_report as jparity
 from satae.eval.metrics import per_class_metrics
 from satae.utils import logging as jlog
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch import cli as tcli
 from satae_torch.config import DataConfig
 from satae_torch.data import ingest as tingest

@@ -22,13 +22,17 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
+import torch.nn.functional as F
 
 from satae import config as JC
 from satae.api import SatAEPipeline as JaxPipeline
 from satae.models.mlp import mlp_init
 from satae.models.supervised_ae import supervised_ae_init
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch import config as TC
 from satae_torch.api import SatAEPipeline
+from satae_torch.train import calibrate as tcal
 from test_torch_port_models import numpy_trees
 
 JCFG = JC.ModelConfig(latent_dim=8, encoder_channels=(4, 8), head_hidden=16,
@@ -122,6 +126,34 @@ def test_ae_only_pipeline_serves_the_decoder(run_dir, images):
         ours.predict(x)
     with pytest.raises(RuntimeError, match="not loaded"):
         SatAEPipeline(_cfgs("float32")[1], device="cpu").reconstruct(x)
+
+
+@pytest.mark.parametrize("entry", ["decode", "reconstruct_batched",
+                                   "calibrate"])
+def test_convolutions_run_in_float32(run_dir, images, entry, monkeypatch):
+    """Every convolution of decoder serving and of calibration runs with
+    cuDNN's TF32 off, as satae computes them in float32, whatever the
+    caller's flags; the caller's flags come back afterwards."""
+    seen = []
+
+    def spy(real):
+        def conv(*args, **kw):
+            seen.append(torch.backends.cudnn.allow_tf32)
+            return real(*args, **kw)
+        return conv
+    for name in ("conv2d", "conv_transpose2d"):
+        monkeypatch.setattr(F, name, spy(getattr(F, name)))
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    _, ours = _pair(run_dir, "float32")
+    if entry == "decode":
+        ours.decode(np.zeros((3, JCFG.latent_dim), np.float32))
+    elif entry == "reconstruct_batched":
+        ours.reconstruct_batched(images[:3])
+    else:
+        tcal.loss_ratio_calibration(images[:8], np.arange(8) % 10,
+                                    model_cfg=TCFG, n_inits=2, device="cpu")
+    assert seen and not any(seen)
+    assert torch.backends.cudnn.allow_tf32
 
 
 @pytest.mark.slow

@@ -17,6 +17,7 @@ from satae.api import FitSummary as JaxFitSummary
 from satae.api import SatAEPipeline as JaxPipeline
 from satae.models.mlp import mlp_init
 from satae.models.supervised_ae import supervised_ae_init
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 import satae_torch
 from satae_torch import config as TC
 from satae_torch.api import SatAEPipeline

@@ -34,6 +34,7 @@ from satae.train.loop import TrainResult as JaxResult
 from satae.train.sweep_common import save_best_checkpoint as jax_save_best
 from satae.io.torch_export import (mlp_to_torch_state_dict,
                                    sae_to_torch_state_dict)
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch import config as TC
 from satae_torch.api import SatAEPipeline
 from satae_torch.data.ingest import load_dataset

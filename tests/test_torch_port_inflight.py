@@ -26,6 +26,7 @@ from satae.io import checkpoint as jckpt
 from satae.models.supervised_ae import supervised_ae_init
 from satae.train import fast_loop as jfast
 from satae.train.optim import adam_init as jax_adam_init
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 import satae_torch.api as tapi
 from satae_torch import config as TC
 from satae_torch.api import SatAEPipeline

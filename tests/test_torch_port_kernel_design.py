@@ -23,6 +23,7 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 import satae.kernels.matmul as KM
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch.kernels import matmul as TM
 from satae_torch.nn import layers as TL
 

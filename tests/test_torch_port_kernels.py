@@ -17,6 +17,7 @@ import torch
 import satae.kernels.matmul as KM
 from satae.kernels.conv import bn_fold as jax_bn_fold
 from satae.kernels.conv import conv2d_bn_act_infer
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch.kernels import conv as TC
 from satae_torch.kernels import launch_counts
 from satae_torch.kernels import matmul as TM

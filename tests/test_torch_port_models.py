@@ -17,6 +17,7 @@ from satae.models.encoder import encoder_apply
 from satae.models.mlp import mlp_apply, mlp_init
 from satae.models.supervised_ae import supervised_ae_apply, supervised_ae_init
 from satae.nn import layers as JL
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch import config as TCfg
 from satae_torch.io import checkpoint, convert
 from satae_torch.models.decoder import Decoder

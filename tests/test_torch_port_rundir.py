@@ -37,6 +37,7 @@ from satae.models.mlp import mlp_init
 from satae.models.supervised_ae import supervised_ae_init
 from satae.train import fast_loop as jfast
 from satae.utils import strict_json as jjson
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch import config as TC
 from satae_torch.api import SatAEPipeline
 from satae_torch.data.ingest import load_dataset

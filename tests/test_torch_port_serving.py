@@ -28,6 +28,7 @@ from satae.models.fast_infer import (encoder_infer_pallas,
                                      make_encode_classify_pallas)
 from satae.models.mlp import mlp_init
 from satae.models.supervised_ae import supervised_ae_init
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch import config as TC
 from satae_torch.api import SatAEPipeline
 from satae_torch.data.augment import normalize

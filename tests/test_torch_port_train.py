@@ -35,6 +35,7 @@ from satae.train.optim import adam_update as jax_adam_update
 from satae.train.steps import (ae_eval_step_body, ae_train_step_body,
                                make_mlp_eval_step, make_mlp_predict,
                                make_mlp_train_step)
+from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch import config as TC
 from satae_torch.data.augment import augment_train_batch, flip_crop
 from satae_torch.data.pipeline import ArrayDataset
