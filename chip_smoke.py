@@ -11,7 +11,9 @@ Phases, in order; any failure exits non-zero:
 2. build  -- compiles the hand-written kernels from satae_torch/csrc with nvcc
              (sm_90a) and prints the build seconds and the ptxas report
              (registers, shared memory, spills per instantiation); fails on
-             any spill.
+             any spill, and unless every bf16 kernel of satae::hopper has
+             HGMMA (wgmma) in its SASS (cuobjdump -sass); prints ptxas's
+             notes on serialised wgmmas.
 3. K1     -- fused_gemm against fused_matmul_plain (TF32 off) at every K1
              shape of the serving path plus the awkward shapes of the JAX
              package's kernel tests, 8192x4096x64 (one split, all of K in
@@ -105,14 +107,19 @@ Phases, in order; any failure exits non-zero:
              and K2 against their plain versions on the same card: the
              serving projection, every K1 launch of a batch-64 AE step in
              its layout, small, odd-K, odd-N and odd-offset products (the
-             2-byte copies) in every layout, SPLIT_SHAPES in every layout
-             and activation, the backward against fused_matmul_bwd_plain,
-             K2 at the four encoder layers of a 512-image chunk and at Cin
-             3, 5, 6, 8 and Cout 9, 40, 72. Within one bf16 ulp of the
-             reference + 1e-6 and >= 99 % bit-equal; repeated calls bitwise
-             equal. Then every bf16 launch of the main paths timed as in 5,
-             beside bf16 cuBLAS / cuDNN and the bf16 bounds (2 bytes an
-             element, 989 TFLOP/s).
+             2-byte copies) in every layout, SPLIT_SHAPES and
+             TMA_EDGE_SHAPES in every layout and activation, the backward
+             against fused_matmul_bwd_plain, K2 at the four encoder layers
+             of a 512-image chunk and at Cin 3, 5, 6, 8, 16, 64, 128 and
+             Cout 9, 16, 24, 40, 64, 72, each case's route printed (K1: the
+             wgmma/TMA loader or the cp.async mma.sync loop; K2: staged
+             rows, TMA im2col, or mma.sync). Within one
+             bf16 ulp of the reference + 1e-6 and >= 99 % bit-equal;
+             repeated calls bitwise equal; every main-path bf16 launch on
+             wgmma but the head's backward (20-byte rows, no TMA). Then
+             every bf16 launch of the main paths timed as in 5, beside bf16
+             cuBLAS / cuDNN and the bf16 bounds (2 bytes an element, 989
+             TFLOP/s).
 14. bf16 serve -- benchmarks/full_run_hard_bf16 served with compute_dtype
              "bfloat16": launches per dtype (K2 4 and K1 1 in bf16, K1 3 in
              float32 per chunk), accuracy within 0.004 of satae's own bf16
@@ -181,14 +188,18 @@ both trees have (ms and device us per launch) in the tree at PARENT_DIR
 (another checkout of this repository, with its own satae_torch) and in this
 one, in turns: parent, this, this, parent, each in a process of its own that
 builds that tree's kernels. The float32 outputs at the shapes of phases 3
-and 4 must be bitwise equal in all four runs. It prints one line per launch
-and writes chiprun_out/ab.json.
+and 4 must be bitwise equal in all four runs; for every bf16 launch it
+prints the share of outputs bitwise equal to the parent's beside both
+trees' device us. It prints one line per launch and writes
+chiprun_out/ab.json.
 
 ``--split-sweep`` times K1 at the long-K products (the serving projection
 512x4096x64 and the training one, 64x4096x64 with an (N, K) weight) for 1 to
-64 splits on 32- and 64-wide tiles, each plan held against torch.matmul
-within the tolerance above, beside the plan split_k_plan picks: the
-measurement the plan rests on. It writes chiprun_out/split_sweep.json.
+64 splits on 32- and 64-wide tiles in float32, and on the bf16 wgmma route
+for clusters of 1 to 16 splits, each plan held against its plain version
+(float32 within the tolerance above, bf16 within phase 13's bound), beside
+the plans split_k_plan and split_k_plan_tma pick: the measurement the plans
+rest on. It writes chiprun_out/split_sweep.json.
 """
 
 from __future__ import annotations
@@ -233,6 +244,12 @@ PARITY_STEPS = 10
 SPLIT_SHAPES = ((CHUNK, 4096, 64), (BATCH, 4096, 64), (BATCH, 4095, 64),
                 (100, 4100, 70), (33, 1000, 10))
 LAYOUTS = tuple(itertools.product((False, True), repeat=2))
+# phase 13's edges of the bf16 wgmma route (every buffer TMA-readable in at
+# least one layout): ragged M and N against the 64 x 64 boxes, K ending
+# inside a stage, clusters of 11, 3 and 1 splits (SPLIT_SHAPES add 16, 13
+# and 8), a single row
+TMA_EDGE_SHAPES = ((130, 4160, 72), (200, 1000, 24), (1, 64, 8),
+                   (65, 192, 136))
 # phase 18: the inits carried from the CPU to the card, and the relative
 # bound on their ratios (tests/test_torch_port_calibrate.py's)
 CAL_CARRIED, CAL_RTOL = 8, 1e-5
@@ -262,6 +279,49 @@ K1_SHAPES = ((CHUNK, 4096, 64), (CHUNK, 64, 128), (CHUNK, 128, 64),
 K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
     zip((3, 32, 64, 128), (32, 64, 128, 256)))) + (
         (3, 7, 5, 9), (2, 9, 6, 40), (3, 11, 8, 72))
+
+
+# the kernel instantiations of a build (ptxas report) and those of them on
+# wgmma (fused_gemm_tma_kernel x 4 layouts, conv_im2col_tma_kernel x 2 N
+# tiles, conv_rows_kernel)
+N_INSTANTIATIONS = 27
+N_WGMMA = 7
+
+
+def hgmma_counts() -> dict:
+    """{kernel: HGMMA instructions in its SASS} for every kernel of the
+    build in namespace satae::hopper (cuobjdump -sass of the libraries)."""
+    from satae_torch.kernels import _build
+
+    tool = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    counts = {}
+    for name, lib in _build.build_all().items():
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+        fn = None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                fn = ln.split("Function :")[1].strip()
+                fn = fn if "hopper" in fn else None
+                if fn:
+                    counts[fn] = 0
+            elif fn and "HGMMA" in ln:
+                counts[fn] += 1
+    return counts
+
+
+def wgmma_serialised() -> list:
+    """ptxas's notes that it serialised a kernel's wgmmas (C7510-C7520:
+    accumulator registers read in flight, divergent paths), from the build
+    logs."""
+    from satae_torch.kernels import _build
+
+    notes = []
+    for name in _build.SOURCES:
+        log = _build.build_dir() / f"{name}.log"
+        notes += [ln.strip() for ln in log.read_text().splitlines()
+                  if "wgmma.mma_async instructions are serialized" in ln]
+    return notes
 
 
 def check(ok: bool, what: str) -> None:
@@ -503,7 +563,8 @@ def bf16_launch(path: str, layer: str) -> bool:
         path == "serve" and (layer.startswith("conv") or layer == "proj"))
 
 
-def kernel_rows(mods, reference: bool = True, bf16: bool = False) -> list:
+def kernel_rows(mods, reference: bool = True, bf16: bool = False,
+                outputs: dict = None) -> list:
     """One row per launch of :func:`launch_specs`, on the kernels of
     ``mods`` (a namespace with fused_gemm and conv2d_bn_act, and with
     ``reference`` their plain versions too): back-to-back ms (CUDA events)
@@ -512,7 +573,10 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False) -> list:
     ms and device us (torch.matmul, or cuDNN's F.conv2d with bias,
     channels-last; TF32 off). With ``bf16`` the launches of the bf16 recipe
     (:func:`bf16_launch`) on bf16 operands (scale and shift float32), the
-    library calls in bf16 too, each row's kernel named with ``_bf16``."""
+    library calls in bf16 too, each row's kernel named with ``_bf16``, and
+    its route where ``mods`` has ``k1_loader`` / ``conv_route``. With
+    ``outputs``, each launch's output (on the CPU) goes into it under
+    (kernel, path, layer)."""
     import torch
     import torch.nn.functional as F
 
@@ -549,6 +613,8 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False) -> list:
             bias = shift.to(dt)
             lib = lambda: F.conv2d(x_nchw, w_oihw, bias, stride=2, padding=1)
             n_out = cout
+            route = (mods.conv_route(x, w, 2, 1)[0]
+                     if hasattr(mods, "conv_route") else None)
         else:
             if kind == "k1":
                 m, k, n_out, act = args
@@ -572,15 +638,19 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False) -> list:
             kern = lambda: mods.fused_gemm(a, b, scale, shift, act, ta, tb)
             plain = lambda: mods.fused_matmul_plain(av, bv, scale, shift, act)
             lib = lambda: torch.matmul(av, bv)
+            route = (mods.k1_loader(a, b) if hasattr(mods, "k1_loader")
+                     else None)
         reps = 20 if path == "serve" else 50
         bnd = bounds(2.0 * m * k * n_out, nbytes, bf16)
         what = f"{name} {path} {layer} {shape}"
         row = dict(kernel=name + ("_bf16" if bf16 else ""), path=path,
-                   layer=layer, shape=shape, trans=trans,
+                   layer=layer, shape=shape, trans=trans, route=route,
                    dtype="bf16" if bf16 else "float32",
                    ms=time_ms(kern, reps=reps),
                    device_us=device_us(kern, bnd["bound_ms"] * 1e3, what),
                    **bnd)
+        if outputs is not None:
+            outputs[(row["kernel"], path, layer)] = kern().cpu()
         if reference:  # the library's floor: the bytes
             row.update(plain_ms=time_ms(plain, reps=reps),
                        library_ms=time_ms(lib, reps=reps),
@@ -597,6 +667,7 @@ def print_rows(rows) -> None:
                else "")
         print(f"  {r['kernel']:19s} {r['path']:5s} {r['layer']:10s} "
               f"{str(r['shape']):24s} trans {str(r['trans']):14s} "
+              f"{r.get('route') or '':8s} "
               f"ms {r['ms']:.4f}  device {r['device_us']:.1f} us{ref}  "
               f"bound {r['bound_ms']:.5f} ({r['bound_by']})"
               + (f", f32 {r['bound_f32_ms']:.5f} ({r['bound_f32_by']})"
@@ -659,10 +730,12 @@ def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
     cuDNN/cuBLAS."""
     import torch
 
-    from satae_torch.kernels.conv import conv2d_bn_act, conv2d_bn_act_plain
+    from satae_torch.kernels.conv import (conv2d_bn_act, conv2d_bn_act_plain,
+                                          conv_route)
     from satae_torch.kernels.matmul import (fused_gemm, fused_matmul,
                                             fused_matmul_bwd_plain,
-                                            fused_matmul_plain)
+                                            fused_matmul_plain, k1_loader,
+                                            split_k_plan, split_k_plan_tma)
 
     bf = torch.bfloat16
     dev = torch.device("cuda")
@@ -698,14 +771,18 @@ def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
         nonlocal k1_err, k1_min_eq
         a, b, a_buf, b_buf = operands(m, k, n, ta, tb, offset)
         scale, shift = affine(n)
+        loader = k1_loader(a_buf, b_buf)
+        plan = (split_k_plan_tma if loader == "tma" else split_k_plan)(m, n, k)
         for act in acts:
             out = fused_gemm(a_buf, b_buf, scale, shift, act, ta, tb)
             err, eq = ulp_err(out, fused_matmul_plain(a, b, scale, shift, act),
                               f"bf16 K1 {what} {(m, k, n)} trans_a={ta} "
-                              f"trans_b={tb} offset {offset} {act}")
+                              f"trans_b={tb} offset {offset} {act} ({loader}, "
+                              f"plan {plan})")
             k1_err, k1_min_eq = max(k1_err, err), min(k1_min_eq, eq)
             res["k1"].append(dict(what=what, shape=[m, k, n], trans=[ta, tb],
-                                  offset=offset, act=act, max_abs_err=err,
+                                  offset=offset, act=act, loader=loader,
+                                  plan=list(plan), max_abs_err=err,
                                   bit_equal=eq))
         if repeat:
             first = fused_gemm(a_buf, b_buf, scale, shift, "relu", ta, tb)
@@ -738,10 +815,24 @@ def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
     for m, k, n in SPLIT_SHAPES:
         for ta, tb in LAYOUTS:
             k1_case("split-K", m, k, n, ta, tb, ACTS, repeat=True)
-    print(f"bf16 K1 vs plain: {len(res['k1'])} cases, max |err| "
-          f"{k1_err:.3g}, least share bit-equal {k1_min_eq:.5f}, tolerance "
-          "one bf16 ulp + 1e-6, >= 99 % bit-equal; repeated calls bitwise "
-          "equal", flush=True)
+    # the wgmma route's own edges: TMA boxes cut at ragged M, N and K,
+    # clusters of 1 to 16 splits, K ending inside a stage
+    for m, k, n in TMA_EDGE_SHAPES:
+        for ta, tb in LAYOUTS:
+            k1_case("tma edge", m, k, n, ta, tb, ACTS, repeat=True)
+    by_loader = collections.Counter(c["loader"] for c in res["k1"])
+    print(f"bf16 K1 vs plain: {len(res['k1'])} cases ({dict(by_loader)}), "
+          f"max |err| {k1_err:.3g}, least share bit-equal {k1_min_eq:.5f}, "
+          "tolerance one bf16 ulp + 1e-6, >= 99 % bit-equal; repeated calls "
+          "bitwise equal", flush=True)
+    # every bf16 K1 launch of the main paths runs wgmma, but the head's
+    # backward, whose cotangent rows are 10 bf16 (20 bytes: no TMA)
+    on_mma = sorted({c["what"] for c in res["k1"] if c["what"].startswith(
+        ("serve", "ae", "decode")) and c["loader"] != "tma"})
+    print(f"bf16 K1 main-path launches on the cp.async mma.sync loop: "
+          f"{on_mma}", flush=True)
+    check(on_mma == ["ae fc2 dW", "ae fc2 dX"], f"bf16 K1 main-path launches "
+          f"off the wgmma route: {on_mma}")
 
     # the backward in bf16 (nn.Linear weight layout, scale with a gradient:
     # the z recompute) against fused_matmul_bwd_plain on the kernel's y
@@ -793,33 +884,50 @@ def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
           f"terms whose z differs, least share bit-equal {dsc_min_eq:.5f}; "
           f"dshift equal; max |err| {bwd_err:.3g}", flush=True)
 
-    # K2: the four encoder layers of a 512-image chunk, Cin 5 and 6 (the
-    # 2- and 4-byte copies), Cin 8, ragged 32/64-wide tiles
+    # K2: the four encoder layers of a 512-image chunk (conv0 on the
+    # staged-rows kernel, conv1-3 TMA's im2col mode: 32 and 64 channels a
+    # load), Cin 5 and 6 (the 2- and 4-byte copies of the mma.sync loop),
+    # Cin 8 and 16 (its 16-byte copies), ragged 32/64-wide tiles, and each
+    # wgmma route at ragged M and N: the staged rows (a 32 x 32 image, 16
+    # channels out), im2col (Cin 64 and 128, Cout 72 and 64; Cin 32 on a
+    # 7 x 7 image)
     chans = (3, 32, 64, 128, 256)
     k2_err, k2_min_eq = 0.0, 1.0
+    routes = {}
     for n, hw, cin, cout in ([(CHUNK, 64 >> i, chans[i], chans[i + 1])
                               for i in range(4)]
                              + [(3, 7, 5, 9), (2, 9, 6, 40), (3, 11, 8, 72),
-                                (2, 10, 3, 40)]):
+                                (2, 10, 3, 40), (5, 13, 16, 24),
+                                (4, 32, 3, 16), (2, 9, 64, 72),
+                                (3, 12, 128, 64), (2, 9, 32, 72),
+                                (3, 7, 32, 40)]):
         x = rand(n, hw, hw, cin).to(bf)
         w = (rand(3, 3, cin, cout, lo=-1.0, hi=1.0) / (9 * cin) ** 0.5).to(bf)
         scale, shift = affine(cout)
+        route = conv_route(x, w, 2, 1)[0]
+        routes[(n, hw, cin, cout)] = route
         for act in (("relu",) if n == CHUNK else ACTS):
             out = conv2d_bn_act(x, w, scale, shift, 2, 1, act)
             err, eq = ulp_err(out, conv2d_bn_act_plain(x, w, scale, shift, 2,
                                                        1, act),
-                              f"bf16 K2 {(n, hw, hw, cin, cout)} {act}")
+                              f"bf16 K2 {(n, hw, hw, cin, cout)} {act} "
+                              f"({route})")
             k2_err, k2_min_eq = max(k2_err, err), min(k2_min_eq, eq)
             res["k2"].append(dict(shape=[n, hw, hw, cin, cout], act=act,
-                                  max_abs_err=err, bit_equal=eq))
-        if n == CHUNK and cin in (3, 32):  # the 2-byte and 16-byte copies
+                                  route=route, max_abs_err=err, bit_equal=eq))
+        if n == CHUNK:  # every route of the serving chunk repeats bitwise
             first = conv2d_bn_act(x, w, scale, shift, 2, 1, "relu")
             check(all(torch.equal(first, conv2d_bn_act(
                 x, w, scale, shift, 2, 1, "relu")) for _ in range(4)),
                 f"bf16 K2 Cin {cin}: repeated calls differ bitwise")
+    serve_routes = [routes[(CHUNK, 64 >> i, chans[i], chans[i + 1])]
+                    for i in range(4)]
     print(f"bf16 K2 vs plain: {len(res['k2'])} cases, max |err| "
-          f"{k2_err:.3g}, least share bit-equal {k2_min_eq:.5f}; conv0 and "
-          "conv1 5 calls bitwise equal", flush=True)
+          f"{k2_err:.3g}, least share bit-equal {k2_min_eq:.5f}; routes "
+          f"{ {str(k): v for k, v in routes.items()} }; conv0-3 5 calls "
+          "bitwise equal", flush=True)
+    check(serve_routes == ["rows", "im2col", "im2col", "im2col"],
+          f"bf16 K2 serving layers on routes {serve_routes}")
     res.update(k1_err=k1_err, k1_min_equal=k1_min_eq, bwd_err=bwd_err,
                bwd_min_equal=bwd_min_eq, dscale_min_equal=dsc_min_eq,
                k2_err=k2_err, k2_min_equal=k2_min_eq)
@@ -828,8 +936,8 @@ def bf16_kernels_phase(card: str, timed: bool = True) -> dict:
 
     rows = kernel_rows(SimpleNamespace(
         fused_gemm=fused_gemm, fused_matmul_plain=fused_matmul_plain,
-        conv2d_bn_act=conv2d_bn_act, conv2d_bn_act_plain=conv2d_bn_act_plain),
-        bf16=True)
+        conv2d_bn_act=conv2d_bn_act, conv2d_bn_act_plain=conv2d_bn_act_plain,
+        k1_loader=k1_loader, conv_route=conv_route), bf16=True)
     print(f"per launch in bf16, serving chunk of {CHUNK} and a batch-{BATCH} "
           f"AE step (bounds at 2 B an element and 989 TFLOP/s; card "
           f"{card}):", flush=True)
@@ -928,11 +1036,21 @@ def main() -> int:
               f"{r['smem']} B static shared memory, spills "
               f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded",
               flush=True)
-    check(len(ptxas) == 20, f"{len(ptxas)} kernel instantiations in the "
-          "ptxas report, expected 20 (K1 16, K2 4: float32 and bf16)")
+    check(len(ptxas) == N_INSTANTIATIONS, f"{len(ptxas)} kernel "
+          f"instantiations in the ptxas report, expected {N_INSTANTIATIONS} "
+          "(K1 16 mma.sync + 4 wgmma, K2 4 mma.sync + 3 wgmma)")
     spilled = [r["kernel"] for r in ptxas
                if r["spill_stores"] or r["spill_loads"]]
     check(not spilled, f"ptxas spills registers in {spilled}")
+    hgmma = hgmma_counts()
+    for name, n in hgmma.items():
+        print(f"  SASS {name}: {n} HGMMA", flush=True)
+    check(len(hgmma) == N_WGMMA and all(hgmma.values()),
+          f"expected {N_WGMMA} bf16 kernels running wgmma (HGMMA in their "
+          f"SASS), found {hgmma}")
+    serialised = wgmma_serialised()
+    print(f"  ptxas wgmma serialisation notes (C75xx): {serialised or 'none'}",
+          flush=True)
 
     # The plain versions are the reference: full float32, no TF32. Phases
     # 17-20 get PyTorch's defaults back.
@@ -2480,10 +2598,11 @@ def f32_digests(fused_gemm, conv2d_bn_act) -> dict:
     return out
 
 
-def kernel_times_main(root: str) -> int:
+def kernel_times_main(root: str, out_file: str) -> int:
     """The --ab child: :func:`kernel_rows` on the kernels of the satae_torch
     under ``root`` (float32, and bf16 where that tree has the bf16
-    instantiations) and :func:`f32_digests`, as one JSON line."""
+    instantiations) and :func:`f32_digests`, as one JSON line; the bf16
+    launches' outputs go to ``out_file`` (torch.save)."""
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
@@ -2497,9 +2616,16 @@ def kernel_times_main(root: str) -> int:
           f"from {root_}")
     mods = SimpleNamespace(fused_gemm=matmul.fused_gemm,
                            conv2d_bn_act=conv.conv2d_bn_act)
+    for fn in ("k1_loader", "conv_route"):  # where the tree has them
+        for mod in (matmul, conv):
+            if hasattr(mod, fn):
+                setattr(mods, fn, getattr(mod, fn))
     rows = kernel_rows(mods, reference=False)
+    outputs = {}
     if torch.bfloat16 in getattr(_build, "OPERAND_DTYPES", {}):
-        rows += kernel_rows(mods, reference=False, bf16=True)
+        rows += kernel_rows(mods, reference=False, bf16=True,
+                            outputs=outputs)
+    torch.save({"|".join(k): v for k, v in outputs.items()}, out_file)
     print(json.dumps(dict(rows=rows, digests=f32_digests(
         matmul.fused_gemm, conv.conv2d_bn_act))), flush=True)
     return 0
@@ -2509,21 +2635,28 @@ def ab_main(parent: str) -> int:
     """Every K1 and K2 launch that both trees have, timed in the tree at
     ``parent`` and in this one, in turns parent, this, this, parent, one
     process each; the float32 outputs at the shapes of phases 3 and 4 must
-    be bitwise equal in all four runs."""
+    be bitwise equal in all four runs. For each bf16 launch, the share of
+    its outputs bitwise equal to the parent tree's, beside both trees'
+    device us (each tree's two runs must agree bitwise)."""
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
     check((Path(parent) / "satae_torch").is_dir(),
           f"{parent} holds no satae_torch")
+    import tempfile
+
     card = card_line()
     print(card, flush=True)
     runs = []
-    for label, root in (("parent", parent), ("change", REPO),
-                        ("change", REPO), ("parent", parent)):
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ab_"))
+    for i, (label, root) in enumerate((("parent", parent), ("change", REPO),
+                                       ("change", REPO),
+                                       ("parent", parent))):
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--kernel-times",
-             str(root)], capture_output=True, text=True, timeout=900)
+             str(root), str(tmp / f"{i}.pt")], capture_output=True, text=True,
+            timeout=900)
         check(res.returncode == 0, f"kernel times in {root} failed:\n"
               f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
         runs.append(dict(label=label, root=str(root),
@@ -2557,21 +2690,51 @@ def ab_main(parent: str) -> int:
               f"{chg[1]['ms']:.4f}", flush=True)
     only = [k for k in by_run[1] if k not in by_run[0]]
     print(f"launches in this tree only, not timed: {only}", flush=True)
+    # bf16: the share of each launch's outputs bitwise equal to the
+    # parent's, beside both trees' device us; each tree against itself
+    outs = [torch.load(tmp / f"{i}.pt") for i in range(4)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    bf16_equal = {}
+    print("bf16 launches: share of outputs bitwise equal to the parent's | "
+          "device us parent, change (means of two runs each)", flush=True)
+    for key in outs[1]:
+        k = tuple(key.split("|"))
+        if key not in outs[0] or k not in by_run[0]:
+            continue
+        share = float((outs[1][key] == outs[0][key]).float().mean())
+        check(torch.equal(outs[0][key], outs[3][key])
+              and torch.equal(outs[1][key], outs[2][key]),
+              f"bf16 {key}: two runs of one tree differ bitwise")
+        us_p = sum(by_run[j][k]["device_us"] for j in (0, 3)) / 2
+        us_c = sum(by_run[j][k]["device_us"] for j in (1, 2)) / 2
+        bf16_equal[key] = dict(share_equal=share, parent_us=us_p,
+                               change_us=us_c,
+                               route=by_run[1][k].get("route"))
+        print(f"  {k[0]:19s} {k[1]:6s} {k[2]:10s} "
+              f"{by_run[1][k].get('route') or '':8s} equal {share:.6f} | "
+              f"us {us_p:.1f} -> {us_c:.1f}", flush=True)
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "ab.json").write_text(json.dumps(dict(card=card, runs=runs,
-                                                 differ=differ), indent=1))
+    (out / "ab.json").write_text(json.dumps(dict(
+        card=card, runs=runs, differ=differ, bf16_equal=bf16_equal),
+        indent=1))
     return 0
 
 
 def split_sweep_main() -> int:
     """K1's device us per launch at the long-K products for each split count
-    and tile width, launched with that plan directly."""
+    and tile width, launched with that plan directly: float32 on 32- and
+    64-wide tiles (split_k_plan's basis), and the bf16 TMA route for each
+    cluster size it takes (split_k_plan_tma's basis), each held against the
+    plain version (float32 within 1e-4 + 1e-5*|ref|, bf16 within one bf16
+    ulp + 1e-6 and >= 99 % bit-equal)."""
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
     from satae_torch.kernels import _build
-    from satae_torch.kernels.matmul import BK, _tile_counters, split_k_plan
+    from satae_torch.kernels.matmul import (BK, MAX_CLUSTER, TMA_BK,
+                                            _tile_counters, fused_matmul_plain,
+                                            split_k_plan, split_k_plan_tma)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -2607,12 +2770,44 @@ def split_sweep_main() -> int:
                               f"{splits} splits")
                 us = device_us(run, floor_us, f"K1 {(m, k, n)} tile_n "
                                f"{tile_n} {splits} splits", 50)
-                rows.append(dict(shape=[m, k, n], trans_b=tb, tile_n=tile_n,
-                                 splits=splits, k_per_split=kps,
-                                 device_us=us, max_abs_err=err,
-                                 library_device_us=lib_us))
+                rows.append(dict(dtype="float32", shape=[m, k, n],
+                                 trans_b=tb, tile_n=tile_n, splits=splits,
+                                 k_per_split=kps, device_us=us,
+                                 max_abs_err=err, library_device_us=lib_us))
                 print(f"  tile 64x{tile_n}, {splits:2d} splits of {kps:4d}: "
                       f"{us:7.1f} us  max |err| {err:.3g}", flush=True)
+        # bf16 on the TMA route: one cluster of `splits` blocks per tile
+        a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        ref16 = fused_matmul_plain(a16, b16.t() if tb else b16, None,
+                                   torch.zeros(n, device=dev))
+        lib16_us = device_us(lambda: torch.matmul(a16, b16.t() if tb else b16),
+                             floor_us / 2, f"bf16 torch.matmul {(m, k, n)}",
+                             50)
+        print(f"bf16 K1 {(m, k, n)} trans_b={tb}: plan "
+              f"{split_k_plan_tma(m, n, k)}, torch.matmul {lib16_us:.1f} us",
+              flush=True)
+        for want in (1, 2, 4, 8, 16):
+            kps = -(-(-(-k // want)) // TMA_BK) * TMA_BK
+            splits = -(-k // kps)
+            if splits > MAX_CLUSTER:
+                continue
+            out = torch.empty(m, n, device=dev, dtype=torch.bfloat16)
+            run = lambda: _build.launch(
+                lib, "satae_fused_gemm_bf16_tma", dev, a16.data_ptr(),
+                b16.data_ptr(), 0, 0, out.data_ptr(), m, n, k, 0, 0, int(tb),
+                splits, kps)
+            run()
+            err, eq = ulp_err(out, ref16, f"bf16 K1 {(m, k, n)} {splits} "
+                              "splits")
+            us = device_us(run, floor_us / 2, f"bf16 K1 {(m, k, n)} "
+                           f"{splits} splits", 50)
+            rows.append(dict(dtype="bf16", shape=[m, k, n], trans_b=tb,
+                             tile_n=64, splits=splits, k_per_split=kps,
+                             device_us=us, max_abs_err=err, bit_equal=eq,
+                             library_device_us=lib16_us))
+            print(f"  bf16 tile 64x64, cluster of {splits:2d} splits of "
+                  f"{kps:4d}: {us:7.1f} us  max |err| {err:.3g}, bit-equal "
+                  f"{eq:.5f}", flush=True)
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "split_sweep.json").write_text(json.dumps(
@@ -2623,8 +2818,8 @@ def split_sweep_main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--split-sweep"]:
         sys.exit(split_sweep_main())
-    if sys.argv[1:2] == ["--kernel-times"] and len(sys.argv) == 3:
-        sys.exit(kernel_times_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--kernel-times"] and len(sys.argv) == 4:
+        sys.exit(kernel_times_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         sys.exit(ab_main(sys.argv[2]))
     if len(sys.argv) > 1:

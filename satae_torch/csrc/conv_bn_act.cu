@@ -1,6 +1,6 @@
 // K2 conv2d_bn_act: eval-mode act(BN(conv2d(x, w) + b)) as an implicit GEMM.
 //
-// Replaces satae/kernels/conv.py::conv2d_bn_act_infer, which runs XLA's
+// Replaces satae/kernels/conv.py:36 (conv2d_bn_act_infer), which runs XLA's
 // im2col (conv_general_dilated_patches) and then the Pallas GEMM of
 // satae/kernels/matmul.py::_mm_kernel. Here no im2col matrix exists: each
 // block copies the 3x3 patches of its 64 output pixels straight from the
@@ -27,20 +27,32 @@
 // memory. The N tile follows Cout: 32 wide for conv0 (Cout 32), so no tile is
 // half empty, and its 67 MB output goes out in 16-byte stores.
 //
-// bf16 (x, w and out bf16; scale, shift and the sums float32): the same
-// loops on bf16 stages and m16n8k16 bf16 mma. At 989 TFLOP/s conv0 (12.6 MB
-// in, 33.6 MB out: 13.8 us), conv1 (50 MB: 15.0 us) and conv2 (7.5 us) are
-// bound by bytes, conv3 by operations (4.8 GFLOP: 4.9 us, against 3.8 us of
-// bytes). With Cin % 8 == 0 (conv1-3) the
-// 8 channels of one tap are one 16-byte copy; an even Cin takes 4-byte
-// copies. conv0's tap is 3 channels, 6 bytes: no tap is 4- or 16-byte
-// aligned, so it takes the 2-byte path of gemm_tile.cuh, one ld.global.u16 +
-// st.shared per element. Its K = 27 is one slice, so no stage overlaps
-// another's loads there anyway.
+// bf16 (x, w and out bf16; scale, shift and the sums float32). At 3.35
+// TB/s and 989 TFLOP/s conv0 (12.6 MB in, 33.6 MB out: 13.8 us), conv1
+// (50 MB: 15.0 us) and conv2 (7.6 us) are bound by bytes, conv3 by
+// operations (4.8 GFLOP: 4.9 us, against 3.8 us of bytes). Two kernels on
+// wgmma (entry satae_conv2d_bn_act_bf16_tma; the wrapper's
+// satae_torch/kernels/conv.py::conv_route picks one):
+//   conv_rows_kernel (conv0: K = 27, 6-byte taps): the block stages the
+//     input rows its 128 output pixels read, whole and contiguous, with
+//     16-byte cp.async, builds the patch tile in shared memory from them
+//     and writes its 33.6 MB output -- the bound -- in 16-byte stores;
+//   conv_im2col_tma_kernel (conv1-3): persistent 128 x 64 / 128 x 128
+//     tiles, the patches brought by TMA in im2col mode (one load of 128
+//     pixels x 64 or 32 channels of a tap: the hardware walks the stride-2
+//     windows and zero-fills the padding), the HWIO weight by TMA read
+//     MN-major, two consumer warpgroups on wgmma while the ring runs on
+//     across tiles.
+// Stayed on the mma.sync loop above: float32 (3xTF32, unchanged), and
+// bf16 layers none of these take -- channel counts TMA's im2col cannot cut
+// into loads of 32 or 64 (Cin 5, 6, 8, 16; Cin 32 with Cout > 64), Cout
+// not a multiple of 8, misaligned buffers: the 2-, 4- and 16-byte copies
+// of gemm_tile.cuh.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace satae {
 
@@ -148,6 +160,261 @@ __global__ void __launch_bounds__(kThreads, 4)
   store_tile<kBN>(smem, out, M, Cout, m0, n0, scale, shift, act);
 }
 
+
+// ---- bf16 on wgmma ---------------------------------------------------------
+
+namespace hopper {
+
+// The im2col kernel's ring: stages of 64 of K (A 16 KB + B kBN * 128
+// bytes), as many as fit beside the float32 epilogue tile.
+template <int kBN>
+__host__ __device__ constexpr int conv_ring() {
+  return kBN == 64 ? 6 : 4;
+}
+template <int kBN>
+__host__ __device__ constexpr int conv_smem() {
+  return conv_ring<kBN>() * (2 * kBox + kBN * 128) +
+         128 * (kBN + kOutPad) * 4 + 1024;
+}
+// Channels per im2col load: a 64-wide N tile takes two loads of 32 (64-byte
+// rows, 64-byte swizzle) per stage, a 128-wide one a load of 64 (128-byte
+// rows and swizzle).
+template <int kBN>
+__host__ __device__ constexpr int conv_channels() {
+  return kBN == 64 ? 32 : 64;
+}
+
+// conv1-3: 128 x kBN tiles of the implicit GEMM, one persistent block per
+// SM walking tiles blockIdx.x, + gridDim.x, ... Threads 0-255 are two
+// consumer warpgroups (rows 0-63 and 64-127 of a tile, wgmma
+// m64n{kBN}k16); thread 256, in a warp of its own, issues the TMA loads.
+// Per stage of 64 of K: the patches of the tile's 128 output pixels by TMA
+// in im2col mode -- the hardware walks the stride-2 windows across rows and
+// images and zero-fills the padding -- as one load of 64 channels of one
+// tap or two of 32, each into its region of the swizzled K-major layout;
+// and the stage's weight box(es) by TMA from the HWIO weight, a row-major
+// (K, Cout) buffer that wgmma reads MN-major. The ring runs on across
+// tiles, so the producer loads the next tile while the consumers run the
+// epilogue (through their own float32 tile, not the ring) and the block
+// never drains between tiles. A gather by 128 threads with 16-byte
+// cp.async into the same layout was slower at conv1-3 on an H100: its
+// instructions, not the L2 or the ring's depth, set its rate.
+template <int kBN>
+__global__ void __launch_bounds__(2 * kWg + 32, 1)
+    conv_im2col_tma_kernel(const __grid_constant__ CUtensorMap map_w,
+                           const __grid_constant__ CUtensorMap map_x,
+                           const float* __restrict__ scale,
+                           const float* __restrict__ shift,
+                           bf16* __restrict__ out, int batch, int Cin,
+                           int KH, int KW, int Cout, int OH, int OW,
+                           int stride, int pad, int act) {
+  constexpr int kRing = conv_ring<kBN>();
+  constexpr int kCh = conv_channels<kBN>();
+  constexpr int kA = 2 * kBox;            // A of a stage: 128 x 128 bytes
+  constexpr int kStage = kA + kBN * 128;  // + B: kBN / 64 boxes
+  constexpr int kLd = kBN + kOutPad;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kRing], empty[kRing];
+  uint8_t* smem = align1024(smem_raw);
+  float* cs = reinterpret_cast<float*>(smem + kRing * kStage);
+  const int M = batch * OH * OW;
+  const int K = KH * KW * Cin;
+  const int m_tiles = (M + 127) / 128;
+  const int tiles = m_tiles * ((Cout + kBN - 1) / kBN);
+  const int n_slices = (K + kBK - 1) / kBK;
+  const int n_stages = (n_slices + 1) / 2;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], 2 * kWg / 32);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / kWg;
+  if (threadIdx.x == 2 * kWg) {
+    int g = 0;  // stages filled so far
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile % m_tiles * 128, n0 = tile / m_tiles * kBN;
+      const int n = m0 / (OH * OW), oh = m0 % (OH * OW) / OW, ow = m0 % OW;
+      for (int it = 0; it < n_stages; ++it, ++g) {
+        const int s = g % kRing;
+        if (g >= kRing) bar_wait(&empty[s], (g / kRing - 1) & 1);
+        uint8_t* st = smem + s * kStage;
+        const int k0 = it * kStageK;
+        // the loads of A inside K (a 32-channel stage may end after one)
+        const int loads = kCh == 64 || k0 + 32 >= K ? 1 : 2;
+        bar_expect(&full[s], loads * 128 * kCh * 2 + kBN * 128);
+        for (int h = 0; h < loads; ++h) {
+          const int k = k0 + kCh * h, t = k / Cin;
+          tma_load_im2col(st + h * kBox, &map_x, &full[s], k - t * Cin,
+                          ow * stride - pad, oh * stride - pad, n,
+                          static_cast<uint16_t>(t % KW),
+                          static_cast<uint16_t>(t / KW));
+        }
+#pragma unroll
+        for (int b = 0; b < kBN / 64; ++b)
+          tma_load(st + kA + b * kBox, &map_w, &full[s], n0 + 64 * b, k0);
+      }
+    }
+  } else if (wg < 2) {
+    // A: 64-channel loads are 128-byte rows, the warpgroups' halves 8 KB
+    // apart; 32-channel ones two tap regions of 64-byte rows, the halves 4
+    // KB apart in each
+    const auto desc = [smem, wg](int s, int j, uint64_t& da, uint64_t& db) {
+      const uint8_t* st = smem + s * kStage;
+      da = kCh == 32 ? desc64(st + (j / 2) * kBox + wg * 4096 + 32 * (j % 2))
+                     : desc_k<false>(st + wg * kBox, j);
+      db = desc_k<true>(st + kA, j);
+    };
+    float acc[kBN / 2];
+    int g = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile % m_tiles * 128, n0 = tile / m_tiles * kBN;
+      const Cols<8> cols =
+          store_cols_of<kBN>(scale, shift, n0, Cout, threadIdx.x);
+      consume<kBN, 0, 1, kBN == 64>(acc, desc, full, empty, kRing, n_slices,
+                                    g);
+      g += n_stages;
+      // the previous tile's stores have read cs
+      asm volatile("bar.sync 1, %0;\n" ::"n"(2 * kWg) : "memory");
+      stage_wg_acc<kBN>(acc, cs, kLd, 64 * wg);
+      asm volatile("bar.sync 1, %0;\n" ::"n"(2 * kWg) : "memory");
+      store_rows<kBN>(cs, kLd, 128, out, M, Cout, m0, n0, cols, act,
+                      threadIdx.x, 2 * kWg);
+    }
+  }
+}
+
+// conv0-like layers (K = KH * KW * Cin <= 32, Cout <= 32, Cout % 8 == 0):
+// a tile of 128 output pixels that are whole output rows of one image.
+// The block copies the input rows those pixels read, halo included (conv0:
+// 9 rows of 64 x 3 bf16, 384 contiguous bytes each), with 16-byte cp.async
+// into shared memory, then builds the 128 x 32 patch tile (K zero-padded to
+// 32) from them in the 128-byte-swizzled K-major layout, and the weight as
+// a K-major 32 x 32 tile; two m64n32k16 wgmmas per 64-row half (one fresh
+// 32-deep slice), and the bf16 output in 16-byte stores. One warpgroup.
+__global__ void __launch_bounds__(kWg)
+    conv_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                     const float* __restrict__ scale,
+                     const float* __restrict__ shift, bf16* __restrict__ out,
+                     int H, int W, int Cin, int KH, int KW, int Cout, int OH,
+                     int OW, int stride, int pad, int act) {
+  constexpr int kLd = 32 + kOutPad;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* as = smem;                  // [128][64 bf16], 16 KB
+  uint8_t* bs = smem + 2 * kBox;       // [32][64 bf16], 4 KB
+  bf16* rows = reinterpret_cast<bf16*>(smem + 2 * kBox + 4096);
+  float* cs = reinterpret_cast<float*>(smem);  // [128][kLd], after the mma
+  const int K = KH * KW * Cin;
+  const int m0 = blockIdx.x * 128;
+  const int n = m0 / (OH * OW), oh0 = m0 % (OH * OW) / OW;
+  const int n_in = (128 / OW - 1) * stride + KH;
+  const int ih_first = oh0 * stride - pad;
+  const int row_elems = W * Cin, row_chunks = row_elems / 8;
+  // the input rows, rows outside the image not copied (never read)
+  for (int i = threadIdx.x; i < n_in * row_chunks; i += kWg) {
+    const int rr = i / row_chunks, cc = i - rr * row_chunks;
+    const int ih = ih_first + rr;
+    if (static_cast<unsigned>(ih) < static_cast<unsigned>(H))
+      cp_async16(rows + rr * row_elems + cc * 8,
+                 x + (static_cast<size_t>(n) * H + ih) * row_elems + cc * 8,
+                 true);
+  }
+  cp_async_commit();
+  const Cols<8> cols = store_cols_of<32>(scale, shift, 0, Cout, threadIdx.x);
+  // k -> (kh, kw, ci); kh -1 past K
+  __shared__ int tap_kh[32], tap_kw[32], tap_ci[32];
+  if (threadIdx.x < 32) {
+    const int k = threadIdx.x, t = k / Cin;
+    tap_kh[k] = k < K ? t / KW : -1;
+    tap_kw[k] = t % KW;
+    tap_ci[k] = k % Cin;
+  }
+  // the weight, (K, Cout) row-major, as K-major rows n of 64 k (zeros past
+  // K and Cout); only k < 32 is multiplied
+  for (int i = threadIdx.x; i < 32 * 4; i += kWg) {
+    const int nn = i / 4, c = i % 4;
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      unsigned short h[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int k = 8 * c + 2 * e + u;
+        h[u] = k < K && nn < Cout
+                   ? __bfloat16_as_ushort(w[static_cast<size_t>(k) * Cout + nn])
+                   : 0;
+      }
+      v[e] = h[0] | static_cast<uint32_t>(h[1]) << 16;
+    }
+    *reinterpret_cast<uint4*>(bs + nn * 128 + ((c ^ (nn & 7)) << 4)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  // the patches: row p is pixel m0 + p, chunk c holds k = 8c..8c+7; tap
+  // (kh, kw) and channel ci of each k come from a table (no division per
+  // element)
+  const int p = threadIdx.x;
+  const int oh_rel = p / OW, ow = p - oh_rel * OW;
+  const int row_base = oh_rel * stride;  // input row of kh = 0, in `rows`
+  const int col0 = ow * stride - pad;    // input column of kw = 0
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    uint32_t v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      unsigned short h[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int k = 8 * c + 2 * e + u;
+        const int kh = tap_kh[k], kw = tap_kw[k];
+        const int ih = ih_first + row_base + kh, iw = col0 + kw;
+        h[u] = kh >= 0 &&
+                       static_cast<unsigned>(ih) <
+                           static_cast<unsigned>(H) &&
+                       static_cast<unsigned>(iw) < static_cast<unsigned>(W)
+                   ? __bfloat16_as_ushort(rows[(row_base + kh) * row_elems +
+                                               iw * Cin + tap_ci[k]])
+                   : 0;
+      }
+      v[e] = h[0] | static_cast<uint32_t>(h[1]) << 16;
+    }
+    *reinterpret_cast<uint4*>(as + p * 128 + ((c ^ (p & 7)) << 4)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+  fence_async_smem();
+  __syncthreads();
+  float acc[2][16];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) acc[h][i] = 0.f;
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+  wgmma_fence();
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wgmma_n32<0, 0>(acc[h], desc_k<false>(as + h * kBox, j),
+                      desc_k<false>(bs, j), j);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc[0]);
+  fence_acc(acc[1]);
+  __syncthreads();  // the whole warpgroup's wgmmas have read as and bs
+  stage_wg_acc<32>(acc[0], cs, kLd, 0);
+  stage_wg_acc<32>(acc[1], cs, kLd, 64);
+  __syncthreads();
+  store_rows<32>(cs, kLd, 128, out, m0 + 128, Cout, m0, 0, cols, act,
+                 threadIdx.x, kWg);
+}
+
+}  // namespace hopper
+
 // Internal linkage: each library keeps its own `allowed` flags (a static
 // local of an external template would be one symbol across every library
 // loaded in the process).
@@ -188,6 +455,71 @@ int launch_tile(const void* x, const void* w, const float* scale,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// One instantiation of the im2col kernel.
+template <int kBN>
+cudaError_t launch_im2col(const void* x, const void* w, const float* scale,
+                          const float* shift, void* out, int batch, int H,
+                          int W, int Cin, int KH, int KW, int Cout, int OH,
+                          int OW, int stride, int pad, int act,
+                          cudaStream_t s) {
+  CUtensorMap map_w, map_x;
+  cudaError_t err = hopper::make_map(&map_w, w, KH * KW * Cin, Cout, 64);
+  if (err == cudaSuccess)
+    err = hopper::make_im2col_map(&map_x, x, batch, H, W, Cin, KH, KW, stride,
+                                  pad, hopper::conv_channels<kBN>());
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  constexpr int smem = hopper::conv_smem<kBN>();
+  auto kernel = hopper::conv_im2col_tma_kernel<kBN>;
+  static unsigned allowed = 0;
+  if (err == cudaSuccess)
+    err = allow_smem(reinterpret_cast<const void*>(kernel), smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int M = batch * OH * OW;
+  const int tiles = (M + 127) / 128 * ((Cout + kBN - 1) / kBN);
+  kernel<<<tiles < sms ? tiles : sms, 2 * hopper::kWg + 32, smem, s>>>(
+      map_w, map_x, scale, shift, static_cast<bf16*>(out), batch, Cin, KH, KW,
+      Cout, OH, OW, stride, pad, act);
+  return cudaSuccess;
+}
+
+// The bf16 wgmma kernels: tile_n 32 is the staged-rows kernel (conv0), 64
+// and 128 the im2col kernel with that N tile; the wrapper checks that the
+// layer fits the kernel it names.
+int launch_hopper(const void* x, const void* w, const float* scale,
+                  const float* shift, void* out, int batch, int H, int W,
+                  int Cin, int KH, int KW, int Cout, int OH, int OW,
+                  int stride, int pad, int act, int tile_n, void* stream) {
+  using hopper::kBox;
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (tile_n == 32) {
+    const int n_in = (128 / OW - 1) * stride + KH;
+    const int smem = 2 * kBox + 4096 + n_in * W * Cin * 2 + 1024;
+    auto kernel = hopper::conv_rows_kernel;
+    static unsigned allowed = 0;
+    const cudaError_t err =
+        allow_smem(reinterpret_cast<const void*>(kernel), 96 * 1024, allowed);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<batch * OH * OW / 128, hopper::kWg, smem, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), scale,
+        shift, static_cast<bf16*>(out), H, W, Cin, KH, KW, Cout, OH, OW,
+        stride, pad, act);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaError_t err = cudaErrorInvalidValue;
+  if (tile_n == 64)
+    err = launch_im2col<64>(x, w, scale, shift, out, batch, H, W, Cin, KH, KW,
+                            Cout, OH, OW, stride, pad, act, s);
+  else if (tile_n == 128)
+    err = launch_im2col<128>(x, w, scale, shift, out, batch, H, W, Cin, KH,
+                             KW, Cout, OH, OW, stride, pad, act, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 }  // namespace satae
@@ -218,6 +550,25 @@ int satae_conv2d_bn_act_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
   return satae::launch_tile<__nv_bfloat16>(x, w, scale, shift, out, batch, H,
                                            W, Cin, KH, KW, Cout, OH, OW,
                                            stride, pad, act, tile_n, stream);
+}
+
+// satae_conv2d_bn_act_bf16 on wgmma: tile_n 32 takes the staged-rows
+// kernel (K = KH * KW * Cin <= 32, Cout <= 32 and a multiple of 8, 128
+// output pixels = whole output rows of one image, W * Cin a multiple of 8,
+// x 16-byte aligned); 64 or 128 the im2col kernel, TMA for the patches and
+// the weight (x and w 16-byte aligned, Cout a multiple of 8; tile_n 64:
+// Cout <= 64 and Cin a multiple of 32, tile_n 128: Cin a multiple of 64).
+// The wrapper (satae_torch/kernels/conv.py::conv_route) routes every other
+// layer to satae_conv2d_bn_act_bf16.
+int satae_conv2d_bn_act_bf16_tma(const __nv_bfloat16* x,
+                                 const __nv_bfloat16* w, const float* scale,
+                                 const float* shift, __nv_bfloat16* out,
+                                 int batch, int H, int W, int Cin, int KH,
+                                 int KW, int Cout, int OH, int OW, int stride,
+                                 int pad, int act, int tile_n, void* stream) {
+  return satae::launch_hopper(x, w, scale, shift, out, batch, H, W, Cin, KH,
+                              KW, Cout, OH, OW, stride, pad, act, tile_n,
+                              stream);
 }
 
 const char* satae_error_string(int code) {

@@ -1,8 +1,8 @@
 // K1 fused_gemm: out = act((A @ B) * scale + shift), operands and output
 // float32 or bf16, the product accumulated and the epilogue taken in float32.
 //
-// Replaces satae/kernels/matmul.py::_mm_kernel (the one pl.pallas_call of the
-// JAX package, matmul.py:71), in both directions of its custom VJP:
+// Replaces satae/kernels/matmul.py:36 (_mm_kernel, the one pl.pallas_call of
+// the JAX package, matmul.py:71), in both directions of its custom VJP:
 //   forward (`fused_matmul`, `linear_pallas`): the encoder projection
 //     (512 x 4096 @ 4096 x 64 when serving, 64 x 4096 when training), the
 //     decoder projection, the head and the MLP layers;
@@ -46,10 +46,32 @@
 // The wrapper owns the workspace and the counters (one buffer per device,
 // kept zeroed by the kernel); the port launches on one stream, and two
 // concurrent split-K launches would share the counters.
+//
+// bf16 on Hopper's own instructions (hopper::fused_gemm_tma_kernel, entry
+// satae_fused_gemm_bf16_tma; wgmma_tile.cuh holds its main loop). Bound at
+// 3.35 TB/s and 989 TFLOP/s, every bf16 product of the main paths is bound
+// by bytes: the serving projection 512 x 4096 x 64 and the decoder input
+// 512 x 64 x 4096 move 4.8 MB (1.43 us), the batch-64 long products (64 x
+// 4096 x 64, 64 x 64 x 4096) 1.06 MB (0.32 us), the head's products a few
+// KB, far below a launch. So the design is about latency: a 64 x 64 tile
+// per block, A and B brought by TMA (one thread, 128-byte swizzle, ragged
+// M, N and K zero-filled by the hardware) into a ring of at most four
+// 64-deep stages sized to the block's K, wgmma m64n64k16 from shared
+// memory for all four operand layouts (transpose bits, no fragment
+// packing), and for long K the splits of a tile launched as one
+// thread-block cluster (split_k_plan_tma: at K = 4096 16 splits of 256
+// for one tile, 8 of 512 for the serving projection's 8)
+// whose blocks reduce the float32 partials through distributed shared
+// memory, each block 1/S of the tile, in split order. One launch per call,
+// no workspace, no counters. Stayed on the mma.sync loop above: float32
+// (3xTF32, unchanged), and bf16 buffers TMA cannot read -- a base or row
+// not 16-byte aligned: odd K or N, odd offsets, the head's 10-wide
+// cotangent in its backward (satae_torch/kernels/matmul.py::k1_loader).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "gemm_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace satae {
 
@@ -196,6 +218,131 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x == 0) *counter = 0;
 }
 
+
+// ---- bf16 on wgmma, TMA and a cluster's split-K reduction ------------------
+
+namespace hopper {
+
+// One 64 x 64 tile of out = act((A @ B) * scale + shift) in bf16, over the K
+// range [blockIdx.z * k_per_split, ...) of A (M, K) and B (K, N), read by
+// TMA through map_a (a row-major (M, K) buffer, or with kTA a (K, M) one)
+// and map_b (a row-major (N, K) buffer, or with kTB a (K, N) one) into a
+// ring of `ring` stages of 64 of K. Threads 0-127 are the consumer
+// warpgroup (wgmma m64n64k16, two scratch accumulators); thread 128, in a
+// warp of its own, issues the TMA loads.
+//
+// Split-K: the gridDim.z blocks of a tile are one thread-block cluster
+// (1, 1, gridDim.z). Each stages its float32 partial in its own shared
+// memory; after a cluster barrier block r sums rows [64 r / S, 64 (r + 1) /
+// S) of the tile over the S partials, read through distributed shared
+// memory in split order 0..S-1 (bitwise repeatable, the emulation's
+// order), applies the epilogue, rounds once to bf16 and stores; a second
+// barrier keeps every partial alive until all have been read. Every block
+// of the cluster reduces 1/S of the tile, so the fix-up no longer rests on
+// one block, and nothing goes through device memory.
+template <bool kTA, bool kTB>
+__global__ void __launch_bounds__(kWg + 32, 1)
+    fused_gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
+                          const __grid_constant__ CUtensorMap map_b,
+                          const float* __restrict__ scale,
+                          const float* __restrict__ shift,
+                          bf16* __restrict__ out, int M, int N, int K,
+                          int act, int k_per_split, int ring) {
+  constexpr int kLd = 64 + kOutPad;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kMaxRing], empty[kMaxRing];
+  uint8_t* smem = align1024(smem_raw);
+  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * 64;
+  const int k_begin = blockIdx.z * k_per_split;
+  const int k_end = min(K, k_begin + k_per_split);
+  const int n_slices = (k_end - k_begin + kBK - 1) / kBK;
+  const int n_stages = (n_slices + 1) / 2;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ring; ++s) {
+      bar_init(&full[s], 1);
+      bar_init(&empty[s], kWg / 32);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+  // the epilogue's scale and shift (one split), loaded during the main loop
+  const Cols<8> cols = store_cols_of<64>(gridDim.z == 1 ? scale : nullptr,
+                                         gridDim.z == 1 ? shift : nullptr, n0,
+                                         N, threadIdx.x);
+  float acc[32];
+  if (threadIdx.x == kWg) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&map_a))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                     reinterpret_cast<uint64_t>(&map_b))
+                 : "memory");
+    for (int it = 0; it < n_stages; ++it) {
+      const int s = it % ring;
+      if (it >= ring) bar_wait(&empty[s], (it / ring - 1) & 1);
+      uint8_t* st = smem + s * 2 * kBox;
+      const int k = k_begin + it * kStageK;
+      bar_expect(&full[s], 2 * kBox);
+      tma_load(st, &map_a, &full[s], kTA ? m0 : k, kTA ? k : m0);
+      tma_load(st + kBox, &map_b, &full[s], kTB ? n0 : k, kTB ? k : n0);
+    }
+  } else if (threadIdx.x < kWg) {
+    const auto desc = [smem](int s, int j, uint64_t& da, uint64_t& db) {
+      const uint8_t* st = smem + s * 2 * kBox;
+      da = desc_k<kTA>(st, j);
+      db = desc_k<kTB>(st + kBox, j);
+    };
+    consume<64, kTA, kTB, true>(acc, desc, full, empty, ring, n_slices);
+  }
+  __syncthreads();  // every stage consumed: the ring is free
+  float* cs = reinterpret_cast<float*>(smem);
+  if (threadIdx.x < kWg) stage_wg_acc<64>(acc, cs, kLd, 0);
+  __syncthreads();
+  if (gridDim.z == 1) {
+    store_rows<64>(cs, kLd, 64, out, M, N, m0, n0, cols, act, threadIdx.x,
+                   blockDim.x);
+    return;
+  }
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every split's partial is staged
+  const int S = static_cast<int>(gridDim.z);
+  const int r = static_cast<int>(cluster.block_rank());
+  const int row_lo = r * 64 / S, row_hi = (r + 1) * 64 / S;
+  // thread i sums quad (i % 16) of rows row_lo + i / 16, ... (blockDim.x is
+  // a multiple of 16: one column quad per thread, its scale and shift
+  // loaded once); the S remote loads of a quad are all issued before the
+  // in-order sum
+  const int c = (threadIdx.x % 16) * 4;
+  const bool vec = N % 4 == 0 && aligned(out, 8);
+  const Cols<4> quad_cols(scale, shift, n0 + c, N);
+  const int nv = N - (n0 + c) < 4 ? N - (n0 + c) : 4;
+  for (int row = row_lo + static_cast<int>(threadIdx.x) / 16; row < row_hi;
+       row += blockDim.x / 16) {
+    if (m0 + row >= M || nv <= 0) break;
+    float4 q[16];
+    float4* mine = reinterpret_cast<float4*>(cs + row * kLd + c);
+#pragma unroll
+    for (int s = 0; s < 16; ++s)
+      if (s < S) q[s] = *cluster.map_shared_rank(mine, s);
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int s = 0; s < 16; ++s) {  // split order
+      if (s < S) {
+        v[0] += q[s].x;
+        v[1] += q[s].y;
+        v[2] += q[s].z;
+        v[3] += q[s].w;
+      }
+    }
+    store_cols<4>(out, static_cast<size_t>(m0 + row) * N + n0 + c, v,
+                  quad_cols, nv, vec, act);
+  }
+  cluster.sync();  // no block leaves while another reads its partial
+}
+
+}  // namespace hopper
+
 // Internal linkage: each library keeps its own `allowed` flags (a static
 // local of an external template would be one symbol across every library
 // loaded in the process).
@@ -264,6 +411,86 @@ int launch_plan(const void* x, const void* w, const float* scale,
                                     k_per_split, s);
 }
 
+
+// The bf16 TMA instantiation for the layout; the plan is checked by the
+// caller. Tensor maps are encoded per call on the host (a few hundred ns)
+// and passed as __grid_constant__ parameters.
+template <bool kTA, bool kTB>
+int launch_tma(const void* x, const void* w, const float* scale,
+               const float* shift, void* out, int M, int N, int K, int act,
+               int splits, int k_per_split, cudaStream_t stream) {
+  using hopper::kBox;
+  using hopper::kMaxRing;
+  CUtensorMap map_a, map_b;
+  cudaError_t err = kTA ? hopper::make_map(&map_a, x, K, M, 64)
+                        : hopper::make_map(&map_a, x, M, K, 64);
+  if (err == cudaSuccess)
+    err = kTB ? hopper::make_map(&map_b, w, K, N, 64)
+              : hopper::make_map(&map_b, w, N, K, 64);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int stages = (min(k_per_split, K) + hopper::kStageK - 1) /
+                     hopper::kStageK;
+  const int ring = stages < kMaxRing ? stages : kMaxRing;
+  constexpr int kStaging = 64 * (64 + kOutPad) * 4;
+  const int smem =
+      (ring * 2 * kBox > kStaging ? ring * 2 * kBox : kStaging) + 1024;
+  auto kernel = hopper::fused_gemm_tma_kernel<kTA, kTB>;
+  static unsigned allowed = 0;
+  err = allow_smem(reinterpret_cast<const void*>(kernel),
+                   kMaxRing * 2 * kBox + 1024, allowed, true);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((M + 63) / 64, (N + 63) / 64, splits);
+  const dim3 block(hopper::kWg + 32);
+  bf16* o = static_cast<bf16*>(out);
+  if (splits == 1) {
+    kernel<<<grid, block, smem, stream>>>(map_a, map_b, scale, shift, o, M,
+                                          N, K, act, k_per_split, ring);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, scale, shift, o, M, N,
+                           K, act, k_per_split, ring);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Checks a TMA plan (splits <= 16, a cluster of the tile's splits; each
+// split a multiple of 64 of K), then launches the layout's instantiation.
+int launch_tma_plan(const void* x, const void* w, const float* scale,
+                    const float* shift, void* out, int M, int N, int K,
+                    int act, int trans_a, int trans_b, int splits,
+                    int k_per_split, void* stream) {
+  const bool plan_ok =
+      K > 0 && splits >= 1 && splits <= 16 && k_per_split > 0 &&
+      k_per_split % hopper::kStageK == 0 &&
+      static_cast<long long>(splits) * k_per_split >= K &&
+      static_cast<long long>(splits - 1) * k_per_split < K;
+  if (!plan_ok) return static_cast<int>(cudaErrorInvalidValue);
+  // the kernel's flags say which operand is MN-major: A read from a (K, M)
+  // buffer (trans_a), B from a row-major (K, N) one (not trans_b)
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (trans_a)
+    return trans_b ? launch_tma<true, false>(x, w, scale, shift, out, M, N, K,
+                                             act, splits, k_per_split, s)
+                   : launch_tma<true, true>(x, w, scale, shift, out, M, N, K,
+                                            act, splits, k_per_split, s);
+  return trans_b ? launch_tma<false, false>(x, w, scale, shift, out, M, N, K,
+                                            act, splits, k_per_split, s)
+                 : launch_tma<false, true>(x, w, scale, shift, out, M, N, K,
+                                           act, splits, k_per_split, s);
+}
+
 }  // namespace
 
 }  // namespace satae
@@ -300,6 +527,22 @@ int satae_fused_gemm_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
   return satae::launch_plan<__nv_bfloat16>(
       x, w, scale, shift, out, ws, counters, M, N, K, act, trans_a, trans_b,
       tile_n, splits, k_per_split, stream);
+}
+
+// satae_fused_gemm_bf16 on wgmma, with TMA loads and a cluster's split-K
+// reduction: x and w must be 16-byte aligned with 16-byte-aligned rows (the
+// wrapper routes other buffers to satae_fused_gemm_bf16). The plan: `splits`
+// (<= 16, one cluster per tile) K ranges of k_per_split (a multiple of 64)
+// each, on 64 x 64 tiles; no workspace. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan or buffer the kernel does not take.
+int satae_fused_gemm_bf16_tma(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                              const float* scale, const float* shift,
+                              __nv_bfloat16* out, int M, int N, int K,
+                              int act, int trans_a, int trans_b, int splits,
+                              int k_per_split, void* stream) {
+  return satae::launch_tma_plan(x, w, scale, shift, out, M, N, K, act,
+                                trans_a, trans_b, splits, k_per_split,
+                                stream);
 }
 
 const char* satae_error_string(int code) {

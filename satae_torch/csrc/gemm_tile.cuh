@@ -1,4 +1,8 @@
-// The GEMM main loop that K1 (fused_gemm.cu) and K2 (conv_bn_act.cu) share:
+// The GEMM main loop that K1 (fused_gemm.cu) and K2 (conv_bn_act.cu) share,
+// the kernels that replace satae/kernels/matmul.py:36 (_mm_kernel) and
+// satae/kernels/conv.py:36 (conv2d_bn_act_infer). Their bounds, and the
+// bf16 design for buffers TMA can read, are in those files and in
+// wgmma_tile.cuh; this loop keeps float32 (3xTF32) and the other bf16:
 // one 64 x kBN output tile (kBN = 32 or 64) of out = act((A @ B) * scale +
 // shift), with the operands and the output in T -- float32, on tensor cores
 // as 3xTF32, or bf16 -- and the accumulators, scale, shift and epilogue in
@@ -41,6 +45,8 @@
 // per slice and one product per step (a bf16 product is exact in float32).
 // A bf16 fragment register holds two consecutive K values; from an MN-major
 // stage they sit in two shared rows and are packed from two 16-bit loads.
+// bf16 buffers that TMA can read (16-byte-aligned bases and rows) take
+// wgmma_tile.cuh's loop instead; this one keeps the rest.
 // Both: the tensor cores' float32 accumulation drops the low bits of each
 // sum (it does not round to nearest), so an accumulator that runs down all of
 // K drifts towards zero, at K = 4096 outside the float32 tolerance on an
@@ -320,14 +326,19 @@ struct Frag {
 };
 
 // Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only
-// after this call), once per device; `allowed` is the kernel's own bit set.
+// after this call), and with `clusters` be launched in clusters of up to 16
+// blocks (above 8 only after this call), once per device; `allowed` is the
+// kernel's own bit set.
 inline cudaError_t allow_smem(const void* kernel, int bytes,
-                              unsigned& allowed) {
+                              unsigned& allowed, bool clusters = false) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || dev >= 32 || (allowed >> dev & 1u)) return err;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && clusters)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   if (err == cudaSuccess) allowed |= 1u << dev;
   return err;
 }

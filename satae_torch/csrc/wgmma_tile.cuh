@@ -1,0 +1,550 @@
+// The bf16 main loop of K1 (fused_gemm.cu) and K2 (conv_bn_act.cu) on
+// Hopper's own instructions: wgmma.mma_async reading both operands from
+// shared memory, TMA (cp.async.bulk.tensor, tile and im2col modes) into an
+// mbarrier ring, and the shared-memory layouts both of them read. It
+// replaces, for bf16 operands whose buffers TMA can read, gemm_tile.cuh's
+// mma.sync.m16n8k16 loop, which packed every MN-major fragment register
+// from two 16-bit shared loads. The kernels on it replace
+// satae/kernels/matmul.py:36 (_mm_kernel) and satae/kernels/conv.py:36
+// (conv2d_bn_act_infer, whose GEMM is that kernel). Their bf16 bounds at
+// 3.35 TB/s and 989 TFLOP/s (the files' headers give each shape's): every
+// K1 product of the main paths is bound by bytes (0.32-1.43 us), conv0-2
+// by bytes (13.8 / 15.0 / 7.6 us), conv3 by operations (4.9 us). Against
+// the bytes: TMA brings whole tiles with no per-element instructions, and
+// outputs leave in 16-byte stores; against the operations: wgmma at 64 x
+// 64 or 64 x 128 per warpgroup straight from swizzled shared memory. The
+// float32 kernels keep gemm_tile.cuh's 3xTF32 mma.sync loop unchanged, and
+// so do bf16 buffers TMA cannot read.
+//
+// Shared layout. Every stage holds 64 of K. An operand whose K axis is
+// contiguous (K-major: a row-major A, an (N, K) B, conv patches) is kept as
+// rows of 64 bf16 = 128 bytes; one whose M or N axis is contiguous
+// (MN-major: a (K, M) A, a (K, N) B) as rows of one k holding 64 M or N
+// values. Both use the 128-byte swizzle (16-byte chunk c of row r stored at
+// chunk c ^ (r % 8)), which is what TMA writes with
+// CU_TENSOR_MAP_SWIZZLE_128B and what conv0's patch build computes itself,
+// in 1024-byte-aligned regions (conv patches of 32 channels: 64-byte rows
+// and swizzle, desc64). A wgmma reads a 64-wide M or N block of an
+// MN-major operand (one swizzle atom) through its transpose bit, so no
+// fragment is packed and no operand is copied transposed. Descriptors:
+// K-major, 8-row groups 1024 bytes apart (SBO), K step 16 = +32 bytes; MN-
+// major, 8-k groups 1024 bytes apart (SBO), MN atoms LBO apart, K step 16 =
+// +2048 bytes.
+//
+// Arithmetic: gemm_tile.cuh's, which tests/test_torch_port_kernel_design.py
+// emulates. Each 32-deep slice of K is two m64nNk16 products into a scratch
+// accumulator, the first with scale-d 0, so every slice starts from zero;
+// the slice is then added to the running float32 sum with a rounded FADD.
+// A warpgroup with a 64-wide N issues both slices of a stage into two
+// scratch accumulators as one batch, then adds them in order; with 128
+// wide, one slice at a time into one scratch accumulator (three 64 x 128
+// accumulators would not fit beside two consumer warpgroups), and the
+// block's other consumer warpgroup keeps the tensor cores busy while one
+// adds. No accumulator is read while a wgmma that writes it is in flight
+// (an overlapped form, slice t + 1 issued before slice t is added, made
+// ptxas serialise every wgmma: C7514).
+//
+// Pipeline: a ring of stages with a full and an empty mbarrier each. The
+// producer, one thread issuing TMA, waits for an empty stage, fills it and
+// arms its full barrier with the bytes to come; a consumer warpgroup waits
+// for the full barrier, runs its wgmmas, and each of its warps arrives on
+// the empty barrier once they have completed.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "gemm_tile.cuh"
+
+namespace satae {
+namespace hopper {
+
+constexpr int kWg = 128;          // threads of a warpgroup
+constexpr int kStageK = 64;       // K of one stage: a 128-byte bf16 row
+constexpr int kBox = 64 * 64 * 2;  // bytes of one 64 x 64 bf16 box
+constexpr int kMaxRing = 4;       // stages of a ring at most
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// ---- mbarrier --------------------------------------------------------------
+
+__device__ __forceinline__ void bar_init(uint64_t* b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(b)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the other threads and to the
+// async proxy (TMA); a __syncthreads follows.
+__device__ __forceinline__ void bar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(uint64_t* b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(b))
+               : "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transfers on the barrier.
+__device__ __forceinline__ void bar_expect(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void bar_wait(uint64_t* b, uint32_t parity) {
+  const uint32_t a = smem_addr(b);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// Orders this thread's generic-proxy writes to shared memory (st.shared,
+// cp.async) before later async-proxy reads of them (wgmma).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+
+// ---- TMA -------------------------------------------------------------------
+
+// The box at coordinates (c0 innermost, c1) of `map` into shared memory at
+// dst, completing `bytes` on barrier b; outside the tensor it writes zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* b, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(b)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// The im2col box of `map` (a 4-D NHWC tensor map in im2col mode): pixels
+// from input coordinates (w, h, n) on, each shifted by the filter tap (kw,
+// kh), channels c.. of each, into shared memory at dst; zeros outside.
+__device__ __forceinline__ void tma_load_im2col(void* dst,
+                                                const CUtensorMap* map,
+                                                uint64_t* b, int c, int w,
+                                                int h, int n, uint16_t kw,
+                                                uint16_t kh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(b)), "r"(c), "r"(w),
+      "r"(h), "r"(n), "h"(kw), "h"(kh)
+      : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending)
+               : "memory");
+}
+
+// Pins the accumulator registers at this point of the program, so that the
+// compiler neither reads them before a wgmma.wait_group nor moves them
+// while a wgmma that writes them is in flight.
+template <int kRegs>
+__device__ __forceinline__ void fence_acc(float (&d)[kRegs]) {
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (16-byte units), layout type 1.
+__device__ __forceinline__ uint64_t desc128(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+// A shared-memory matrix descriptor with the 64-byte swizzle (K-major rows
+// of 32 bf16, 8-row groups 512 bytes apart), layout type 2.
+__device__ __forceinline__ uint64_t desc64(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>(1) << 16 | static_cast<uint64_t>(512 >> 4)
+                                              << 32 |
+         static_cast<uint64_t>(2) << 62;
+}
+
+// The descriptor of K step j (16 of K) of a 64-row (K-major) or MN-major
+// region of a stage, whose 64-wide atoms (one TMA box each) lie kBox apart.
+template <bool kMN>
+__device__ __forceinline__ uint64_t desc_k(const uint8_t* region, int j) {
+  return kMN ? desc128(region + 2048 * j, kBox, 1024)
+             : desc128(region + 32 * j, 16, 1024);
+}
+
+// d (+)= A @ B for one m64n32k16 bf16 product, float32 accumulate;
+// kTA / kTB: A / B MN-major in shared memory (wgmma's transpose bits).
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_n32(float (&d)[16], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
+// d (+)= A @ B for one m64n64k16 bf16 product, float32 accumulate;
+// kTA / kTB: A / B MN-major in shared memory (wgmma's transpose bits).
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
+// d (+)= A @ B for one m64n128k16 bf16 product, float32 accumulate;
+// kTA / kTB: A / B MN-major in shared memory (wgmma's transpose bits).
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
+
+template <int kN, int kTA, int kTB>
+__device__ __forceinline__ void mma_k16(float (&d)[kN / 2], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  if constexpr (kN == 32) {
+    wgmma_n32<kTA, kTB>(d, da, db, scale_d);
+  } else if constexpr (kN == 64) {
+    wgmma_n64<kTA, kTB>(d, da, db, scale_d);
+  } else {
+    static_assert(kN == 128, "wgmma N of 32, 64 or 128");
+    wgmma_n128<kTA, kTB>(d, da, db, scale_d);
+  }
+}
+
+// ---- the consumer's main loop ---------------------------------------------
+
+// Issues 32-deep slice j (0 or 1) of ring stage s -- K steps 2j and 2j + 1
+// -- into the scratch accumulator d; the first product has scale-d 0, so
+// the slice starts from zero. desc(s, k, da, db) gives the descriptors of
+// K step k of stage s.
+template <int kN, int kTA, int kTB, class Desc>
+__device__ __forceinline__ void issue_slice(float (&d)[kN / 2],
+                                            const Desc& desc, int s, int j) {
+  uint64_t da, db;
+  desc(s, 2 * j, da, db);
+  mma_k16<kN, kTA, kTB>(d, da, db, 0);
+  desc(s, 2 * j + 1, da, db);
+  mma_k16<kN, kTA, kTB>(d, da, db, 1);
+}
+
+// acc += d, one rounded float32 add per value, once d's wgmmas completed.
+template <int kN>
+__device__ __forceinline__ void add_slice(float (&acc)[kN / 2],
+                                          float (&d)[kN / 2]) {
+  fence_acc(d);
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] += d[i];
+}
+
+// acc (this warpgroup's 64 x kN outputs, wgmma's register layout) = the
+// sum, in order, of the n_slices 32-deep slices held by the ring's stages
+// g0, g0 + 1, ... (counted over the block's life: stage g sits in slot
+// g % ring, its use g / ring). With kPair the two slices of a stage go into
+// two scratch accumulators in one batch of four wgmmas, then both are
+// added; otherwise each slice is issued, awaited and added alone. No
+// accumulator is read while a wgmma that writes it may be in flight.
+// Each consumer warp arrives once on a stage's empty barrier (its count is
+// the consumer warps): one arrival per thread serialised ~0.4 us a stage
+// on the barrier's word.
+template <int kN, int kTA, int kTB, bool kPair, class Desc>
+__device__ __forceinline__ void consume(float (&acc)[kN / 2],
+                                        const Desc& desc, uint64_t* full,
+                                        uint64_t* empty, int ring,
+                                        int n_slices, int g0 = 0) {
+  float d0[kN / 2], d1[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = d0[i] = d1[i] = 0.f;
+  for (int t = 0; t < n_slices; t += 2) {
+    const int g = g0 + t / 2, s = g % ring;
+    const bool two = t + 1 < n_slices;
+    bar_wait(&full[s], (g / ring) & 1);
+    if constexpr (kPair) {
+      // both slices of the stage, the second also where K ends inside the
+      // stage (its data are zeros there; it is not added): no wgmma sits on
+      // a divergent path (ptxas C7520)
+      fence_acc(d0);
+      fence_acc(d1);
+      wgmma_fence();
+      issue_slice<kN, kTA, kTB>(d0, desc, s, 0);
+      issue_slice<kN, kTA, kTB>(d1, desc, s, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      add_slice<kN>(acc, d0);
+      if (two) add_slice<kN>(acc, d1);
+    } else {
+      fence_acc(d0);
+      wgmma_fence();
+      issue_slice<kN, kTA, kTB>(d0, desc, s, 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      add_slice<kN>(acc, d0);
+      fence_acc(d0);
+      wgmma_fence();
+      issue_slice<kN, kTA, kTB>(d0, desc, s, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(d0);
+      if (two) add_slice<kN>(acc, d0);
+    }
+    __syncwarp();  // the warp's wgmmas have completed: one arrival a warp
+    if (threadIdx.x % 32 == 0) bar_arrive(&empty[s]);
+  }
+}
+
+// Writes a warpgroup's accumulators (rows row0.. of the block's tile) into
+// the float32 staging tile cs with row stride ld.
+template <int kN>
+__device__ __forceinline__ void stage_wg_acc(const float (&acc)[kN / 2],
+                                             float* cs, int ld, int row0) {
+  const int t = threadIdx.x % kWg;
+  const int r = row0 + 16 * (t / 32) + (t % 32) / 4, c = 2 * (t % 4);
+#pragma unroll
+  for (int j = 0; j < kN / 8; ++j) {
+    *reinterpret_cast<float2*>(cs + r * ld + 8 * j + c) =
+        make_float2(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<float2*>(cs + (r + 8) * ld + 8 * j + c) =
+        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// Each thread's kV epilogue columns, loaded once: scale (1 where null or
+// past N) and shift (0).
+template <int kV>
+struct Cols {
+  float scale[kV], shift[kV];
+  __device__ __forceinline__ Cols(const float* sc, const float* sh, int col,
+                                  int N) {
+#pragma unroll
+    for (int j = 0; j < kV; ++j) {
+      const bool in = col + j < N;
+      scale[j] = sc && in ? sc[col + j] : 1.f;
+      shift[j] = sh && in ? sh[col + j] : 0.f;
+    }
+  }
+};
+
+// out[off..off + kV) = epilogue(v) in bf16, one store of 2 kV bytes when
+// `vec` and all kV columns exist (nv == kV), else element by element.
+template <int kV>
+__device__ __forceinline__ void store_cols(bf16* out, size_t off,
+                                           const float (&v)[kV],
+                                           const Cols<kV>& cols, int nv,
+                                           bool vec, int act) {
+  float o[kV];
+#pragma unroll
+  for (int j = 0; j < kV; ++j)
+    o[j] = epilogue(v[j], cols.scale[j], cols.shift[j], act);
+  if (vec && nv == kV) {
+    uint32_t w[kV / 2];
+#pragma unroll
+    for (int j = 0; j < kV / 2; ++j) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(o[2 * j], o[2 * j + 1]);
+      w[j] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    if constexpr (kV == 8) {
+      *reinterpret_cast<uint4*>(out + off) = make_uint4(w[0], w[1], w[2],
+                                                        w[3]);
+    } else {
+      static_assert(kV == 4, "8- or 16-byte bf16 stores");
+      *reinterpret_cast<uint2*>(out + off) = make_uint2(w[0], w[1]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kV; ++j)
+      if (j < nv) out[off + j] = __float2bfloat16_rn(o[j]);
+  }
+}
+
+// The epilogue columns of thread tid in store_rows<kN>: n0 + (tid % (kN /
+// 8)) * 8 onwards. Loaded before the main loop, their latency hides
+// behind it.
+template <int kN>
+__device__ __forceinline__ Cols<8> store_cols_of(const float* scale,
+                                                 const float* shift, int n0,
+                                                 int N, int tid) {
+  return Cols<8>(scale, shift, n0 + (tid % (kN / 8)) * 8, N);
+}
+
+// The epilogue of rows [0, rows) x kN columns of the staging tile into out
+// (M, N) at (m0, n0), 16 bytes of bf16 per store where N and out allow,
+// by n_threads threads (thread index tid; n_threads a multiple of kN / 8,
+// so each thread keeps one column chunk, whose scale and shift `cols`
+// holds: store_cols_of).
+template <int kN>
+__device__ __forceinline__ void store_rows(const float* cs, int ld, int rows,
+                                           bf16* out, int M, int N, int m0,
+                                           int n0, const Cols<8>& cols,
+                                           int act, int tid, int n_threads) {
+  constexpr int kPerRow = kN / 8;
+  const int c = (tid % kPerRow) * 8;
+  if (n0 + c >= N) return;
+  const int nv = N - (n0 + c) < 8 ? N - (n0 + c) : 8;
+  const bool vec = N % 8 == 0 && aligned16(out);
+  for (int r = tid / kPerRow; r < rows; r += n_threads / kPerRow) {
+    if (m0 + r >= M) break;
+    const float4 lo = *reinterpret_cast<const float4*>(cs + r * ld + c);
+    const float4 hi = *reinterpret_cast<const float4*>(cs + r * ld + c + 4);
+    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    store_cols<8>(out, static_cast<size_t>(m0 + r) * N + n0 + c, v, cols, nv,
+                  vec, act);
+  }
+}
+
+// ---- host ------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const int*, const int*,
+                                  cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// A CUDA driver API function reached through the runtime (so the library
+// needs no -lcuda); null if the installed CUDA lacks it.
+inline void* driver_fn(const char* name) {
+  void* p = nullptr;
+  cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err =
+      cudaGetDriverEntryPointByVersion(name, &p, 12000, cudaEnableDefault, &q);
+#else
+  const cudaError_t err =
+      cudaGetDriverEntryPoint(name, &p, cudaEnableDefault, &q);
+#endif
+  return err == cudaSuccess && q == cudaDriverEntryPointSuccess ? p : nullptr;
+}
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn =
+      reinterpret_cast<EncodeTiled>(driver_fn("cuTensorMapEncodeTiled"));
+  return fn;
+}
+
+inline EncodeIm2col encode_im2col() {
+  static EncodeIm2col fn =
+      reinterpret_cast<EncodeIm2col>(driver_fn("cuTensorMapEncodeIm2col"));
+  return fn;
+}
+
+// The im2col tensor map of an NHWC bf16 input (batch, H, W, C) for a
+// KH x KW filter with `stride` and `pad`: each load brings 128 output
+// pixels' taps, `channels` channels each -- 64 (128 bytes, 128-byte
+// swizzle) or 32 (64 bytes, 64-byte swizzle) -- zeros outside the image.
+// C must be a multiple of 8 and the base 16-byte aligned.
+inline cudaError_t make_im2col_map(CUtensorMap* map, const void* x, int batch,
+                                   int H, int W, int C, int KH, int KW,
+                                   int stride, int pad, int channels) {
+  const EncodeIm2col encode = encode_im2col();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
+                                 static_cast<cuuint64_t>(W) * C * 2,
+                                 static_cast<cuuint64_t>(H) * W * C * 2};
+  // the filter's top-left tap walks [-pad, W + pad - (KW - 1)) in steps of
+  // `stride` (and likewise over H): the output pixels
+  const int lower[2] = {-pad, -pad};
+  const int upper[2] = {pad - (KW - 1), pad - (KH - 1)};
+  const cuuint32_t elem[4] = {1, static_cast<cuuint32_t>(stride),
+                              static_cast<cuuint32_t>(stride), 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+      strides, lower, upper, static_cast<cuuint32_t>(channels), 128, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      channels == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a row-major (rows, cols) bf16 buffer read in boxes of
+// 64 columns (128 bytes) x box_rows rows, 128-byte swizzle, zeros outside
+// the buffer. The base and the row stride must be 16-byte aligned.
+inline cudaError_t make_map(CUtensorMap* map, const void* p, int rows,
+                            int cols, int box_rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace hopper
+}  // namespace satae

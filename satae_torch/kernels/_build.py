@@ -35,11 +35,14 @@ BUILD_ROOT = _PKG / "_build"
 # its pointers (x, w, scale, shift, out, then K1's split-K workspace and
 # counters), its int arguments, then the stream, and returns
 # cudaGetLastError(). Each kernel has a float32 and a bf16 launcher (x, w
-# and out bf16; scale, shift and the workspace float32).
+# and out bf16; scale, shift and the workspace float32), and a bf16 one on
+# wgmma with TMA loads (``_bf16_tma``) for buffers TMA can read.
 LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": (7, 9),
-                            "satae_fused_gemm_bf16": (7, 9)},
+                            "satae_fused_gemm_bf16": (7, 9),
+                            "satae_fused_gemm_bf16_tma": (5, 8)},
              "conv_bn_act": {"satae_conv2d_bn_act": (5, 13),
-                             "satae_conv2d_bn_act_bf16": (5, 13)}}
+                             "satae_conv2d_bn_act_bf16": (5, 13),
+                             "satae_conv2d_bn_act_bf16_tma": (5, 13)}}
 # the operand dtypes the kernels take, and each one's launcher suffix
 OPERAND_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 SOURCES = tuple(LAUNCHERS)

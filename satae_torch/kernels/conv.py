@@ -19,6 +19,8 @@ computes through ``fused_matmul``.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 import torch.nn.functional as F
 
@@ -59,6 +61,44 @@ def conv2d_bn_act_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return apply_act(y, act).to(x.dtype).contiguous()
 
 
+# the input rows one tile of K2's staged-rows kernel may keep in shared
+# memory, bytes
+ROWS_SMEM = 64 * 1024
+
+
+def conv_route(x: torch.Tensor, w: torch.Tensor, stride: int,
+               padding: int) -> Tuple[str, int]:
+    """K2's kernel for NHWC x and HWIO w: (route, tile_n). For bf16 with x
+    and w 16-byte aligned, on wgmma: "rows" (tile_n 32), the staged-rows
+    kernel, for a conv0-like layer -- K = KH * KW * Cin <= 32, Cout <= 32
+    and a multiple of 8, 128 output pixels that are whole output rows of one
+    image, input rows of a multiple of 16 bytes; "im2col", the kernel whose
+    patches and weight come by TMA, for Cout a multiple of 8 and either
+    Cout <= 64 with Cin a multiple of 32 (tile_n 64, loads of 32 channels)
+    or Cin a multiple of 64 (tile_n 128, loads of 64), stride <= 8 and
+    filter and padding <= 64. Everything else, and float32 always: "mma",
+    gemm_tile.cuh's mma.sync loop, tile_n 32 or 64."""
+    n, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    oh, ow = _out_hw(h, wd, kh, kw, stride, padding)
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    if x.dtype == torch.bfloat16 and aligned and cout % 8 == 0:
+        rows = ((128 // ow - 1) * stride + kh) * wd * cin * 2 if \
+            0 < ow <= 128 else 0
+        if (kh * kw * cin <= 32 and cout <= 32 and 0 < ow <= 128
+                and 128 % ow == 0 and oh * ow % 128 == 0
+                and wd * cin % 8 == 0 and rows <= ROWS_SMEM):
+            return "rows", 32
+        # TMA's im2col mode walks windows in strides of at most 8, from
+        # corners within 8-bit offsets of the image
+        if stride <= 8 and max(kh, kw, padding) <= 64:
+            if cout <= 64 and cin % 32 == 0:
+                return "im2col", 64
+            if cin % 64 == 0:
+                return "im2col", 128
+    return "mma", tile_n_for(cout)
+
+
 def _conv_cuda(x, w, scale, shift, stride, padding, act):
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
@@ -71,12 +111,12 @@ def _conv_cuda(x, w, scale, shift, stride, padding, act):
     out = torch.empty((n, oh, ow, cout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
-    _build.launch(_build.load("conv_bn_act"), "satae_conv2d_bn_act" + suffix,
-                  x.device,
+    route, tile_n = conv_route(x, w, stride, padding)
+    _build.launch(_build.load("conv_bn_act"), "satae_conv2d_bn_act" + suffix
+                  + ("" if route == "mma" else "_tma"), x.device,
                   x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                   shift.data_ptr(), out.data_ptr(), n, h, wd, cin, kh, kw,
-                  cout, oh, ow, stride, padding, ACTS.index(act),
-                  tile_n_for(cout))
+                  cout, oh, ow, stride, padding, ACTS.index(act), tile_n)
     count_launch(conv2d_bn_act, x.dtype)
     return out
 

@@ -139,6 +139,57 @@ def split_k_plan(m: int, n: int, k: int) -> Tuple[int, int, int, int]:
     return TILE_M, tile_n, -(-k // k_per_split), k_per_split
 
 
+# K1's bf16 route on wgmma (satae_torch/csrc/fused_gemm.cu,
+# wgmma_tile.cuh): 64 x 64 tiles, TMA stages of 64 of K; the splits of a
+# tile are one thread-block cluster (at most 16 blocks), each split >=
+# TMA_MIN_SPLIT_K of K, about TMA_WAVE_BLOCKS blocks in all: `chip_smoke.py
+# --split-sweep` on an H100 measured the serving projection 512 x 4096 x 64
+# fastest at 8 splits (64 blocks) and the batch-64 one at 16.
+TMA_BK = 64
+TMA_MIN_SPLIT_K = 256
+TMA_WAVE_BLOCKS = 64
+MAX_CLUSTER = 16
+
+
+def tma_ok(t: torch.Tensor) -> bool:
+    """Whether TMA can read the contiguous 2-D buffer ``t``: a 16-byte
+    aligned base and rows of a multiple of 16 bytes, none of them empty."""
+    return (t.numel() > 0 and t.data_ptr() % 16 == 0
+            and t.shape[1] * t.element_size() % 16 == 0)
+
+
+def k1_loader(x: torch.Tensor, w: torch.Tensor) -> str:
+    """Which loader K1 runs on the buffers x and w (in the layouts they are
+    passed in): "tma" -- the bf16 wgmma kernel, TMA loads into an mbarrier
+    ring -- for a bf16 pair that TMA can read (:func:`tma_ok`), else
+    "cp.async", gemm_tile.cuh's mma.sync loop (float32 always; bf16 with an
+    odd K or N, an odd offset or a row of 20 bytes, such as the head's
+    N = 10 as the contiguous axis)."""
+    if x.dtype == torch.bfloat16 and tma_ok(x) and tma_ok(w):
+        return "tma"
+    return "cp.async"
+
+
+def split_k_plan_tma(m: int, n: int, k: int) -> Tuple[int, int, int, int]:
+    """The plan of K1's bf16 TMA route for an (m, k) @ (k, n) product:
+    (tile_m, tile_n, splits, k_per_split), 64 x 64 tiles. Split s covers K
+    range [s * k_per_split, min(k, (s + 1) * k_per_split)), k_per_split a
+    multiple of TMA_BK; the splits of a tile form one cluster, so splits <=
+    MAX_CLUSTER. With the output's tiles alone at TMA_WAVE_BLOCKS or more,
+    or k below 2 * TMA_MIN_SPLIT_K, there is one split; otherwise as many as
+    reach about TMA_WAVE_BLOCKS blocks while each keeps at least
+    TMA_MIN_SPLIT_K of K: fewer blocks than the mma.sync plan's, since a
+    cluster's in-order reduction grows with the splits."""
+    tiles = -(-m // TILE_M) * -(-n // TILE_M)
+    stages = max(-(-k // TMA_BK), 1)
+    splits = 1
+    if tiles < TMA_WAVE_BLOCKS and k >= 2 * TMA_MIN_SPLIT_K:
+        splits = min(MAX_CLUSTER, -(-TMA_WAVE_BLOCKS // tiles),
+                     k // TMA_MIN_SPLIT_K)
+    k_per_split = -(-stages // splits) * TMA_BK
+    return TILE_M, TILE_M, max(-(-k // k_per_split), 1), k_per_split
+
+
 def split_k_workspace(m: int, n: int, splits: int,
                       device) -> Optional[torch.Tensor]:
     """The float32 partials of a split-K launch (of float32 or bf16
@@ -170,11 +221,13 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     A = x, or x read in place as its transpose (``trans_a``: x is a (K, M)
     buffer), and B = w, or w read in place as its transpose (``trans_b``: w
     is an (N, K) buffer), in x's dtype: float32, or bf16 for a bf16 pair
-    (its own instantiation, ``satae_fused_gemm_bf16``). A scale or shift of
-    None is 1 or 0, and nothing is allocated for it. The plan is
-    :func:`split_k_plan`'s; a split-K launch takes a workspace of splits * M
-    * N floats. Raises on a refused launch. The callers on the training and
-    serving paths count the launches."""
+    (``satae_fused_gemm_bf16_tma`` on wgmma where :func:`k1_loader` says
+    "tma", with :func:`split_k_plan_tma`'s plan, else
+    ``satae_fused_gemm_bf16``). A scale or shift of None is 1 or 0, and
+    nothing is allocated for it. Off the TMA route the plan is
+    :func:`split_k_plan`'s, and a split-K launch takes a workspace of splits
+    * M * N floats. Raises on a refused launch. The callers on the training
+    and serving paths count the launches."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_gemm: K1 runs on CUDA tensors, x is on "
                          f"{x.device}")
@@ -191,6 +244,13 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"fused_gemm: scale/shift must be ({n},)")
     out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     if m == 0 or n == 0:
+        return out
+    if k1_loader(x, w) == "tma":
+        _, _, splits, k_per_split = split_k_plan_tma(m, n, k)
+        _build.launch(_build.load("fused_gemm"), "satae_fused_gemm_bf16_tma",
+                      x.device, x.data_ptr(), w.data_ptr(), _ptr(scale),
+                      _ptr(shift), out.data_ptr(), m, n, k, ACTS.index(act),
+                      int(trans_a), int(trans_b), splits, k_per_split)
         return out
     _, tile_n, splits, k_per_split = split_k_plan(m, n, k)
     ws = split_k_workspace(m, n, splits, x.device)

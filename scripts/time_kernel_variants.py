@@ -1,0 +1,207 @@
+#!/usr/bin/env python3
+"""Where the bf16 wgmma kernels' time goes, on one CUDA card.
+
+    python3 scripts/time_kernel_variants.py   # -> chiprun_out/kernel_variants.json
+
+Copies satae_torch/csrc into a temporary directory once per variant, removes
+one part of a kernel by a text substitution (the TMA loads of one operand,
+the wgmmas, the epilogue's stores, the split-K cluster's reduction, or the
+whole body), builds every variant with nvcc in parallel (the package's own
+flags) and times each at the main-path shapes with chip_smoke.device_us.
+A variant computes wrong numbers; its time, beside the unchanged kernel's,
+is the cost of the part it removed. Every variant keeps the kernels'
+mbarrier protocol (each full barrier still completes), so none can hang.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402
+
+# (variant, source file, old text, new text), applied in order
+K1_VARIANTS = {
+    "unchanged": [],
+    "no epilogue stores": [(
+        "fused_gemm.cu",
+        "    store_rows<64>(cs, kLd, 64, out, M, N, m0, n0, cols, act, "
+        "threadIdx.x,\n                   blockDim.x);\n    return;",
+        "    return;")],
+    "no cluster reduction": [
+        ("fused_gemm.cu",
+         "      if (s < S) q[s] = *cluster.map_shared_rank(mine, s);",
+         "      if (s < S) q[s] = *mine;"),
+        ("fused_gemm.cu",
+         "    store_cols<4>(out, static_cast<size_t>(m0 + row) * N + n0 + c, "
+         "v,\n                  quad_cols, nv, vec, act);", "")],
+    "no wgmma": [(
+        "wgmma_tile.cuh",
+        "      issue_slice<kN, kTA, kTB>(d0, desc, s, 0);\n"
+        "      issue_slice<kN, kTA, kTB>(d1, desc, s, 1);", "")],
+    "empty body": [(
+        "fused_gemm.cu", "  constexpr int kLd = 64 + kOutPad;\n",
+        "  constexpr int kLd = 64 + kOutPad;\n  if (M > 0) return;\n")],
+}
+K2_VARIANTS = {
+    "unchanged": [],
+    "no patch loads": [
+        ("conv_bn_act.cu",
+         "        bar_expect(&full[s], loads * 128 * kCh * 2 + kBN * 128);",
+         "        bar_expect(&full[s], kBN * 128);"),
+        ("conv_bn_act.cu",
+         "        for (int h = 0; h < loads; ++h) {",
+         "        for (int h = 0; h < 0; ++h) {")],
+    "no weight loads": [
+        ("conv_bn_act.cu",
+         "        bar_expect(&full[s], loads * 128 * kCh * 2 + kBN * 128);",
+         "        bar_expect(&full[s], loads * 128 * kCh * 2);"),
+        ("conv_bn_act.cu",
+         "        for (int b = 0; b < kBN / 64; ++b)\n"
+         "          tma_load(st + kA + b * kBox, &map_w, &full[s], n0 + 64 * "
+         "b, k0);", "")],
+    "no wgmma": [
+        ("wgmma_tile.cuh",
+         "      issue_slice<kN, kTA, kTB>(d0, desc, s, 0);\n"
+         "      issue_slice<kN, kTA, kTB>(d1, desc, s, 1);", ""),
+        ("wgmma_tile.cuh",
+         "      issue_slice<kN, kTA, kTB>(d0, desc, s, 0);\n"
+         "      wgmma_commit();", "      wgmma_commit();"),
+        ("wgmma_tile.cuh",
+         "      issue_slice<kN, kTA, kTB>(d0, desc, s, 1);\n", "")],
+    "no epilogue stores": [
+        ("conv_bn_act.cu",
+         "      store_rows<kBN>(cs, kLd, 128, out, M, Cout, m0, n0, cols, act,"
+         "\n                      threadIdx.x, 2 * kWg);", ""),
+        ("conv_bn_act.cu",
+         "  store_rows<32>(cs, kLd, 128, out, m0 + 128, Cout, m0, 0, cols, "
+         "act,\n                 threadIdx.x, kWg);", "")],
+}
+# (m, k, n, trans_b): one-tile products, the batch-64 and serving long-K
+# products (cluster split-K), the decoder input
+K1_SHAPES = ((64, 64, 128, True), (64, 4096, 64, True),
+             (512, 4096, 64, False), (512, 64, 4096, True))
+# (n, hw, cin, cout): conv0-3 of a 512-image chunk
+K2_SHAPES = ((512, 64, 3, 32), (512, 32, 32, 64), (512, 16, 64, 128),
+             (512, 8, 128, 256))
+
+
+def build(root: Path, name: str, source: str, patches) -> tuple:
+    from satae_torch.kernels import _build
+
+    d = root / name.replace(" ", "_")
+    shutil.copytree(_build.CSRC, d)
+    for f, old, new in patches:
+        text = (d / f).read_text()
+        if old not in text:
+            raise SystemExit(f"variant {name!r}: {f} has no {old[:60]!r}")
+        (d / f).write_text(text.replace(old, new))
+    so = d / f"lib{source}.so"
+    proc = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so),
+         str(d / f"{source}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    return proc, so
+
+
+def bind(so: Path, source: str) -> ctypes.CDLL:
+    from satae_torch.kernels import _build
+
+    lib = ctypes.CDLL(str(so))
+    for fn_name, (n_ptrs, n_ints) in _build.LAUNCHERS[source].items():
+        fn = getattr(lib, fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p])
+    lib.satae_error_string.restype = ctypes.c_char_p
+    lib.satae_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def main() -> int:
+    import torch
+
+    from satae_torch.kernels import _build
+    from satae_torch.kernels.conv import conv_route
+    from satae_torch.kernels.matmul import split_k_plan_tma
+
+    chip_smoke.check(torch.cuda.is_available(), "no CUDA device")
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+    root = Path(tempfile.mkdtemp(prefix="kernel_variants_"))
+    t0 = time.perf_counter()
+    jobs = {("fused_gemm", n): build(root, "k1_" + n, "fused_gemm", p)
+            for n, p in K1_VARIANTS.items()}
+    jobs.update({("conv_bn_act", n): build(root, "k2_" + n, "conv_bn_act", p)
+                 for n, p in K2_VARIANTS.items()})
+    libs = {}
+    for key, (proc, so) in jobs.items():
+        log, _ = proc.communicate()
+        chip_smoke.check(proc.returncode == 0, f"build of {key}:\n{log}")
+        libs[key] = bind(so, key[0])
+    print(f"{len(libs)} variants built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for m, k, n, tb in K1_SHAPES:
+        a = torch.randn(m, k, device=dev, generator=g).to(bf)
+        b = torch.randn(*((n, k) if tb else (k, n)), device=dev,
+                        generator=g).to(bf)
+        scale = torch.rand(n, device=dev, generator=g) + 0.5
+        shift = torch.rand(n, device=dev, generator=g) - 0.5
+        out = torch.empty(m, n, device=dev, dtype=bf)
+        _, _, splits, kps = split_k_plan_tma(m, n, k)
+        for name in K1_VARIANTS:
+            lib = libs[("fused_gemm", name)]
+            run = lambda: _build.launch(
+                lib, "satae_fused_gemm_bf16_tma", dev, a.data_ptr(),
+                b.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                out.data_ptr(), m, n, k, 0, 0, int(tb), splits, kps)
+            us = chip_smoke.device_us(run, 0.0, f"K1 {name}", 50)
+            rows.append(dict(kernel="fused_gemm_bf16", shape=[m, k, n],
+                             splits=splits, variant=name, device_us=us))
+            print(f"K1 {str((m, k, n)):18s} splits {splits:2d} {name:22s} "
+                  f"{us:7.2f} us", flush=True)
+    for nimg, hw, cin, cout in K2_SHAPES:
+        x = torch.rand(nimg, hw, hw, cin, device=dev, generator=g).to(bf)
+        w = torch.rand(3, 3, cin, cout, device=dev, generator=g).to(bf)
+        scale = torch.ones(cout, device=dev)
+        shift = torch.zeros(cout, device=dev)
+        oh = hw // 2
+        out = torch.empty(nimg, oh, oh, cout, device=dev, dtype=bf)
+        route, tile_n = conv_route(x, w, 2, 1)
+        for name in K2_VARIANTS:
+            lib = libs[("conv_bn_act", name)]
+            run = lambda: _build.launch(
+                lib, "satae_conv2d_bn_act_bf16_tma", dev, x.data_ptr(),
+                w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                out.data_ptr(), nimg, hw, hw, cin, 3, 3, cout, oh, oh, 2, 1,
+                1, tile_n)
+            us = chip_smoke.device_us(run, 0.0, f"K2 {name}", 20)
+            rows.append(dict(kernel="conv2d_bn_act_bf16",
+                             shape=[nimg, hw, hw, cin, cout], route=route,
+                             variant=name, device_us=us))
+            print(f"K2 {str((nimg, hw, cin, cout)):18s} {route:6s} "
+                  f"{name:22s} {us:7.2f} us", flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir = REPO / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "kernel_variants.json").write_text(json.dumps(
+        dict(card=card, rows=rows), indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,6 +24,7 @@ from hypothesis import given, settings, strategies as st
 
 import satae.kernels.matmul as KM
 from torch_port_threads import two_threads  # noqa: F401 (autouse)
+from satae_torch.kernels import conv as TC
 from satae_torch.kernels import matmul as TM
 from satae_torch.nn import layers as TL
 
@@ -225,10 +226,18 @@ def emulate_k1_bf16(x, w, scale, shift, act, *, per_slice=True, splits=None):
     slice (two steps), added to the running sum with a rounded float32 add,
     else one accumulator runs down the split; the float32 partials are summed
     in split order, the float32 epilogue applied, the result rounded once to
-    bf16 (to nearest even)."""
+    bf16 (to nearest even). The split plan is the one of the route
+    ``TM.k1_loader`` picks for x and w: the wgmma kernel's (clusters of
+    16 or 8 splits at K = 4096) for TMA-readable buffers, else the mma.sync
+    loop's. The wgmma kernel issues both slices of a 64-deep stage, also
+    where K ends after the first, and adds only those inside K: the same
+    sums."""
     m, k = x.shape
     n = w.shape[1]
-    _, _, s_plan, kps = TM.split_k_plan(m, n, k)
+    # the plan of the route the kernel takes for these buffers
+    plan = (TM.split_k_plan_tma if TM.k1_loader(x, w) == "tma"
+            else TM.split_k_plan)
+    _, _, s_plan, kps = plan(m, n, k)
     if splits is not None:
         s_plan, kps = splits, -(-k // splits)
     xd, wd = x.double(), w.double()  # bf16 products are exact in float64
@@ -286,6 +295,25 @@ def test_emulated_bf16_split_k_matches_satae(shape, act):
     assert ulps <= 1.0 and equal >= 0.99, (ulps, equal)
 
 
+@pytest.mark.parametrize("plan", ["mma.sync", "wgmma"])
+@pytest.mark.parametrize("shape", [(64, 4096, 64), (512, 4096, 64)],
+                         ids=["64x4096x64", "512x4096x64"])
+def test_emulated_bf16_both_split_plans_match_satae(shape, plan):
+    """The wgmma route's plan (16 splits of 256 / 8 of 512, one cluster)
+    and the mma.sync loop's (32 of 128 / 8 of 512) both keep the kernel's
+    sums within one bf16 ulp of satae's kernel, >= 99 % bit-equal: the
+    split count only reorders float32 partial sums."""
+    x, w, scale, shift, ref = _bf16_case(shape)
+    m, k, n = shape
+    splits = (TM.split_k_plan_tma if plan == "wgmma"
+              else TM.split_k_plan)(m, n, k)[2]
+    assert splits == ({64: 16, 512: 8} if plan == "wgmma"
+                      else {64: 32, 512: 8})[m]
+    ulps, equal = _bf16_ulps(emulate_k1_bf16(x, w, scale, shift, "relu",
+                                             splits=splits), ref("relu"))
+    assert ulps <= 1.0 and equal >= 0.99, (ulps, equal)
+
+
 def test_bf16_keeps_a_fresh_accumulator_per_slice():
     """Why the bf16 main loop keeps gemm_tile.cuh's fresh accumulator per
     slice: without it, one accumulator cut toward zero down all of K = 4096
@@ -340,3 +368,144 @@ def test_linear_passes_no_scale(monkeypatch):
     torch.testing.assert_close(TL.linear(x, w, b, "relu"),
                                TL.linear_plain(x, w, b, "relu"))
     assert seen == [None]
+
+
+# ---- the bf16 wgmma route: plan and loaders ----------------------------------
+
+# (M, K, N) of every bf16 K1 product on the main paths that runs on the
+# wgmma route, with split_k_plan_tma's plan: (tile_m, tile_n, splits,
+# k_per_split); the splits of a tile are one cluster
+_MAIN_PATH_TMA = {
+    (512, 4096, 64): (64, 64, 8, 512),  # serving projection
+    (64, 4096, 64): (64, 64, 16, 256),  # AE projection fwd, dec_in dX
+    (2048, 4096, 64): (64, 64, 2, 2048),  # extraction projection
+    (64, 64, 4096): (64, 64, 1, 64),  # dec_in fwd, projection dX / dW
+    (512, 64, 4096): (64, 64, 1, 64),  # decoder input at chunk 512
+    (4096, 64, 64): (64, 64, 1, 64),  # dec_in dW
+    (64, 64, 128): (64, 64, 1, 64),  # head fc1 fwd
+    (64, 128, 64): (64, 64, 1, 128),  # fc1 dX
+    (128, 64, 64): (64, 64, 1, 64),  # fc1 dW
+    (64, 128, 10): (64, 64, 1, 128),  # fc2 fwd
+}
+
+
+@pytest.mark.parametrize("shape", list(_MAIN_PATH_TMA),
+                         ids=[f"{m}x{k}x{n}" for m, k, n in _MAIN_PATH_TMA])
+def test_tma_plan_at_main_path_shapes(shape):
+    m, k, n = shape
+    assert TM.split_k_plan_tma(m, n, k) == _MAIN_PATH_TMA[shape]
+
+
+@settings(max_examples=300, deadline=None)
+@given(m=st.integers(1, 20000), n=st.integers(1, 5000),
+       k=st.integers(1, 10000))
+def test_tma_plan_covers_k_once_in_order(m, n, k):
+    """Split s covers [s * kps, min(k, (s + 1) * kps)): every range
+    non-empty, in order, K covered once; kps a multiple of the 64-deep TMA
+    stage, so no stage straddles two splits; at most 16 splits (one
+    cluster per tile); one split once the tiles fill a wave or K is
+    short."""
+    tile_m, tile_n, splits, kps = TM.split_k_plan_tma(m, n, k)
+    assert (tile_m, tile_n) == (64, 64)
+    assert 1 <= splits <= TM.MAX_CLUSTER and kps % TM.TMA_BK == 0
+    ranges = [(s * kps, min(k, (s + 1) * kps)) for s in range(splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    tiles = -(-m // 64) * -(-n // 64)
+    if tiles >= TM.TMA_WAVE_BLOCKS or k < 2 * TM.TMA_MIN_SPLIT_K:
+        assert splits == 1
+    if splits > 1:
+        assert kps >= TM.TMA_MIN_SPLIT_K
+        assert tiles * splits < 2 * TM.TMA_WAVE_BLOCKS
+
+
+def _buffer(shape, dtype=torch.bfloat16, offset=0):
+    """A contiguous CPU buffer of ``shape`` starting ``offset`` elements into
+    its storage (a 64-byte-aligned allocation)."""
+    store = torch.zeros(int(np.prod(shape)) + offset, dtype=dtype)
+    return store[offset:].view(shape)
+
+
+# the buffers of each bf16 K1 launch of a batch-64 AE step and the decoder
+# input, as fused_gemm gets them (x, w), and the loader each takes
+_AE_LAUNCHES = {
+    "proj fwd": ((64, 4096), (64, 4096), "tma"),
+    "proj dX": ((64, 64), (64, 4096), "tma"),
+    "proj dW": ((64, 64), (64, 4096), "tma"),
+    "dec_in fwd": ((64, 64), (4096, 64), "tma"),
+    "dec_in dX": ((64, 4096), (4096, 64), "tma"),
+    "dec_in dW": ((64, 4096), (64, 64), "tma"),
+    "fc1 fwd": ((64, 64), (128, 64), "tma"),
+    "fc1 dX": ((64, 128), (128, 64), "tma"),
+    "fc1 dW": ((64, 128), (64, 64), "tma"),
+    "fc2 fwd": ((64, 128), (10, 128), "tma"),
+    "fc2 dX": ((64, 10), (10, 128), "cp.async"),  # 20-byte rows
+    "fc2 dW": ((64, 10), (64, 128), "cp.async"),
+    "decode dec_in": ((512, 64), (4096, 64), "tma"),
+    "serve proj": ((512, 4096), (4096, 64), "tma"),
+}
+
+
+@pytest.mark.parametrize("launch", list(_AE_LAUNCHES))
+def test_k1_loader_at_main_path_launches(launch):
+    x_shape, w_shape, want = _AE_LAUNCHES[launch]
+    assert TM.k1_loader(_buffer(x_shape), _buffer(w_shape)) == want
+    # float32 always takes the mma.sync loop
+    assert TM.k1_loader(_buffer(x_shape, torch.float32),
+                        _buffer(w_shape, torch.float32)) == "cp.async"
+
+
+@pytest.mark.parametrize("case", [
+    ((64, 4096), (4096, 64), 1, "cp.async"),  # odd element offset
+    ((33, 40), (40, 24), 3, "cp.async"),
+    ((33, 40), (40, 24), 8, "tma"),  # 16 bytes in: aligned again
+    ((7, 33), (33, 10), 0, "cp.async"),  # odd K
+    ((33, 1001), (1001, 11), 0, "cp.async"),
+    ((100, 4100), (70, 4100), 0, "cp.async"),  # K = 4100: 8,200-byte rows
+    ((96, 4096), (4096, 70), 0, "cp.async"),  # N = 70: 140-byte rows
+    ((96, 4096), (70, 4096), 0, "tma"),
+    ((1, 64), (64, 8), 0, "tma"),
+    ((130, 4160), (4160, 72), 0, "tma"),
+], ids=lambda c: f"{c[0]}x{c[1]}+{c[2]}" if isinstance(c, tuple) else None)
+def test_k1_loader_by_alignment(case):
+    """The phase-13 cases: the wrapper takes TMA only for 16-byte-aligned
+    bases and rows, before the launch, from the buffers alone."""
+    x_shape, w_shape, offset, want = case
+    x = _buffer(x_shape, offset=offset)
+    w = _buffer(w_shape, offset=offset)
+    assert TM.k1_loader(x, w) == want
+
+
+@pytest.mark.parametrize("case", [
+    ((512, 64, 64, 3), 32, ("rows", 32)),  # conv0
+    ((512, 32, 32, 32), 64, ("im2col", 64)),  # conv1
+    ((512, 16, 16, 64), 128, ("im2col", 128)),  # conv2
+    ((512, 8, 8, 128), 256, ("im2col", 128)),  # conv3
+    ((3, 7, 7, 5), 9, ("mma", 32)),
+    ((2, 9, 9, 6), 40, ("mma", 64)),
+    ((3, 11, 11, 8), 72, ("mma", 64)),  # Cin 8: no 32-channel load
+    ((2, 10, 10, 3), 40, ("mma", 64)),  # Cout 40 > 32: not the rows kernel
+    ((5, 13, 13, 16), 24, ("mma", 32)),
+    ((4, 32, 32, 3), 16, ("rows", 32)),
+    ((2, 9, 9, 64), 72, ("im2col", 128)),
+    ((3, 12, 12, 128), 64, ("im2col", 64)),
+    ((2, 9, 9, 32), 72, ("mma", 64)),  # Cin 32, Cout > 64
+    ((3, 7, 7, 32), 40, ("im2col", 64)),
+    ((2, 10, 10, 3), 32, ("mma", 32)),  # 5 x 5 outputs: not whole rows
+], ids=lambda c: f"{c[0]}-{c[1]}" if isinstance(c, tuple) else None)
+def test_conv_route(case):
+    """K2's route for the phase-13 layers (stride 2, padding 1), bf16 and
+    float32."""
+    x_shape, cout, want = case
+    w_shape = (3, 3, x_shape[3], cout)
+    assert TC.conv_route(_buffer(x_shape), _buffer(w_shape), 2, 1) == want
+    f32 = TC.conv_route(_buffer(x_shape, torch.float32),
+                        _buffer(w_shape, torch.float32), 2, 1)
+    assert f32 == ("mma", TM.tile_n_for(cout))
+    # a misaligned input leaves the wgmma kernels, and so does a stride
+    # beyond TMA's im2col mode
+    assert TC.conv_route(_buffer(x_shape, offset=1), _buffer(w_shape), 2,
+                         1)[0] == "mma"
+    assert TC.conv_route(_buffer(x_shape), _buffer(w_shape), 9, 1)[0] in (
+        "rows", "mma")
