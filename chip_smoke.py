@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (satae_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the smoke run, phases 1-20
+    python3 chip_smoke.py                  # the smoke run, phases 1-24
     python3 chip_smoke.py --ab PARENT_DIR  # A/B of the kernels' times
     python3 chip_smoke.py --split-sweep    # K1's time for each split count
+    python3 chip_smoke.py --vmap           # the build and phases 21-24 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -175,6 +176,43 @@ turn it off for their convolutions themselves.
              draw figures or decode image files) and whether matplotlib,
              PIL, libjpeg's headers and the native loader are present.
 
+Phases 21-24 turn TF32 off again (their plain references are full float32).
+
+21. batched K1 -- the batched entries of K1 (satae_fused_gemm_batched and
+             _batched_bf16) at every launch of a stacked AE step (C = 45:
+             the projection, the decoder input and the head, forward, dX
+             and dW) and of a stacked MLP step (C = 11) against the plain
+             version per config on the card: float32 within 1e-4 +
+             1e-5*|ref|, bf16 within one ulp + 1e-6 and >= 99 % bit-equal;
+             three launches bitwise equal; every config's slice bit-equal
+             to the unbatched K1 launched on it wherever the unbatched call
+             takes the batched plan on the same mma.sync loop.
+             Device us per launch beside C unbatched launches of the same
+             work, torch.bmm (TF32 off) and the bound.
+22. stacked steps -- 10 stacked AE steps at full width, batch 64, C = 45
+             (the default grid's alphas, lr 1e-5) and 10 stacked MLP steps
+             (C = 11), draws fixed, against each config's single-config
+             steps on stock PyTorch linears, held as phase 9 holds its runs;
+             exactly 4 + 8 (AE) and 3 + 5 (MLP) batched K1 launches a step;
+             the stacked AE step's ms in turns with the 45 single-config
+             steps, its device-busy share and peak memory.
+23. vmap grid -- the pc256 gate of phase 12 with parallel_configs=True
+             into chiprun_out/vmap_grid_run, in float32 (satae's vmap
+             winners, test accuracy within the gate's band of satae's own
+             vmap grid, scripts/satae_pc256_gate_vmap_float32.json from
+             scripts/satae_gate_reference_vmap.py on a CPU) and in bf16
+             (finite, falling losses, float32 master state, accuracy above
+             chance, the gap printed), exact launches per dtype derived from
+             the stacked steps and eval batches; one epoch of the full
+             45-config AE sweep (wall, ms per stacked step, peak memory);
+             the CLI's fit --grid --parallel at 1 + 1 epochs with satae's
+             artifacts and exact launches.
+24. steps engine -- ae_grid_search(engine="steps") for 2 configs x 2
+             epochs and mlp_grid_search(engine="steps") for 2 lrs x 2 epochs
+             on the gate: exact K1 launches counting the remainder batch (28
+             steps an epoch) and 6 unpadded val batches, satae's store keys,
+             finite and falling losses.
+
 The second-to-last line holds the kernels' numbers as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -281,9 +319,10 @@ K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
         (3, 7, 5, 9), (2, 9, 6, 40), (3, 11, 8, 72))
 
 
-# the kernel instantiations of a build (ptxas report) and those of them on
-# wgmma (fused_gemm_tma_kernel x 4 layouts, conv_im2col_tma_kernel x 2 N
-# tiles, conv_rows_kernel)
+# the kernel instantiations of a build (ptxas report: K1 16 mma.sync, which
+# the batched entries launch too, + 4 wgmma; K2 4 mma.sync + 3 wgmma) and
+# those of them on wgmma (fused_gemm_tma_kernel x 4 layouts,
+# conv_im2col_tma_kernel x 2 N tiles, conv_rows_kernel)
 N_INSTANTIATIONS = 27
 N_WGMMA = 7
 
@@ -332,7 +371,8 @@ def check(ok: bool, what: str) -> None:
 def counts(**given) -> dict:
     """Launch counts as satae_torch.kernels.launch_counts() gives them, with
     every kernel and dtype not in ``given`` at 0."""
-    names = ("fused_gemm", "fused_gemm_bwd", "conv2d_bn_act")
+    names = ("fused_gemm", "fused_gemm_bwd", "conv2d_bn_act",
+             "fused_gemm_batched", "fused_gemm_batched_bwd")
     out = {n + s: 0 for s in ("", "_bf16") for n in names}
     check(set(given) <= set(out), f"unknown kernel names {set(given)}")
     out.update(given)
@@ -365,6 +405,54 @@ def fit_launches(n_split, bs: int, ep_ae: int, ep_mlp: int, mcfg,
     out["fused_gemm_bwd" + s] += ep_ae * steps * 2 * n_lin_ae
     out["conv2d_bn_act" + s] += chunks * len(mcfg.encoder_channels)
     return out
+
+
+def pre_bn_biases(model):
+    """(bias name, BatchNorm name) of the layers whose bias feeds a
+    train-mode BatchNorm: their exact gradient is zero."""
+    from satae_torch.models.mlp import MLP
+
+    names_ = {mod: nm for nm, mod in model.named_modules()}
+    pairs = (model.hidden() if isinstance(model, MLP) else
+             model.enc.blocks() + [(c, bn) for c, bn in model.dec.blocks()
+                                   if bn is not None])
+    return [(f"{names_[lay]}.bias", names_[bn]) for lay, bn in pairs]
+
+
+def final_state(model, lr, steps, sd_a, share_a, sd_b, share_b):
+    """{tensor: (measure, value, bound)} of run a's final state against
+    run b's. Parameters: relative L2 per tensor, and running variances
+    too; running means, net of the pre-BN biases' share, in units of the
+    running std (the shift they make in the eval-mode normalised
+    output). Tensors whose every value the steps' updates made -- the
+    biases that feed a BatchNorm (zero gradient: rounding noise in
+    Adam's sign) and the zero-initialised BatchNorm betas (norm
+    ~lr*steps, so one Adam sign flip, 2*lr, is a large share of it) --
+    elementwise against 2*lr*steps, the most Adam's steps move them."""
+    import torch
+
+    by_steps = {b_name for b_name, _ in pre_bn_biases(model)} | {
+        name for name, prm in model.named_parameters()
+        if not bool(prm.detach().any())}
+    out_ = {}
+    for name, ref in sd_b.items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        got = sd_a[name]
+        if name in by_steps:
+            out_[name] = ("by_steps", float((got - ref).abs().max()),
+                          2 * lr * steps)
+        elif name.endswith("running_mean"):
+            bn = name.removesuffix(".running_mean")
+            if bn in share_a:
+                got, ref = got - share_a[bn], ref - share_b[bn]
+            std = torch.sqrt(sd_b[bn + ".running_var"] + 1e-5)
+            out_[name] = ("std", float(((got - ref) / std).abs().max()),
+                          1e-3)
+        else:
+            out_[name] = ("rel_l2", float((got - ref).norm())
+                          / float(ref.norm()), 1e-3)
+    return out_
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1323,15 +1411,6 @@ def main() -> int:
           "backward: 2 launches", flush=True)
 
     # -- 9. train-step parity -----------------------------------------------
-    def pre_bn_biases(model):
-        """(bias name, BatchNorm name) of the layers whose bias feeds a
-        train-mode BatchNorm: their exact gradient is zero."""
-        names_ = {mod: nm for nm, mod in model.named_modules()}
-        pairs = (model.hidden() if isinstance(model, MLP) else
-                 model.enc.blocks() + [(c, bn) for c, bn in model.dec.blocks()
-                                       if bn is not None])
-        return [(f"{names_[lay]}.bias", names_[bn]) for lay, bn in pairs]
-
     def run_steps(model, step, batches, lr, linear):
         """``step`` over ``batches`` from a copy of ``model``: (final state,
         per-step losses, first-step gradients, each BatchNorm's share of the
@@ -1354,39 +1433,6 @@ def main() -> int:
 
     def loss_gaps(losses, ref):
         return [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
-
-    def final_state(model, lr, steps, sd_a, share_a, sd_b, share_b):
-        """{tensor: (measure, value, bound)} of run a's final state against
-        run b's. Parameters: relative L2 per tensor, and running variances
-        too; running means, net of the pre-BN biases' share, in units of the
-        running std (the shift they make in the eval-mode normalised
-        output). Tensors whose every value the steps' updates made -- the
-        biases that feed a BatchNorm (zero gradient: rounding noise in
-        Adam's sign) and the zero-initialised BatchNorm betas (norm
-        ~lr*steps, so one Adam sign flip, 2*lr, is a large share of it) --
-        elementwise against 2*lr*steps, the most Adam's steps move them."""
-        by_steps = {b_name for b_name, _ in pre_bn_biases(model)} | {
-            name for name, prm in model.named_parameters()
-            if not bool(prm.detach().any())}
-        out_ = {}
-        for name, ref in sd_b.items():
-            if name.endswith("num_batches_tracked"):
-                continue
-            got = sd_a[name]
-            if name in by_steps:
-                out_[name] = ("by_steps", float((got - ref).abs().max()),
-                              2 * lr * steps)
-            elif name.endswith("running_mean"):
-                bn = name.removesuffix(".running_mean")
-                if bn in share_a:
-                    got, ref = got - share_a[bn], ref - share_b[bn]
-                std = torch.sqrt(sd_b[bn + ".running_var"] + 1e-5)
-                out_[name] = ("std", float(((got - ref) / std).abs().max()),
-                              1e-3)
-            else:
-                out_[name] = ("rel_l2", float((got - ref).norm())
-                              / float(ref.norm()), 1e-3)
-        return out_
 
     def parity(what, model, step, batches, lr, hold=True):
         """The steps on the kernels, with linear_plain, and with linear_plain
@@ -1662,6 +1708,25 @@ def main() -> int:
           f"{prof_check['late']}; device_us took readings again "
           f"{DEVICE_US_RETRIES}", flush=True)
 
+    # -- 21-24. the config-batched (vmap) and per-batch sweep engines -------
+    # TF32 off again: the plain references are full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_new = time.perf_counter()
+    k21 = batched_kernels_phase(card)
+    phase_s[21] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    stacked = stacked_steps_phase(card, splits)
+    phase_s[22] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    vgrid = vmap_grid_phase(card)
+    phase_s[23] = time.perf_counter() - t_new
+    t_new = time.perf_counter()
+    steps_eng = steps_engine_phase(card)
+    phase_s[24] = time.perf_counter() - t_new
+    print("seconds of phases 21-24: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in phase_s.items() if k > 20), flush=True)
+
     # -- report -------------------------------------------------------------
     def entry(name, source, replaces, err, rs, per, paths):
         ops_ms = sum(r["bound_ms"] for r in rs
@@ -1727,6 +1792,25 @@ def main() -> int:
               k13["k2_err"], [r for r in rows16
                               if r["kernel"] == "conv2d_bn_act_bf16"],
               chunk, bf16_paths)]}
+    # the batched K1: per stacked AE step at C = 45 (4 forward, 8 backward
+    # launches), launches from the stacked steps, the vmap grids, the
+    # 45-config epoch and the CLI
+    vmap_paths = {"stacked_steps": [stacked["ae"]["launches"],
+                                    stacked["mlp"]["launches"]],
+                  "vmap_grid": [vgrid["float32"]["launches"],
+                                vgrid["bfloat16"]["launches"]],
+                  "full_epoch": [vgrid["full_epoch"]["launches"]],
+                  "cli": [vgrid["cli"]["launches"]]}
+    vstep = f"one stacked AE step at C = {VMAP_C['ae']}"
+    kb = "satae_torch/csrc/fused_gemm.cu"
+    for name, replaces in (
+            ("fused_gemm_batched", "satae/kernels/matmul.py:36"),
+            ("fused_gemm_batched_bwd", "satae/kernels/matmul.py:100")):
+        for sfx, dt in (("", "float32"), ("_bf16", "bf16")):
+            report["kernels"].append(entry(
+                name + sfx, kb, replaces, k21["max_abs_err"][dt],
+                [r for r in k21["rows"] if r["kernel"] == name + sfx
+                 and r["path"] == "ae"], vstep, vmap_paths))
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(dict(
@@ -1755,8 +1839,9 @@ def main() -> int:
         decode=decode, profiler_check=prof_check,
         device_us_retries=DEVICE_US_RETRIES,
         calibrate=calib, inflight=inflight, cli=cli_res,
-        phase_seconds_17_20=phase_s,
-        **report), indent=1))
+        phase_seconds_17_24=phase_s, batched_kernels=k21,
+        stacked_steps=stacked, vmap_grid=vgrid, steps_engine=steps_eng,
+        **report), indent=1, default=str))
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1963,27 +2048,13 @@ def grid_phase(card: str, bf16: bool = False) -> dict:
 
     from satae_torch import kernels
     from satae_torch.api import SatAEPipeline
-    from satae_torch.config import (AETrainConfig, DataConfig, MLPTrainConfig,
-                                    PipelineConfig, RuntimeConfig)
     from satae_torch.data.ingest import load_dataset
     from satae_torch.data.pipeline import make_splits
     from satae_torch.train.extract import extract_chunk
 
-    gate = json.loads((REPO / "benchmarks" / "torch_parity_pc256" /
-                       "torch_pipeline_parity.json").read_text())
-    alphas = tuple(gate["ae_grid"]["alphas"])
-    ae_lrs = tuple(gate["ae_grid"]["lrs"])
-    mlp_lrs = tuple(gate["mlp_lrs"])
-    cfg = PipelineConfig(
-        data=DataConfig(per_class=gate["per_class"],
-                        synthetic_difficulty="hard"),
-        ae=AETrainConfig(alphas=alphas, learning_rates=ae_lrs,
-                         max_epochs=gate["ae_epochs"],
-                         patience=gate["ae_epochs"]),
-        mlp=MLPTrainConfig(learning_rates=mlp_lrs,
-                           epochs=gate["mlp_epochs"]),
-        runtime=RuntimeConfig(seed=gate["seed"], compute_dtype=(
-            "bfloat16" if bf16 else "float32")))
+    cfg, gate = gate_config("bfloat16" if bf16 else "float32")
+    alphas, ae_lrs = cfg.ae.alphas, cfg.ae.learning_rates
+    mlp_lrs = cfg.mlp.learning_rates
     what, sfx = ("bf16 grid", "_bf16") if bf16 else ("grid", "")
     mcfg, bs = cfg.model, cfg.data.batch_size
     raw = load_dataset(cfg.data)
@@ -2548,6 +2619,735 @@ def cli_phase(card: str) -> dict:
     return dict(subcommands=res, fit_summary=summary, machine=has)
 
 
+# ---- phases 21-24: the config-batched (vmap) and per-batch sweep engines --
+
+# configs of the vmap path: the default AE grid (5 alphas x 9 lrs) and MLP
+# lrs (11)
+VMAP_C = {"ae": 45, "mlp": 11}
+# (path, layer, batch, in, out, act) of each linear layer of a stacked step
+VMAP_LINEARS = (("ae", "proj", BATCH, 4096, 64, "none"),
+                ("ae", "dec_in", BATCH, 64, 4096, "none"),
+                ("ae", "fc1", BATCH, 64, 128, "relu"),
+                ("ae", "fc2", BATCH, 128, 10, "none"),
+                ("mlp", "fc0", BATCH, 64, 128, "none"),
+                ("mlp", "fc1", BATCH, 128, 64, "none"),
+                ("mlp", "fc2", BATCH, 64, 10, "none"))
+# satae's own vmap grid of the pc256 gate on a CPU, phase 23's reference
+# (scripts/satae_gate_reference_vmap.py writes it)
+SATAE_GATE_VMAP = REPO / "scripts" / "satae_pc256_gate_vmap_float32.json"
+
+
+def batched_products():
+    """(path, layer, product, (m, k, n), trans_a, trans_b, act) of every
+    batched K1 launch of a stacked step: forward x @ W^T with the (out, in)
+    weight read in place, dX = g @ W, dW = g^T @ x."""
+    for path, layer, b, i, o, act in VMAP_LINEARS:
+        yield path, layer, "fwd", (b, i, o), False, True, act
+        yield path, layer, "dX", (b, o, i), False, False, "none"
+        yield path, layer, "dW", (o, b, i), True, False, "none"
+
+
+def gate_config(dtype: str = "float32", parallel: bool = False):
+    """The pc256 cross-framework gate's PipelineConfig
+    (benchmarks/torch_parity_pc256) and the gate record."""
+    from satae_torch.config import (AETrainConfig, DataConfig, MLPTrainConfig,
+                                    PipelineConfig, RuntimeConfig)
+
+    gate = json.loads((REPO / "benchmarks" / "torch_parity_pc256" /
+                       "torch_pipeline_parity.json").read_text())
+    cfg = PipelineConfig(
+        data=DataConfig(per_class=gate["per_class"],
+                        synthetic_difficulty="hard"),
+        ae=AETrainConfig(alphas=tuple(gate["ae_grid"]["alphas"]),
+                         learning_rates=tuple(gate["ae_grid"]["lrs"]),
+                         max_epochs=gate["ae_epochs"],
+                         patience=gate["ae_epochs"]),
+        mlp=MLPTrainConfig(learning_rates=tuple(gate["mlp_lrs"]),
+                           epochs=gate["mlp_epochs"]),
+        runtime=RuntimeConfig(seed=gate["seed"], compute_dtype=dtype,
+                              parallel_configs=parallel))
+    return cfg, gate
+
+
+def batched_kernels_phase(card: str) -> dict:
+    """Phase 21: the batched K1 (float32 and bf16) at every launch of the
+    stacked AE (C = 45) and MLP (C = 11) steps against its plain version on
+    the card (TF32 off), each config's slice against the unbatched K1 on it
+    with the same plan bit for bit, repeats bitwise; each timed beside C
+    unbatched launches, torch.bmm and its bound."""
+    import torch
+
+    from satae_torch.kernels.matmul import (fused_gemm, fused_gemm_batched,
+                                            fused_matmul_plain, k1_loader,
+                                            split_k_plan)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    rows, errs = [], {"float32": 0.0, "bf16": 0.0}
+    min_equal, same_plan = 1.0, 0
+    print(f"phase 21, batched K1 (card {card}): device us per launch, C "
+          "unbatched launches of the same work, torch.bmm, bound",
+          flush=True)
+    for dt in (torch.float32, torch.bfloat16):
+        name16 = "bf16" if dt == torch.bfloat16 else "float32"
+        for path, layer, prod, (m, k, n), ta, tb, act in batched_products():
+            c = VMAP_C[path]
+            a = torch.randn(c, *((k, m) if ta else (m, k)), device=dev,
+                            generator=g).to(dt)
+            b = ((torch.rand(c, *((n, k) if tb else (k, n)), device=dev,
+                             generator=g) * 2 - 1) / k ** 0.5).to(dt)
+            shift = torch.randn(c, n, device=dev, generator=g) * 0.3 \
+                if prod == "fwd" else None
+            what = f"batched K1 {name16} {path} {layer} {prod} C={c} " \
+                f"{(m, k, n)}"
+            run = lambda: fused_gemm_batched(a, b, None, shift, act, ta, tb)
+            out = run()
+            zeros = torch.zeros(n, device=dev)
+
+            def plain():
+                return torch.stack([fused_matmul_plain(
+                    a[i].t() if ta else a[i], b[i].t() if tb else b[i], None,
+                    zeros if shift is None else shift[i], act)
+                    for i in range(c)])
+            ref = plain()
+            if dt == torch.float32:
+                err, equal = max_err(out, ref, what), None
+            else:
+                err, equal = ulp_err(out, ref, what)
+                min_equal = min(min_equal, equal)
+            errs[name16] = max(errs[name16], err)
+            check(all(torch.equal(out, run()) for _ in range(2)),
+                  f"{what}: repeated launches differ bitwise")
+            plan = split_k_plan(m, n, k, batch=c)
+            # the unbatched call runs the same kernel with C = 1 where it
+            # takes the same plan off the TMA route: bitwise the same slice
+            natural = (split_k_plan(m, n, k) == plan
+                       and k1_loader(a[0], b[0]) != "tma")
+            same_plan += natural
+            for i in range(c if natural else 0):
+                one = fused_gemm(a[i], b[i], None,
+                                 None if shift is None else shift[i], act,
+                                 ta, tb)
+                check(torch.equal(one, out[i]), f"{what}: config {i} differs "
+                      f"from the unbatched K1 with plan {plan}")
+            esize = a.element_size()
+            nbytes = esize * c * (m * k + k * n + m * n) + (
+                0 if shift is None else 4 * c * n)
+            bd = bounds(2.0 * c * m * n * k, nbytes,
+                        bf16=dt == torch.bfloat16)
+            bound_us = bd["bound_ms"] * 1e3
+            A = a.transpose(1, 2) if ta else a
+            B = b.transpose(1, 2) if tb else b
+            unbatched = lambda: [fused_gemm(
+                a[i], b[i], None, None if shift is None else shift[i], act,
+                ta, tb) for i in range(c)]
+            lib = lambda: torch.bmm(A, B)
+            row = dict(
+                kernel="fused_gemm_batched" + ("" if prod == "fwd"
+                                               else "_bwd")
+                + ("_bf16" if dt == torch.bfloat16 else ""),
+                path=path, layer=layer, product=prod, shape=[c, m, k, n],
+                trans_a=ta, trans_b=tb, plan=list(plan),
+                same_plan_as_unbatched=natural, max_abs_err=err,
+                bit_equal=equal,
+                device_us=device_us(run, bound_us, what),
+                unbatched_device_us=device_us(unbatched, bound_us,
+                                              what + " x C unbatched"),
+                library_device_us=device_us(lib, bound_us / 2,
+                                            what + " torch.bmm"),
+                ms=time_ms(run), plain_ms=time_ms(plain, 5, 1),
+                library_ms=time_ms(lib), **bd)
+            rows.append(row)
+            print(f"  {name16:7s} {path:3s} {layer:6s} {prod:3s} C={c:2d} "
+                  f"{m:4d}x{k:4d}x{n:4d} plan {plan[1:]}: "
+                  f"{row['device_us']:8.1f} us | {c} unbatched "
+                  f"{row['unbatched_device_us']:8.1f} us | bmm "
+                  f"{row['library_device_us']:8.1f} us | bound "
+                  f"{bound_us:6.1f} us ({bd['bound_by']}); max |err| "
+                  f"{err:.3g}" + ("" if equal is None else
+                                  f", bit-equal {equal:.5f}"), flush=True)
+    print(f"phase 21: {len(rows)} cases, float32 max |err| "
+          f"{errs['float32']:.3g} (1e-4 + 1e-5*|ref|), bf16 max |err| "
+          f"{errs['bf16']:.3g} (one ulp + 1e-6), bf16 bit-equal >= "
+          f"{min_equal:.5f}; every config's slice bit-equal to the unbatched "
+          f"K1 in the {same_plan} cases where it takes the batched plan on "
+          "the mma.sync loop; 3 launches per case bitwise equal",
+          flush=True)
+    return dict(rows=rows, max_abs_err=errs, min_bit_equal=min_equal,
+                same_plan_cases=same_plan, card=card)
+
+
+def stacked_steps_phase(card: str, splits) -> dict:
+    """Phase 22: 10 stacked AE steps (C = 45, the default grid's alphas, lr
+    1e-5) and 10 stacked MLP steps (C = 11) at full width, batch 64, TF32
+    off, deterministic cuDNN, against each config's single-config steps on
+    stock PyTorch linears from the same weights and draws, as phase 9 holds
+    its runs; exact batched K1 launches per stacked step; the stacked AE
+    step's time in turns with 45 single-config steps, its device-busy
+    share and peak memory."""
+    import torch
+
+    from satae_torch import kernels
+    from satae_torch.config import AETrainConfig, DataConfig, ModelConfig
+    from satae_torch.models.mlp import MLP
+    from satae_torch.models.stacked import StackedMLP, StackedSupervisedAE
+    from satae_torch.models.supervised_ae import SupervisedAE
+    from satae_torch.nn import layers as L
+    from satae_torch.train.optim import adam_init
+    from satae_torch.train.steps import (ae_train_step, mlp_train_step,
+                                         stacked_ae_train_step,
+                                         stacked_mlp_train_step)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(22)
+    mcfg, dcfg, grid = ModelConfig(), DataConfig(), AETrainConfig()
+    lr, steps = 1e-5, PARITY_STEPS
+    alphas = [a for a in grid.alphas for _ in grid.learning_rates]
+    c_ae, c_mlp = len(alphas), VMAP_C["mlp"]
+    imgs_tr = torch.from_numpy(splits.train.images).to(dev)
+    labs_tr = torch.from_numpy(splits.train.labels).to(dev).long()
+    out = {}
+
+    def run(stacked, singles, make_batch, stacked_step, single_step, what,
+            want):
+        """The stacked run and each config's single-config run (plain
+        linears) from the same weights; per-config loss gaps and final
+        state against phase 9's bounds."""
+        c = stacked.n_configs
+        init = [stacked.config(i) for i in range(c)]
+        pairs = pre_bn_biases(singles[0])
+        opt = adam_init(list(stacked.parameters()))
+        share = {bn: 0.0 for _, bn in pairs}
+        batches = [make_batch() for _ in range(steps)]
+        loss_s = []
+        kernels.reset_launch_counts()
+        for batch in batches:
+            sd = stacked.state_dict()
+            for b_name, bn in pairs:
+                share[bn] = 0.9 * share[bn] + 0.1 * sd[b_name]
+            metrics, _ = stacked_step(stacked, opt, batch)
+            loss_s.append(metrics["loss"].tolist())
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        check(launches == want, f"{what}: launches {launches}, expected "
+              f"{want}")
+        worst_gap, worst = 0.0, {}
+        for i in range(c):
+            model = singles[i]
+            model.load_state_dict(init[i])
+            ref_model = copy.deepcopy(model)
+            sopt = adam_init(list(model.parameters()))
+            share_i = {bn: 0.0 for _, bn in pairs}
+            loss_i = []
+            for batch in batches:
+                sd = model.state_dict()
+                for b_name, bn in pairs:
+                    share_i[bn] = 0.9 * share_i[bn] + 0.1 * sd[b_name]
+                metrics, _ = single_step(model, sopt, batch, i)
+                loss_i.append(float(metrics["loss"]))
+            gaps = [abs(s_[i] - l_) / abs(l_) for s_, l_ in zip(loss_s,
+                                                                loss_i)]
+            worst_gap = max(worst_gap, max(gaps))
+            sd_s = {k: v[i] for k, v in stacked.state_dict().items()}
+            share_s = {bn: v[i] for bn, v in share.items()}
+            state = final_state(ref_model, lr, steps, sd_s, share_s,
+                                model.state_dict(), share_i)
+            bad = {k: v for k, v in state.items() if v[1] > v[2]}
+            check(not bad, f"{what} config {i}: final state outside its "
+                  f"bound: {bad}")
+            for k, v in state.items():
+                if v[1] / v[2] > worst.get(k, (0, 0, 1))[1] / worst.get(
+                        k, (0, 0, 1))[2]:
+                    worst[k] = v
+        check(worst_gap <= 1e-3, f"{what}: per-step losses differ by "
+              f"{worst_gap} relative")
+        top = sorted(worst, key=lambda k: -worst[k][1] / worst[k][2])[:4]
+        print(f"{what}: {c} configs x {steps} steps at lr {lr:g} against "
+              f"their single-config steps on stock linears: worst per-step "
+              f"loss gap {worst_gap:.2e} (bound 1e-3); final state, largest "
+              "against bound: " + "; ".join(
+                  f"{k} {worst[k][0]} {worst[k][1]:.3g} (bound "
+                  f"{worst[k][2]:g})" for k in top) + f"; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        return dict(configs=c, steps=steps, lr=lr, worst_loss_gap=worst_gap,
+                    worst_state={k: worst[k] for k in top},
+                    launches=launches, losses_stacked=loss_s)
+
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                     allow_tf32=False):
+        # -- AE, C = 45
+        ae = StackedSupervisedAE(mcfg, c_ae).init_configs(0).to(dev)
+        singles = [SupervisedAE(mcfg).to(dev) for _ in range(c_ae)]
+        alphas_d = torch.tensor(alphas, device=dev)
+        lrs_d = torch.full((c_ae,), lr, device=dev)
+        cursor = [0]
+
+        def ae_batch():
+            lo = cursor[0] * BATCH
+            cursor[0] += 1
+            idx = slice(lo, lo + BATCH)
+            return dict(
+                imgs_u8=imgs_tr[idx], labels=labs_tr[idx],
+                flip=torch.rand((c_ae, BATCH, 1), device=dev,
+                                generator=g) < 0.5,
+                offsets=torch.randint(0, 2 * dcfg.crop_padding + 1,
+                                      (c_ae, BATCH, 2), device=dev,
+                                      generator=g),
+                noise=torch.randn((c_ae, BATCH, dcfg.image_size,
+                                   dcfg.image_size, dcfg.channels),
+                                  device=dev, generator=g))
+        out["ae"] = run(
+            ae, singles, ae_batch,
+            lambda m_, o_, b_: stacked_ae_train_step(
+                m_, o_, b_["imgs_u8"], b_["labels"], alphas_d, lrs_d, dcfg,
+                flip=b_["flip"], offsets=b_["offsets"], noise=b_["noise"]),
+            lambda m_, o_, b_, i: ae_train_step(
+                m_, o_, b_["imgs_u8"], b_["labels"], alphas[i], lr, dcfg,
+                flip=b_["flip"][i], offsets=b_["offsets"][i],
+                noise=b_["noise"][i], linear=L.linear_plain),
+            f"stacked AE steps (C={c_ae})",
+            counts(fused_gemm_batched=steps * 4,
+                   fused_gemm_batched_bwd=steps * 8))
+        # -- MLP, C = 11
+        mlp = StackedMLP(mcfg, c_mlp).init_configs(1).to(dev)
+        msingles = [MLP(mcfg).to(dev) for _ in range(c_mlp)]
+        mlrs = torch.full((c_mlp,), lr, device=dev)
+        wd = 1e-4
+
+        def mlp_batch():
+            return dict(
+                x=torch.randn(BATCH, mcfg.latent_dim, device=dev,
+                              generator=g),
+                labels=torch.randint(0, mcfg.num_classes, (BATCH,),
+                                     device=dev, generator=g),
+                mask=torch.rand(c_mlp, BATCH, mcfg.mlp_hidden[0], device=dev,
+                                generator=g) >= mcfg.mlp_dropout)
+        out["mlp"] = run(
+            mlp, msingles, mlp_batch,
+            lambda m_, o_, b_: stacked_mlp_train_step(
+                m_, o_, b_["x"], b_["labels"], mlrs, wd,
+                dropout_mask=b_["mask"]),
+            lambda m_, o_, b_, i: mlp_train_step(
+                m_, o_, b_["x"], b_["labels"], lr, wd,
+                dropout_mask=b_["mask"][i], linear=L.linear_plain),
+            f"stacked MLP steps (C={c_mlp})",
+            counts(fused_gemm_batched=steps * 3,
+                   fused_gemm_batched_bwd=steps * 5))
+
+        # -- the stacked AE step's time, in turns with 45 single-config
+        # steps on the kernels (fit's deterministic cuDNN)
+        batch = ae_batch()
+        opt = adam_init(list(ae.parameters()))
+        stacked = lambda: stacked_ae_train_step(
+            ae, opt, batch["imgs_u8"], batch["labels"], alphas_d, lrs_d,
+            dcfg, flip=batch["flip"], offsets=batch["offsets"],
+            noise=batch["noise"])
+        sopts = [adam_init(list(m.parameters())) for m in singles]
+        each = lambda: [ae_train_step(
+            singles[i], sopts[i], batch["imgs_u8"], batch["labels"],
+            alphas[i], lr, dcfg, flip=batch["flip"][i],
+            offsets=batch["offsets"][i], noise=batch["noise"][i])
+            for i in range(c_ae)]
+        n_time = 5
+        turns = {"stacked": [], "single": []}
+        for name in ("stacked", "single", "single", "stacked"):
+            fn = stacked if name == "stacked" else each
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_time):
+                fn()
+            torch.cuda.synchronize()
+            turns[name].append((time.perf_counter() - t0) / n_time * 1e3)
+        stacked_ms, single_ms = (sum(turns[k]) / 2 for k in ("stacked",
+                                                             "single"))
+        torch.cuda.reset_peak_memory_stats()
+        stacked()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        wall, busy, events = profile_device(
+            lambda: [stacked() for _ in range(3)])
+    out.update(stacked_ae_step_ms=stacked_ms, singles_45_ms=single_ms,
+               turns_ms=turns, peak_bytes=peak, profile_wall_ms=wall,
+               profile_device_ms=busy, profile_top=top_ops(events, 10),
+               card=card)
+    print(f"stacked AE step, C={c_ae}, batch {BATCH}, full width, "
+          f"deterministic cuDNN, TF32 off: {stacked_ms:.2f} ms "
+          f"({c_ae * BATCH / stacked_ms * 1e3:.0f} config-images/s) against "
+          f"{single_ms:.2f} ms for the 45 single-config steps on the kernels"
+          f" (in turns: {[round(x, 2) for x in turns['stacked']]} / "
+          f"{[round(x, 2) for x in turns['single']]}); 3 stacked steps "
+          f"profiled: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+          f"({100 * busy / wall:.1f}%); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; card {card}", flush=True)
+    for t, count, key in top_ops(events, 6):
+        print(f"  {t:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+    return out
+
+
+def vmap_grid_phase(card: str) -> dict:
+    """Phase 23: the pc256 gate's grid with parallel_configs=True (satae's
+    vmap engine) in float32 and bf16, each into a run directory of its
+    own, with exact launch counts and the outcome against satae's own vmap
+    grid of the gate; one epoch of the full 45-config AE sweep at the
+    gate's data; the CLI's fit --grid --parallel."""
+    import numpy as np
+    import torch
+
+    from satae_torch import cli, kernels
+    from satae_torch.api import SatAEPipeline
+    from satae_torch.config import AETrainConfig, MLPTrainConfig
+    from satae_torch.data.ingest import load_dataset
+    from satae_torch.data.pipeline import make_splits
+    from satae_torch.train.extract import extract_chunk
+    from satae_torch.train.vmap_sweep import ae_vmap_grid_search
+
+    ref = json.loads(SATAE_GATE_VMAP.read_text())["satae"]
+    out = {}
+    cfg, gate = gate_config(parallel=True)
+    raw = load_dataset(cfg.data)
+    splits = make_splits(raw, cfg.data)
+    mcfg, bs = cfg.model, cfg.data.batch_size
+    n_tr, n_va, n_te = len(splits.train), len(splits.val), len(splits.test)
+    steps, val_b, test_b = n_tr // bs, -(-n_va // bs), -(-n_te // bs)
+    chunks = sum(-(-n // extract_chunk(n, bs)) for n in (n_tr, n_va, n_te))
+    n_ae = len(cfg.ae.alphas) * len(cfg.ae.learning_rates)
+    n_lr, e_mlp = len(cfg.mlp.learning_rates), cfg.mlp.epochs
+    n_lin_mlp = len(mcfg.mlp_hidden) + 1
+    f32 = None
+    for dtype in ("float32", "bfloat16"):
+        bf16 = dtype == "bfloat16"
+        cfg, _ = gate_config(dtype, parallel=True)
+        what = f"vmap grid {dtype}"
+        run = REPO / "chiprun_out" / ("vmap_grid_run" + ("_bf16" if bf16
+                                                         else ""))
+        shutil.rmtree(run, ignore_errors=True)
+        lines = []
+        pipe = SatAEPipeline(cfg)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = pipe.fit(raw, grid=True, out_dir=str(run),
+                           log=lines.append)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        e_ae = len(pipe.history["ae"]["train_loss"])
+        ae_store = json.loads((run / "validation_losses.json").read_text())
+        mlp_store = json.loads((run / "mlp_results.json").read_text())
+        want_ae = [json.dumps({"alpha": a, "lr": lr}) for a in cfg.ae.alphas
+                   for lr in cfg.ae.learning_rates]
+        want_mlp = [json.dumps({"lr": lr}) for lr in cfg.mlp.learning_rates]
+        check(list(ae_store) == want_ae and list(mlp_store) == want_mlp,
+              f"{what}: store keys {list(ae_store)} {list(mlp_store)}")
+        check(e_ae == cfg.ae.max_epochs, f"{what}: {e_ae} AE epochs, "
+              f"patience {cfg.ae.patience} cannot stop {cfg.ae.max_epochs} "
+              "early")
+        # AE: per epoch `steps` stacked steps (4 forward + 8 backward
+        # batched launches) and val_b stacked eval batches (4 forward); MLP
+        # the same with 3 + 5 and 3; then single-config extraction (chunks
+        # x (4 K2 + 1 K1)), each lr's test batches (3 K1 each) and the
+        # winner's final test pass (3 K1)
+        s = "_bf16" if bf16 else ""
+        expected = counts(
+            fused_gemm=n_lr * test_b * n_lin_mlp + n_lin_mlp,
+            fused_gemm_batched=e_mlp * (steps + val_b) * n_lin_mlp,
+            fused_gemm_batched_bwd=e_mlp * steps * (2 * n_lin_mlp - 1))
+        expected["fused_gemm_batched" + s] += e_ae * (steps + val_b) * 4
+        expected["fused_gemm_batched_bwd" + s] += e_ae * steps * 8
+        expected["fused_gemm" + s] += chunks
+        expected["conv2d_bn_act" + s] += chunks * len(mcfg.encoder_channels)
+        print(f"{what}: {fit_s:.2f} s, stage_seconds "
+              f"{summary.stage_seconds}; {n_ae} AE configs x {e_ae} epochs "
+              f"and {n_lr} MLP lrs x {e_mlp} epochs of {steps} stacked "
+              f"steps and {val_b} stacked val batches, {chunks} extraction "
+              f"chunks, {test_b} test batches per lr; launches "
+              f"{ {k: v for k, v in launches.items() if v} }, expected "
+              f"{ {k: v for k, v in expected.items() if v} }; card {card}",
+              flush=True)
+        check(launches == expected, f"{what}: launch counts differ from the "
+              "configs, epochs, steps, eval batches and extraction chunks")
+        hist = pipe.history
+        for stage_, h in hist.items():
+            vals = [v for series in h.values() for v in series]
+            check(all(math.isfinite(v) for v in vals),
+                  f"{what} {stage_}: a loss is not finite")
+            check(h["train_loss"][-1] < h["train_loss"][0],
+                  f"{what} {stage_}: train loss did not fall: "
+                  f"{h['train_loss']}")
+        master = [k for mod in (pipe.ae, pipe.mlp)
+                  for k, v in mod.state_dict().items()
+                  if v.is_floating_point() and v.dtype != torch.float32]
+        check(not master, f"{what}: master state not float32: {master}")
+        preds = pipe.predict(splits.test.images)
+        check(float((preds == splits.test.labels).mean())
+              == summary.test_acc,
+              f"{what}: predict after the fit disagrees with test_acc")
+        for ln in lines[-2:]:
+            print("  " + ln, flush=True)
+        gap = abs(summary.test_acc - ref["test_acc"])
+        print(f"{what}: winners AE {summary.ae_hparams} (satae's vmap "
+              f"{ref['ae_hparams']}), MLP {summary.mlp_hparams} (satae "
+              f"{ref['mlp_hparams']}); AE best val loss {summary.ae_val_loss}"
+              f" (satae {ref['ae_best_val_loss']}), MLP best val acc "
+              f"{summary.mlp_val_acc} (satae {ref['mlp_best_val_acc']}), "
+              f"test accuracy {summary.test_acc} (satae's vmap "
+              f"{ref['test_acc']}, gap {gap:.4f}, band {gate['band']})"
+              + ("" if f32 is None else
+                 f"; gap to the port's float32 "
+                 f"{abs(summary.test_acc - f32):.4f}") + "; per-lr test "
+              f"accuracy {[r['test_acc'] for r in mlp_store.values()]}",
+              flush=True)
+        if bf16:
+            check(summary.test_acc > 0.10, f"{what}: test accuracy "
+                  f"{summary.test_acc} is not above chance")
+        else:
+            check(summary.ae_hparams == ref["ae_hparams"]
+                  and summary.mlp_hparams == ref["mlp_hparams"],
+                  f"{what}: winners {summary.ae_hparams} "
+                  f"{summary.mlp_hparams}, satae's vmap "
+                  f"{ref['ae_hparams']} {ref['mlp_hparams']}")
+            check(gap <= gate["band"], f"{what}: test accuracy "
+                  f"{summary.test_acc} is {gap:.4f} from satae's vmap "
+                  f"{ref['test_acc']}")
+            f32 = summary.test_acc
+        out[dtype] = dict(fit_s=fit_s, summary=summary.__dict__,
+                          launches=launches, expected_launches=expected,
+                          ae_results=ae_store, mlp_results=mlp_store,
+                          test_acc_gap=gap, log_tail=lines[-2:])
+        shutil.rmtree(run)
+
+    # one epoch of the full 45-config sweep at the gate's data
+    full = AETrainConfig(max_epochs=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        sweep = ae_vmap_grid_search(splits.train, splits.val, model_cfg=mcfg,
+                                    data_cfg=cfg.data, ae_cfg=full,
+                                    device=torch.device("cuda"), seed=0)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    lc = kernels.launch_counts()
+    n_full = len(full.alphas) * len(full.learning_rates)
+    check(lc == counts(fused_gemm_batched=(steps + val_b) * 4,
+                       fused_gemm_batched_bwd=steps * 8),
+          f"45-config epoch launches {lc}")
+    check(len(sweep.results) == n_full and all(
+        math.isfinite(r["best_val_loss"]) for r in sweep.results.values()),
+        "45-config epoch: results")
+    out["full_epoch"] = dict(configs=n_full, seconds=epoch_s,
+                             ms_per_stacked_step=epoch_s * 1e3 / (
+                                 steps + val_b),
+                             peak_bytes=peak, launches=lc)
+    print(f"one epoch of the full {n_full}-config AE sweep (per_class "
+          f"{cfg.data.per_class}, full width, batch {bs}): {epoch_s:.2f} s "
+          f"incl. set-up and the val pass, {epoch_s * 1e3 / steps:.1f} ms "
+          f"per stacked train step (wall / {steps}); peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; card {card}", flush=True)
+
+    # the CLI, 1 + 1 epochs of the default grids (45 AE configs, 11 lrs);
+    # fit --grid draws the grid's heatmap after writing every artifact, and
+    # raises ImportError there without matplotlib (satae's CLI too)
+    import contextlib
+    import importlib.util
+    import io
+    crun, cache = REPO / "chiprun_out" / "vmap_cli_run", \
+        REPO / "chiprun_out" / "vmap_cli_cache"
+    shutil.rmtree(crun, ignore_errors=True)
+    plots = importlib.util.find_spec("matplotlib") is not None
+    stdout = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        try:
+            cli.main(["fit", "--grid", "--parallel", "--ae-epochs", "1",
+                      "--mlp-epochs", "1", "--per-class", "256",
+                      "--synthetic-difficulty", "hard", "--seed", "0",
+                      "--out", str(crun), "--cache-dir", str(cache)])
+        except ImportError:
+            check(not plots, "cli fit --grid --parallel: ImportError with "
+                  "matplotlib installed")
+    cli_s = time.perf_counter() - t0
+    cli_launches = kernels.launch_counts()
+    text = stdout.getvalue()
+    summary = json.loads(text[text.index("{\n"):])
+    names = {p.name for p in crun.iterdir()}
+    want = {"ae_global_best.json", "ae_global_best.msgpack", "classes.json",
+            "fit_summary.json", "metrics.jsonl", "mlp_global_best.json",
+            "mlp_global_best.msgpack", "mlp_provenance.json",
+            "mlp_results.json", "validation_losses.json"}
+    check(names == (want | {"gridsearch_heatmap.png", "ae_best_curves.png",
+                            "mlp_best_curves.png"} if plots else want),
+          f"cli fit --grid --parallel wrote {names}")
+    check(len(json.loads((crun / "validation_losses.json").read_text()))
+          == 45 and len(json.loads((crun / "mlp_results.json").read_text()))
+          == 11, "cli fit --grid --parallel: store sizes")
+    n_cli_lr = len(MLPTrainConfig().learning_rates)
+    want_cli = counts(
+        fused_gemm=chunks + n_cli_lr * test_b * n_lin_mlp + n_lin_mlp,
+        conv2d_bn_act=chunks * len(mcfg.encoder_channels),
+        fused_gemm_batched=(steps + val_b) * (4 + n_lin_mlp),
+        fused_gemm_batched_bwd=steps * (8 + 2 * n_lin_mlp - 1))
+    check(cli_launches == want_cli, f"cli fit --grid --parallel launches "
+          f"{cli_launches}, expected {want_cli}")
+    out["cli"] = dict(seconds=cli_s, summary=summary, launches=cli_launches,
+                      files=sorted(names))
+    print(f"cli fit --grid --parallel (45 AE configs x 1 epoch, 11 lrs x 1 "
+          f"epoch, per_class 256): {cli_s:.2f} s, test accuracy "
+          f"{summary['test_acc']}, winners {summary['ae_hparams']} "
+          f"{summary['mlp_hparams']}; launches "
+          f"{ {k: v for k, v in cli_launches.items() if v} }; figures "
+          f"{'drawn' if plots else 'not drawn (no matplotlib)'}",
+          flush=True)
+    shutil.rmtree(crun)
+    shutil.rmtree(cache, ignore_errors=True)
+    out["card"] = card
+    return out
+
+
+def steps_engine_phase(card: str) -> dict:
+    """Phase 24: satae's per-batch engine on the gate's data:
+    ae_grid_search(engine="steps") for 2 configs x 2 epochs, then
+    mlp_grid_search(engine="steps") for 2 lrs x 2 epochs on the winner's
+    latents, with exact K1 launches (the remainder batch counted, eval
+    batches unpadded), satae's store keys, finite and falling losses."""
+    import torch
+
+    from satae_torch import kernels
+    from satae_torch.config import AETrainConfig, MLPTrainConfig
+    from satae_torch.data.ingest import load_dataset
+    from satae_torch.data.pipeline import make_splits
+    from satae_torch.models.supervised_ae import SupervisedAE
+    from satae_torch.nn.layers import float32_convs
+    from satae_torch.train.extract import extract_features
+    from satae_torch.train.gridsearch import ae_grid_search, mlp_grid_search
+
+    cfg, _ = gate_config()
+    splits = make_splits(load_dataset(cfg.data), cfg.data)
+    mcfg, bs = cfg.model, cfg.data.batch_size
+    dev = torch.device("cuda")
+    n_tr, n_va = len(splits.train), len(splits.val)
+    steps, val_b = -(-n_tr // bs), -(-n_va // bs)
+    run = REPO / "chiprun_out" / "steps_run"
+    shutil.rmtree(run, ignore_errors=True)
+    ae_cfg = AETrainConfig(alphas=(20.0, 35.0), learning_rates=(1e-3,),
+                           max_epochs=2, patience=2)
+    mlp_cfg = MLPTrainConfig(learning_rates=(1e-3, 1e-2), epochs=2)
+    out = {}
+    with float32_convs(deterministic=True):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        sweep = ae_grid_search(splits.train, splits.val, model_cfg=mcfg,
+                               data_cfg=cfg.data, ae_cfg=ae_cfg, device=dev,
+                               seed=0, out_dir=str(run), engine="steps")
+        torch.cuda.synchronize()
+        ae_s = time.perf_counter() - t0
+        ae_launches = kernels.launch_counts()
+        ae = SupervisedAE(mcfg).to(dev)
+        ae.load_state_dict(sweep.best.state_dict())
+        ae.eval()
+        Xtr, ytr = extract_features(ae.enc, splits.train, bs)
+        Xva, yva = extract_features(ae.enc, splits.val, bs)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        msweep = mlp_grid_search(Xtr, ytr, Xva, yva, model_cfg=mcfg,
+                                 mlp_cfg=mlp_cfg, device=dev, batch_size=bs,
+                                 seed=0, out_dir=str(run), engine="steps")
+        torch.cuda.synchronize()
+        mlp_s = time.perf_counter() - t0
+        mlp_launches = kernels.launch_counts()
+    n_cfg, n_lr = 2, 2
+    want_ae = counts(fused_gemm=n_cfg * 2 * (steps + val_b) * 4,
+                     fused_gemm_bwd=n_cfg * 2 * steps * 8)
+    want_mlp = counts(fused_gemm=n_lr * 2 * (steps + val_b) * 3,
+                      fused_gemm_bwd=n_lr * 2 * steps * 5)
+    print(f"steps engine: {n_tr} train images are {n_tr // bs} batches of "
+          f"{bs} and one of {n_tr % bs}, {val_b} unpadded val batches; AE "
+          f"{n_cfg} configs x 2 epochs {ae_s:.2f} s, launches "
+          f"{ {k: v for k, v in ae_launches.items() if v} } (expected "
+          f"{ {k: v for k, v in want_ae.items() if v} }); MLP {n_lr} lrs x "
+          f"2 epochs {mlp_s:.2f} s, launches "
+          f"{ {k: v for k, v in mlp_launches.items() if v} } (expected "
+          f"{ {k: v for k, v in want_mlp.items() if v} }); card {card}",
+          flush=True)
+    check(ae_launches == want_ae, "steps engine AE launches")
+    check(mlp_launches == want_mlp, "steps engine MLP launches")
+    ae_store = json.loads((run / "validation_losses.json").read_text())
+    mlp_store = json.loads((run / "mlp_results.json").read_text())
+    check(list(ae_store) == [json.dumps({"alpha": a, "lr": 1e-3})
+                             for a in ae_cfg.alphas]
+          and all(set(r) == {"alpha", "lr", "best_val_loss", "best_val_acc",
+                             "best_epoch", "epochs_run"}
+                  for r in ae_store.values()), f"AE store {ae_store}")
+    check(list(mlp_store) == [json.dumps({"lr": lr})
+                              for lr in mlp_cfg.learning_rates]
+          and all(set(r) == {"lr", "best_val_acc", "best_val_loss",
+                             "best_epoch"} for r in mlp_store.values()),
+          f"MLP store {mlp_store}")
+    for what, h in (("AE", sweep.best.history), ("MLP", msweep.best.history)):
+        check(all(math.isfinite(v) for vs in h.values() for v in vs),
+              f"steps engine {what}: a loss is not finite")
+        check(h["train_loss"][1] < h["train_loss"][0],
+              f"steps engine {what}: train loss did not fall "
+              f"{h['train_loss']}")
+    print(f"steps engine: AE winner {sweep.best_hparams} val loss "
+          f"{sweep.best.best_val_loss:.4f}, train loss "
+          f"{sweep.best.history['train_loss']}; MLP winner "
+          f"{msweep.best_hparams} val acc {msweep.best.best_val_acc:.4f}",
+          flush=True)
+    out.update(ae_s=ae_s, mlp_s=mlp_s, ae_launches=ae_launches,
+               mlp_launches=mlp_launches, ae_results=ae_store,
+               mlp_results=mlp_store, card=card)
+    shutil.rmtree(run)
+    return out
+
+
+def vmap_main() -> int:
+    """``--vmap``: build, then phases 21-24 alone, details in
+    chiprun_out/vmap.json."""
+    import torch
+
+    from satae_torch.config import DataConfig
+    from satae_torch.data.ingest import load_dataset
+    from satae_torch.data.pipeline import make_splits
+    from satae_torch.kernels import _build
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    ptxas = _build.ptxas_report()
+    spilled = [r["kernel"] for r in ptxas
+               if r["spill_stores"] or r["spill_loads"]]
+    check(not spilled, f"ptxas spills registers in {spilled}")
+    check(len(ptxas) == N_INSTANTIATIONS, f"{len(ptxas)} instantiations")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = DataConfig(per_class=2000, synthetic_difficulty="hard")
+    splits = make_splits(load_dataset(data), data)
+    res, secs = {}, {}
+    for n, fn in ((21, lambda: batched_kernels_phase(card)),
+                  (22, lambda: stacked_steps_phase(card, splits)),
+                  (23, lambda: vmap_grid_phase(card)),
+                  (24, lambda: steps_engine_phase(card))):
+        t0 = time.perf_counter()
+        res[n] = fn()
+        secs[n] = time.perf_counter() - t0
+    print("seconds of phases 21-24: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()), flush=True)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "vmap.json").write_text(json.dumps(dict(
+        card=card, phases=res, seconds=secs), indent=1, default=str))
+    return 0
+
+
 def card_line() -> str:
     """nvidia-smi's name and power limit of the first card."""
     return subprocess.run(
@@ -2822,7 +3622,9 @@ if __name__ == "__main__":
         sys.exit(kernel_times_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         sys.exit(ab_main(sys.argv[2]))
+    if sys.argv[1:] == ["--vmap"]:
+        sys.exit(vmap_main())
     if len(sys.argv) > 1:
         raise SystemExit(f"usage: {sys.argv[0]} [--ab PARENT_DIR | "
-                         "--split-sweep]")
+                         "--split-sweep | --vmap]")
     sys.exit(main())

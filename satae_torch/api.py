@@ -51,10 +51,13 @@ non-finite loss or gradient of a train step (satae_torch.utils.profiling).
 The device is explicit. ``device=None`` means the first CUDA device, and
 raises where there is none: the pipeline never drops to the CPU by itself.
 
+``runtime.parallel_configs`` with ``grid=True`` trains each sweep's configs
+at once, satae's vmap engine (satae_torch.train.vmap_sweep: stacked models,
+the batched K1 for every linear layer on the card).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md §1
-item: the vmap and sharded sweep engines and the multi-process runtime
-(``runtime.parallel_configs``, ``runtime.n_devices``, ``runtime.multihost``,
-item 8).
+item: the sharded sweep engines and the multi-process runtime
+(``runtime.n_devices``, ``runtime.multihost``, item 8).
 """
 
 from __future__ import annotations
@@ -84,6 +87,8 @@ from satae_torch.train.extract import extract_features, make_decode_step
 from satae_torch.train.fast_loop import train_mlp, train_supervised_ae
 from satae_torch.train.gridsearch import ae_grid_search, mlp_grid_search
 from satae_torch.train.loop import LogFn
+from satae_torch.train.vmap_sweep import (ae_vmap_grid_search,
+                                          mlp_vmap_grid_search)
 from satae_torch.train.sweep_common import save_best_checkpoint
 from satae_torch.utils.profiling import debug_mode
 from satae_torch.utils.strict_json import dump_strict_json
@@ -173,10 +178,6 @@ class SatAEPipeline:
         rerun resumes from it; the files are removed once the winner is
         recorded."""
         cfg = self.config
-        if grid and cfg.runtime.parallel_configs:
-            raise NotImplementedError(
-                "runtime.parallel_configs: the vmap sweep engine is a later "
-                "slice (ROADMAP.md §1 item 8)")
         if reuse_ae and self.ae is None:
             raise ValueError("reuse_ae=True requires a loaded autoencoder - "
                              "call load(), load_ae() or load_torch() first")
@@ -214,7 +215,9 @@ class SatAEPipeline:
         if reuse_ae:
             ae_hp = {"reused": True}
         elif grid:
-            sweep = ae_grid_search(
+            search = ae_vmap_grid_search if cfg.runtime.parallel_configs \
+                else ae_grid_search
+            sweep = search(
                 splits.train, splits.val, model_cfg=cfg.model,
                 data_cfg=cfg.data, ae_cfg=cfg.ae, device=dev, seed=seed,
                 out_dir=out_dir, log=log, compute_dtype=dtype,
@@ -248,7 +251,9 @@ class SatAEPipeline:
         if out_dir:
             self._guard_mlp_store(out_dir)
         if grid:
-            msweep = mlp_grid_search(
+            search = mlp_vmap_grid_search if cfg.runtime.parallel_configs \
+                else mlp_grid_search
+            msweep = search(
                 Xtr, ytr, Xva, yva, model_cfg=cfg.model, mlp_cfg=cfg.mlp,
                 device=dev, batch_size=bs, seed=seed, out_dir=out_dir,
                 log=log, test_x=Xte, test_y=yte, save_curves=curves)

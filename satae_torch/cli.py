@@ -14,8 +14,9 @@ artifacts and standard output, on PyTorch.
 
 One flag is added, ``--device`` (default ``cuda``): every entry point runs on
 that device, and ``--device cpu`` runs the kernels' plain versions on the
-CPU. The flags of satae's multi-device runtime (``--n-devices``,
-``--parallel``, ``--multihost``, ``--grid-dp`` above 1) raise before any
+CPU. ``--parallel`` runs the grid's config-batched (vmap) sweeps
+(satae_torch.train.vmap_sweep). The flags of satae's multi-device runtime
+(``--n-devices``, ``--multihost``, ``--grid-dp`` above 1) raise before any
 work: the port runs on one device (ROADMAP.md §1 item 8). ``--pallas`` is
 accepted and changes nothing: the port always serves through its kernels.
 The figures need matplotlib, which is imported only where one is drawn: a
@@ -469,7 +470,7 @@ def _refuse_multi_device(args) -> None:
     """satae's multi-device flags, before any work."""
     given = [flag for flag, on in (
         ("--n-devices", args.n_devices is not None),
-        ("--parallel", args.parallel), ("--multihost", args.multihost),
+        ("--multihost", args.multihost),
         ("--grid-dp", args.grid_dp > 1)) if on]
     if given:
         raise NotImplementedError(

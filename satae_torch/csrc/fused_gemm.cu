@@ -43,6 +43,20 @@
 // H100.
 // In bf16 the partials stay float32 in the same workspace, and the last
 // block rounds their sum to bf16 once, after the epilogue.
+//
+// Batched (satae_fused_gemm_batched / _batched_bf16): C independent products
+// out[c] = act((A[c] @ B[c]) * scale[c] + shift[c]) in one launch, for the
+// linears of the config-batched sweep (satae/train/vmap_sweep.py), where
+// jax.vmap gives _mm_kernel's pallas_call a batch grid axis. The config
+// joins the split in the grid's z: block z computes config z / S, split
+// z % S, on config c's slices of x, w, scale, shift and out, its own S
+// workspace planes and its own tile counters; the unbatched entries are the
+// same kernel launched with C = 1. The plan is one for all configs, with
+// every config's tiles counted toward the wave. Bound: the float32
+// projection at C = 45 (45 x 64 x 4096 x 64) reads 94 MB (28 us at
+// 3.35 TB/s) and does 1.5 GFLOP (9 us at 165 TFLOP/s 3xTF32): bytes, as
+// every product of the sweep. bf16 runs on this mma.sync loop; a wgmma/TMA
+// form with 3-D tensor maps is later work.
 // The wrapper owns the workspace and the counters (one buffer per device,
 // kept zeroed by the kernel); the port launches on one stream, and two
 // concurrent split-K launches would share the counters.
@@ -168,45 +182,64 @@ __device__ __forceinline__ void reduce_partials(float* smem, const float* ws,
       store_vec<T, 4>(out, off[i], n0 + c, v[i], nv, vec, scale, shift, act);
 }
 
-// The minimum of one block per SM sets ptxas's occupancy target: with the
-// thread count alone ptxas (CUDA 12.8, sm_90a) held the float32 RowMajorA x
-// TransB 32-wide instantiation to 64 registers and spilled 20 bytes; with
-// it none of the 16 instantiations spills, and the shared memory still
-// limits every one to 4 blocks per SM or fewer.
+// The minimum blocks per SM set ptxas's occupancy target. With the thread
+// count alone ptxas (CUDA 12.8, sm_90a) held the float32 RowMajorA x TransB
+// 32-wide instantiation to 64 registers and spilled 20 bytes. float32 asks
+// for 4, the most its shared memory allows: every float32 instantiation
+// then fits 128 registers without a spill (with 1, the config index and
+// its offsets took the 64-wide RowMajorA x TransB one from 127 registers
+// to 138, and 4 blocks per SM to 3). bf16 asks for 1: at 128 registers its
+// 64-wide instantiations spill. Block z is split z % splits of config
+// z / splits (config c's operands are the c-th of C contiguous slices, its
+// split-K planes the c-th group of `splits` planes of ws, its tile
+// counters the c-th group of gridDim.x * gridDim.y).
+template <class T>
+constexpr int kMinBlocks = sizeof(T) == 4 ? 4 : 1;
+
 template <class ATile, class BTile, int kBN>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<typename ATile::Elem>)
     fused_gemm_kernel(const typename ATile::Elem* __restrict__ x,
                       const typename ATile::Elem* __restrict__ w,
                       const float* __restrict__ scale,
                       const float* __restrict__ shift,
                       typename ATile::Elem* __restrict__ out,
                       float* __restrict__ ws, int* __restrict__ counters,
-                      int M, int N, int K, int act, int k_per_split) {
+                      int M, int N, int K, int act, int splits,
+                      int k_per_split) {
   using T = typename ATile::Elem;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ bool last;
+  const int c = blockIdx.z / splits, split = blockIdx.z - c * splits;
   const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const int k_begin = blockIdx.z * k_per_split;
+  const int k_begin = split * k_per_split;
   const int k_end = min(K, k_begin + k_per_split);
-  const ATile a(x, M, K, m0);
-  const BTile b(w, N, K, n0);
+  const ATile a(x + static_cast<size_t>(c) * M * K, M, K, m0);
+  const BTile b(w + static_cast<size_t>(c) * K * N, N, K, n0);
   Frag<kBN> f;
   mainloop<ATile, BTile, kBN>(a, b, reinterpret_cast<T*>(smem4), k_begin,
                               k_end, f);
   stage_acc<kBN>(f, smem);
-  if (gridDim.z == 1) {
+  // config c's epilogue operands, formed after the main loop (not kept
+  // live through it)
+  const size_t mn = static_cast<size_t>(M) * N;
+  out += c * mn;
+  if (scale != nullptr) scale += c * N;
+  if (shift != nullptr) shift += c * N;
+  if (splits == 1) {
     store_tile<kBN>(smem, out, M, N, m0, n0, scale, shift, act);
     return;
   }
-  // split-K: this block's raw float32 partial into plane blockIdx.z of ws ...
-  store_tile<kBN>(smem, ws + blockIdx.z * static_cast<size_t>(M) * N, M, N,
-                  m0, n0, nullptr, nullptr, kActNone);
+  // split-K: this block's raw float32 partial into plane `split` of the
+  // config's planes of ws ...
+  ws += c * splits * mn;
+  store_tile<kBN>(smem, ws + split * mn, M, N, m0, n0, nullptr, nullptr,
+                  kActNone);
   __threadfence();
   __syncthreads();
-  int* counter = counters + blockIdx.y * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0)
-    last = atomicAdd(counter, 1) == static_cast<int>(gridDim.z) - 1;
+  int* counter = counters + (c * gridDim.y + blockIdx.y) * gridDim.x +
+                 blockIdx.x;
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == splits - 1;
   __syncthreads();
   if (!last) return;
   // ... and the last of the tile's S blocks finishes it
@@ -214,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kRing = gemm_smem_bytes<ATile, BTile, kBN>() / (4 * kBM * kBN);
   static_assert(kRing >= 2, "the fix-up needs two plane slots");
   reduce_partials<kBN, kRing < 8 ? kRing : 8>(smem, ws, out, M, N, m0, n0,
-                                             gridDim.z, scale, shift, act);
+                                             splits, scale, shift, act);
   if (threadIdx.x == 0) *counter = 0;
 }
 
@@ -350,8 +383,8 @@ namespace {
 
 template <class ATile, class BTile, int kBN>
 int launch(const void* x, const void* w, const float* scale,
-           const float* shift, void* out, float* ws, int* counters, int M,
-           int N, int K, int act, int splits, int k_per_split,
+           const float* shift, void* out, float* ws, int* counters, int C,
+           int M, int N, int K, int act, int splits, int k_per_split,
            cudaStream_t stream) {
   using T = typename ATile::Elem;
   constexpr int smem = gemm_smem_bytes<ATile, BTile, kBN>();
@@ -360,42 +393,45 @@ int launch(const void* x, const void* w, const float* scale,
   const cudaError_t err =
       allow_smem(reinterpret_cast<const void*>(kernel), smem, allowed);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, splits);
+  const dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN, C * splits);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), scale, shift,
-      static_cast<T*>(out), ws, counters, M, N, K, act, k_per_split);
+      static_cast<T*>(out), ws, counters, M, N, K, act, splits, k_per_split);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class T, int kBN>
 int launch_layout(const void* x, const void* w, const float* scale,
                   const float* shift, void* out, float* ws, int* counters,
-                  int M, int N, int K, int act, int trans_a, int trans_b,
-                  int splits, int k_per_split, cudaStream_t stream) {
+                  int C, int M, int N, int K, int act, int trans_a,
+                  int trans_b, int splits, int k_per_split,
+                  cudaStream_t stream) {
   if (trans_a) {
     return trans_b ? launch<TransA<T>, TransB<T, kBN>, kBN>(
-                         x, w, scale, shift, out, ws, counters, M, N, K, act,
+                         x, w, scale, shift, out, ws, counters, C, M, N, K, act,
                          splits, k_per_split, stream)
                    : launch<TransA<T>, RowMajorB<T, kBN>, kBN>(
-                         x, w, scale, shift, out, ws, counters, M, N, K, act,
+                         x, w, scale, shift, out, ws, counters, C, M, N, K, act,
                          splits, k_per_split, stream);
   }
   return trans_b ? launch<RowMajorA<T>, TransB<T, kBN>, kBN>(
-                       x, w, scale, shift, out, ws, counters, M, N, K, act,
+                       x, w, scale, shift, out, ws, counters, C, M, N, K, act,
                        splits, k_per_split, stream)
                  : launch<RowMajorA<T>, RowMajorB<T, kBN>, kBN>(
-                       x, w, scale, shift, out, ws, counters, M, N, K, act,
+                       x, w, scale, shift, out, ws, counters, C, M, N, K, act,
                        splits, k_per_split, stream);
 }
 
-// Checks the plan, then launches the instantiation of T for it.
+// Checks the plan (C configs of `splits` blocks each along the grid's z, at
+// most 65,535), then launches the instantiation of T for it.
 template <class T>
 int launch_plan(const void* x, const void* w, const float* scale,
                 const float* shift, void* out, float* ws, int* counters,
-                int M, int N, int K, int act, int trans_a, int trans_b,
+                int C, int M, int N, int K, int act, int trans_a, int trans_b,
                 int tile_n, int splits, int k_per_split, void* stream) {
   const bool plan_ok =
-      (tile_n == 32 || tile_n == 64) && splits >= 1 && k_per_split > 0 &&
+      (tile_n == 32 || tile_n == 64) && C >= 1 && splits >= 1 &&
+      static_cast<long long>(C) * splits <= 65535 && k_per_split > 0 &&
       static_cast<long long>(splits) * k_per_split >= K &&
       (splits == 1 || (ws != nullptr && counters != nullptr &&
                        k_per_split % kBK == 0 &&
@@ -403,11 +439,11 @@ int launch_plan(const void* x, const void* w, const float* scale,
   if (!plan_ok) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return tile_n == 32
-             ? launch_layout<T, 32>(x, w, scale, shift, out, ws, counters, M,
-                                    N, K, act, trans_a, trans_b, splits,
+             ? launch_layout<T, 32>(x, w, scale, shift, out, ws, counters, C,
+                                    M, N, K, act, trans_a, trans_b, splits,
                                     k_per_split, s)
-             : launch_layout<T, 64>(x, w, scale, shift, out, ws, counters, M,
-                                    N, K, act, trans_a, trans_b, splits,
+             : launch_layout<T, 64>(x, w, scale, shift, out, ws, counters, C,
+                                    M, N, K, act, trans_a, trans_b, splits,
                                     k_per_split, s);
 }
 
@@ -510,8 +546,8 @@ int satae_fused_gemm(const float* x, const float* w, const float* scale,
                      const float* shift, float* out, float* ws, int* counters,
                      int M, int N, int K, int act, int trans_a, int trans_b,
                      int tile_n, int splits, int k_per_split, void* stream) {
-  return satae::launch_plan<float>(x, w, scale, shift, out, ws, counters, M,
-                                   N, K, act, trans_a, trans_b, tile_n,
+  return satae::launch_plan<float>(x, w, scale, shift, out, ws, counters, 1,
+                                   M, N, K, act, trans_a, trans_b, tile_n,
                                    splits, k_per_split, stream);
 }
 
@@ -525,8 +561,8 @@ int satae_fused_gemm_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                           int tile_n, int splits, int k_per_split,
                           void* stream) {
   return satae::launch_plan<__nv_bfloat16>(
-      x, w, scale, shift, out, ws, counters, M, N, K, act, trans_a, trans_b,
-      tile_n, splits, k_per_split, stream);
+      x, w, scale, shift, out, ws, counters, 1, M, N, K, act, trans_a,
+      trans_b, tile_n, splits, k_per_split, stream);
 }
 
 // satae_fused_gemm_bf16 on wgmma, with TMA loads and a cluster's split-K
@@ -543,6 +579,40 @@ int satae_fused_gemm_bf16_tma(const __nv_bfloat16* x, const __nv_bfloat16* w,
   return satae::launch_tma_plan(x, w, scale, shift, out, M, N, K, act,
                                 trans_a, trans_b, splits, k_per_split,
                                 stream);
+}
+
+// for c < C, out[c] (M, N) = act((A[c] @ B[c]) * scale[c] + shift[c]), all
+// float32, in one launch of satae_fused_gemm's kernel. x, w and out hold C
+// contiguous slices in satae_fused_gemm's layouts (x: C x (M, K), or
+// C x (K, M) with trans_a; w: C x (K, N), or C x (N, K) with trans_b; out
+// C x (M, N)); scale and shift are C x N, or null. One plan for every
+// config; with splits > 1, ws holds C * splits * M * N floats and counters
+// one zeroed int per tile of every config. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan the kernel does not take (C * splits
+// above 65,535 among them).
+int satae_fused_gemm_batched(const float* x, const float* w,
+                             const float* scale, const float* shift,
+                             float* out, float* ws, int* counters, int C,
+                             int M, int N, int K, int act, int trans_a,
+                             int trans_b, int tile_n, int splits,
+                             int k_per_split, void* stream) {
+  return satae::launch_plan<float>(x, w, scale, shift, out, ws, counters, C,
+                                   M, N, K, act, trans_a, trans_b, tile_n,
+                                   splits, k_per_split, stream);
+}
+
+// satae_fused_gemm_batched with bf16 x, w and out, on the bf16 mma.sync
+// loop (no TMA route); scale, shift and the workspace stay float32.
+int satae_fused_gemm_batched_bf16(const __nv_bfloat16* x,
+                                  const __nv_bfloat16* w, const float* scale,
+                                  const float* shift, __nv_bfloat16* out,
+                                  float* ws, int* counters, int C, int M,
+                                  int N, int K, int act, int trans_a,
+                                  int trans_b, int tile_n, int splits,
+                                  int k_per_split, void* stream) {
+  return satae::launch_plan<__nv_bfloat16>(
+      x, w, scale, shift, out, ws, counters, C, M, N, K, act, trans_a,
+      trans_b, tile_n, splits, k_per_split, stream);
 }
 
 const char* satae_error_string(int code) {

@@ -77,3 +77,36 @@ def augment_train_batch(imgs_u8: torch.Tensor, *, crop_padding: int = 4,
                                 dtype=dtype)
         x = x + const_like(noise_std, x) * noise.to(device=dev, dtype=dtype)
     return x
+
+
+def draw_stacked_augmentation(n_configs: int, shape, crop_padding: int,
+                              generator: Optional[torch.Generator], device,
+                              dtype: torch.dtype = torch.float32):
+    """The random inputs of a config-batched batch of ``shape`` (B, H, W,
+    ch): flips (C, B, 1), offsets (C, B, 2) and noise (C, B, H, W, ch) in
+    ``dtype``, drawn from ``generator`` in that order, one slice per config
+    (satae's vmap engine draws each config's from its own key)."""
+    c, b = n_configs, shape[0]
+    flip = torch.rand((c, b, 1), generator=generator, device=device) < 0.5
+    offsets = torch.randint(0, 2 * crop_padding + 1, (c, b, 2),
+                            generator=generator, device=device)
+    noise = torch.randn((c,) + tuple(shape), generator=generator,
+                        device=device, dtype=dtype)
+    return flip, offsets, noise
+
+
+def augment_stacked_batch(imgs_u8: torch.Tensor, flip: torch.Tensor,
+                          offsets: torch.Tensor, noise: torch.Tensor, *,
+                          crop_padding: int = 4, noise_std: float = 0.03,
+                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The shared uint8 batch (B, H, W, ch) augmented once per config with
+    that config's flips (C, B, 1), offsets (C, B, 2) and noise
+    (C, B, H, W, ch): :func:`augment_train_batch` of the batch repeated C
+    times, as (C, B, H, W, ch) in ``dtype``."""
+    c, b = flip.shape[:2]
+    x = augment_train_batch(
+        imgs_u8.repeat(c, 1, 1, 1), crop_padding=crop_padding,
+        noise_std=noise_std, flip=flip.reshape(c * b, 1),
+        offsets=offsets.reshape(c * b, 2),
+        noise=noise.reshape((c * b,) + tuple(noise.shape[2:])), dtype=dtype)
+    return x.reshape((c,) + tuple(imgs_u8.shape))

@@ -26,6 +26,11 @@ reindexing only, so a round trip is exact. The forward mapping:
 The way back undoes each of these and drops ``num_batches_tracked`` (the
 BatchNorm momentum is a constant 0.1, so the counter changes nothing).
 
+A config-batched sweep's trees carry a leading config axis on every leaf;
+:func:`stacked_to_torch_state_dict` and :func:`stacked_from_torch_state_dict`
+map them config by config to and from the stacked state_dicts of
+satae_torch.models.stacked.
+
 Adam's moments have their parameters' shapes, and every map above is a
 transpose or a reindexing, so they travel the same way
 (:func:`opt_state_to_tree`, :func:`opt_state_from_tree`): the port keeps
@@ -238,3 +243,48 @@ def opt_state_from_tree(tree: Mapping[str, Any], bn_state: Any,
     ``bn_state`` the BatchNorm tree it also reads."""
     mu, nu = (from_trees(tree[k], bn_state) for k in ("mu", "nu"))
     return [mu[n] for n in names], [nu[n] for n in names], int(tree["step"])
+
+
+# ---- a config-batched sweep's trees (leading config axis) -------------------
+
+def _tree_slice(tree: Any, i: int) -> Any:
+    """Config i of a tree of arrays with a leading config axis."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_slice(v, i) for k, v in tree.items()}
+    return _np(tree[i])
+
+
+def _tree_stack(trees: Sequence[Any]) -> Any:
+    """Trees of one structure -> one tree with a leading config axis."""
+    if isinstance(trees[0], Mapping):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def _leading(tree: Any) -> int:
+    while isinstance(tree, Mapping):
+        tree = next(iter(tree.values()))
+    return int(np.shape(tree)[0])
+
+
+def stacked_to_torch_state_dict(params: Params, state: Params,
+                                one: Callable[..., StateDict]) -> StateDict:
+    """satae's vmapped ``(params, bn_state)`` trees (numpy, a leading config
+    axis, as satae/train/vmap_sweep.py holds them) -> the stacked reference
+    state_dict of satae_torch.models.stacked, through ``one`` (e.g.
+    ``lambda p, s: sae_to_torch_state_dict(p, s, cfg, image_size)``) per
+    config; ``num_batches_tracked`` becomes (C,) zeros."""
+    sds = [one(_tree_slice(params, i), _tree_slice(state, i))
+           for i in range(_leading(params))]
+    return {k: np.stack([sd[k] for sd in sds]) for k in sds[0]}
+
+
+def stacked_from_torch_state_dict(sd: Mapping[str, Any],
+                                  one: Callable[..., Tuple[Any, Any]]
+                                  ) -> Tuple[Any, Any]:
+    """A stacked reference state_dict -> satae's vmapped trees, through
+    ``one`` (e.g. ``lambda d: sae_from_torch_state_dict(d, cfg, 3, 64)``)
+    per config."""
+    per = [one({k: v[i] for k, v in sd.items()})
+           for i in range(len(next(iter(sd.values()))))]
+    return _tree_stack([p for p, _ in per]), _tree_stack([s for _, s in per])

@@ -2,26 +2,33 @@
 ``fused_matmul`` (csrc/fused_gemm.cu) with its backward
 ``fused_matmul_bwd``, whose products are K1 launches too, and K2
 ``conv2d_bn_act`` (csrc/conv_bn_act.cu), each with a float32 and a bf16
-instantiation. A CUDA tensor launches the kernel, a CPU tensor takes the
-plain version."""
+instantiation, and K1's batched entry over a config axis
+(``fused_matmul_batched`` and its backward ``fused_matmul_batched_bwd``),
+which the config-batched sweep's linears run on. A CUDA tensor launches the
+kernel, a CPU tensor takes the plain version."""
 
 from __future__ import annotations
 
 from typing import Dict
 
 from satae_torch.kernels.conv import conv2d_bn_act
-from satae_torch.kernels.matmul import fused_matmul, fused_matmul_bwd
+from satae_torch.kernels.matmul import (fused_matmul, fused_matmul_batched,
+                                        fused_matmul_batched_bwd,
+                                        fused_matmul_bwd)
 
 _WRAPPERS = {"fused_gemm": fused_matmul, "fused_gemm_bwd": fused_matmul_bwd,
-             "conv2d_bn_act": conv2d_bn_act}
+             "conv2d_bn_act": conv2d_bn_act,
+             "fused_gemm_batched": fused_matmul_batched,
+             "fused_gemm_batched_bwd": fused_matmul_batched_bwd}
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`:
     ``fused_gemm`` counts K1's float32 forward launches, ``fused_gemm_bwd``
     the float32 K1 launches of its backward, ``conv2d_bn_act`` K2's float32
-    launches, and each name with ``_bf16`` the launches of the bf16
-    instantiation."""
+    launches, ``fused_gemm_batched`` and ``fused_gemm_batched_bwd`` the
+    batched K1's float32 launches forward and backward, and each name with
+    ``_bf16`` the launches of the bf16 instantiation."""
     return {name + suffix: n for name, fn in _WRAPPERS.items()
             for suffix, n in fn.launches.items()}
 

@@ -117,7 +117,8 @@ def tile_n_for(n: int) -> int:
     return 32 if n <= 32 else 64
 
 
-def split_k_plan(m: int, n: int, k: int) -> Tuple[int, int, int, int]:
+def split_k_plan(m: int, n: int, k: int,
+                 batch: int = 1) -> Tuple[int, int, int, int]:
     """K1's plan for an (m, k) @ (k, n) product: (tile_m, tile_n, splits,
     k_per_split). Split s covers K range [s * k_per_split, min(k, (s + 1) *
     k_per_split)); every k_per_split is a multiple of BK. With the output's
@@ -125,12 +126,14 @@ def split_k_plan(m: int, n: int, k: int) -> Tuple[int, int, int, int]:
     one split; otherwise as many as reach about WAVE_BLOCKS blocks while
     each keeps at least MIN_SPLIT_K of K, on 32-wide tiles: one block sums
     each tile's S partials, at a rate one SM can read, so narrower tiles
-    halve that block's bytes (`chip_smoke.py --split-sweep`)."""
+    halve that block's bytes (`chip_smoke.py --split-sweep`). ``batch``:
+    the plan of the batched K1 over that many products, whose tiles all
+    count toward the wave."""
     tile_n = tile_n_for(n)
-    tiles = -(-m // TILE_M) * -(-n // tile_n)
+    tiles = batch * -(-m // TILE_M) * -(-n // tile_n)
     if tiles < WAVE_BLOCKS and k >= 2 * MIN_SPLIT_K:
         tile_n = 32
-        tiles = -(-m // TILE_M) * -(-n // tile_n)
+        tiles = batch * -(-m // TILE_M) * -(-n // tile_n)
     splits = min(-(-WAVE_BLOCKS // max(tiles, 1)), k // MIN_SPLIT_K)
     if splits <= 1:
         return TILE_M, tile_n, 1, max(-(-k // BK), 1) * BK
@@ -200,8 +203,8 @@ def split_k_workspace(m: int, n: int, splits: int,
 
 
 # one int32 counter per output tile of a split-K launch, per device; a
-# split-K plan has fewer than WAVE_BLOCKS tiles, and the kernel leaves every
-# counter at 0
+# split-K plan has fewer than WAVE_BLOCKS tiles (a batched one fewer than
+# WAVE_BLOCKS over all its configs), and the kernel leaves every counter at 0
 _counters = {}
 
 
@@ -376,3 +379,200 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 fused_matmul.launches = _build.launch_counter()
+
+
+# ---- batched K1: C independent products in one launch ----------------------
+#
+# satae's config-batched sweep (satae/train/vmap_sweep.py) runs every linear
+# layer under jax.vmap, which gives _mm_kernel's pallas_call a batch grid
+# axis. The port's counterpart is one launch of K1's batched entry
+# (satae_torch/csrc/fused_gemm.cu, the config folded into the grid's z)
+# over the C configs of a stacked linear, forward and backward: x (C, M, K),
+# W (C, K, N) or, with ``w_nk``, an (N, K) weight per config (C, N, K),
+# scale (C, N) or None, shift (C, N), out (C, M, N). The plan is split_k_plan's
+# with every config's tiles counted toward the wave, the same for all
+# configs; bf16 runs on the mma.sync loop.
+
+
+def fused_matmul_batched_plain(x: torch.Tensor, w: torch.Tensor,
+                               scale: Optional[torch.Tensor],
+                               shift: torch.Tensor, act: str = "none",
+                               w_nk: bool = False) -> torch.Tensor:
+    """The plain version of the batched K1: :func:`fused_matmul_plain` on
+    each config's slices in turn, stacked (so each slice is bit for bit the
+    unbatched plain version's)."""
+    return torch.stack([fused_matmul_plain(
+        x[c], w[c].t() if w_nk else w[c], None if scale is None else scale[c],
+        shift[c], act) for c in range(x.shape[0])])
+
+
+def fused_matmul_batched_bwd_plain(g: torch.Tensor, x: torch.Tensor,
+                                   w: torch.Tensor,
+                                   scale: Optional[torch.Tensor],
+                                   y: torch.Tensor, act: str = "none",
+                                   needs: Sequence[bool] = (True, True, True,
+                                                            True),
+                                   w_nk: bool = False) -> Grads:
+    """The plain backward of the batched K1: :func:`fused_matmul_bwd_plain`
+    on each config's slices, each gradient stacked over the configs (None
+    where ``needs`` says so)."""
+    per = [fused_matmul_bwd_plain(g[c], x[c], w[c],
+                                  None if scale is None else scale[c], y[c],
+                                  act, needs, w_nk)
+           for c in range(x.shape[0])]
+    return tuple(None if parts[0] is None else torch.stack(parts)
+                 for parts in zip(*per))
+
+
+def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
+                       scale: Optional[torch.Tensor] = None,
+                       shift: Optional[torch.Tensor] = None,
+                       act: str = "none", trans_a: bool = False,
+                       trans_b: bool = False) -> torch.Tensor:
+    """One launch of the batched K1 on CUDA tensors: for each config c,
+    act((A[c] @ B[c]) * scale[c] + shift[c]) with A[c] = x[c], or x[c] read
+    as its transpose (``trans_a``: x is C x (K, M)), and B[c] = w[c], or
+    w[c] read as its transpose (``trans_b``: w is C x (N, K)), in x's dtype
+    (``satae_fused_gemm_batched`` or ``_batched_bf16``). The plan is
+    ``split_k_plan(m, n, k, batch=C)``; a split-K launch takes a workspace
+    of C * splits * M * N floats. Raises on a refused launch; never falls
+    back to C unbatched launches. The callers count the launches."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_gemm_batched: K1 runs on CUDA tensors, x is "
+                         f"on {x.device}")
+    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0]:
+        raise ValueError(f"fused_gemm_batched: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} must be (C, ., .) of one C")
+    c = x.shape[0]
+    m, k = (x.shape[2], x.shape[1]) if trans_a else x.shape[1:]
+    n, kw = (w.shape[1], w.shape[2]) if trans_b else (w.shape[2], w.shape[1])
+    if k != kw:
+        raise ValueError(f"fused_gemm_batched: inner sizes {k} and {kw} "
+                         "differ")
+    suffix = _build.check_operands("fused_gemm_batched", x.device, x, w,
+                                   scale=scale, shift=shift)
+    if max(c * m * k, c * k * n, c * m * n) >= 2 ** 31:
+        raise ValueError(f"fused_gemm_batched: {c} x {(m, k, n)} exceeds "
+                         "int32 indexing")
+    if any(t is not None and t.shape != (c, n) for t in (scale, shift)):
+        raise ValueError(f"fused_gemm_batched: scale/shift must be {(c, n)}")
+    out = torch.empty((c, m, n), device=x.device, dtype=x.dtype)
+    if c == 0 or m == 0 or n == 0:
+        return out
+    _, tile_n, splits, k_per_split = split_k_plan(m, n, k, batch=c)
+    ws = split_k_workspace(c * m, n, splits, x.device)
+    counters = None if ws is None else _tile_counters(x.device)
+    _build.launch(_build.load("fused_gemm"),
+                  "satae_fused_gemm_batched" + suffix, x.device,
+                  x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
+                  out.data_ptr(), _ptr(ws), _ptr(counters), c, m, n, k,
+                  ACTS.index(act), int(trans_a), int(trans_b), tile_n, splits,
+                  k_per_split)
+    return out
+
+
+def fused_matmul_batched_bwd(g: torch.Tensor, x: torch.Tensor,
+                             w: torch.Tensor, scale: Optional[torch.Tensor],
+                             y: torch.Tensor, act: str = "none",
+                             needs: Sequence[bool] = (True, True, True, True),
+                             w_nk: bool = False) -> Grads:
+    """The backward of :func:`fused_matmul_batched`, as
+    :func:`fused_matmul_bwd` per config: dx = gs @ W^T and dw = x^T @ gs
+    (or gs^T @ x for (N, K) weights) as one batched K1 launch each over all
+    configs, z = x @ W recomputed on it for dscale only when ``needs[2]``;
+    dscale and dshift (C, N) in float32.
+
+    A CUDA x launches K1 (counted in ``fused_matmul_batched_bwd.launches``);
+    a CPU x takes :func:`fused_matmul_batched_bwd_plain`."""
+    if x.device.type == "cpu":
+        return fused_matmul_batched_bwd_plain(g, x, w, scale, y, act, needs,
+                                              w_nk)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_matmul_batched_bwd: no kernel for device "
+                         f"{x.device}")
+    g = _act_grad(g, y, act)
+    gs = (g if scale is None else g * scale[:, None].to(g.dtype)).contiguous()
+
+    def product(a, b, trans_a, trans_b):  # scale 1, shift 0, no act
+        out = fused_gemm_batched(a, b, None, None, "none", trans_a, trans_b)
+        count_launch(fused_matmul_batched_bwd, a.dtype)
+        return out
+
+    dx = dw = dscale = None
+    if needs[0]:
+        dx = product(gs, w, False, not w_nk)
+    if needs[1]:
+        dw = product(gs, x, True, False) if w_nk else \
+            product(x, gs, True, False)
+    if needs[2]:
+        dscale = (g * product(x, w, False, w_nk)).sum(1).float()
+    dshift = g.sum(1).float() if needs[3] else None
+    return dx, dw, dscale, dshift
+
+
+fused_matmul_batched_bwd.launches = _build.launch_counter()
+
+
+def _forward_batched(x, w, scale, shift, act, w_nk):
+    if x.device.type == "cuda":
+        y = fused_gemm_batched(x, w, scale, shift, act, False, w_nk)
+        count_launch(fused_matmul_batched, x.dtype)
+        return y
+    return fused_matmul_batched_plain(x, w, scale, shift, act, w_nk)
+
+
+class _FusedMatmulBatched(torch.autograd.Function):
+    """The batched K1 (or its plain version) with satae's VJP per config as
+    the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, scale, shift, act, w_nk):
+        y = _forward_batched(x, w, scale, shift, act, w_nk)
+        ctx.save_for_backward(x, w, scale, y)
+        ctx.act, ctx.w_nk = act, w_nk
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, scale, y = ctx.saved_tensors
+        grads = fused_matmul_batched_bwd(g, x, w, scale, y, ctx.act,
+                                         ctx.needs_input_grad[:4], ctx.w_nk)
+        return (*grads, None, None)
+
+
+def fused_matmul_batched(x: torch.Tensor, w: torch.Tensor,
+                         scale: Optional[torch.Tensor], shift: torch.Tensor,
+                         act: str = "none", *,
+                         w_nk: bool = False) -> torch.Tensor:
+    """:func:`fused_matmul` for C configs at once: x (C, M, K), w (C, K, N)
+    or (C, N, K) with ``w_nk``, scale (C, N) or None, shift (C, N) ->
+    (C, M, N). Differentiable in x, w, scale and shift
+    (:func:`fused_matmul_batched_bwd`).
+
+    A CUDA x launches the batched K1 once (counted in
+    ``fused_matmul_batched.launches``); a CPU x takes
+    :func:`fused_matmul_batched_plain`."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    if (x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0]
+            or x.shape[2] != w.shape[1 + int(w_nk)]):
+        raise ValueError(f"fused_matmul_batched: bad shapes x "
+                         f"{tuple(x.shape)}, w {tuple(w.shape)}"
+                         f"{' (C, N, K)' if w_nk else ''}")
+    cn = (x.shape[0], w.shape[2 - int(w_nk)])
+    if (scale is not None and scale.shape != cn) or shift.shape != cn:
+        raise ValueError(f"fused_matmul_batched: scale/shift must be {cn}, "
+                         f"got {None if scale is None else tuple(scale.shape)}"
+                         f", {tuple(shift.shape)}")
+    if x.device.type == "cpu":
+        _build.check_dtypes("fused_matmul_batched", x, w, scale, shift)
+    elif x.device.type != "cuda":
+        raise ValueError(f"fused_matmul_batched: no kernel for device "
+                         f"{x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, scale, shift)):
+        return _FusedMatmulBatched.apply(x, w, scale, shift, act, w_nk)
+    return _forward_batched(x, w, scale, shift, act, w_nk)
+
+
+fused_matmul_batched.launches = _build.launch_counter()

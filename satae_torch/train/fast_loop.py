@@ -54,14 +54,8 @@ from satae_torch.models.mlp import MLP
 from satae_torch.models.supervised_ae import SupervisedAE
 from satae_torch.nn.init import init_
 from satae_torch.train import hbm
-from satae_torch.train.loop import LogFn, TrainResult
+from satae_torch.train.loop import LogFn, TrainResult, _snapshot, _up
 from satae_torch.train.optim import adam_init
-
-
-def _snapshot(model: torch.nn.Module):
-    """(params, buffers) copies on the model's device."""
-    return ({k: v.detach().clone() for k, v in model.named_parameters()},
-            {k: v.detach().clone() for k, v in model.named_buffers()})
 
 
 def _host(sums: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -75,11 +69,6 @@ def _check_full_batch(n: int, batch_size: int, what: str) -> None:
         raise ValueError(
             f"{what} ({n}) is smaller than batch_size ({batch_size}); the "
             "trainer trains on full batches only")
-
-
-def _up(a: np.ndarray, device: torch.device, dtype=None) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device,
-                                                        dtype=dtype)
 
 
 def upload_eval_batches(ds: ArrayDataset, batch_size: int,

@@ -1,5 +1,5 @@
 """Hyperparameter grid searches (reference C16 and C22): the port's copy of
-satae/train/gridsearch.py, scan engine only.
+satae/train/gridsearch.py.
 
 AE sweep: alpha x lr (5 x 9 = 45 configs by default), fresh init per config
 seeded ``seed + cfg_idx`` in loop order, early stopping, global best by val
@@ -10,18 +10,22 @@ store (``validation_losses.json`` / ``mlp_results.json``) under satae's
 keys, so a sweep resumes a run directory of either package; the selection
 contract is satae_torch.train.sweep_common's.
 
-The data is uploaded once per sweep and every config trains on it
-(satae_torch.train.fast_loop). The AE sweep computes in ``compute_dtype``
+``engine="scan"`` (the default) uploads the data once per sweep and trains
+every config on it (satae_torch.train.fast_loop); any other engine is
+satae's ``"steps"``, the per-batch host loop of satae_torch.train.loop,
+which keeps each epoch's remainder batch. The AE sweep computes in
+``compute_dtype``
 (satae's; the stores, keys and checkpoints are the same in bf16, the master
 parameters being float32); the MLP sweep is float32.
 
-With ``AETrainConfig.checkpoint_every`` and ``out_dir`` each AE config also
-flushes its in-flight train state every N epochs under satae's names,
+With ``AETrainConfig.checkpoint_every`` and ``out_dir`` each AE config of
+the scan engine also flushes its in-flight train state every N epochs under
+satae's names,
 ``out_dir/inflight/ae_a{alpha:g}_lr{lr:g}.msgpack``, so a kill mid-config
 retrains at most N epochs of it; the files go once the config is recorded
 (satae/train/gridsearch.py:86-106, :138). ``save_curves`` draws satae's
-per-config figures under ``out_dir/curves/`` (matplotlib required). satae's
-per-batch ``engine="steps"`` is a later slice (ROADMAP.md §1 item 5).
+per-config figures under ``out_dir/curves/`` (matplotlib required). The
+config-batched engine is satae_torch.train.vmap_sweep.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from satae_torch.data.pipeline import ArrayDataset
 from satae_torch.io import convert
 from satae_torch.io.checkpoint import GridResultStore, clear_train_state
 from satae_torch.models.mlp import MLP
-from satae_torch.train import fast_loop, hbm
+from satae_torch.train import fast_loop, hbm, loop
 from satae_torch.train.loop import LogFn, TrainResult
 from satae_torch.train.sweep_common import SweepBook
 
@@ -49,14 +53,6 @@ class SweepResult:
     best: TrainResult
     best_hparams: Dict[str, float]
     results: Dict[str, Dict[str, float]]  # key -> summary metrics
-
-
-def _scan_only(engine: str) -> None:
-    if engine != "scan":
-        raise NotImplementedError(
-            f"engine={engine!r}: satae_torch sweeps with the scan engine "
-            "only; satae's per-batch steps engine is a later slice "
-            "(ROADMAP.md §1 item 5)")
 
 
 def ae_grid_search(
@@ -76,9 +72,9 @@ def ae_grid_search(
 ) -> SweepResult:
     """Sequential alpha x lr sweep with per-config result flushing and a
     global-best checkpoint, each config computing in ``compute_dtype``."""
-    _scan_only(engine)
-    device_data = fast_loop.upload_ae_data(train_ds, val_ds,
-                                           data_cfg.batch_size, device)
+    scan = engine == "scan"
+    device_data = fast_loop.upload_ae_data(
+        train_ds, val_ds, data_cfg.batch_size, device) if scan else None
     book = SweepBook(
         out_dir, ckpt_name="ae_global_best",
         store_name="validation_losses.json", mode="min",
@@ -91,7 +87,7 @@ def ae_grid_search(
                                             data_cfg.image_size)))
 
     def inflight_path(alpha: float, lr: float) -> Optional[Path]:
-        if out_dir and ae_cfg.checkpoint_every:
+        if out_dir and ae_cfg.checkpoint_every and scan:
             return (Path(out_dir) / "inflight" /
                     f"ae_a{alpha:g}_lr{lr:g}.msgpack")
         return None
@@ -110,17 +106,24 @@ def ae_grid_search(
                 if log:
                     log(f"skip cached alpha={alpha} lr={lr}")
                 continue
-            res = fast_loop.train_supervised_ae(
-                train_ds, val_ds, model_cfg=model_cfg, data_cfg=data_cfg,
-                alpha=alpha, lr=lr, device=device,
-                max_epochs=ae_cfg.max_epochs, patience=ae_cfg.patience,
-                seed=seed + cfg_idx, device_data=device_data,
-                compute_dtype=compute_dtype,
-                checkpoint_path=None if ckpt is None else str(ckpt),
-                checkpoint_every=ae_cfg.checkpoint_every,
-                # per-epoch lines (and the resume point) only for the
-                # checkpointed configs, as satae logs them
-                log=log if ckpt is not None else None)
+            if scan:
+                res = fast_loop.train_supervised_ae(
+                    train_ds, val_ds, model_cfg=model_cfg, data_cfg=data_cfg,
+                    alpha=alpha, lr=lr, device=device,
+                    max_epochs=ae_cfg.max_epochs, patience=ae_cfg.patience,
+                    seed=seed + cfg_idx, device_data=device_data,
+                    compute_dtype=compute_dtype,
+                    checkpoint_path=None if ckpt is None else str(ckpt),
+                    checkpoint_every=ae_cfg.checkpoint_every,
+                    # per-epoch lines (and the resume point) only for the
+                    # checkpointed configs, as satae logs them
+                    log=log if ckpt is not None else None)
+            else:
+                res = loop.train_supervised_ae(
+                    train_ds, val_ds, model_cfg=model_cfg, data_cfg=data_cfg,
+                    alpha=alpha, lr=lr, device=device,
+                    max_epochs=ae_cfg.max_epochs, patience=ae_cfg.patience,
+                    seed=seed + cfg_idx, compute_dtype=compute_dtype)
             # offer (checkpoint save) strictly before the store flush: a
             # crash between the two costs a retrain on resume, never a
             # cached-but-uncheckpointed winner left out of selection
@@ -165,10 +168,10 @@ def mlp_grid_search(
     """The lr sweep over the latent MLP; global best by val accuracy. With
     test_x/test_y each lr's summary also records its best epoch's test
     accuracy, as the reference's per-lr test evaluation does."""
-    _scan_only(engine)
+    scan = engine == "scan"
     input_dim = train_x.shape[-1]
-    device_data = fast_loop.upload_mlp_data(train_x, train_y, val_x, val_y,
-                                            batch_size, device)
+    device_data = fast_loop.upload_mlp_data(
+        train_x, train_y, val_x, val_y, batch_size, device) if scan else None
     test_data = None if test_x is None else fast_loop.upload_eval_batches(
         ArrayDataset(np.asarray(test_x, np.float32),
                      np.asarray(test_y, np.int64)), batch_size, device)
@@ -186,11 +189,14 @@ def mlp_grid_search(
             if log:
                 log(f"skip cached lr={lr}")
             continue
-        res = fast_loop.train_mlp(
-            train_x, train_y, val_x, val_y, model_cfg=model_cfg, lr=lr,
-            device=device, weight_decay=mlp_cfg.weight_decay,
-            epochs=mlp_cfg.epochs, batch_size=batch_size, seed=seed + cfg_idx,
-            device_data=device_data)
+        kw = dict(model_cfg=model_cfg, lr=lr, device=device,
+                  weight_decay=mlp_cfg.weight_decay, epochs=mlp_cfg.epochs,
+                  batch_size=batch_size, seed=seed + cfg_idx)
+        if scan:
+            res = fast_loop.train_mlp(train_x, train_y, val_x, val_y,
+                                      device_data=device_data, **kw)
+        else:
+            res = loop.train_mlp(train_x, train_y, val_x, val_y, **kw)
         summary = {"lr": lr, "best_val_acc": res.best_val_acc,
                    "best_val_loss": res.best_val_loss,
                    "best_epoch": res.best_epoch}

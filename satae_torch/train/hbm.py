@@ -17,6 +17,12 @@ The AE bodies take satae's ``compute_dtype`` as ``dtype``; their sums
 accumulate in float32 whatever it is (the differences and logits taken in
 ``dtype`` first, hbm.py:216-222), so the selection metrics do not depend on
 it. The MLP bodies are float32.
+
+The ``stacked_*`` bodies are the same epochs for every config of a
+satae_torch.models.stacked model at once, satae's bodies under
+``jax.vmap`` (satae/train/vmap_sweep.py:72-76, :228-232): one shared
+batch order, per-config draws, and sums of shape (C,) (``n`` stays a
+scalar).
 """
 
 from __future__ import annotations
@@ -30,9 +36,13 @@ from satae_torch.config import DataConfig
 from satae_torch.data.augment import normalize
 from satae_torch.data.pipeline import ArrayDataset
 from satae_torch.models.mlp import MLP
+from satae_torch.models.stacked import StackedMLP, StackedSupervisedAE
 from satae_torch.models.supervised_ae import SupervisedAE
+from satae_torch.nn.stacked import fold
 from satae_torch.train.optim import AdamState
-from satae_torch.train.steps import ae_train_step, mlp_train_step
+from satae_torch.train.steps import (ae_train_step, mlp_train_step,
+                                     stacked_ae_train_step,
+                                     stacked_mlp_train_step)
 
 Sums = Dict[str, torch.Tensor]
 
@@ -143,5 +153,97 @@ def mlp_eval_sums(model: MLP, xs: torch.Tensor, ys: torch.Tensor,
         tl = logits32.gather(-1, yb[:, None])[:, 0]
         msum["loss"] += torch.sum((logz - tl) * wb)
         msum["acc"] += torch.sum((torch.argmax(logits, -1) == yb) * wb)
+        msum["n"] += torch.sum(wb)
+    return msum
+
+
+# ---- config-batched epochs (the vmap sweep engine) --------------------------
+
+def _zeros_c(keys, c: int, device) -> Sums:
+    return {k: torch.zeros(c, device=device) for k in keys}
+
+
+def stacked_ae_train_epoch(model: StackedSupervisedAE, opt: AdamState,
+                           images: torch.Tensor, labels: torch.Tensor,
+                           order: np.ndarray, alphas: torch.Tensor,
+                           lrs: torch.Tensor, data_cfg: DataConfig,
+                           generator: Optional[torch.Generator],
+                           dtype: torch.dtype = torch.float32) -> Sums:
+    """:func:`ae_train_epoch` of every config at once on the shared
+    ``order``: (C,) per-sample weighted float32 sums."""
+    msum = _zeros_c(("loss", "mse", "ce", "acc"), model.n_configs,
+                    images.device)
+    for idx in torch.from_numpy(order).to(images.device):
+        metrics, _ = stacked_ae_train_step(
+            model, opt, images.index_select(0, idx),
+            labels.index_select(0, idx), alphas, lrs, data_cfg,
+            generator=generator, dtype=dtype)
+        for k in msum:
+            msum[k] += metrics[k] * idx.numel()
+    return msum
+
+
+@torch.no_grad()
+def stacked_ae_eval_sums(model: StackedSupervisedAE, images: torch.Tensor,
+                         labels: torch.Tensor, weights: torch.Tensor,
+                         alphas: torch.Tensor,
+                         dtype: torch.dtype = torch.float32) -> Sums:
+    """:func:`ae_eval_sums` of every config: (C,) weighted sums of loss,
+    mse, ce and acc, and the scalar weight ``n``."""
+    model.eval()
+    c = model.n_configs
+    msum = _zeros_c(("loss", "mse", "ce", "acc"), c, images.device)
+    msum["n"] = torch.zeros((), device=images.device)
+    for imgs_u8, labs, wts in zip(images, labels, weights):
+        imgs = fold(normalize(imgs_u8, dtype).expand(c, -1, -1, -1, -1))
+        x_hat, logits, _ = model(imgs)
+        d = torch.square((x_hat - imgs).float())
+        b = d.shape[0]
+        se = torch.sum(d.reshape(b, c, -1) * wts[:, None, None],
+                       dim=(0, 2)) / (d[0].numel() // c)
+        logits32 = logits.float()
+        logz = torch.logsumexp(logits32, dim=-1)
+        tl = logits32.gather(-1, labs[None, :, None].expand(c, -1, 1))[..., 0]
+        ce = torch.sum((logz - tl) * wts, dim=1)
+        correct = torch.sum((torch.argmax(logits, -1) == labs) * wts, dim=1)
+        msum["loss"] += alphas * se + ce
+        msum["mse"] += se
+        msum["ce"] += ce
+        msum["acc"] += correct
+        msum["n"] += torch.sum(wts)
+    return msum
+
+
+def stacked_mlp_train_epoch(model: StackedMLP, opt: AdamState,
+                            xs: torch.Tensor, ys: torch.Tensor,
+                            order: np.ndarray, lrs: torch.Tensor,
+                            weight_decay: float,
+                            generator: Optional[torch.Generator]) -> Sums:
+    """:func:`mlp_train_epoch` of every config at once: (C,) sums."""
+    msum = _zeros_c(("loss", "acc"), model.n_configs, xs.device)
+    for idx in torch.from_numpy(order).to(xs.device):
+        metrics, _ = stacked_mlp_train_step(
+            model, opt, xs.index_select(0, idx), ys.index_select(0, idx),
+            lrs, weight_decay, generator=generator)
+        msum["loss"] += metrics["loss"] * idx.numel()
+        msum["acc"] += metrics["acc"] * idx.numel()
+    return msum
+
+
+@torch.no_grad()
+def stacked_mlp_eval_sums(model: StackedMLP, xs: torch.Tensor,
+                          ys: torch.Tensor, wts: torch.Tensor) -> Sums:
+    """:func:`mlp_eval_sums` of every config: (C,) loss and acc, scalar n."""
+    model.eval()
+    c = model.n_configs
+    msum = _zeros_c(("loss", "acc"), c, xs.device)
+    msum["n"] = torch.zeros((), device=xs.device)
+    for xb, yb, wb in zip(xs, ys, wts):
+        logits = model(xb.unsqueeze(0).expand(c, -1, -1))
+        logits32 = logits.float()
+        logz = torch.logsumexp(logits32, dim=-1)
+        tl = logits32.gather(-1, yb[None, :, None].expand(c, -1, 1))[..., 0]
+        msum["loss"] += torch.sum((logz - tl) * wb, dim=1)
+        msum["acc"] += torch.sum((torch.argmax(logits, -1) == yb) * wb, dim=1)
         msum["n"] += torch.sum(wb)
     return msum

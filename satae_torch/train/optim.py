@@ -13,7 +13,7 @@ differently. Parameters and moments are updated in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Sequence, Union
 
 import numpy as np
 import torch
@@ -33,10 +33,14 @@ def adam_init(params: Sequence[torch.Tensor]) -> AdamState:
 
 @torch.no_grad()
 def adam_update(params: Sequence[torch.Tensor],
-                grads: Sequence[torch.Tensor], state: AdamState, lr: float,
-                weight_decay: float = 0.0, b1: float = 0.9,
-                b2: float = 0.999, eps: float = 1e-8) -> None:
-    """One Adam step on ``params`` in place."""
+                grads: Sequence[torch.Tensor], state: AdamState,
+                lr: Union[float, torch.Tensor], weight_decay: float = 0.0,
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> None:
+    """One Adam step on ``params`` in place. For C configs stacked on the
+    parameters' leading axis (the vmap sweep engine) ``lr`` is a (C,)
+    float32 tensor, config c stepping with ``lr[c]`` broadcast on that
+    axis; the step counter is shared (the configs step together). Any
+    other ``lr`` is taken as ``float(lr)``."""
     state.step += 1
     # the bias corrections in float32, as satae computes them on the device
     t = np.float32(state.step)
@@ -48,4 +52,6 @@ def adam_update(params: Sequence[torch.Tensor],
         nu.mul_(b2).add_((1.0 - b2) * (g * g))
         mhat = mu / bc1
         vhat = nu / bc2
-        p.sub_(lr * mhat / (torch.sqrt(vhat) + eps))
+        step = lr.reshape((-1,) + (1,) * (p.dim() - 1)) \
+            if isinstance(lr, torch.Tensor) else float(lr)
+        p.sub_(step * mhat / (torch.sqrt(vhat) + eps))

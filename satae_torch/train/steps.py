@@ -26,6 +26,18 @@ batch is normalised and augmented in it and the model runs in it, while
 the parameters, BatchNorm running stats, Adam's moments and the metrics stay
 float32 (the losses accumulate in float32). The MLP steps are float32, as
 satae's are.
+
+The ``stacked_*`` steps are satae's steps under ``jax.vmap`` over a config
+axis (satae/train/vmap_sweep.py): one step of every config of a
+satae_torch.models.stacked model on the same batch, each config with its
+own alpha and lr (``alphas``, ``lrs``: (C,) float32 tensors on the model's
+device), its own augmentation draws (flips (C, B, 1), offsets (C, B, 2),
+noise (C, B, H, W, ch)) or dropout mask (C, B, hidden), and its own
+BatchNorm statistics. The per-config losses are reduced over the batch
+only; the step differentiates their sum over configs, whose parameters are
+disjoint, so each config's gradient is its own loss's. Metrics are (C,)
+tensors. On a CUDA device a stacked AE step launches the batched K1 4 times
+forward and 8 backward, a stacked MLP step 3 and 5.
 """
 
 from __future__ import annotations
@@ -35,11 +47,17 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from satae_torch.config import DataConfig
-from satae_torch.data.augment import augment_train_batch, normalize
+from satae_torch.data.augment import (augment_stacked_batch,
+                                      augment_train_batch,
+                                      draw_stacked_augmentation, normalize)
 from satae_torch.models.mlp import MLP
+from satae_torch.models.stacked import StackedMLP, StackedSupervisedAE
 from satae_torch.models.supervised_ae import SupervisedAE
 from satae_torch.nn import layers as L
-from satae_torch.train.losses import accuracy, cross_entropy, joint_ae_loss
+from satae_torch.nn.stacked import fold
+from satae_torch.train.losses import (accuracy, cross_entropy, joint_ae_loss,
+                                      stacked_accuracy, stacked_cross_entropy,
+                                      stacked_joint_ae_loss)
 from satae_torch.train.optim import AdamState, adam_update
 from satae_torch.utils.profiling import check_finite
 
@@ -119,3 +137,58 @@ def mlp_predict(model: MLP, x: torch.Tensor) -> torch.Tensor:
     """Eval-mode class ids."""
     model.eval()
     return torch.argmax(model(x), dim=-1)
+
+
+# ---- config-batched steps (the vmap sweep engine) ---------------------------
+
+def stacked_ae_train_step(model: StackedSupervisedAE, opt: AdamState,
+                          imgs_u8: torch.Tensor, labels: torch.Tensor,
+                          alphas: torch.Tensor, lrs: torch.Tensor,
+                          data_cfg: DataConfig, *,
+                          generator: Optional[torch.Generator] = None,
+                          flip: Optional[torch.Tensor] = None,
+                          offsets: Optional[torch.Tensor] = None,
+                          noise: Optional[torch.Tensor] = None,
+                          dtype: torch.dtype = torch.float32) -> StepOut:
+    """One AE step of every config on the shared batch ``imgs_u8``
+    (B, H, W, ch); the draws are drawn from ``generator``
+    (satae_torch.data.augment.draw_stacked_augmentation) unless passed."""
+    if flip is None:
+        flip, offsets, noise = draw_stacked_augmentation(
+            model.n_configs, imgs_u8.shape, data_cfg.crop_padding,
+            generator, imgs_u8.device, dtype)
+    x = fold(augment_stacked_batch(
+        imgs_u8, flip, offsets, noise, crop_padding=data_cfg.crop_padding,
+        noise_std=data_cfg.noise_std, dtype=dtype))
+    model.train()
+    x_hat, logits, _ = model(x)
+    total, mse, ce = stacked_joint_ae_loss(x_hat, logits, x, labels, alphas)
+    check_finite("stacked AE train step", ["loss"], [total])
+    params = list(model.parameters())
+    grads = torch.autograd.grad(total.sum(), params)
+    check_finite("stacked AE train step", _grad_names(model), grads)
+    adam_update(params, grads, opt, lrs)
+    return ({"loss": total.detach(), "mse": mse.detach(), "ce": ce.detach(),
+             "acc": stacked_accuracy(logits.detach(), labels)}, grads)
+
+
+def stacked_mlp_train_step(model: StackedMLP, opt: AdamState,
+                           x: torch.Tensor, labels: torch.Tensor,
+                           lrs: torch.Tensor, weight_decay: float, *,
+                           generator: Optional[torch.Generator] = None,
+                           dropout_mask: Optional[torch.Tensor] = None
+                           ) -> StepOut:
+    """One MLP step of every config on the shared batch x (B, D); the
+    dropout keep mask (C, B, hidden[0]) is drawn from ``generator`` unless
+    passed."""
+    model.train()
+    xs = x.unsqueeze(0).expand(model.n_configs, -1, -1)
+    logits = model(xs, dropout_mask, generator)
+    loss = stacked_cross_entropy(logits, labels)
+    check_finite("stacked MLP train step", ["loss"], [loss])
+    params = list(model.parameters())
+    grads = torch.autograd.grad(loss.sum(), params)
+    check_finite("stacked MLP train step", _grad_names(model), grads)
+    adam_update(params, grads, opt, lrs, weight_decay=weight_decay)
+    return ({"loss": loss.detach(),
+             "acc": stacked_accuracy(logits.detach(), labels)}, grads)

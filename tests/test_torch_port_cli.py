@@ -13,6 +13,7 @@ six decimals) and reconstruction PNGs within one grey level.
 
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import shutil
@@ -31,7 +32,9 @@ from satae.eval import parity_report as jparity
 from satae.eval.metrics import per_class_metrics
 from satae.utils import logging as jlog
 from torch_port_threads import two_threads  # noqa: F401 (autouse)
+from satae_torch import api as tapi
 from satae_torch import cli as tcli
+from satae_torch import config as TC
 from satae_torch.config import DataConfig
 from satae_torch.data import ingest as tingest
 from satae_torch.eval import parity_report as tparity
@@ -219,13 +222,52 @@ def test_without_matplotlib(fits, tmp_path, monkeypatch, capsys):
                   + _common(run, base / "jcache"))
 
 
-@pytest.mark.parametrize("flags", [["--n-devices", "2"], ["--parallel"],
-                                   ["--multihost"], ["--grid-dp", "2"]])
+@pytest.mark.parametrize("flags", [["--n-devices", "2"], ["--multihost"],
+                                   ["--grid-dp", "2"]])
 def test_multi_device_flags_are_refused(tmp_path, flags):
     with pytest.raises(NotImplementedError, match="item 8"):
         tcli.main(["fit", "--out", str(tmp_path / "run"), "--device", "cpu",
                    "--cache-dir", str(tmp_path / "cache")] + flags)
     assert not list(tmp_path.iterdir())
+
+
+def test_fit_grid_parallel_runs_the_vmap_engine(tmp_path, monkeypatch,
+                                               capsys):
+    """``fit --grid --parallel`` (refused until the vmap engine was ported)
+    trains each sweep's configs at once and writes satae's artifacts; at a
+    tiny size: the CLI's config cut to a tiny model, 16x16 images, batch 8,
+    a 2x2 AE grid and 2 MLP lrs."""
+    real = tcli._config_from_args
+
+    def tiny(args):
+        cfg = real(args)
+        assert cfg.runtime.parallel_configs
+        return dataclasses.replace(
+            cfg, model=TC.ModelConfig(latent_dim=8, encoder_channels=(4, 8),
+                                      head_hidden=16, mlp_hidden=(16, 8)),
+            data=dataclasses.replace(cfg.data, image_size=16, batch_size=8),
+            ae=dataclasses.replace(cfg.ae, alphas=(20.0, 35.0),
+                                   learning_rates=(1e-3, 5e-3)),
+            mlp=dataclasses.replace(cfg.mlp, learning_rates=(1e-3, 1e-2)))
+
+    monkeypatch.setattr(tcli, "_config_from_args", tiny)
+    engines = []
+    real_search = tapi.ae_vmap_grid_search
+    monkeypatch.setattr(tapi, "ae_vmap_grid_search", lambda *a, **kw: (
+        engines.append("vmap"), real_search(*a, **kw))[1])
+    run = tmp_path / "run"
+    tcli.main(["fit", "--grid", "--parallel", "--per-class", "8",
+               "--ae-epochs", "1", "--mlp-epochs", "1", "--device", "cpu",
+               "--out", str(run), "--cache-dir", str(tmp_path / "cache")])
+    out = capsys.readouterr().out
+    summary = json.loads(out[out.index("{\n"):])
+    assert engines == ["vmap"]
+    assert summary["ae_hparams"]["alpha"] in (20.0, 35.0)
+    for name in ("validation_losses.json", "mlp_results.json",
+                 "ae_global_best.msgpack", "mlp_global_best.msgpack",
+                 "fit_summary.json", "metrics.jsonl"):
+        assert (run / name).exists(), name
+    assert len(json.loads((run / "validation_losses.json").read_text())) == 4
 
 
 # -- ingest --------------------------------------------------------------------

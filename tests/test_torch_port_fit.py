@@ -6,6 +6,7 @@ of satae, the fitted pipeline's predict, the reuse_ae flow, the refusals,
 """
 
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -19,6 +20,7 @@ from satae.models.mlp import mlp_init
 from satae.models.supervised_ae import supervised_ae_init
 from torch_port_threads import two_threads  # noqa: F401 (autouse)
 import satae_torch
+from satae_torch import api as tapi
 from satae_torch import config as TC
 from satae_torch.api import SatAEPipeline
 from satae_torch.data.ingest import load_dataset
@@ -93,14 +95,12 @@ def test_reuse_ae_after_load_trains_only_the_mlp(tmp_path, test_split):
 
 def test_fit_refusals(monkeypatch, tmp_path):
     """What is not ported raises before any work, naming its ROADMAP item:
-    the vmap and sharded sweep engines and the multi-process runtime (item
-    8); and a fit never drops to the CPU by itself. In-flight resume and the
-    grid's curve figures, refused until they were ported, now run."""
+    the sharded sweep engines and the multi-process runtime (item 8); and a
+    fit never drops to the CPU by itself. In-flight resume, the grid's curve
+    figures and the vmap sweep engine (``parallel_configs``), refused until
+    they were ported, now run."""
     run = tmp_path / "run"
     rt = lambda **kw: dataclasses.replace(CFG, runtime=TC.RuntimeConfig(**kw))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        SatAEPipeline(rt(parallel_configs=True), device="cpu").fit(
-            grid=True, out_dir=str(run))
     with pytest.raises(NotImplementedError, match="item 8"):
         SatAEPipeline(rt(n_devices=2), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
@@ -120,6 +120,19 @@ def test_fit_refusals(monkeypatch, tmp_path):
         SatAEPipeline(resume, device="cpu").fit(grid=grid, out_dir=str(out))
         assert (out / "ae_global_best.msgpack").exists()
         assert not list((out / "inflight").iterdir())
+    vmap = tmp_path / "vmap"
+    engines = []
+    monkeypatch.setattr(tapi, "ae_vmap_grid_search", _spying(
+        tapi.ae_vmap_grid_search, engines))
+    monkeypatch.setattr(tapi, "mlp_vmap_grid_search", _spying(
+        tapi.mlp_vmap_grid_search, engines))
+    vsum = SatAEPipeline(dataclasses.replace(
+        small, ae=dataclasses.replace(small.ae, learning_rates=(1e-3, 5e-3)),
+        runtime=TC.RuntimeConfig(parallel_configs=True)),
+        device="cpu").fit(grid=True, out_dir=str(vmap))
+    assert engines == ["ae_vmap_grid_search", "mlp_vmap_grid_search"]
+    assert vsum.ae_hparams["lr"] in (1e-3, 5e-3)
+    assert len(json.loads((vmap / "validation_losses.json").read_text())) == 2
     curves = tmp_path / "curves"
     SatAEPipeline(dataclasses.replace(small, runtime=TC.RuntimeConfig(
         save_grid_curves=True)), device="cpu").fit(grid=True,
@@ -129,6 +142,13 @@ def test_fit_refusals(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         satae_torch.fit(CFG, grid=True)
+
+
+def _spying(fn, calls):
+    def wrapped(*a, **kw):
+        calls.append(fn.__name__)
+        return fn(*a, **kw)
+    return wrapped
 
 
 def _poison_first_batch(monkeypatch):

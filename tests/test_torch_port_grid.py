@@ -43,6 +43,7 @@ from satae_torch.io import convert
 from satae_torch.io.checkpoint import GridResultStore, load_grid_results
 from satae_torch.train import fast_loop as tfast
 from satae_torch.train import gridsearch as tgrid
+from satae_torch.train import loop as tloop
 from satae_torch.train.loop import TrainResult
 from test_torch_port_models import numpy_trees
 
@@ -178,7 +179,7 @@ def _assert_same_winner(kind, jbest, tbest):
         assert a == b or (math.isnan(a) and math.isnan(b)), f
 
 
-def _run_both(kind, case, tmp_path, monkeypatch, splits):
+def _run_both(kind, case, tmp_path, monkeypatch, splits, engine="scan"):
     use_dir = case.get("out_dir", True)
     runs = {}
     for pkg in ("satae", "port"):
@@ -191,19 +192,26 @@ def _run_both(kind, case, tmp_path, monkeypatch, splits):
         else ((), ())
     jseeds, tseeds, jlog, tlog = [], [], [], []
     if kind == "ae":
-        monkeypatch.setattr(jfast, "AEScanEngine", lambda *a, **k: None)
-        monkeypatch.setattr(jfast, "upload_ae_data", lambda *a, **k: None)
-        monkeypatch.setattr(jfast, "train_supervised_ae_scan",
-                            _stub(jres, jseeds))
-        monkeypatch.setattr(tfast, "train_supervised_ae", _stub(tres, tseeds))
+        if engine == "scan":
+            monkeypatch.setattr(jfast, "AEScanEngine", lambda *a, **k: None)
+            monkeypatch.setattr(jfast, "upload_ae_data", lambda *a, **k: None)
+            monkeypatch.setattr(jfast, "train_supervised_ae_scan",
+                                _stub(jres, jseeds))
+            monkeypatch.setattr(tfast, "train_supervised_ae",
+                                _stub(tres, tseeds))
+        else:
+            monkeypatch.setattr(jgrid, "train_supervised_ae",
+                                _stub(jres, jseeds))
+            monkeypatch.setattr(tloop, "train_supervised_ae",
+                                _stub(tres, tseeds))
         j = jgrid.ae_grid_search(
             splits.train, splits.val, model_cfg=JCFG, data_cfg=JDATA,
-            ae_cfg=JAE, seed=7, log=jlog.append,
+            ae_cfg=JAE, seed=7, log=jlog.append, engine=engine,
             out_dir=str(runs["satae"]) if use_dir else None)
         t = tgrid.ae_grid_search(
             splits.train, splits.val, model_cfg=TCFG, data_cfg=TDATA,
             ae_cfg=TAE, device=torch.device("cpu"), seed=7, log=tlog.append,
-            out_dir=str(runs["port"]) if use_dir else None)
+            engine=engine, out_dir=str(runs["port"]) if use_dir else None)
     else:
         rng = np.random.default_rng(0)
         x = {n: rng.standard_normal((n, 8)).astype(np.float32)
@@ -211,18 +219,23 @@ def _run_both(kind, case, tmp_path, monkeypatch, splits):
         y = {n: rng.integers(0, 10, n).astype(np.int32) for n in (56, 12)}
         test = dict(test_x=x[12][::-1].copy(), test_y=y[12][::-1].copy()) \
             if case.get("test") else {}
-        monkeypatch.setattr(jfast, "MLPScanEngine", lambda *a, **k: None)
-        monkeypatch.setattr(jfast, "upload_mlp_data", lambda *a, **k: None)
-        monkeypatch.setattr(jfast, "train_mlp_scan", _stub(jres, jseeds))
-        monkeypatch.setattr(tfast, "train_mlp", _stub(tres, tseeds))
+        if engine == "scan":
+            monkeypatch.setattr(jfast, "MLPScanEngine", lambda *a, **k: None)
+            monkeypatch.setattr(jfast, "upload_mlp_data",
+                                lambda *a, **k: None)
+            monkeypatch.setattr(jfast, "train_mlp_scan", _stub(jres, jseeds))
+            monkeypatch.setattr(tfast, "train_mlp", _stub(tres, tseeds))
+        else:
+            monkeypatch.setattr(jgrid, "train_mlp", _stub(jres, jseeds))
+            monkeypatch.setattr(tloop, "train_mlp", _stub(tres, tseeds))
         j = jgrid.mlp_grid_search(
             x[56], y[56], x[12], y[12], model_cfg=JCFG, mlp_cfg=JMLP,
-            batch_size=B, seed=7, log=jlog.append,
+            batch_size=B, seed=7, log=jlog.append, engine=engine,
             out_dir=str(runs["satae"]) if use_dir else None, **test)
         t = tgrid.mlp_grid_search(
             x[56], y[56], x[12], y[12], model_cfg=TCFG, mlp_cfg=TMLP,
             device=torch.device("cpu"), batch_size=B, seed=7,
-            log=tlog.append,
+            log=tlog.append, engine=engine,
             out_dir=str(runs["port"]) if use_dir else None, **test)
     assert t.best_hparams == j.best_hparams
     assert tseeds == jseeds
@@ -251,16 +264,17 @@ def test_mlp_sweep_selects_as_satae(case, tmp_path, monkeypatch, splits):
     _run_both("mlp", MLP_CASES[case], tmp_path, monkeypatch, splits)
 
 
-def test_sweeps_refuse_unported_engines(splits, tmp_path):
-    """satae's per-batch engine is refused (ROADMAP §1 item 5); in-flight
-    resume, refused until it was ported, now runs and leaves no files."""
+def test_steps_engine_selects_as_satae(splits, tmp_path, monkeypatch):
+    """satae's per-batch engine (engine="steps", refused until it was
+    ported) dispatches to the per-batch trainers with the seeds, selection,
+    stores and checkpoints of satae's; in-flight resume stays the scan
+    engine's, which runs it and leaves no files."""
+    for kind, case in (("ae", AE_CASES["resume_fresh_wins"]),
+                       ("mlp", MLP_CASES["fresh_max_with_test_acc"])):
+        (tmp_path / kind).mkdir()
+        _run_both(kind, case, tmp_path / kind, monkeypatch, splits,
+                  engine="steps")
     kw = dict(model_cfg=TCFG, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tgrid.ae_grid_search(splits.train, splits.val, data_cfg=TDATA,
-                             ae_cfg=TAE, engine="steps", **kw)
-    x, y = np.zeros((8, 8), np.float32), np.zeros(8, np.int32)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tgrid.mlp_grid_search(x, y, x, y, mlp_cfg=TMLP, engine="steps", **kw)
     out = tmp_path / "run"
     sweep = tgrid.ae_grid_search(
         splits.train, splits.val, data_cfg=TDATA, out_dir=str(out),
