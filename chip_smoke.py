@@ -12,9 +12,10 @@ Phases, in order; any failure exits non-zero:
 2. build  -- compiles the hand-written kernels from satae_torch/csrc with nvcc
              (sm_90a) and prints the build seconds and the ptxas report
              (registers, shared memory, spills per instantiation); fails on
-             any spill, and unless every bf16 kernel of satae::hopper has
-             HGMMA (wgmma) in its SASS (cuobjdump -sass); prints ptxas's
-             notes on serialised wgmmas.
+             any spill, unless every bf16 kernel of satae::hopper has
+             HGMMA (wgmma) in its SASS (cuobjdump -sass) -- K1's
+             fused_gemm_tma_kernel, which takes the config count C, among
+             them -- and on any ptxas note of serialised wgmmas.
 3. K1     -- fused_gemm against fused_matmul_plain (TF32 off) at every K1
              shape of the serving path plus the awkward shapes of the JAX
              package's kernel tests, 8192x4096x64 (one split, all of K in
@@ -178,24 +179,30 @@ turn it off for their convolutions themselves.
 
 Phases 21-24 turn TF32 off again (their plain references are full float32).
 
-21. batched K1 -- the batched entries of K1 (satae_fused_gemm_batched and
-             _batched_bf16) at every launch of a stacked AE step (C = 45:
-             the projection, the decoder input and the head, forward, dX
-             and dW) and of a stacked MLP step (C = 11) against the plain
-             version per config on the card: float32 within 1e-4 +
-             1e-5*|ref|, bf16 within one ulp + 1e-6 and >= 99 % bit-equal;
-             three launches bitwise equal; every config's slice bit-equal
-             to the unbatched K1 launched on it wherever the unbatched call
-             takes the batched plan on the same mma.sync loop.
-             Device us per launch beside C unbatched launches of the same
-             work, torch.bmm (TF32 off) and the bound.
+21. batched K1 -- the batched entries of K1 (satae_fused_gemm_batched,
+             _batched_bf16_tma and _batched_bf16) at every launch of a
+             stacked AE step (C = 45: the projection, the decoder input and
+             the head, forward, dX and dW) and of a stacked MLP step (C =
+             11) against the plain version per config on the card: float32
+             within 1e-4 + 1e-5*|ref|, bf16 within one ulp + 1e-6 and >= 99
+             % bit-equal; three launches bitwise equal; each launch's route
+             printed and held: every bf16 launch on the wgmma kernel but
+             fc2's dX and dW (10-wide cotangent rows, the mma.sync loop),
+             float32 on mma.sync; every config's slice bit-equal to the
+             unbatched K1 launched on it wherever the unbatched call takes
+             the batched plan on the same route. Device us per launch
+             beside C unbatched launches of the same work, torch.bmm (TF32
+             off) and the launch's bound.
 22. stacked steps -- 10 stacked AE steps at full width, batch 64, C = 45
              (the default grid's alphas, lr 1e-5) and 10 stacked MLP steps
              (C = 11), draws fixed, against each config's single-config
              steps on stock PyTorch linears, held as phase 9 holds its runs;
              exactly 4 + 8 (AE) and 3 + 5 (MLP) batched K1 launches a step;
              the stacked AE step's ms in turns with the 45 single-config
-             steps, its device-busy share and peak memory.
+             steps, its device-busy share and peak memory; then the stacked
+             AE step in bf16 in turns with float32, and the batched K1's
+             device share of each (phase 21's device us of the step's 12
+             launches over the step's ms), printed only.
 23. vmap grid -- the pc256 gate of phase 12 with parallel_configs=True
              into chiprun_out/vmap_grid_run, in float32 (satae's vmap
              winners, test accuracy within the gate's band of satae's own
@@ -221,23 +228,28 @@ sessions of one K1 launch as they open, after 50 ms of idle time, and after
 a spin kernel and that idle time, counting the sessions that lost device
 records, with the lead of the first record on the profiler's time line.
 
-``--ab PARENT_DIR`` times every K1 and K2 launch of phases 5, 11 and 13 that
-both trees have (ms and device us per launch) in the tree at PARENT_DIR
-(another checkout of this repository, with its own satae_torch) and in this
-one, in turns: parent, this, this, parent, each in a process of its own that
-builds that tree's kernels. The float32 outputs at the shapes of phases 3
-and 4 must be bitwise equal in all four runs; for every bf16 launch it
-prints the share of outputs bitwise equal to the parent's beside both
-trees' device us. It prints one line per launch and writes
-chiprun_out/ab.json.
+``--ab PARENT_DIR`` times every K1 and K2 launch of phases 5, 11 and 13, and
+every batched K1 launch of phase 21, that both trees have (ms and device us
+per launch) in the tree at PARENT_DIR (another checkout of this repository,
+with its own satae_torch) and in this one, in turns: parent, this, this,
+parent, each in a process of its own that builds that tree's kernels. The
+float32 outputs at the shapes of phases 3 and 4, and the float32 batched
+outputs at phase 21's, must be bitwise equal in all four runs; for every
+bf16 launch it prints the share of outputs bitwise equal to the parent's
+beside both trees' device us and this tree's route. It prints one line per
+launch and writes chiprun_out/ab.json.
 
 ``--split-sweep`` times K1 at the long-K products (the serving projection
 512x4096x64 and the training one, 64x4096x64 with an (N, K) weight) for 1 to
 64 splits on 32- and 64-wide tiles in float32, and on the bf16 wgmma route
-for clusters of 1 to 16 splits, each plan held against its plain version
-(float32 within the tolerance above, bf16 within phase 13's bound), beside
-the plans split_k_plan and split_k_plan_tma pick: the measurement the plans
-rest on. It writes chiprun_out/split_sweep.json.
+for clusters of 1 to 16 splits; then the vmap path's two long-K bf16
+launches at C = 45 (the projection forward and the decoder input's dX) on
+the batched wgmma route for every cluster size of 1 to 16 that whole
+64-deep stages give, beside the batched mma.sync launch and torch.bmm; each
+plan held against its plain version (float32 within the tolerance above,
+bf16 within phase 13's bound), beside the plans split_k_plan and
+split_k_plan_tma pick: the measurement the plans rest on. It writes
+chiprun_out/split_sweep.json.
 """
 
 from __future__ import annotations
@@ -319,8 +331,8 @@ K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
         (3, 7, 5, 9), (2, 9, 6, 40), (3, 11, 8, 72))
 
 
-# the kernel instantiations of a build (ptxas report: K1 16 mma.sync, which
-# the batched entries launch too, + 4 wgmma; K2 4 mma.sync + 3 wgmma) and
+# the kernel instantiations of a build (ptxas report: K1 16 mma.sync + 4
+# wgmma, which the batched entries launch too; K2 4 mma.sync + 3 wgmma) and
 # those of them on wgmma (fused_gemm_tma_kernel x 4 layouts,
 # conv_im2col_tma_kernel x 2 N tiles, conv_rows_kernel)
 N_INSTANTIATIONS = 27
@@ -1139,6 +1151,7 @@ def main() -> int:
     serialised = wgmma_serialised()
     print(f"  ptxas wgmma serialisation notes (C75xx): {serialised or 'none'}",
           flush=True)
+    check(not serialised, f"ptxas serialised wgmmas: {serialised}")
 
     # The plain versions are the reference: full float32, no TF32. Phases
     # 17-20 get PyTorch's defaults back.
@@ -1716,7 +1729,7 @@ def main() -> int:
     k21 = batched_kernels_phase(card)
     phase_s[21] = time.perf_counter() - t_new
     t_new = time.perf_counter()
-    stacked = stacked_steps_phase(card, splits)
+    stacked = stacked_steps_phase(card, splits, k21["rows"])
     phase_s[22] = time.perf_counter() - t_new
     t_new = time.perf_counter()
     vgrid = vmap_grid_phase(card)
@@ -2669,24 +2682,37 @@ def gate_config(dtype: str = "float32", parallel: bool = False):
     return cfg, gate
 
 
+def batched_route(dtype, layer: str, product: str) -> str:
+    """The loader a batched K1 launch of :func:`batched_products` must run
+    on: the bf16 wgmma kernel ("tma") for every bf16 launch but fc2's dX
+    and dW, whose 10-wide cotangent rows (20 bytes) TMA cannot read; the
+    mma.sync loop ("cp.async") for those and for float32."""
+    import torch
+
+    tma = dtype == torch.bfloat16 and not (
+        layer == "fc2" and product in ("dX", "dW"))
+    return "tma" if tma else "cp.async"
+
+
 def batched_kernels_phase(card: str) -> dict:
     """Phase 21: the batched K1 (float32 and bf16) at every launch of the
     stacked AE (C = 45) and MLP (C = 11) steps against its plain version on
-    the card (TF32 off), each config's slice against the unbatched K1 on it
-    with the same plan bit for bit, repeats bitwise; each timed beside C
-    unbatched launches, torch.bmm and its bound."""
+    the card (TF32 off), on the route :func:`batched_route` names; each
+    config's slice against the unbatched K1 on it bit for bit wherever that
+    call takes the same plan on the same route; repeats bitwise; each timed
+    beside C unbatched launches, torch.bmm and its bound."""
     import torch
 
     from satae_torch.kernels.matmul import (fused_gemm, fused_gemm_batched,
                                             fused_matmul_plain, k1_loader,
-                                            split_k_plan)
+                                            split_k_plan, split_k_plan_tma)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(21)
     rows, errs = [], {"float32": 0.0, "bf16": 0.0}
-    min_equal, same_plan = 1.0, 0
-    print(f"phase 21, batched K1 (card {card}): device us per launch, C "
-          "unbatched launches of the same work, torch.bmm, bound",
+    min_equal, same_plan = 1.0, {"cp.async": 0, "tma": 0}
+    print(f"phase 21, batched K1 (card {card}): route, device us per launch, "
+          "C unbatched launches of the same work, torch.bmm, bound",
           flush=True)
     for dt in (torch.float32, torch.bfloat16):
         name16 = "bf16" if dt == torch.bfloat16 else "float32"
@@ -2718,18 +2744,22 @@ def batched_kernels_phase(card: str) -> dict:
             errs[name16] = max(errs[name16], err)
             check(all(torch.equal(out, run()) for _ in range(2)),
                   f"{what}: repeated launches differ bitwise")
-            plan = split_k_plan(m, n, k, batch=c)
+            route = k1_loader(a, b)
+            check(route == batched_route(dt, layer, prod), f"{what}: runs on "
+                  f"{route}, expected {batched_route(dt, layer, prod)}")
+            planner = split_k_plan_tma if route == "tma" else split_k_plan
+            plan = planner(m, n, k, batch=c)
             # the unbatched call runs the same kernel with C = 1 where it
-            # takes the same plan off the TMA route: bitwise the same slice
-            natural = (split_k_plan(m, n, k) == plan
-                       and k1_loader(a[0], b[0]) != "tma")
-            same_plan += natural
+            # takes the same plan on the same route: bitwise the same slice
+            natural = (planner(m, n, k) == plan
+                       and k1_loader(a[0], b[0]) == route)
+            same_plan[route] += natural
             for i in range(c if natural else 0):
                 one = fused_gemm(a[i], b[i], None,
                                  None if shift is None else shift[i], act,
                                  ta, tb)
                 check(torch.equal(one, out[i]), f"{what}: config {i} differs "
-                      f"from the unbatched K1 with plan {plan}")
+                      f"from the unbatched K1 with plan {plan} on {route}")
             esize = a.element_size()
             nbytes = esize * c * (m * k + k * n + m * n) + (
                 0 if shift is None else 4 * c * n)
@@ -2747,7 +2777,7 @@ def batched_kernels_phase(card: str) -> dict:
                                                else "_bwd")
                 + ("_bf16" if dt == torch.bfloat16 else ""),
                 path=path, layer=layer, product=prod, shape=[c, m, k, n],
-                trans_a=ta, trans_b=tb, plan=list(plan),
+                trans_a=ta, trans_b=tb, route=route, plan=list(plan),
                 same_plan_as_unbatched=natural, max_abs_err=err,
                 bit_equal=equal,
                 device_us=device_us(run, bound_us, what),
@@ -2759,32 +2789,38 @@ def batched_kernels_phase(card: str) -> dict:
                 library_ms=time_ms(lib), **bd)
             rows.append(row)
             print(f"  {name16:7s} {path:3s} {layer:6s} {prod:3s} C={c:2d} "
-                  f"{m:4d}x{k:4d}x{n:4d} plan {plan[1:]}: "
+                  f"{m:4d}x{k:4d}x{n:4d} {route:8s} plan {plan[1:]}: "
                   f"{row['device_us']:8.1f} us | {c} unbatched "
                   f"{row['unbatched_device_us']:8.1f} us | bmm "
                   f"{row['library_device_us']:8.1f} us | bound "
                   f"{bound_us:6.1f} us ({bd['bound_by']}); max |err| "
                   f"{err:.3g}" + ("" if equal is None else
                                   f", bit-equal {equal:.5f}"), flush=True)
+    on_tma = sum(r["route"] == "tma" for r in rows)
     print(f"phase 21: {len(rows)} cases, float32 max |err| "
           f"{errs['float32']:.3g} (1e-4 + 1e-5*|ref|), bf16 max |err| "
           f"{errs['bf16']:.3g} (one ulp + 1e-6), bf16 bit-equal >= "
-          f"{min_equal:.5f}; every config's slice bit-equal to the unbatched "
-          f"K1 in the {same_plan} cases where it takes the batched plan on "
-          "the mma.sync loop; 3 launches per case bitwise equal",
+          f"{min_equal:.5f}; {on_tma} bf16 launches on wgmma, the rest of "
+          "bf16 (fc2 dX / dW) and float32 on mma.sync; every config's slice "
+          "bit-equal to the unbatched K1 in the cases where it takes the "
+          f"batched plan on the same route (mma.sync {same_plan['cp.async']},"
+          f" wgmma {same_plan['tma']}); 3 launches per case bitwise equal",
           flush=True)
     return dict(rows=rows, max_abs_err=errs, min_bit_equal=min_equal,
                 same_plan_cases=same_plan, card=card)
 
 
-def stacked_steps_phase(card: str, splits) -> dict:
+def stacked_steps_phase(card: str, splits, k21_rows) -> dict:
     """Phase 22: 10 stacked AE steps (C = 45, the default grid's alphas, lr
     1e-5) and 10 stacked MLP steps (C = 11) at full width, batch 64, TF32
     off, deterministic cuDNN, against each config's single-config steps on
     stock PyTorch linears from the same weights and draws, as phase 9 holds
     its runs; exact batched K1 launches per stacked step; the stacked AE
     step's time in turns with 45 single-config steps, its device-busy
-    share and peak memory."""
+    share and peak memory; then the stacked AE step in bf16 (satae's
+    recipe) in turns with float32, and the batched K1's device share of
+    each: the device us of phase 21's AE rows (``k21_rows``: the step's 4 +
+    8 launches) over the step's ms. Printed, not held."""
     import torch
 
     from satae_torch import kernels
@@ -2968,9 +3004,33 @@ def stacked_steps_phase(card: str, splits) -> dict:
         peak = torch.cuda.max_memory_allocated()
         wall, busy, events = profile_device(
             lambda: [stacked() for _ in range(3)])
+        # the same step in bf16 (float32 master state), in turns with
+        # float32
+        noise16 = batch["noise"].to(torch.bfloat16)
+        stacked16 = lambda: stacked_ae_train_step(
+            ae, opt, batch["imgs_u8"], batch["labels"], alphas_d, lrs_d,
+            dcfg, flip=batch["flip"], offsets=batch["offsets"],
+            noise=noise16, dtype=torch.bfloat16)
+        turns16 = {"float32": [], "bf16": []}
+        for name in ("float32", "bf16", "bf16", "float32"):
+            fn = stacked if name == "float32" else stacked16
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_time):
+                fn()
+            torch.cuda.synchronize()
+            turns16[name].append((time.perf_counter() - t0) / n_time * 1e3)
+    step16 = {k: sum(v) / 2 for k, v in turns16.items()}
+    k1_us = {dt: sum(r["device_us"] for r in k21_rows if r["path"] == "ae"
+                     and r["kernel"].endswith("_bf16") == (dt == "bf16"))
+             for dt in ("float32", "bf16")}
     out.update(stacked_ae_step_ms=stacked_ms, singles_45_ms=single_ms,
                turns_ms=turns, peak_bytes=peak, profile_wall_ms=wall,
                profile_device_ms=busy, profile_top=top_ops(events, 10),
+               dtype_turns_ms=turns16, dtype_step_ms=step16,
+               batched_k1_us_per_step=k1_us, batched_k1_share={
+                   dt: k1_us[dt] / 1e3 / step16[dt] for dt in step16},
                card=card)
     print(f"stacked AE step, C={c_ae}, batch {BATCH}, full width, "
           f"deterministic cuDNN, TF32 off: {stacked_ms:.2f} ms "
@@ -2983,6 +3043,15 @@ def stacked_steps_phase(card: str, splits) -> dict:
           f"{peak / 2 ** 30:.2f} GiB; card {card}", flush=True)
     for t, count, key in top_ops(events, 6):
         print(f"  {t:9.3f} ms  x{count:<4d} {key[:90]}", flush=True)
+    print(f"stacked AE step, C={c_ae}, bf16 against float32 in turns: "
+          f"{step16['bf16']:.2f} / {step16['float32']:.2f} ms "
+          f"({[round(x, 2) for x in turns16['bf16']]} / "
+          f"{[round(x, 2) for x in turns16['float32']]}); the batched K1's "
+          "device time a step (phase 21's 4 + 8 AE launches): bf16 "
+          f"{k1_us['bf16']:.1f} us ({100 * out['batched_k1_share']['bf16']:.2f}"
+          f" % of the step), float32 {k1_us['float32']:.1f} us "
+          f"({100 * out['batched_k1_share']['float32']:.2f} %); card {card}",
+          flush=True)
     return out
 
 
@@ -3333,7 +3402,8 @@ def vmap_main() -> int:
     splits = make_splits(load_dataset(data), data)
     res, secs = {}, {}
     for n, fn in ((21, lambda: batched_kernels_phase(card)),
-                  (22, lambda: stacked_steps_phase(card, splits)),
+                  (22, lambda: stacked_steps_phase(card, splits,
+                                                   res[21]["rows"])),
                   (23, lambda: vmap_grid_phase(card)),
                   (24, lambda: steps_engine_phase(card))):
         t0 = time.perf_counter()
@@ -3398,11 +3468,64 @@ def f32_digests(fused_gemm, conv2d_bn_act) -> dict:
     return out
 
 
+def batched_rows(matmul, outputs: dict, digests: dict) -> list:
+    """The --ab rows of the batched K1 (a tree's ``fused_gemm_batched``):
+    every launch of phase 21 (:func:`batched_products`, C = 45 AE and 11
+    MLP) in float32 and bf16 on phase 21's inputs, back-to-back ms and
+    device us per launch; each bf16 output goes into ``outputs`` and each
+    float32 output's sha256 into ``digests``, under (kernel, path, layer).
+    The route is the tree's loader where its batched K1 has a TMA route
+    (split_k_plan_tma takes ``batch``), else the mma.sync loop."""
+    import hashlib
+    import inspect
+
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(21)
+    has_tma = "batch" in inspect.signature(
+        getattr(matmul, "split_k_plan_tma", lambda: None)).parameters
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        bf16 = dt == torch.bfloat16
+        for path, layer, prod, (m, k, n), ta, tb, act in batched_products():
+            c = VMAP_C[path]
+            a = torch.randn(c, *((k, m) if ta else (m, k)), device=dev,
+                            generator=g).to(dt)
+            b = ((torch.rand(c, *((n, k) if tb else (k, n)), device=dev,
+                             generator=g) * 2 - 1) / k ** 0.5).to(dt)
+            shift = torch.randn(c, n, device=dev, generator=g) * 0.3 \
+                if prod == "fwd" else None
+            run = lambda: matmul.fused_gemm_batched(a, b, None, shift, act,
+                                                    ta, tb)
+            name = "fused_gemm_batched" + ("" if prod == "fwd" else "_bwd") \
+                + ("_bf16" if bf16 else "")
+            key = (name, path, f"{layer} {prod}")
+            out = run()
+            torch.cuda.synchronize()
+            if bf16:
+                outputs[key] = out.cpu()
+            else:
+                digests["|".join(key)] = hashlib.sha256(
+                    out.cpu().numpy().tobytes()).hexdigest()
+            nbytes = a.element_size() * c * (m * k + k * n + m * n)
+            bnd = bounds(2.0 * c * m * n * k, nbytes, bf16)
+            rows.append(dict(
+                kernel=name, path=path, layer=key[2], shape=[c, m, k, n],
+                trans=[ta, tb], dtype="bf16" if bf16 else "float32",
+                route=(matmul.k1_loader(a, b) if has_tma else "cp.async"),
+                ms=time_ms(run, reps=50), device_us=device_us(
+                    run, bnd["bound_ms"] * 1e3, " ".join(key)), **bnd))
+    return rows
+
+
 def kernel_times_main(root: str, out_file: str) -> int:
     """The --ab child: :func:`kernel_rows` on the kernels of the satae_torch
     under ``root`` (float32, and bf16 where that tree has the bf16
-    instantiations) and :func:`f32_digests`, as one JSON line; the bf16
-    launches' outputs go to ``out_file`` (torch.save)."""
+    instantiations), :func:`batched_rows` where it has the batched K1, and
+    :func:`f32_digests` (with the float32 batched outputs' digests), as one
+    JSON line; the bf16 launches' outputs go to ``out_file``
+    (torch.save)."""
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
@@ -3425,9 +3548,11 @@ def kernel_times_main(root: str, out_file: str) -> int:
     if torch.bfloat16 in getattr(_build, "OPERAND_DTYPES", {}):
         rows += kernel_rows(mods, reference=False, bf16=True,
                             outputs=outputs)
+    digests = f32_digests(matmul.fused_gemm, conv.conv2d_bn_act)
+    if hasattr(matmul, "fused_gemm_batched"):
+        rows += batched_rows(matmul, outputs, digests)
     torch.save({"|".join(k): v for k, v in outputs.items()}, out_file)
-    print(json.dumps(dict(rows=rows, digests=f32_digests(
-        matmul.fused_gemm, conv.conv2d_bn_act))), flush=True)
+    print(json.dumps(dict(rows=rows, digests=digests)), flush=True)
     return 0
 
 
@@ -3466,9 +3591,10 @@ def ab_main(parent: str) -> int:
     digests = runs[0]["digests"]
     differ = [c for c in digests
               if any(r["digests"].get(c) != digests[c] for r in runs[1:])]
-    print(f"float32 K1 and K2 outputs at the shapes of phases 3 and 4: "
-          f"{len(digests) - len(differ)} of {len(digests)} cases bitwise "
-          "equal in all four runs", flush=True)
+    print(f"float32 K1 and K2 outputs at the shapes of phases 3 and 4, and "
+          f"the float32 batched K1's at phase 21's: {len(digests) - len(differ)}"
+          f" of {len(digests)} cases bitwise equal in all four runs",
+          flush=True)
     check(not differ and all(len(r["digests"]) == len(digests)
                              for r in runs),
           f"float32 outputs differ from the parent tree's: {differ}")
@@ -3482,7 +3608,7 @@ def ab_main(parent: str) -> int:
         chg = [by_run[j][k] for j in (1, 2)]
         us_p = sum(x["device_us"] for x in par) / 2
         us_c = sum(x["device_us"] for x in chg) / 2
-        print(f"  {k[0]:19s} {k[1]:5s} {k[2]:10s} "
+        print(f"  {k[0]:26s} {k[1]:5s} {k[2]:10s} "
               f"{str(chg[0]['shape']):24s} us {par[0]['device_us']:.1f} "
               f"{par[1]['device_us']:.1f} | {chg[0]['device_us']:.1f} "
               f"{chg[1]['device_us']:.1f} | {us_c / us_p:.3f};  ms "
@@ -3510,7 +3636,7 @@ def ab_main(parent: str) -> int:
         bf16_equal[key] = dict(share_equal=share, parent_us=us_p,
                                change_us=us_c,
                                route=by_run[1][k].get("route"))
-        print(f"  {k[0]:19s} {k[1]:6s} {k[2]:10s} "
+        print(f"  {k[0]:26s} {k[1]:6s} {k[2]:10s} "
               f"{by_run[1][k].get('route') or '':8s} equal {share:.6f} | "
               f"us {us_p:.1f} -> {us_c:.1f}", flush=True)
     out = REPO / "chiprun_out"
@@ -3608,11 +3734,82 @@ def split_sweep_main() -> int:
             print(f"  bf16 tile 64x64, cluster of {splits:2d} splits of "
                   f"{kps:4d}: {us:7.1f} us  max |err| {err:.3g}, bit-equal "
                   f"{eq:.5f}", flush=True)
+    rows += batched_split_sweep(lib, dev, g)
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "split_sweep.json").write_text(json.dumps(
         dict(card=card, rows=rows), indent=1))
     return 0
+
+
+def batched_split_sweep(lib, dev, g) -> list:
+    """--split-sweep at the vmap path's two long-K bf16 launches, the
+    projection forward (B an (N, K) weight) and the decoder input's dX (B a
+    (K, N) weight), 64 x 4096 x 64 at C = 45: the batched wgmma route for
+    every cluster size 1-16 that a split of whole 64-deep stages gives
+    (split_k_plan_tma's batched basis), each held to its plain version per
+    config, beside the batched mma.sync launch on split_k_plan's plan and
+    bf16 torch.bmm."""
+    import torch
+
+    from satae_torch.kernels import _build
+    from satae_torch.kernels.matmul import (MAX_CLUSTER, TMA_BK,
+                                            _tile_counters, fused_matmul_plain,
+                                            split_k_plan, split_k_plan_tma)
+
+    c, m, k, n = VMAP_C["ae"], BATCH, 4096, 64
+    bf = torch.bfloat16
+    floor_us = 2.0 * c * (m * k + k * n + m * n) / HBM_PEAK * 1e6
+    rows = []
+    for layer, tb in (("proj fwd", True), ("dec_in dX", False)):
+        a = torch.randn(c, m, k, device=dev, generator=g).to(bf)
+        b = ((torch.rand(c, *((n, k) if tb else (k, n)), device=dev,
+                         generator=g) * 2 - 1) / k ** 0.5).to(bf)
+        bv = b.transpose(1, 2) if tb else b
+        zeros = torch.zeros(n, device=dev)
+        ref = torch.stack([fused_matmul_plain(a[i], bv[i], None, zeros)
+                           for i in range(c)])
+        lib_us = device_us(lambda: torch.bmm(a, bv), floor_us / 2,
+                           f"bf16 torch.bmm C={c} {(m, k, n)}", 50)
+        _, tile_n, s0, kps0 = split_k_plan(m, n, k, batch=c)
+        out = torch.empty(c, m, n, device=dev, dtype=bf)
+        ws = torch.empty(c * s0 * m * n, device=dev)
+        counters = _tile_counters(dev)
+        mma_us = device_us(lambda: _build.launch(
+            lib, "satae_fused_gemm_batched_bf16", dev, a.data_ptr(),
+            b.data_ptr(), 0, 0, out.data_ptr(), ws.data_ptr(),
+            counters.data_ptr(), c, m, n, k, 0, 0, int(tb), tile_n, s0, kps0),
+            floor_us, f"bf16 batched mma.sync C={c} {layer}", 50)
+        print(f"bf16 batched K1 C={c} {layer} {(m, k, n)} trans_b={tb}: plan "
+              f"{split_k_plan_tma(m, n, k, batch=c)}, torch.bmm {lib_us:.1f} "
+              f"us, mma.sync ({s0} splits of {kps0}) {mma_us:.1f} us",
+              flush=True)
+        seen = set()
+        for want in range(1, MAX_CLUSTER + 1):
+            kps = -(-(-(-k // want)) // TMA_BK) * TMA_BK
+            splits = -(-k // kps)
+            if splits in seen:
+                continue
+            seen.add(splits)
+            out = torch.empty(c, m, n, device=dev, dtype=bf)
+            run = lambda: _build.launch(
+                lib, "satae_fused_gemm_batched_bf16_tma", dev, a.data_ptr(),
+                b.data_ptr(), 0, 0, out.data_ptr(), c, m, n, k, 0, 0,
+                int(tb), splits, kps)
+            run()
+            what = f"bf16 batched K1 C={c} {layer} {splits} splits"
+            err, eq = ulp_err(out, ref, what)
+            us = device_us(run, floor_us, what, 50)
+            rows.append(dict(dtype="bf16", batch=c, layer=layer,
+                             shape=[m, k, n], trans_b=tb, tile_n=64,
+                             splits=splits, k_per_split=kps, device_us=us,
+                             max_abs_err=err, bit_equal=eq,
+                             library_device_us=lib_us,
+                             mma_sync_device_us=mma_us))
+            print(f"  C={c} cluster of {splits:2d} splits of {kps:4d} "
+                  f"({c * splits} blocks): {us:7.1f} us  max |err| "
+                  f"{err:.3g}, bit-equal {eq:.5f}", flush=True)
+    return rows
 
 
 if __name__ == "__main__":

@@ -55,29 +55,40 @@
 // every config's tiles counted toward the wave. Bound: the float32
 // projection at C = 45 (45 x 64 x 4096 x 64) reads 94 MB (28 us at
 // 3.35 TB/s) and does 1.5 GFLOP (9 us at 165 TFLOP/s 3xTF32): bytes, as
-// every product of the sweep. bf16 runs on this mma.sync loop; a wgmma/TMA
-// form with 3-D tensor maps is later work.
+// every product of the sweep. float32 runs on this mma.sync loop, and so do
+// bf16 buffers TMA cannot read (satae_fused_gemm_batched_bf16: the head's
+// 10-wide cotangent in the backward); every other bf16 batched product runs
+// on the wgmma kernel below (satae_fused_gemm_batched_bf16_tma).
 // The wrapper owns the workspace and the counters (one buffer per device,
 // kept zeroed by the kernel); the port launches on one stream, and two
 // concurrent split-K launches would share the counters.
 //
-// bf16 on Hopper's own instructions (hopper::fused_gemm_tma_kernel, entry
-// satae_fused_gemm_bf16_tma; wgmma_tile.cuh holds its main loop). Bound at
-// 3.35 TB/s and 989 TFLOP/s, every bf16 product of the main paths is bound
-// by bytes: the serving projection 512 x 4096 x 64 and the decoder input
-// 512 x 64 x 4096 move 4.8 MB (1.43 us), the batch-64 long products (64 x
-// 4096 x 64, 64 x 64 x 4096) 1.06 MB (0.32 us), the head's products a few
-// KB, far below a launch. So the design is about latency: a 64 x 64 tile
-// per block, A and B brought by TMA (one thread, 128-byte swizzle, ragged
-// M, N and K zero-filled by the hardware) into a ring of at most four
-// 64-deep stages sized to the block's K, wgmma m64n64k16 from shared
-// memory for all four operand layouts (transpose bits, no fragment
-// packing), and for long K the splits of a tile launched as one
-// thread-block cluster (split_k_plan_tma: at K = 4096 16 splits of 256
-// for one tile, 8 of 512 for the serving projection's 8)
-// whose blocks reduce the float32 partials through distributed shared
-// memory, each block 1/S of the tile, in split order. One launch per call,
-// no workspace, no counters. Stayed on the mma.sync loop above: float32
+// bf16 on Hopper's own instructions (hopper::fused_gemm_tma_kernel, entries
+// satae_fused_gemm_bf16_tma, C = 1, and satae_fused_gemm_batched_bf16_tma;
+// wgmma_tile.cuh holds its main loop). Bound at 3.35 TB/s and 989 TFLOP/s,
+// every bf16 product of the main paths is bound by bytes: the serving
+// projection 512 x 4096 x 64 and the decoder input 512 x 64 x 4096 move
+// 4.8 MB (1.43 us), the batch-64 long products (64 x 4096 x 64, 64 x 64 x
+// 4096) 1.06 MB (0.32 us), the head's products a few KB, far below a
+// launch; at C = 45 the long products move 47.7 MB (14.2-14.4 us), the
+// head's 0.56 and 0.27 us. So the design is about latency, and at C = 45
+// about keeping the memory busy: a 64 x 64 tile per block and config, A
+// and B brought by TMA (one thread, 128-byte swizzle, 3-D tensor maps
+// whose outermost coordinate is the config, so ragged M, N and K are
+// zero-filled by the hardware and no box reaches into the next config)
+// into a ring of at most four 64-deep stages sized to the block's K, wgmma
+// m64n64k16 from shared memory for all four operand layouts (transpose
+// bits, no fragment packing). Short K (one split): the grid's z is sized
+// to about one wave and each block walks its tile's configs; the ring runs
+// on across them, so the next config's loads overlap this one's epilogue
+// (at C = 45, 2,880 one-stage tiles, one block a tile is slower:
+// scripts/time_kernel_variants.py, "no persistence"). Long K:
+// the splits of a tile launched as one thread-block cluster
+// (split_k_plan_tma: at K = 4096 16 splits of 256 for one tile, 8 of 512
+// for the serving projection's 8, 4 of 1024 per config at C = 45) whose
+// blocks reduce the float32 partials through distributed shared memory,
+// each block 1/S of the tile, in split order. One launch per call, no
+// workspace, no counters. Stayed on the mma.sync loop above: float32
 // (3xTF32, unchanged), and bf16 buffers TMA cannot read -- a base or row
 // not 16-byte aligned: odd K or N, odd offsets, the head's 10-wide
 // cotangent in its backward (satae_torch/kernels/matmul.py::k1_loader).
@@ -256,40 +267,104 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<typename ATile::Elem>)
 
 namespace hopper {
 
-// One 64 x 64 tile of out = act((A @ B) * scale + shift) in bf16, over the K
-// range [blockIdx.z * k_per_split, ...) of A (M, K) and B (K, N), read by
-// TMA through map_a (a row-major (M, K) buffer, or with kTA a (K, M) one)
-// and map_b (a row-major (N, K) buffer, or with kTB a (K, N) one) into a
-// ring of `ring` stages of 64 of K. Threads 0-127 are the consumer
-// warpgroup (wgmma m64n64k16, two scratch accumulators); thread 128, in a
-// warp of its own, issues the TMA loads.
+// Shared memory of a block of fused_gemm_tma_kernel: a ring of `ring`
+// stages, then with one split the float32 staging tile of the epilogue
+// (split-K stages its partial in the consumed ring), 1024-byte aligned,
+// with the slack of aligning the base.
+constexpr int kStaging = 64 * (64 + kOutPad) * 4;
+__host__ __device__ constexpr int k1_smem_bytes(int ring, int splits) {
+  return ring * 2 * kBox + (splits > 1 ? 0 : kStaging) + 1024;
+}
+
+// Config c's scale and shift of columns [n0, n0 + 64) into dst[0, 64) and
+// dst[64, 128) by cp.async (thread t < 128 one value, 1 and 0 where the
+// pointer is null or the column past N), landing while the main loop runs
+// without holding registers through it; the epilogue reads them after
+// cp_async_wait and a barrier.
+__device__ __forceinline__ void load_cols(float* dst, const float* scale,
+                                          const float* shift, int n0,
+                                          int N) {
+  const int t = static_cast<int>(threadIdx.x), col = n0 + t % 64;
+  const float* p = t < 64 ? scale : shift;
+  if (p != nullptr && col < N)
+    cp_async4(dst + t, p + col, true);
+  else
+    dst[t] = t < 64 ? 1.f : 0.f;
+  cp_async_commit();
+}
+
+// The block's cluster along z, the clusters along z, and the block's rank
+// in its cluster; a launch without clusters has clusters of one block.
+__device__ __forceinline__ int cluster_z() {
+  unsigned r;
+  asm("mov.u32 %0, %%clusterid.z;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ int clusters_z() {
+  unsigned r;
+  asm("mov.u32 %0, %%nclusterid.z;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// The 32-deep slices of K range [k_begin, k_begin + k_per_split) of K.
+__device__ __forceinline__ int slices_of(int K, int k_begin,
+                                         int k_per_split) {
+  return (min(K, k_begin + k_per_split) - k_begin + kBK - 1) / kBK;
+}
+
+// For c < C, the 64 x 64 tile (blockIdx.x, blockIdx.y) of out[c] =
+// act((A[c] @ B[c]) * scale[c] + shift[c]) in bf16, A[c] (M, K) and B[c]
+// (K, N) read by TMA through 3-D maps -- config c the outermost coordinate
+// -- map_a (C row-major (M, K) buffers, or with kTA (K, M) ones) and map_b
+// (C row-major (N, K) buffers, or with kTB (K, N) ones) into a ring of
+// `ring` stages of 64 of K. The unbatched K1 is C = 1. Threads 0-127 are
+// the consumer warpgroup (wgmma m64n64k16, two scratch accumulators);
+// thread 128, in a warp of its own, issues the TMA loads.
 //
-// Split-K: the gridDim.z blocks of a tile are one thread-block cluster
-// (1, 1, gridDim.z). Each stages its float32 partial in its own shared
-// memory; after a cluster barrier block r sums rows [64 r / S, 64 (r + 1) /
-// S) of the tile over the S partials, read through distributed shared
-// memory in split order 0..S-1 (bitwise repeatable, the emulation's
-// order), applies the epilogue, rounds once to bf16 and stores; a second
-// barrier keeps every partial alive until all have been read. Every block
-// of the cluster reduces 1/S of the tile, so the fix-up no longer rests on
-// one block, and nothing goes through device memory.
+// One split (splits == 1): block z computes configs z, z + gridDim.z, ...
+// of its tile (cluster_z and clusters_z: clusters of one block); the
+// launcher sizes gridDim.z so that the grid is about the blocks the card
+// holds at once, and at C = 1 the grid is one block a tile. The ring runs
+// on across a block's configs, so the producer loads the next config's
+// tile while the consumers run the epilogue outside the ring, through the
+// float32 staging tile cs, in 16-byte stores.
+//
+// Split-K (splits > 1): block z is split z % S of config z / S, and the
+// splits of a tile are one thread-block cluster (1, 1, S): the config is
+// the cluster's z and the split the block's rank in it. Each stages its
+// float32 partial in its own shared memory; after a cluster barrier block
+// r sums rows [64 r / S, 64 (r + 1) / S) of the tile over the S partials,
+// read through distributed shared memory in split order 0..S-1 (bitwise
+// repeatable, the emulation's order), applies the epilogue, rounds once to
+// bf16 and stores; a second barrier keeps every partial alive until all
+// have been read. Every block of the cluster reduces 1/S of the tile, so
+// the fix-up no longer rests on one block, and nothing goes through device
+// memory.
 template <bool kTA, bool kTB>
 __global__ void __launch_bounds__(kWg + 32, 1)
     fused_gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
                           const __grid_constant__ CUtensorMap map_b,
                           const float* __restrict__ scale,
                           const float* __restrict__ shift,
-                          bf16* __restrict__ out, int M, int N, int K,
-                          int act, int k_per_split, int ring) {
+                          bf16* __restrict__ out, int C, int M, int N, int K,
+                          int act, int splits, int k_per_split, int ring) {
   constexpr int kLd = 64 + kOutPad;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxRing], empty[kMaxRing];
+  __shared__ __align__(16) float col_buf[2][128];  // load_cols, two configs
   uint8_t* smem = align1024(smem_raw);
+  float* cs =
+      reinterpret_cast<float*>(smem + (splits == 1 ? ring * 2 * kBox : 0));
   const int m0 = blockIdx.x * 64, n0 = blockIdx.y * 64;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(K, k_begin + k_per_split);
-  const int n_slices = (k_end - k_begin + kBK - 1) / kBK;
-  const int n_stages = (n_slices + 1) / 2;
+  const int c0 = cluster_z(), c_step = clusters_z();
+  const int k_begin = cluster_rank() * k_per_split;
+  const int n_slices = slices_of(K, k_begin, k_per_split);
+  const size_t mn = static_cast<size_t>(M) * N;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ring; ++s) {
       bar_init(&full[s], 1);
@@ -298,11 +373,6 @@ __global__ void __launch_bounds__(kWg + 32, 1)
     bar_init_fence();
   }
   __syncthreads();
-  // the epilogue's scale and shift (one split), loaded during the main loop
-  const Cols<8> cols = store_cols_of<64>(gridDim.z == 1 ? scale : nullptr,
-                                         gridDim.z == 1 ? shift : nullptr, n0,
-                                         N, threadIdx.x);
-  float acc[32];
   if (threadIdx.x == kWg) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                      reinterpret_cast<uint64_t>(&map_a))
@@ -310,14 +380,18 @@ __global__ void __launch_bounds__(kWg + 32, 1)
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                      reinterpret_cast<uint64_t>(&map_b))
                  : "memory");
-    for (int it = 0; it < n_stages; ++it) {
-      const int s = it % ring;
-      if (it >= ring) bar_wait(&empty[s], (it / ring - 1) & 1);
-      uint8_t* st = smem + s * 2 * kBox;
-      const int k = k_begin + it * kStageK;
-      bar_expect(&full[s], 2 * kBox);
-      tma_load(st, &map_a, &full[s], kTA ? m0 : k, kTA ? k : m0);
-      tma_load(st + kBox, &map_b, &full[s], kTB ? n0 : k, kTB ? k : n0);
+    int g = 0;  // stages filled so far
+    for (int c = c0; c < C; c += c_step) {
+      for (int i = 0; i < (n_slices + 1) / 2; ++i, ++g) {
+        const int s = g % ring;
+        if (g >= ring) bar_wait(&empty[s], (g / ring - 1) & 1);
+        uint8_t* st = smem + s * 2 * kBox;
+        const int k = k_begin + i * kStageK;
+        bar_expect(&full[s], 2 * kBox);
+        tma_load(st, &map_a, &full[s], kTA ? m0 : k, kTA ? k : m0, c);
+        tma_load(st + kBox, &map_b, &full[s], kTB ? n0 : k, kTB ? k : n0,
+                 c);
+      }
     }
   } else if (threadIdx.x < kWg) {
     const auto desc = [smem](int s, int j, uint64_t& da, uint64_t& db) {
@@ -325,36 +399,53 @@ __global__ void __launch_bounds__(kWg + 32, 1)
       da = desc_k<kTA>(st, j);
       db = desc_k<kTB>(st + kBox, j);
     };
-    consume<64, kTA, kTB, true>(acc, desc, full, empty, ring, n_slices);
+    float acc[32];
+    int g = 0;  // stages consumed so far
+    for (int c = c0, i = 0; c < C; c += c_step, ++i) {
+      // config c's epilogue columns (one split), in the slot the previous
+      // config's epilogue is not reading
+      float* cols_s = col_buf[i % 2];
+      if (splits == 1)
+        load_cols(cols_s, scale ? scale + c * N : nullptr,
+                  shift ? shift + c * N : nullptr, n0, N);
+      consume<64, kTA, kTB, true>(acc, desc, full, empty, ring, n_slices, g);
+      g += (n_slices + 1) / 2;
+      // the previous config's epilogue has read cs; split-K: the
+      // warpgroup's wgmmas have read the ring
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kWg) : "memory");
+      stage_wg_acc<64>(acc, cs, kLd, 0);
+      if (splits > 1) break;  // the cluster reduces the block's partial
+      cp_async_wait<0>();  // this thread's columns have landed
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kWg) : "memory");
+      const Cols<8> cols =
+          store_cols_of<64>(cols_s, cols_s + 64, 0, 64, threadIdx.x);
+      store_rows<64>(cs, kLd, 64, out + c * mn, M, N, m0, n0, cols, act,
+                     threadIdx.x, kWg);
+    }
   }
-  __syncthreads();  // every stage consumed: the ring is free
-  float* cs = reinterpret_cast<float*>(smem);
-  if (threadIdx.x < kWg) stage_wg_acc<64>(acc, cs, kLd, 0);
-  __syncthreads();
-  if (gridDim.z == 1) {
-    store_rows<64>(cs, kLd, 64, out, M, N, m0, n0, cols, act, threadIdx.x,
-                   blockDim.x);
-    return;
-  }
+  if (splits == 1) return;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every split's partial is staged
-  const int S = static_cast<int>(gridDim.z);
+  const int S = splits;
   const int r = static_cast<int>(cluster.block_rank());
+  const int c = c0;
   const int row_lo = r * 64 / S, row_hi = (r + 1) * 64 / S;
+  out += c * mn;
   // thread i sums quad (i % 16) of rows row_lo + i / 16, ... (blockDim.x is
   // a multiple of 16: one column quad per thread, its scale and shift
   // loaded once); the S remote loads of a quad are all issued before the
   // in-order sum
-  const int c = (threadIdx.x % 16) * 4;
+  const int q4 = (threadIdx.x % 16) * 4;
   const bool vec = N % 4 == 0 && aligned(out, 8);
-  const Cols<4> quad_cols(scale, shift, n0 + c, N);
-  const int nv = N - (n0 + c) < 4 ? N - (n0 + c) : 4;
+  const Cols<4> quad_cols(scale ? scale + c * N : nullptr,
+                          shift ? shift + c * N : nullptr, n0 + q4, N);
+  const int nv = N - (n0 + q4) < 4 ? N - (n0 + q4) : 4;
   for (int row = row_lo + static_cast<int>(threadIdx.x) / 16; row < row_hi;
        row += blockDim.x / 16) {
     if (m0 + row >= M || nv <= 0) break;
     float4 q[16];
-    float4* mine = reinterpret_cast<float4*>(cs + row * kLd + c);
+    float4* mine = reinterpret_cast<float4*>(cs + row * kLd + q4);
 #pragma unroll
     for (int s = 0; s < 16; ++s)
       if (s < S) q[s] = *cluster.map_shared_rank(mine, s);
@@ -368,7 +459,7 @@ __global__ void __launch_bounds__(kWg + 32, 1)
         v[3] += q[s].w;
       }
     }
-    store_cols<4>(out, static_cast<size_t>(m0 + row) * N + n0 + c, v,
+    store_cols<4>(out, static_cast<size_t>(m0 + row) * N + n0 + q4, v,
                   quad_cols, nv, vec, act);
   }
   cluster.sync();  // no block leaves while another reads its partial
@@ -448,43 +539,69 @@ int launch_plan(const void* x, const void* w, const float* scale,
 }
 
 
-// The bf16 TMA instantiation for the layout; the plan is checked by the
-// caller. Tensor maps are encoded per call on the host (a few hundred ns)
-// and passed as __grid_constant__ parameters.
+// The bf16 TMA instantiation for the layout, over C configs; the plan is
+// checked by the caller. Tensor maps are encoded per call on the host (a
+// few hundred ns) and passed as __grid_constant__ parameters.
 template <bool kTA, bool kTB>
 int launch_tma(const void* x, const void* w, const float* scale,
-               const float* shift, void* out, int M, int N, int K, int act,
-               int splits, int k_per_split, cudaStream_t stream) {
-  using hopper::kBox;
+               const float* shift, void* out, int C, int M, int N, int K,
+               int act, int splits, int k_per_split, cudaStream_t stream) {
   using hopper::kMaxRing;
+  using hopper::make_map;
   CUtensorMap map_a, map_b;
-  cudaError_t err = kTA ? hopper::make_map(&map_a, x, K, M, 64)
-                        : hopper::make_map(&map_a, x, M, K, 64);
+  cudaError_t err = kTA ? make_map(&map_a, x, K, M, 64, C)
+                        : make_map(&map_a, x, M, K, 64, C);
   if (err == cudaSuccess)
-    err = kTB ? hopper::make_map(&map_b, w, K, N, 64)
-              : hopper::make_map(&map_b, w, N, K, 64);
+    err = kTB ? make_map(&map_b, w, K, N, 64, C)
+              : make_map(&map_b, w, N, K, 64, C);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int stages = (min(k_per_split, K) + hopper::kStageK - 1) /
                      hopper::kStageK;
-  const int ring = stages < kMaxRing ? stages : kMaxRing;
-  constexpr int kStaging = 64 * (64 + kOutPad) * 4;
-  const int smem =
-      (ring * 2 * kBox > kStaging ? ring * 2 * kBox : kStaging) + 1024;
+  // one split: two stages at least, so the producer runs a config ahead;
+  // at C = 1 a full ring, whose shared memory holds two blocks an SM (a
+  // grid of one block a tile, such as the serving decoder input's 512 tiles,
+  // ran faster on an H100 at two blocks an SM than at three); split-K: the
+  // partial is staged in the consumed ring
+  const int ring = splits == 1 && C == 1
+                       ? kMaxRing
+                       : max(2, stages < kMaxRing ? stages : kMaxRing);
+  const int smem = hopper::k1_smem_bytes(ring, splits);
   auto kernel = hopper::fused_gemm_tma_kernel<kTA, kTB>;
   static unsigned allowed = 0;
   err = allow_smem(reinterpret_cast<const void*>(kernel),
-                   kMaxRing * 2 * kBox + 1024, allowed, true);
+                   hopper::k1_smem_bytes(kMaxRing, 1), allowed, true);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + 63) / 64, (N + 63) / 64, splits);
+  const int m_tiles = (M + 63) / 64, n_tiles = (N + 63) / 64;
   const dim3 block(hopper::kWg + 32);
   bf16* o = static_cast<bf16*>(out);
   if (splits == 1) {
-    kernel<<<grid, block, smem, stream>>>(map_a, map_b, scale, shift, o, M,
-                                          N, K, act, k_per_split, ring);
+    // gridDim.z: the configs' tiles in about one wave of the blocks the
+    // card holds at once (cached per device and ring), each block walking
+    // C / gridDim.z configs of its tile
+    static int resident[32][kMaxRing + 1] = {};
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int blocks = dev < 32 ? resident[dev][ring] : 0;
+    if (blocks == 0) {
+      int sms = 0, per_sm = 0;
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, static_cast<int>(block.x), smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      blocks = sms * max(per_sm, 1);
+      if (dev < 32) resident[dev][ring] = blocks;
+    }
+    const int depth = max(1, blocks / (m_tiles * n_tiles));
+    kernel<<<dim3(m_tiles, n_tiles, min(C, depth)), block, smem, stream>>>(
+        map_a, map_b, scale, shift, o, C, M, N, K, act, 1, k_per_split,
+        ring);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
+  cfg.gridDim = dim3(m_tiles, n_tiles, C * splits);
   cfg.blockDim = block;
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -495,20 +612,22 @@ int launch_tma(const void* x, const void* w, const float* scale,
   attr[0].val.clusterDim.z = splits;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, scale, shift, o, M, N,
-                           K, act, k_per_split, ring);
+  err = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, scale, shift, o, C, M,
+                           N, K, act, splits, k_per_split, ring);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Checks a TMA plan (splits <= 16, a cluster of the tile's splits; each
-// split a multiple of 64 of K), then launches the layout's instantiation.
+// Checks a TMA plan (C configs; splits <= 16, a cluster of the tile's
+// splits, C * splits <= 65,535; each split a multiple of 64 of K), then
+// launches the layout's instantiation.
 int launch_tma_plan(const void* x, const void* w, const float* scale,
-                    const float* shift, void* out, int M, int N, int K,
-                    int act, int trans_a, int trans_b, int splits,
+                    const float* shift, void* out, int C, int M, int N,
+                    int K, int act, int trans_a, int trans_b, int splits,
                     int k_per_split, void* stream) {
   const bool plan_ok =
-      K > 0 && splits >= 1 && splits <= 16 && k_per_split > 0 &&
+      C >= 1 && K > 0 && splits >= 1 && splits <= 16 &&
+      static_cast<long long>(C) * splits <= 65535 && k_per_split > 0 &&
       k_per_split % hopper::kStageK == 0 &&
       static_cast<long long>(splits) * k_per_split >= K &&
       static_cast<long long>(splits - 1) * k_per_split < K;
@@ -517,14 +636,15 @@ int launch_tma_plan(const void* x, const void* w, const float* scale,
   // buffer (trans_a), B from a row-major (K, N) one (not trans_b)
   const auto s = static_cast<cudaStream_t>(stream);
   if (trans_a)
-    return trans_b ? launch_tma<true, false>(x, w, scale, shift, out, M, N, K,
-                                             act, splits, k_per_split, s)
-                   : launch_tma<true, true>(x, w, scale, shift, out, M, N, K,
-                                            act, splits, k_per_split, s);
-  return trans_b ? launch_tma<false, false>(x, w, scale, shift, out, M, N, K,
-                                            act, splits, k_per_split, s)
-                 : launch_tma<false, true>(x, w, scale, shift, out, M, N, K,
-                                           act, splits, k_per_split, s);
+    return trans_b ? launch_tma<true, false>(x, w, scale, shift, out, C, M,
+                                             N, K, act, splits, k_per_split,
+                                             s)
+                   : launch_tma<true, true>(x, w, scale, shift, out, C, M, N,
+                                            K, act, splits, k_per_split, s);
+  return trans_b ? launch_tma<false, false>(x, w, scale, shift, out, C, M, N,
+                                            K, act, splits, k_per_split, s)
+                 : launch_tma<false, true>(x, w, scale, shift, out, C, M, N,
+                                           K, act, splits, k_per_split, s);
 }
 
 }  // namespace
@@ -576,7 +696,7 @@ int satae_fused_gemm_bf16_tma(const __nv_bfloat16* x, const __nv_bfloat16* w,
                               __nv_bfloat16* out, int M, int N, int K,
                               int act, int trans_a, int trans_b, int splits,
                               int k_per_split, void* stream) {
-  return satae::launch_tma_plan(x, w, scale, shift, out, M, N, K, act,
+  return satae::launch_tma_plan(x, w, scale, shift, out, 1, M, N, K, act,
                                 trans_a, trans_b, splits, k_per_split,
                                 stream);
 }
@@ -602,7 +722,8 @@ int satae_fused_gemm_batched(const float* x, const float* w,
 }
 
 // satae_fused_gemm_batched with bf16 x, w and out, on the bf16 mma.sync
-// loop (no TMA route); scale, shift and the workspace stay float32.
+// loop, for buffers TMA cannot read; scale, shift and the workspace stay
+// float32.
 int satae_fused_gemm_batched_bf16(const __nv_bfloat16* x,
                                   const __nv_bfloat16* w, const float* scale,
                                   const float* shift, __nv_bfloat16* out,
@@ -613,6 +734,26 @@ int satae_fused_gemm_batched_bf16(const __nv_bfloat16* x,
   return satae::launch_plan<__nv_bfloat16>(
       x, w, scale, shift, out, ws, counters, C, M, N, K, act, trans_a,
       trans_b, tile_n, splits, k_per_split, stream);
+}
+
+// satae_fused_gemm_batched_bf16 on satae_fused_gemm_bf16_tma's wgmma kernel:
+// x and w (C contiguous slices each, in its layouts) 16-byte aligned with
+// 16-byte-aligned rows; config c is the outermost coordinate of 3-D tensor
+// maps. The plan: `splits` (<= 16, one cluster per tile, C * splits <=
+// 65,535) K ranges of k_per_split (a multiple of 64) each, the same for
+// every config; one split runs a persistent grid. No workspace. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan or buffer the
+// kernel does not take.
+int satae_fused_gemm_batched_bf16_tma(const __nv_bfloat16* x,
+                                      const __nv_bfloat16* w,
+                                      const float* scale, const float* shift,
+                                      __nv_bfloat16* out, int C, int M, int N,
+                                      int K, int act, int trans_a,
+                                      int trans_b, int splits,
+                                      int k_per_split, void* stream) {
+  return satae::launch_tma_plan(x, w, scale, shift, out, C, M, N, K, act,
+                                trans_a, trans_b, splits, k_per_split,
+                                stream);
 }
 
 const char* satae_error_string(int code) {

@@ -138,6 +138,20 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The same from a 3-D map (make_map with a depth): c2 is the outermost
+// coordinate, the buffer of a stack of buffers.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* b, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(b)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // The im2col box of `map` (a 4-D NHWC tensor map in im2col mode): pixels
 // from input coordinates (w, h, n) on, each shifted by the filter tap (kw,
 // kh), channels c.. of each, into shared memory at dst; zeros outside.
@@ -528,21 +542,27 @@ inline cudaError_t make_im2col_map(CUtensorMap* map, const void* x, int batch,
 
 // The tensor map of a row-major (rows, cols) bf16 buffer read in boxes of
 // 64 columns (128 bytes) x box_rows rows, 128-byte swizzle, zeros outside
-// the buffer. The base and the row stride must be 16-byte aligned.
+// the buffer. With a depth >= 1 the map is 3-D: dims (cols, rows, depth)
+// over `depth` contiguous such buffers, strides (row bytes, buffer bytes),
+// boxes of one buffer, so a box at a ragged edge never reaches into the
+// next buffer. The base and the row stride must be 16-byte aligned (and so
+// is the buffer stride, rows row strides).
 inline cudaError_t make_map(CUtensorMap* map, const void* p, int rows,
-                            int cols, int box_rows) {
+                            int cols, int box_rows, int depth = 0) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, depth >= 1 ? 3 : 2,
+      const_cast<void*>(p), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

@@ -37,13 +37,15 @@ BUILD_ROOT = _PKG / "_build"
 # cudaGetLastError(). Each kernel has a float32 and a bf16 launcher (x, w
 # and out bf16; scale, shift and the workspace float32), and a bf16 one on
 # wgmma with TMA loads (``_bf16_tma``) for buffers TMA can read; K1 also
-# has a batched pair (``_batched``, ``_batched_bf16``: C products in one
-# launch of the same kernel, the config count C first among the ints).
+# has batched ones (``_batched``, ``_batched_bf16``, ``_batched_bf16_tma``:
+# C products in one launch of the unbatched launcher's kernel, the config
+# count C first among the ints).
 LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": (7, 9),
                             "satae_fused_gemm_bf16": (7, 9),
                             "satae_fused_gemm_bf16_tma": (5, 8),
                             "satae_fused_gemm_batched": (7, 10),
-                            "satae_fused_gemm_batched_bf16": (7, 10)},
+                            "satae_fused_gemm_batched_bf16": (7, 10),
+                            "satae_fused_gemm_batched_bf16_tma": (5, 9)},
              "conv_bn_act": {"satae_conv2d_bn_act": (5, 13),
                              "satae_conv2d_bn_act_bf16": (5, 13),
                              "satae_conv2d_bn_act_bf16_tma": (5, 13)}}

@@ -147,33 +147,42 @@ def split_k_plan(m: int, n: int, k: int,
 # tile are one thread-block cluster (at most 16 blocks), each split >=
 # TMA_MIN_SPLIT_K of K, about TMA_WAVE_BLOCKS blocks in all: `chip_smoke.py
 # --split-sweep` on an H100 measured the serving projection 512 x 4096 x 64
-# fastest at 8 splits (64 blocks) and the batch-64 one at 16.
+# fastest at 8 splits (64 blocks) and the batch-64 one at 16. A batched
+# launch aims at TMA_WAVE_BLOCKS_BATCHED blocks over all its configs: the
+# same sweep at C = 45 (the vmap sweep's projection and decoder-input dX,
+# 45 tiles) measured 4 splits (180 blocks) fastest at both.
 TMA_BK = 64
 TMA_MIN_SPLIT_K = 256
 TMA_WAVE_BLOCKS = 64
+TMA_WAVE_BLOCKS_BATCHED = 180
 MAX_CLUSTER = 16
 
 
 def tma_ok(t: torch.Tensor) -> bool:
-    """Whether TMA can read the contiguous 2-D buffer ``t``: a 16-byte
-    aligned base and rows of a multiple of 16 bytes, none of them empty."""
-    return (t.numel() > 0 and t.data_ptr() % 16 == 0
-            and t.shape[1] * t.element_size() % 16 == 0)
+    """Whether TMA can read the 2-D buffer, or the 3-D stack of buffers,
+    ``t``: a 16-byte-aligned base, the last axis contiguous, and every
+    other stride (rows, and a stack's config stride) a multiple of 16
+    bytes, none of the axes empty."""
+    return (t.numel() > 0 and t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(st * t.element_size() % 16 == 0
+                    for st in t.stride()[:-1]))
 
 
 def k1_loader(x: torch.Tensor, w: torch.Tensor) -> str:
     """Which loader K1 runs on the buffers x and w (in the layouts they are
-    passed in): "tma" -- the bf16 wgmma kernel, TMA loads into an mbarrier
-    ring -- for a bf16 pair that TMA can read (:func:`tma_ok`), else
-    "cp.async", gemm_tile.cuh's mma.sync loop (float32 always; bf16 with an
-    odd K or N, an odd offset or a row of 20 bytes, such as the head's
-    N = 10 as the contiguous axis)."""
+    passed in; 2-D, or the (C, ., .) stacks of the batched K1): "tma" --
+    the bf16 wgmma kernel, TMA loads into an mbarrier ring -- for a bf16
+    pair that TMA can read (:func:`tma_ok`), else "cp.async", gemm_tile.cuh's
+    mma.sync loop (float32 always; bf16 with an odd K or N, an odd offset or
+    config stride, or a row of 20 bytes, such as the head's N = 10 as the
+    contiguous axis)."""
     if x.dtype == torch.bfloat16 and tma_ok(x) and tma_ok(w):
         return "tma"
     return "cp.async"
 
 
-def split_k_plan_tma(m: int, n: int, k: int) -> Tuple[int, int, int, int]:
+def split_k_plan_tma(m: int, n: int, k: int,
+                     batch: int = 1) -> Tuple[int, int, int, int]:
     """The plan of K1's bf16 TMA route for an (m, k) @ (k, n) product:
     (tile_m, tile_n, splits, k_per_split), 64 x 64 tiles. Split s covers K
     range [s * k_per_split, min(k, (s + 1) * k_per_split)), k_per_split a
@@ -182,13 +191,18 @@ def split_k_plan_tma(m: int, n: int, k: int) -> Tuple[int, int, int, int]:
     or k below 2 * TMA_MIN_SPLIT_K, there is one split; otherwise as many as
     reach about TMA_WAVE_BLOCKS blocks while each keeps at least
     TMA_MIN_SPLIT_K of K: fewer blocks than the mma.sync plan's, since a
-    cluster's in-order reduction grows with the splits."""
-    tiles = -(-m // TILE_M) * -(-n // TILE_M)
+    cluster's in-order reduction grows with the splits. ``batch``: the plan
+    of the batched K1 over that many products, every config's tiles
+    counted toward TMA_WAVE_BLOCKS_BATCHED, never more splits than one
+    product's plan."""
+    tiles = batch * -(-m // TILE_M) * -(-n // TILE_M)
+    wave = TMA_WAVE_BLOCKS if batch == 1 else TMA_WAVE_BLOCKS_BATCHED
     stages = max(-(-k // TMA_BK), 1)
     splits = 1
-    if tiles < TMA_WAVE_BLOCKS and k >= 2 * TMA_MIN_SPLIT_K:
-        splits = min(MAX_CLUSTER, -(-TMA_WAVE_BLOCKS // tiles),
-                     k // TMA_MIN_SPLIT_K)
+    if tiles < wave and k >= 2 * TMA_MIN_SPLIT_K:
+        splits = min(MAX_CLUSTER, -(-wave // tiles), k // TMA_MIN_SPLIT_K)
+        if batch > 1:
+            splits = min(splits, split_k_plan_tma(m, n, k)[2])
     k_per_split = -(-stages // splits) * TMA_BK
     return TILE_M, TILE_M, max(-(-k // k_per_split), 1), k_per_split
 
@@ -385,13 +399,17 @@ fused_matmul.launches = _build.launch_counter()
 #
 # satae's config-batched sweep (satae/train/vmap_sweep.py) runs every linear
 # layer under jax.vmap, which gives _mm_kernel's pallas_call a batch grid
-# axis. The port's counterpart is one launch of K1's batched entry
-# (satae_torch/csrc/fused_gemm.cu, the config folded into the grid's z)
-# over the C configs of a stacked linear, forward and backward: x (C, M, K),
-# W (C, K, N) or, with ``w_nk``, an (N, K) weight per config (C, N, K),
-# scale (C, N) or None, shift (C, N), out (C, M, N). The plan is split_k_plan's
-# with every config's tiles counted toward the wave, the same for all
-# configs; bf16 runs on the mma.sync loop.
+# axis. The port's counterpart is one launch of K1's batched entries
+# (satae_torch/csrc/fused_gemm.cu) over the C configs of a stacked linear,
+# forward and backward: x (C, M, K), W (C, K, N) or, with ``w_nk``, an
+# (N, K) weight per config (C, N, K), scale (C, N) or None, shift (C, N),
+# out (C, M, N). float32 runs the mma.sync kernel with the config folded
+# into the grid's z, on split_k_plan's plan with every config's tiles
+# counted toward the wave; bf16 runs the wgmma kernel with the config as
+# the outermost coordinate of 3-D tensor maps, on split_k_plan_tma's
+# batched plan, where :func:`k1_loader` says "tma", and the bf16 mma.sync
+# kernel otherwise (the head's 10-wide cotangent). The plan is the same
+# for all configs.
 
 
 def fused_matmul_batched_plain(x: torch.Tensor, w: torch.Tensor,
@@ -432,11 +450,13 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     """One launch of the batched K1 on CUDA tensors: for each config c,
     act((A[c] @ B[c]) * scale[c] + shift[c]) with A[c] = x[c], or x[c] read
     as its transpose (``trans_a``: x is C x (K, M)), and B[c] = w[c], or
-    w[c] read as its transpose (``trans_b``: w is C x (N, K)), in x's dtype
-    (``satae_fused_gemm_batched`` or ``_batched_bf16``). The plan is
-    ``split_k_plan(m, n, k, batch=C)``; a split-K launch takes a workspace
-    of C * splits * M * N floats. Raises on a refused launch; never falls
-    back to C unbatched launches. The callers count the launches."""
+    w[c] read as its transpose (``trans_b``: w is C x (N, K)), in x's dtype:
+    ``satae_fused_gemm_batched_bf16_tma`` on wgmma where :func:`k1_loader`
+    says "tma", with ``split_k_plan_tma(m, n, k, batch=C)``, else
+    ``satae_fused_gemm_batched`` / ``_batched_bf16`` with ``split_k_plan(m,
+    n, k, batch=C)``, where a split-K launch takes a workspace of C * splits
+    * M * N floats. Raises on a refused launch; never falls back to C
+    unbatched launches. The callers count the launches."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_gemm_batched: K1 runs on CUDA tensors, x is "
                          f"on {x.device}")
@@ -458,6 +478,14 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"fused_gemm_batched: scale/shift must be {(c, n)}")
     out = torch.empty((c, m, n), device=x.device, dtype=x.dtype)
     if c == 0 or m == 0 or n == 0:
+        return out
+    if k1_loader(x, w) == "tma":
+        _, _, splits, k_per_split = split_k_plan_tma(m, n, k, batch=c)
+        _build.launch(_build.load("fused_gemm"),
+                      "satae_fused_gemm_batched_bf16_tma", x.device,
+                      x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
+                      out.data_ptr(), c, m, n, k, ACTS.index(act),
+                      int(trans_a), int(trans_b), splits, k_per_split)
         return out
     _, tile_n, splits, k_per_split = split_k_plan(m, n, k, batch=c)
     ws = split_k_workspace(c * m, n, splits, x.device)

@@ -4,10 +4,13 @@
     python3 scripts/time_kernel_variants.py   # -> chiprun_out/kernel_variants.json
 
 Copies satae_torch/csrc into a temporary directory once per variant, removes
-one part of a kernel by a text substitution (the TMA loads of one operand,
-the wgmmas, the epilogue's stores, the split-K cluster's reduction, or the
-whole body), builds every variant with nvcc in parallel (the package's own
-flags) and times each at the main-path shapes with chip_smoke.device_us.
+one part of a kernel by a text substitution (K1: the config walk of the
+one-split grid, the epilogue's stores, the split-K cluster's reduction,
+the wgmmas, or the whole body; K2: the TMA loads of one operand,
+the wgmmas, the epilogue's stores), builds every variant with nvcc in
+parallel (the package's own flags) and times each at the main-path shapes,
+K1 also at the vmap path's batched launches (C = 45), with
+chip_smoke.device_us.
 A variant computes wrong numbers; its time, beside the unchanged kernel's,
 is the cost of the part it removed. Every variant keeps the kernels'
 mbarrier protocol (each full barrier still completes), so none can hang.
@@ -32,17 +35,22 @@ import chip_smoke  # noqa: E402
 # (variant, source file, old text, new text), applied in order
 K1_VARIANTS = {
     "unchanged": [],
+    "no persistence": [(
+        "fused_gemm.cu",
+        "    kernel<<<dim3(m_tiles, n_tiles, min(C, depth)), block, smem, "
+        "stream>>>(",
+        "    kernel<<<dim3(m_tiles, n_tiles, C), block, smem, stream>>>(")],
     "no epilogue stores": [(
         "fused_gemm.cu",
-        "    store_rows<64>(cs, kLd, 64, out, M, N, m0, n0, cols, act, "
-        "threadIdx.x,\n                   blockDim.x);\n    return;",
-        "    return;")],
+        "      store_rows<64>(cs, kLd, 64, out + c * mn, M, N, m0, n0, cols, "
+        "act,", "      if (M < 0) store_rows<64>(cs, kLd, 64, out + c * mn, M, "
+        "N, m0, n0, cols, act,")],
     "no cluster reduction": [
         ("fused_gemm.cu",
          "      if (s < S) q[s] = *cluster.map_shared_rank(mine, s);",
          "      if (s < S) q[s] = *mine;"),
         ("fused_gemm.cu",
-         "    store_cols<4>(out, static_cast<size_t>(m0 + row) * N + n0 + c, "
+         "    store_cols<4>(out, static_cast<size_t>(m0 + row) * N + n0 + q4, "
          "v,\n                  quad_cols, nv, vec, act);", "")],
     "no wgmma": [(
         "wgmma_tile.cuh",
@@ -86,10 +94,16 @@ K2_VARIANTS = {
          "  store_rows<32>(cs, kLd, 128, out, m0 + 128, Cout, m0, 0, cols, "
          "act,\n                 threadIdx.x, kWg);", "")],
 }
-# (m, k, n, trans_b): one-tile products, the batch-64 and serving long-K
-# products (cluster split-K), the decoder input
-K1_SHAPES = ((64, 64, 128, True), (64, 4096, 64, True),
-             (512, 4096, 64, False), (512, 64, 4096, True))
+# (C, m, k, n, trans_a, trans_b): one-tile products, the batch-64 and
+# serving long-K products (cluster split-K), the decoder input; then the
+# vmap path's batched launches at C = 45: the projection forward and the
+# decoder input's dX (2-split clusters), the decoder input forward and its
+# dW (2,880 one-split tiles, the persistent grid), the head's fc1 forward
+K1_SHAPES = ((1, 64, 64, 128, False, True), (1, 64, 4096, 64, False, True),
+             (1, 512, 4096, 64, False, False), (1, 512, 64, 4096, False, True),
+             (45, 64, 4096, 64, False, True), (45, 64, 4096, 64, False, False),
+             (45, 64, 64, 4096, False, True), (45, 4096, 64, 64, True, False),
+             (45, 64, 64, 128, False, True))
 # (n, hw, cin, cout): conv0-3 of a 512-image chunk
 K2_SHAPES = ((512, 64, 3, 32), (512, 32, 32, 64), (512, 16, 64, 128),
              (512, 8, 128, 256))
@@ -155,25 +169,31 @@ def main() -> int:
     bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for m, k, n, tb in K1_SHAPES:
-        a = torch.randn(m, k, device=dev, generator=g).to(bf)
-        b = torch.randn(*((n, k) if tb else (k, n)), device=dev,
+    for c, m, k, n, ta, tb in K1_SHAPES:
+        a = torch.randn(c, *((k, m) if ta else (m, k)), device=dev,
                         generator=g).to(bf)
-        scale = torch.rand(n, device=dev, generator=g) + 0.5
-        shift = torch.rand(n, device=dev, generator=g) - 0.5
-        out = torch.empty(m, n, device=dev, dtype=bf)
-        _, _, splits, kps = split_k_plan_tma(m, n, k)
+        b = torch.randn(c, *((n, k) if tb else (k, n)), device=dev,
+                        generator=g).to(bf)
+        scale = torch.rand(c, n, device=dev, generator=g) + 0.5
+        shift = torch.rand(c, n, device=dev, generator=g) - 0.5
+        out = torch.empty(c, m, n, device=dev, dtype=bf)
+        _, _, splits, kps = split_k_plan_tma(m, n, k, batch=c)
+        # C = 1 through the unbatched entry, C > 1 the batched one: the same
+        # kernel
+        entry, lead = (("satae_fused_gemm_bf16_tma", ()) if c == 1 else
+                       ("satae_fused_gemm_batched_bf16_tma", (c,)))
         for name in K1_VARIANTS:
             lib = libs[("fused_gemm", name)]
             run = lambda: _build.launch(
-                lib, "satae_fused_gemm_bf16_tma", dev, a.data_ptr(),
-                b.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                out.data_ptr(), m, n, k, 0, 0, int(tb), splits, kps)
+                lib, entry, dev, a.data_ptr(), b.data_ptr(),
+                scale.data_ptr(), shift.data_ptr(), out.data_ptr(), *lead, m,
+                n, k, 0, int(ta), int(tb), splits, kps)
             us = chip_smoke.device_us(run, 0.0, f"K1 {name}", 50)
-            rows.append(dict(kernel="fused_gemm_bf16", shape=[m, k, n],
-                             splits=splits, variant=name, device_us=us))
-            print(f"K1 {str((m, k, n)):18s} splits {splits:2d} {name:22s} "
-                  f"{us:7.2f} us", flush=True)
+            rows.append(dict(kernel="fused_gemm_bf16", batch=c,
+                             shape=[m, k, n], trans=[ta, tb], splits=splits,
+                             variant=name, device_us=us))
+            print(f"K1 C={c:2d} {str((m, k, n)):18s} {str((ta, tb)):14s} "
+                  f"splits {splits:2d} {name:22s} {us:7.2f} us", flush=True)
     for nimg, hw, cin, cout in K2_SHAPES:
         x = torch.rand(nimg, hw, hw, cin, device=dev, generator=g).to(bf)
         w = torch.rand(3, 3, cin, cout, device=dev, generator=g).to(bf)

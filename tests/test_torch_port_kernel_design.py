@@ -16,6 +16,7 @@ in split order.
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -219,7 +220,8 @@ def test_one_accumulator_down_all_of_k_drifts(per_slice):
 
 # ---- the bf16 arithmetic ----------------------------------------------------
 
-def emulate_k1_bf16(x, w, scale, shift, act, *, per_slice=True, splits=None):
+def emulate_k1_bf16(x, w, scale, shift, act, *, per_slice=True, splits=None,
+                    plan=None):
     """K1's bf16 instantiation on bf16 x (M, K), w (K, N): each m16n8k16
     step adds 16 exact products to its accumulator and cuts the sum toward
     zero to float32; ``per_slice`` takes a fresh accumulator per 32-deep
@@ -229,17 +231,20 @@ def emulate_k1_bf16(x, w, scale, shift, act, *, per_slice=True, splits=None):
     bf16 (to nearest even). The split plan is the one of the route
     ``TM.k1_loader`` picks for x and w: the wgmma kernel's (clusters of
     16 or 8 splits at K = 4096) for TMA-readable buffers, else the mma.sync
-    loop's. The wgmma kernel issues both slices of a 64-deep stage, also
+    loop's; ``plan`` (splits, k_per_split) gives another, such as a batched
+    launch's. The wgmma kernel issues both slices of a 64-deep stage, also
     where K ends after the first, and adds only those inside K: the same
     sums."""
     m, k = x.shape
     n = w.shape[1]
     # the plan of the route the kernel takes for these buffers
-    plan = (TM.split_k_plan_tma if TM.k1_loader(x, w) == "tma"
-            else TM.split_k_plan)
-    _, _, s_plan, kps = plan(m, n, k)
+    route = (TM.split_k_plan_tma if TM.k1_loader(x, w) == "tma"
+             else TM.split_k_plan)
+    _, _, s_plan, kps = route(m, n, k)
     if splits is not None:
         s_plan, kps = splits, -(-k // splits)
+    if plan is not None:
+        s_plan, kps = plan
     xd, wd = x.double(), w.double()  # bf16 products are exact in float64
     total = torch.zeros(m, n)
     for s in range(s_plan):
@@ -475,6 +480,104 @@ def test_k1_loader_by_alignment(case):
     x = _buffer(x_shape, offset=offset)
     w = _buffer(w_shape, offset=offset)
     assert TM.k1_loader(x, w) == want
+
+
+# the buffers of each batched bf16 K1 launch of a stacked AE step (C = 45)
+# as fused_gemm_batched gets them (x, w): forward x @ W^T with the (out, in)
+# weights read in place, dX = gs @ W, dW = gs^T @ x (gs read transposed);
+# and the loader each takes
+_STACKED_AE_LAUNCHES = {
+    "proj fwd": ((45, 64, 4096), (45, 64, 4096), "tma"),
+    "proj dX": ((45, 64, 64), (45, 64, 4096), "tma"),
+    "proj dW": ((45, 64, 64), (45, 64, 4096), "tma"),
+    "dec_in fwd": ((45, 64, 64), (45, 4096, 64), "tma"),
+    "dec_in dX": ((45, 64, 4096), (45, 4096, 64), "tma"),
+    "dec_in dW": ((45, 64, 4096), (45, 64, 64), "tma"),
+    "fc1 fwd": ((45, 64, 64), (45, 128, 64), "tma"),
+    "fc1 dX": ((45, 64, 128), (45, 128, 64), "tma"),
+    "fc1 dW": ((45, 64, 128), (45, 64, 64), "tma"),
+    "fc2 fwd": ((45, 64, 128), (45, 10, 128), "tma"),
+    "fc2 dX": ((45, 64, 10), (45, 10, 128), "cp.async"),  # 20-byte rows
+    "fc2 dW": ((45, 64, 10), (45, 64, 128), "cp.async"),
+}
+
+
+@pytest.mark.parametrize("launch", list(_STACKED_AE_LAUNCHES))
+def test_k1_loader_at_stacked_ae_launches(launch):
+    """The 3-D form of the loader at the vmap path's launches: every bf16
+    launch on the wgmma route but fc2's dX and dW, as on the unbatched
+    route; float32 always on the mma.sync loop."""
+    x_shape, w_shape, want = _STACKED_AE_LAUNCHES[launch]
+    assert TM.k1_loader(_buffer(x_shape), _buffer(w_shape)) == want
+    assert TM.k1_loader(_buffer(x_shape, torch.float32),
+                        _buffer(w_shape, torch.float32)) == "cp.async"
+
+
+def _stack(shape, config_stride, offset=0):
+    """C buffers of (M, K) bf16 whose config c starts ``config_stride``
+    elements after config c - 1, ``offset`` elements into a 64-byte-aligned
+    allocation."""
+    c, m, k = shape
+    store = torch.zeros(c * config_stride + offset, dtype=torch.bfloat16)
+    return store[offset:].as_strided(shape, (config_stride, k, 1))
+
+
+@pytest.mark.parametrize("case", [
+    ((3, 64, 64), 64 * 64, 0, "tma"),
+    ((3, 64, 64), 64 * 64, 1, "cp.async"),  # odd element offset
+    ((3, 64, 64), 64 * 64, 8, "tma"),  # 16 bytes in: aligned again
+    ((3, 64, 64), 64 * 64 + 1, 0, "cp.async"),  # odd config stride
+    ((3, 64, 64), 64 * 64 + 8, 0, "tma"),  # a 16-byte-multiple stride
+    ((3, 7, 40), 7 * 40 + 4, 0, "cp.async"),  # 8-byte config stride
+    ((3, 64, 10), 64 * 10, 0, "cp.async"),  # 20-byte rows
+], ids=lambda c: f"{c[0]}+{c[1]}@{c[2]}" if isinstance(c, tuple) else None)
+def test_batched_k1_loader_by_alignment(case):
+    """A stack leaves TMA for an odd base, row or config stride: TMA reads
+    a 3-D map whose strides are 16-byte multiples from a 16-byte-aligned
+    base. Either operand decides."""
+    shape, config_stride, offset, want = case
+    x = _stack(shape, config_stride, offset)
+    w = _buffer((3, shape[2], 64))
+    assert TM.k1_loader(x, w) == want
+    assert TM.k1_loader(w, x) == want
+
+
+# (C, M, K, N, act) of batched bf16 products on the wgmma route, each with
+# split_k_plan_tma's batched plan: the vmap path's long-K product at C = 45
+# (4 splits of 1024 per config, where one product alone takes 16), a plan
+# of 6 splits whose last is shorter, and a short-K one-split product with
+# ragged M and N
+_BATCHED_EMULATED = [(45, 8, 4096, 16, "none"), (30, 64, 4096, 64, "relu"),
+                     (7, 40, 64, 72, "sigmoid")]
+
+
+@pytest.mark.parametrize("case", _BATCHED_EMULATED,
+                         ids=[f"C{c}_{m}x{k}x{n}"
+                              for c, m, k, n, _ in _BATCHED_EMULATED])
+def test_emulated_batched_bf16_plan_matches_vmapped_satae(case):
+    """The wgmma kernel's arithmetic, per config on the batched TMA plan,
+    against jax.vmap of satae's kernel in bf16 (interpret mode): within one
+    bf16 ulp (+ 1e-6), >= 99 % bit-equal in every config."""
+    c, m, k, n, act = case
+    parts = [_case((m, k, n), seed=i) for i in range(c)]
+    x, w, scale, shift = (np.stack(a) for a in zip(*parts))
+    xb, wb = (jnp.asarray(a, jnp.bfloat16) for a in (x, w))
+    ref = np.asarray(jax.vmap(
+        lambda a, b, sc, sh: KM.fused_matmul(a, b, sc, sh, act))(
+            xb, wb, jnp.asarray(scale), jnp.asarray(shift)).astype(
+                jnp.float32))
+    xt, wt = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+        torch.bfloat16) for a in (xb, wb))
+    assert TM.k1_loader(xt, wt) == "tma"
+    _, _, splits, kps = TM.split_k_plan_tma(m, n, k, batch=c)
+    assert (splits, kps) == {4096: (4, 1024) if c == 45 else (6, 704),
+                             64: (1, 64)}[k]
+    for i in range(c):
+        out = emulate_k1_bf16(xt[i], wt[i], torch.from_numpy(scale[i]),
+                              torch.from_numpy(shift[i]), act,
+                              plan=(splits, kps))
+        ulps, equal = _bf16_ulps(out, ref[i])
+        assert ulps <= 1.0 and equal >= 0.99, (i, ulps, equal)
 
 
 @pytest.mark.parametrize("case", [

@@ -151,11 +151,23 @@ def test_batched_k1_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError):
         TM.fused_matmul_batched(x, torch.zeros(2, 8, 5, dtype=torch.bfloat16),
                                 None, torch.zeros(2, 5))
-    # the two batched launchers, in K1's library: seven pointers, then C,
-    # M, N, K, act, trans_a, trans_b, tile_n, splits, k_per_split
+    # the batched launchers, in K1's library: on the mma.sync loop seven
+    # pointers, then C, M, N, K, act, trans_a, trans_b, tile_n, splits,
+    # k_per_split; on wgmma (bf16 buffers TMA reads) x, w, scale, shift,
+    # out, then C, M, N, K, act, trans_a, trans_b, splits, k_per_split --
+    # the unbatched wgmma launcher's layout with C first among the ints
+    launchers = _build.LAUNCHERS["fused_gemm"]
     for sfx in ("", "_bf16"):
-        assert _build.LAUNCHERS["fused_gemm"][
-            "satae_fused_gemm_batched" + sfx] == (7, 10)
+        assert launchers["satae_fused_gemm_batched" + sfx] == (7, 10)
+    n_ptrs, n_ints = launchers["satae_fused_gemm_bf16_tma"]
+    assert launchers["satae_fused_gemm_batched_bf16_tma"] == (n_ptrs,
+                                                               n_ints + 1)
+    assert (n_ptrs, n_ints) == (5, 8)
+    # a bf16 stack with a 20-byte row is not refused: it takes the
+    # mma.sync loop, and only on the card
+    with pytest.raises(ValueError, match="CUDA"):
+        TM.fused_gemm_batched(torch.zeros(2, 4, 10, dtype=torch.bfloat16),
+                              torch.zeros(2, 10, 8, dtype=torch.bfloat16))
 
 
 # the batched K1's plans on the vmap path (C = 45 AE configs, 11 MLP lrs):
@@ -203,6 +215,59 @@ def test_batched_plan_covers_k_once_per_config(c, m, n, k):
         assert ws.numel() == c * splits * m * n
     # never more splits than one config's plan takes
     assert splits <= TM.split_k_plan(m, n, k)[2]
+
+
+# the batched K1's plans on the bf16 wgmma route at every launch of the
+# stacked steps (C = 45 AE configs, 11 MLP lrs; fc2's dX and dW take the
+# mma.sync loop): (m, k, n, C) -> (tile_m, tile_n, splits, k_per_split)
+_BATCHED_TMA = {
+    (64, 4096, 64, 45): (64, 64, 4, 1024),  # projection fwd, dec_in dX
+    (64, 64, 4096, 45): (64, 64, 1, 64),  # dec_in fwd, projection dX, dW
+    (4096, 64, 64, 45): (64, 64, 1, 64),  # dec_in dW
+    (64, 64, 128, 45): (64, 64, 1, 64),  # head fc1 fwd
+    (64, 128, 64, 45): (64, 64, 1, 128),  # head fc1 dX
+    (128, 64, 64, 45): (64, 64, 1, 64),  # head fc1 dW
+    (64, 128, 10, 45): (64, 64, 1, 128),  # head fc2 fwd
+    (64, 64, 128, 11): (64, 64, 1, 64),  # MLP fc0 fwd, fc1 dX, dW
+    (64, 128, 64, 11): (64, 64, 1, 128),  # MLP fc0 dX, fc1 fwd
+    (128, 64, 64, 11): (64, 64, 1, 64),  # MLP fc0 dW
+    (64, 64, 10, 11): (64, 64, 1, 64),  # MLP fc2 fwd
+    (64, 4096, 64, 1): (64, 64, 16, 256),  # C = 1: the unbatched plan
+}
+
+
+@pytest.mark.parametrize("shape", list(_BATCHED_TMA),
+                         ids=[f"C{c}_{m}x{k}x{n}"
+                              for m, k, n, c in _BATCHED_TMA])
+def test_batched_tma_plan_at_vmap_path_shapes(shape):
+    m, k, n, c = shape
+    assert TM.split_k_plan_tma(m, n, k, batch=c) == _BATCHED_TMA[shape]
+    if c == 1:
+        assert TM.split_k_plan_tma(m, n, k) == _BATCHED_TMA[shape]
+
+
+@settings(max_examples=200, deadline=None)
+@given(c=st.integers(1, 64), m=st.integers(1, 5000), n=st.integers(1, 2000),
+       k=st.integers(1, 8000))
+def test_batched_tma_plan_covers_k_once_per_config(c, m, n, k):
+    """On the wgmma route every config's K is covered once, in order, in
+    splits of whole 64-deep stages; a tile's splits fit one cluster; the
+    grid's z (C * splits) stays within CUDA's limit; never more splits than
+    one config's plan."""
+    tile_m, tile_n, splits, kps = TM.split_k_plan_tma(m, n, k, batch=c)
+    assert (tile_m, tile_n) == (64, 64) and kps % TM.TMA_BK == 0
+    assert 1 <= splits <= TM.MAX_CLUSTER
+    ranges = [(s * kps, min(k, (s + 1) * kps)) for s in range(splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert c * splits <= 65535
+    assert splits <= TM.split_k_plan_tma(m, n, k)[2]
+    wave = TM.TMA_WAVE_BLOCKS if c == 1 else TM.TMA_WAVE_BLOCKS_BATCHED
+    if c * -(-m // 64) * -(-n // 64) >= wave or k < 2 * TM.TMA_MIN_SPLIT_K:
+        assert splits == 1
+    if splits > 1:
+        assert kps >= TM.TMA_MIN_SPLIT_K
 
 
 # -- (b) stacked steps against jax.vmap of satae's step bodies ---------------
