@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (satae_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the smoke run, phases 1-24
+    python3 chip_smoke.py                  # the smoke run, phases 1-28
     python3 chip_smoke.py --ab PARENT_DIR  # A/B of the kernels' times
     python3 chip_smoke.py --split-sweep    # K1's time for each split count
     python3 chip_smoke.py --vmap           # the build and phases 21-24 alone
+    python3 chip_smoke.py --parallel       # build, phases 10 and 12, 25-28
 
 Phases, in order; any failure exits non-zero:
 
@@ -220,6 +221,37 @@ Phases 21-24 turn TF32 off again (their plain references are full float32).
              steps an epoch) and 6 unpadded val batches, satae's store keys,
              finite and falling losses.
 
+After phase 15 it prints the model-FLOPs utilization of phase 11's batch-64
+AE steps and phase 15's batch-1024 steps (satae_torch.utils.roofline).
+
+Phases 25-28 drive the multi-device runtime (satae_torch.parallel), one
+process per rank: a world of one rank is a group this process makes over
+NCCL; two ranks on the one card run over Gloo (NCCL puts no two ranks on
+one device), each a process of its own (PARALLEL_CHILD).
+
+25. DP fit -- phase 10's fit with n_devices 1: the data-parallel trainer,
+             extraction and serving with their collectives; launches and
+             summary and curves equal to phase 10's, bit for bit.
+26. two ranks -- 10 DP AE steps at lr 1e-5 on two Gloo ranks (32 rows each
+             of batches of 64) against one rank on the whole batches, the
+             same init and global augmentation draws: held to phase 9's
+             bounds, BatchNorm running stats after one step within 1e-5, the
+             ranks' states bitwise equal; the weighted eval of 1,001 val
+             images: counts equal, sums within 1e-5 relative.
+27. sharded grid -- the pc256 gate through the config-sharded sweeps, at
+             world size 1 (fit(grid=True), n_devices 1) and on two Gloo ranks
+             (the sweeps directly, each rank into its own run directory):
+             every config's result phase 12's bit for bit, satae's winners,
+             the stores and checkpoints the same bytes from every rank;
+             wall times.
+28. sharded serving -- full_run_hard_f32 predicted, encoded and decoded
+             with n_devices 1 beside the plain pipeline: the same launches,
+             predictions equal on >= 99.9 %, accuracy within 0.002 of the
+             recorded, latents within 1e-3, images within phase 17's bounds;
+             then torch.distributed.run --standalone --nproc-per-node 1 of
+             satae_torch.cli fit --grid --multihost --n-devices 1 (per_class
+             12, 1 + 1 epochs): satae's artifacts, K1 and K2 launches.
+
 The second-to-last line holds the kernels' numbers as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
 
@@ -260,6 +292,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -1688,6 +1721,24 @@ def main() -> int:
           f"images/s); Adam moments and master state float32 after the bf16 "
           f"steps; card {card}", flush=True)
 
+    # model-FLOPs utilization of the AE steps of phases 11 and 15
+    # (satae_torch.utils.roofline: satae's FLOPs model, the H100's peaks)
+    from satae_torch.utils.roofline import step_utilizations
+    kind = torch.cuda.get_device_name(0)
+    mfu = {name: step_utilizations(mcfg, data_, batch=b, step_seconds=ms_
+                                   / 1e3, dtype=dt, device_kind=kind)
+           for name, data_, b, ms_, dt in (
+               ("ae_b64_f32", dcfg, BATCH, ae_step_ms, "f32"),
+               ("ae_b64_f32_deterministic", dcfg, BATCH, ae_step_det_ms,
+                "f32"),
+               ("ae_b1024_f32", tp_cfg.data, tb, tp_f32_ms, "f32"),
+               ("ae_b1024_bf16", tp_cfg.data, tb, tp_bf16_ms, "bf16"))}
+    print("model-FLOPs MFU of the AE train step (satae's FLOPs model, "
+          "peaks 67 TFLOP/s float32, 989 bf16): " + ", ".join(
+              f"{k} {v.get('mfu')} ({v.get('flops_per_image_model')} "
+              f"FLOP/image)" for k, v in mfu.items()) + f"; card {card}",
+          flush=True)
+
     # -- 16. bf16 grid ------------------------------------------------------
     grid16 = grid_phase(card, bf16=True)
 
@@ -1740,6 +1791,10 @@ def main() -> int:
     print("seconds of phases 21-24: " + ", ".join(
         f"{k} {v:.2f}" for k, v in phase_s.items() if k > 20), flush=True)
 
+    # -- 25-28. the multi-device runtime --------------------------------------
+    par = parallel_phases(card, fit_cfg, raw, splits, cfg.data, fit, grid)
+    phase_s.update(par["seconds"])
+
     # -- report -------------------------------------------------------------
     def entry(name, source, replaces, err, rs, per, paths):
         ops_ms = sum(r["bound_ms"] for r in rs
@@ -1772,7 +1827,13 @@ def main() -> int:
                  "decode": [decode["float32"]["launches"],
                             decode["float32"]["decode_launches"]],
                  "calibrate": [calib["launches"]],
-                 "inflight": [inflight["launches"]], "cli": cli_launches}
+                 "inflight": [inflight["launches"]], "cli": cli_launches,
+                 "dp_fit": [par[25]["launches"]],
+                 "dp_two_ranks": [par[26]["launches_per_rank"]] * 2,
+                 "sharded_grid": [par[27]["launches"],
+                                  *par[27]["launches_per_rank_of_two"]],
+                 "sharded_serve": [*par[28]["launches"].values(),
+                                   par[28]["cli"]["launches"]]}
     bf16_paths = {"serve": [serve16["launches"]],
                   "fit": [fit16["launches"], fit_tp["launches"]],
                   "grid": [grid16["launches"]],
@@ -1854,7 +1915,7 @@ def main() -> int:
         calibrate=calib, inflight=inflight, cli=cli_res,
         phase_seconds_17_24=phase_s, batched_kernels=k21,
         stacked_steps=stacked, vmap_grid=vgrid, steps_engine=steps_eng,
-        **report), indent=1, default=str))
+        mfu=mfu, parallel=par, **report), indent=1, default=str))
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3418,6 +3479,561 @@ def vmap_main() -> int:
     return 0
 
 
+# two ranks of phases 26 and 27 on the one card: Gloo over a file store
+# (NCCL puts no two ranks on one device); argv: task, rank, directory
+PARALLEL_CHILD = r"""
+import json, sys
+from pathlib import Path
+import numpy as np
+import torch
+import torch.distributed as dist
+from satae_torch import kernels
+task, rank, tmp = sys.argv[1], int(sys.argv[2]), Path(sys.argv[3])
+dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                        rank=rank, world_size=2)
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+torch.backends.cuda.matmul.allow_tf32 = False
+from chip_smoke import dp_steps, sharded_grid_rank
+from satae_torch.parallel import make_mesh
+mesh = make_mesh(2, device=dev)
+kernels.reset_launch_counts()
+if task == "steps":
+    out = dp_steps(np.load(tmp / "data.npz"), dev, mesh)
+else:
+    out = sharded_grid_rank(dev, mesh, tmp / f"rank{rank}")
+torch.cuda.synchronize()
+out["launches"] = kernels.launch_counts()
+torch.save(out, tmp / f"result{rank}.pt")
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+# phase 28's CLI under torch.distributed.run: satae_torch.cli's main, then
+# the launch counts of its process
+TORCHRUN_CHILD = r"""
+import importlib.util, json, sys
+from satae_torch import cli, kernels
+kernels.reset_launch_counts()
+try:
+    cli.main(sys.argv[1:])
+except ImportError:  # fit --grid draws its heatmap last: no matplotlib here
+    if importlib.util.find_spec("matplotlib") is not None:
+        raise
+print("LAUNCHES " + json.dumps(kernels.launch_counts()), flush=True)
+"""
+
+
+def run_ranks(task: str, tmp: Path, timeout: int = 900) -> list:
+    """PARALLEL_CHILD's ``task`` on two ranks, each a process of its own on
+    the first card; their results. Both processes are stopped on return."""
+    import torch
+
+    logs = [tmp / f"log{r}.txt" for r in range(2)]
+    procs = []
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", PARALLEL_CHILD, task, str(r),
+                     str(tmp)], stdout=f, stderr=subprocess.STDOUT,
+                    cwd=str(REPO)))
+        t_end = time.perf_counter() + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, t_end - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"rank {r} of {task} failed:\n"
+              f"{log.read_text()[-3000:]}")
+    return [torch.load(tmp / f"result{r}.pt", weights_only=False)
+            for r in range(2)]
+
+
+def dp_steps(data, dev, mesh=None) -> dict:
+    """Phase 26's run: 10 AE steps at lr 1e-5 from init_ seeded 0 on the
+    global batches of ``data`` (64 images each; this rank's rows with
+    ``mesh``), the draws from a generator on ``dev`` seeded 0 (the global
+    batch's on every rank), deterministic cuDNN; and the weighted eval of
+    the init on ``data``'s odd-length val split. Per-step losses, the state
+    after the first step and the last, each BatchNorm's share of the biases
+    that feed it, the eval's sums."""
+    import torch
+
+    from satae_torch.config import DataConfig, ModelConfig
+    from satae_torch.data.pipeline import ArrayDataset
+    from satae_torch.models.supervised_ae import SupervisedAE
+    from satae_torch.nn.init import init_
+    from satae_torch.nn.layers import float32_convs
+    from satae_torch.parallel import replicate
+    from satae_torch.train import hbm
+    from satae_torch.train.fast_loop import upload_eval_batches
+    from satae_torch.train.optim import adam_init
+    from satae_torch.train.steps import ae_train_step
+
+    dcfg = DataConfig()
+    model = SupervisedAE(ModelConfig(), dcfg.channels, dcfg.image_size)
+    init_(model, torch.Generator().manual_seed(0))
+    model.to(dev)
+    if mesh is not None:
+        replicate(mesh, model)
+    val = upload_eval_batches(ArrayDataset(data["val_x"], data["val_y"]),
+                              BATCH, dev)
+    with float32_convs(deterministic=True):
+        out = {"eval": {k: float(v) for k, v in hbm.ae_eval_sums(
+            model, *val, 35.0, mesh=mesh).items()}}
+    opt = adam_init(list(model.parameters()))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pairs = pre_bn_biases(model)
+    share = {bn: 0.0 for _, bn in pairs}
+    x = torch.from_numpy(data["train_x"]).to(dev)
+    y = torch.from_numpy(data["train_y"]).to(dev).long()
+    losses = []
+    with float32_convs(deterministic=True):
+        for s in range(PARITY_STEPS):
+            sd = model.state_dict()
+            for b_name, bn in pairs:
+                share[bn] = 0.9 * share[bn] + 0.1 * sd[b_name]
+            xb, yb = x[s * BATCH:(s + 1) * BATCH], y[s * BATCH:(s + 1) * BATCH]
+            if mesh is not None:
+                xb, yb = mesh.shard(xb), mesh.shard(yb)
+            m, _ = ae_train_step(model, opt, xb, yb, 35.0, 1e-5, dcfg,
+                                 generator=gen, mesh=mesh)
+            losses.append(float(m["loss"]))
+            if s == 0:
+                out["after_first"] = {k: v.clone().cpu() for k, v in
+                                      model.state_dict().items()}
+    out.update(losses=losses, share={k: v.cpu() for k, v in share.items()},
+               final={k: v.cpu() for k, v in model.state_dict().items()})
+    return out
+
+
+def dp_ranks_phase(card: str, splits, dev=None) -> dict:
+    """Phase 26: two ranks on the one card over Gloo (PARALLEL_CHILD), 10
+    data-parallel AE steps on 32 rows each of the global batches of 64,
+    against the same 10 steps of one rank on the whole batches in this
+    process (the same init and global draws): held to phase 9's bounds,
+    BatchNorm running stats after the first step within 1e-5 (global-batch
+    moments), the two ranks' states bitwise equal; the weighted eval of a
+    val split of odd length: counts equal, sums within 1e-5 relative."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from satae_torch import kernels
+    from satae_torch.config import ModelConfig
+    from satae_torch.models.supervised_ae import SupervisedAE
+
+    n_val = 1001
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        np.savez(tmp / "data.npz",
+                 train_x=splits.train.images[:PARITY_STEPS * BATCH],
+                 train_y=splits.train.labels[:PARITY_STEPS * BATCH],
+                 val_x=splits.val.images[:n_val],
+                 val_y=splits.val.labels[:n_val])
+        t0 = time.perf_counter()
+        ranks = run_ranks("steps", tmp)
+        ranks_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        ref = dp_steps(np.load(tmp / "data.npz"), dev or torch.device("cuda"))
+        torch.cuda.synchronize()
+        ref_launches = kernels.launch_counts()
+    r0, r1 = ranks
+    differ = [k for k, v in r0["final"].items()
+              if not torch.equal(v, r1["final"][k])]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"])]
+    model = SupervisedAE(ModelConfig(), 3, 64)
+    state = final_state(model, 1e-5, PARITY_STEPS, r0["final"], r0["share"],
+                        ref["final"], ref["share"])
+    bn_err = max(float((r0["after_first"][k] - v).abs().max())
+                 for k, v in ref["after_first"].items()
+                 if k.endswith(("running_mean", "running_var")))
+    ev_gap = {k: abs(r0["eval"][k] - v) / max(abs(v), 1e-30)
+              for k, v in ref["eval"].items()}
+    n_val_b = -(-n_val // BATCH)
+    want_rank = counts(fused_gemm=PARITY_STEPS * 4 + n_val_b * 4,
+                       fused_gemm_bwd=PARITY_STEPS * 8)
+    print(f"two ranks on one card over Gloo: 10 DP AE steps at lr 1e-5 "
+          f"(32 rows a rank of 64) in {ranks_s:.2f} s with process start; "
+          f"per-step loss gaps to one rank "
+          + " ".join(f"{g:.1e}" for g in gaps)
+          + f"; BatchNorm running stats after step 1 max |diff| "
+          f"{bn_err:.3g}; final state, largest against bound: "
+          + ", ".join(f"{k} {v[0]} {v[1]:.3g} (bound {v[2]:g})" for k, v in
+                      sorted(state.items(), key=lambda kv: -kv[1][1]
+                             / kv[1][2])[:3])
+          + f"; weighted eval of {n_val} val images: sums {r0['eval']} vs "
+          f"one rank {ref['eval']}; launches per rank {r0['launches']}; "
+          f"card {card}", flush=True)
+    check(not differ, f"the two ranks' states differ in {differ}")
+    check(max(gaps) <= 1e-3, f"DP losses differ by {max(gaps)} relative")
+    bad = {k: v for k, v in state.items() if v[1] > v[2]}
+    check(not bad, f"DP final state outside its bound: {bad}")
+    check(bn_err <= 1e-5, f"BatchNorm running stats after one DP step differ "
+          f"by {bn_err}: the moments were not the global batch's")
+    check(r0["eval"]["n"] == ref["eval"]["n"] == n_val
+          and r0["eval"]["acc"] == ref["eval"]["acc"],
+          f"DP eval counts {r0['eval']} vs {ref['eval']}")
+    check(max(ev_gap.values()) <= 1e-5, f"DP eval sums {ev_gap}")
+    check(r0["launches"] == r1["launches"] == want_rank,
+          f"launches per rank {r0['launches']} {r1['launches']}, expected "
+          f"{want_rank}")
+    check(ref_launches == want_rank,
+          f"one-rank launches {ref_launches}")
+    return dict(seconds_two_ranks=ranks_s, loss_gaps=gaps,
+                losses=r0["losses"], losses_one_rank=ref["losses"],
+                bn_after_first_max_abs=bn_err, final_state=state,
+                eval=r0["eval"], eval_one_rank=ref["eval"], eval_gaps=ev_gap,
+                launches_per_rank=r0["launches"], card=card)
+
+
+def dp_fit_phase(card: str, fit_cfg, raw, ref: dict) -> dict:
+    """Phase 25: phase 10's fit with ``runtime.n_devices = 1``: a single-rank
+    NCCL group made in this process, the data-parallel trainer, extraction
+    and serving paths with their collectives over it. Its launches and its
+    summary and curves must be phase 10's (``ref``), bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from satae_torch import kernels
+    from satae_torch.api import SatAEPipeline
+
+    cfg = dataclasses.replace(fit_cfg, runtime=dataclasses.replace(
+        fit_cfg.runtime, n_devices=1))
+    pipe = SatAEPipeline(cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = pipe.fit(raw, grid=False)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    backend = dist.get_backend()
+    fields = ("ae_val_loss", "ae_hparams", "mlp_val_acc", "mlp_hparams",
+              "test_acc")
+    differ = [f for f in fields
+              if getattr(summary, f) != getattr(ref["summary"], f)]
+    print(f"DP fit at world size 1 ({backend}, {dist.get_world_size()} rank):"
+          f" {fit_s:.2f} s (phase 10: {ref['fit_s']:.2f} s), stage_seconds "
+          f"{summary.stage_seconds}; launches {launches} (phase 10: "
+          f"{ref['launches']}); AE best val loss {summary.ae_val_loss}, test "
+          f"accuracy {summary.test_acc}; summary fields that differ from "
+          f"phase 10: {differ}; card {card}", flush=True)
+    check(backend == "nccl" and dist.get_world_size() == 1,
+          f"the DP fit's group: {backend}, {dist.get_world_size()} ranks")
+    check(launches == ref["launches"], "DP fit launches differ from phase 10")
+    check(not differ, f"the DP fit's summary differs from phase 10 in "
+          f"{differ}")
+    check(pipe.history == ref["hist"], "the DP fit's curves differ from "
+          "phase 10's")
+    return dict(fit_s=fit_s, launches=launches, summary=summary.__dict__,
+                backend=backend, card=card)
+
+
+def sharded_grid_rank(dev, mesh, out_dir: Path) -> dict:
+    """Phase 27's run on one of two ranks: the gate's AE and MLP grids
+    through ae_sharded_grid_search and mlp_sharded_grid_search (fit's
+    extraction all-gathers CUDA tensors, which Gloo does not), into this
+    rank's own run directory, the latents extracted on each rank from the
+    AE winner as fit extracts them, with fit's deterministic cuDNN."""
+    import torch
+
+    from satae_torch.data.ingest import load_dataset
+    from satae_torch.data.pipeline import make_splits
+    from satae_torch.models.supervised_ae import SupervisedAE
+    from satae_torch.nn.layers import float32_convs
+    from satae_torch.train.extract import extract_features
+    from satae_torch.train.shard_sweep import (ae_sharded_grid_search,
+                                               mlp_sharded_grid_search)
+
+    cfg, _ = gate_config()
+    splits = make_splits(load_dataset(cfg.data), cfg.data)
+    bs, seed = cfg.data.batch_size, cfg.runtime.seed
+    t0 = time.perf_counter()
+    with float32_convs(deterministic=True):
+        ae = ae_sharded_grid_search(
+            splits.train, splits.val, model_cfg=cfg.model, data_cfg=cfg.data,
+            ae_cfg=cfg.ae, mesh=mesh, device=dev, seed=seed,
+            out_dir=str(out_dir))
+        model = SupervisedAE(cfg.model, cfg.data.channels,
+                             cfg.data.image_size).to(dev)
+        model.load_state_dict(ae.best.state_dict())
+        model.eval()
+        (xtr, ytr), (xva, yva), (xte, yte) = (
+            extract_features(model.enc, ds, bs)
+            for ds in (splits.train, splits.val, splits.test))
+        mlp = mlp_sharded_grid_search(
+            xtr, ytr, xva, yva, model_cfg=cfg.model, mlp_cfg=cfg.mlp,
+            mesh=mesh, device=dev, batch_size=bs, seed=seed,
+            out_dir=str(out_dir), test_x=xte, test_y=yte)
+    torch.cuda.synchronize()
+    return dict(seconds=time.perf_counter() - t0, ae_hparams=ae.best_hparams,
+                mlp_hparams=mlp.best_hparams,
+                files={name: (out_dir / name).read_bytes()
+                       for name in SHARDED_FILES})
+
+
+# what a sharded grid writes into its run directory: the stores and the
+# winners' checkpoints with their selection meta
+SHARDED_FILES = ("validation_losses.json", "mlp_results.json",
+                 "ae_global_best.msgpack", "ae_global_best.json",
+                 "mlp_global_best.msgpack", "mlp_global_best.json")
+
+
+def sharded_grid_phase(card: str, ref: dict) -> dict:
+    """Phase 27: the pc256 gate's grid through the config-sharded sweeps,
+    at world size 1 over NCCL (fit(grid=True) with ``n_devices = 1``) and on
+    two Gloo ranks on the one card (PARALLEL_CHILD): every config trains
+    alone on its rank with its sequential seed and deterministic cuDNN, so
+    each config's result is phase 12's (``ref``) bit for bit, the winners
+    are satae's and phase 12's, and the stores and checkpoints are the same
+    bytes from both ranks and from the one-rank run."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from satae_torch import kernels
+    from satae_torch.api import SatAEPipeline
+    from satae_torch.data.ingest import load_dataset
+
+    cfg, gate = gate_config()
+    cfg = dataclasses.replace(cfg, runtime=dataclasses.replace(
+        cfg.runtime, n_devices=1))
+    raw = load_dataset(cfg.data)
+    run = REPO / "chiprun_out" / "sharded_grid_run"
+    shutil.rmtree(run, ignore_errors=True)
+    pipe = SatAEPipeline(cfg)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = pipe.fit(raw, grid=True, out_dir=str(run))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    one_files = {name: (run / name).read_bytes() for name in SHARDED_FILES}
+    ae_store = json.loads(one_files["validation_losses.json"])
+    mlp_store = json.loads(one_files["mlp_results.json"])
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = run_ranks("grid", Path(tmp))
+        two_s = time.perf_counter() - t0
+    rec = gate["satae"]
+    print(f"sharded grid of the pc256 gate: world size 1 ("
+          f"{dist.get_backend()}) {one_s:.2f} s (phase 12, sequential: "
+          f"{ref['fit_s']:.2f} s), two Gloo ranks on the card "
+          f"{two_s:.2f} s with process start (each rank's sweeps "
+          f"{[round(r['seconds'], 2) for r in ranks]} s); winners AE "
+          f"{summary.ae_hparams}, MLP {summary.mlp_hparams} (satae "
+          f"{rec['ae_hparams']} {rec['mlp_hparams']}; two ranks "
+          f"{ranks[0]['ae_hparams']} {ranks[0]['mlp_hparams']}); test "
+          f"accuracy {summary.test_acc} (phase 12 "
+          f"{ref['summary']['test_acc']}); launches {launches}; per rank of "
+          f"two {[r['launches'] for r in ranks]}; card {card}", flush=True)
+    check(launches == ref["launches"], f"sharded grid launches {launches}, "
+          f"phase 12's {ref['launches']}")
+    check(ae_store == ref["ae_results"] and mlp_store == ref["mlp_results"],
+          "the sharded grid's per-config results are not phase 12's")
+    for f in ("ae_hparams", "ae_val_loss", "mlp_hparams", "mlp_val_acc",
+              "test_acc"):
+        check(getattr(summary, f) == ref["summary"][f],
+              f"sharded grid {f} {getattr(summary, f)}, phase 12 "
+              f"{ref['summary'][f]}")
+    check(summary.ae_hparams == rec["ae_hparams"]
+          and summary.mlp_hparams == rec["mlp_hparams"],
+          "sharded grid winners are not satae's")
+    for r, res in enumerate(ranks):
+        check(res["ae_hparams"] == summary.ae_hparams
+              and res["mlp_hparams"] == summary.mlp_hparams,
+              f"rank {r} of two: winners {res['ae_hparams']} "
+              f"{res['mlp_hparams']}")
+        differ = [n for n in SHARDED_FILES
+                  if res["files"][n] != one_files[n]]
+        check(not differ, f"rank {r} of two wrote other bytes than the "
+              f"one-rank run: {differ}")
+        check(res["launches"]["fused_gemm_bwd"] > 0,
+              f"rank {r} of two trained nothing: {res['launches']}")
+    shutil.rmtree(run)
+    return dict(one_rank_s=one_s, two_ranks_s=two_s,
+                rank_sweep_s=[r["seconds"] for r in ranks],
+                launches=launches,
+                launches_per_rank_of_two=[r["launches"] for r in ranks],
+                summary=summary.__dict__, card=card)
+
+
+def sharded_serve_phase(card: str, data_cfg, test) -> dict:
+    """Phase 28: benchmarks/full_run_hard_f32 served with ``n_devices = 1``
+    (each chunk sharded over the one rank's group and all-gathered) beside
+    the plain pipeline, over the test split: the same launches, predictions
+    equal on >= 99.9 % and accuracy within phase 6's 0.002 of the recorded
+    one, latents within 1e-3, decoded images within phase 17's bounds; then
+    ``satae_torch.cli fit --grid --multihost --n-devices 1`` under
+    ``torch.distributed.run`` (TORCHRUN_CHILD), which must write satae's
+    artifacts with K1 and K2 launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from satae_torch import kernels
+    from satae_torch.api import SatAEPipeline
+    from satae_torch.config import PipelineConfig, RuntimeConfig
+
+    cfg = PipelineConfig(data=data_cfg)
+    out = {}
+    for name, rt in (("plain", RuntimeConfig()),
+                     ("sharded", RuntimeConfig(n_devices=1))):
+        pipe = SatAEPipeline(dataclasses.replace(cfg, runtime=rt)).load(
+            str(CKPT))
+        res = {}
+        for what, fn in (("predict", lambda: pipe.predict(test.images)),
+                         ("encode", lambda: pipe.encode(test.images)),
+                         ("decode", lambda: pipe.decode(res["encode"][0]))):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            y = fn()
+            torch.cuda.synchronize()
+            res[what] = (y, time.perf_counter() - t0, kernels.launch_counts())
+        out[name] = res
+    p, s = out["plain"], out["sharded"]
+    acc = float((s["predict"][0] == test.labels).mean())
+    ref_acc = json.loads((CKPT / "fit_summary.json").read_text())["test_acc"]
+    agree = float((s["predict"][0] == p["predict"][0]).mean())
+    dz = float(np.abs(s["encode"][0] - p["encode"][0]).max())
+    xs, xp = (torch.from_numpy(r["decode"][0]) for r in (s, p))
+    dx = float((xs - xp).abs().max())
+    rel = float((xs - xp).norm() / xp.norm())
+    print(f"sharded serving of {CKPT.name} at world size 1: accuracy "
+          f"{acc:.6f} (recorded {ref_acc:.6f}), predictions equal to the "
+          f"plain pipeline's on {agree:.6f}, latents max |diff| {dz:.3g}, "
+          f"decoded images max |diff| {dx:.3g} rel L2 {rel:.3g}; seconds "
+          + ", ".join(f"{w} {s[w][1]:.3f} (plain {p[w][1]:.3f})"
+                      for w in ("predict", "encode", "decode"))
+          + f"; launches {[s[w][2] for w in ('predict', 'encode', 'decode')]}"
+          f"; card {card}", flush=True)
+    for w in ("predict", "encode", "decode"):
+        check(s[w][2] == p[w][2], f"sharded {w} launches {s[w][2]}, plain "
+              f"{p[w][2]}")
+    check(abs(acc - ref_acc) <= 0.002 and agree >= 0.999,
+          f"sharded predict: accuracy {acc}, agreement {agree}")
+    check(dz <= 1e-3, f"sharded latents differ by {dz}")
+    check(dx <= RECON_ATOL["float32"] and rel <= RECON_REL_L2["float32"],
+          f"sharded decode differs by {dx} (rel L2 {rel})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        child = tmp / "torchrun_cli.py"
+        child.write_text(TORCHRUN_CHILD)
+        run = tmp / "run"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", str(child), "fit", "--grid",
+             "--multihost", "--n-devices", "1", "--device", "cuda",
+             "--per-class", "12", "--ae-epochs", "1", "--mlp-epochs", "1",
+             "--synthetic-difficulty", "hard", "--out", str(run),
+             "--cache-dir", str(tmp / "cache")],
+            capture_output=True, text=True, timeout=600, cwd=str(REPO),
+            env={**os.environ, "PYTHONPATH": str(REPO)})
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"torchrun cli fit failed:\n"
+              f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("LAUNCHES ")]
+        check(len(line) == 1, f"torchrun cli fit: no launch counts\n"
+              f"{proc.stdout[-2000:]}")
+        cli_launches = json.loads(line[0][len("LAUNCHES "):])
+        names = sorted(f.name for f in run.iterdir())
+        text = proc.stdout
+        summary = json.loads(text[text.index("{\n"):text.index("\n}") + 2])
+        stores = [len(json.loads((run / n).read_text())) for n in
+                  ("validation_losses.json", "mlp_results.json")]
+    want = {"ae_global_best.json", "ae_global_best.msgpack", "classes.json",
+            "fit_summary.json", "metrics.jsonl", "mlp_global_best.json",
+            "mlp_global_best.msgpack", "mlp_provenance.json",
+            "mlp_results.json", "validation_losses.json"}
+    print(f"torchrun --standalone --nproc-per-node 1 satae_torch.cli fit "
+          f"--grid --multihost --n-devices 1 (per_class 12, 1 + 1 epochs): "
+          f"{cli_s:.2f} s with process start; wrote {names}; stores "
+          f"{stores}; test accuracy {summary['test_acc']}, winners "
+          f"{summary['ae_hparams']} {summary['mlp_hparams']}; launches "
+          f"{ {k: v for k, v in cli_launches.items() if v} }", flush=True)
+    check(want <= set(names), f"torchrun cli fit wrote {names}")
+    check(stores == [45, 11], f"torchrun cli fit stores {stores}")
+    check(cli_launches["fused_gemm"] > 0 and cli_launches["conv2d_bn_act"] > 0
+          and cli_launches["fused_gemm_bwd"] > 0,
+          f"torchrun cli fit launches {cli_launches}")
+    return dict(accuracy=acc, agree=agree, max_dz=dz, decode_max_abs=dx,
+                decode_rel_l2=rel,
+                seconds={w: (s[w][1], p[w][1])
+                         for w in ("predict", "encode", "decode")},
+                launches={w: s[w][2] for w in ("predict", "encode", "decode")},
+                cli=dict(seconds=cli_s, files=names, stores=stores,
+                         summary=summary, launches=cli_launches), card=card)
+
+
+def parallel_phases(card: str, fit_cfg, raw, splits, data_cfg, fit_ref,
+                    grid_ref) -> dict:
+    """Phases 25-28 in order, each one's seconds printed; the single-rank
+    group phase 25 makes is destroyed at the end."""
+    import torch.distributed as dist
+
+    res, secs = {}, {}
+    for n, fn in ((25, lambda: dp_fit_phase(card, fit_cfg, raw, fit_ref)),
+                  (26, lambda: dp_ranks_phase(card, splits)),
+                  (27, lambda: sharded_grid_phase(card, grid_ref)),
+                  (28, lambda: sharded_serve_phase(card, data_cfg,
+                                                   splits.test))):
+        t0 = time.perf_counter()
+        res[n] = fn()
+        secs[n] = time.perf_counter() - t0
+    print("seconds of phases 25-28: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in secs.items()), flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    res["seconds"] = secs
+    return res
+
+
+def parallel_main() -> int:
+    """``--parallel``: build, the references of phases 10 and 12, then
+    phases 25-28 alone, details in chiprun_out/parallel.json."""
+    import torch
+
+    from satae_torch.config import (AETrainConfig, DataConfig,
+                                    MLPTrainConfig, PipelineConfig)
+    from satae_torch.data.ingest import load_dataset
+    from satae_torch.data.pipeline import make_splits
+    from satae_torch.kernels import _build
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = DataConfig(per_class=2000, synthetic_difficulty="hard")
+    raw = load_dataset(data)
+    splits = make_splits(raw, data)
+    fit_cfg = PipelineConfig(data=data, ae=AETrainConfig(max_epochs=2),
+                             mlp=MLPTrainConfig(epochs=2))
+    fit_ref = fit_phase(fit_cfg, raw, splits, "fit (phase 10's)",
+                        repeat=False)
+    grid_ref = grid_phase(card)
+    res = parallel_phases(card, fit_cfg, raw, splits, data, fit_ref,
+                          grid_ref)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "parallel.json").write_text(json.dumps(dict(
+        card=card, phases=res), indent=1, default=str))
+    return 0
+
+
 def card_line() -> str:
     """nvidia-smi's name and power limit of the first card."""
     return subprocess.run(
@@ -3821,7 +4437,9 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:] == ["--vmap"]:
         sys.exit(vmap_main())
+    if sys.argv[1:] == ["--parallel"]:
+        sys.exit(parallel_main())
     if len(sys.argv) > 1:
         raise SystemExit(f"usage: {sys.argv[0]} [--ab PARENT_DIR | "
-                         "--split-sweep | --vmap]")
+                         "--split-sweep | --vmap | --parallel]")
     sys.exit(main())

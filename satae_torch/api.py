@@ -55,9 +55,18 @@ raises where there is none: the pipeline never drops to the CPU by itself.
 at once, satae's vmap engine (satae_torch.train.vmap_sweep: stacked models,
 the batched K1 for every linear layer on the card).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md §1
-item: the sharded sweep engines and the multi-process runtime
-(``runtime.n_devices``, ``runtime.multihost``, item 8).
+``runtime.n_devices = N`` runs satae's multi-device paths over a world of
+N ranks, one process and one device each (satae_torch.parallel: a process
+group of N ranks, from ``torchrun`` with ``runtime.multihost``; one rank
+makes its own). ``fit`` then trains the single config data-parallel with
+global-batch BatchNorm, or (``grid=True``) runs the config-sharded sweeps,
+``runtime.grid_dp`` ranks per config on a config x data mesh; extraction
+and serving shard each chunk over the ranks and all-gather. Every rank
+runs the same call with the same arguments and gets the same result; the
+run directory's files are written by every rank with the same bytes, the
+figures by the primary rank only. satae runs such paths from one process
+over all its devices; ``n_devices = 2`` in one plain process raises
+``ValueError`` here.
 """
 
 from __future__ import annotations
@@ -83,10 +92,16 @@ from satae_torch.models import fast_infer
 from satae_torch.models.mlp import MLP
 from satae_torch.models.supervised_ae import SupervisedAE
 from satae_torch.nn.layers import float32_convs
+from satae_torch.parallel import make_grid_mesh, make_mesh
+from satae_torch.parallel.distributed import (check_world, is_primary,
+                                              local_device, maybe_initialize)
+from satae_torch.parallel.dp import make_dp_decode_step
 from satae_torch.train.extract import extract_features, make_decode_step
 from satae_torch.train.fast_loop import train_mlp, train_supervised_ae
 from satae_torch.train.gridsearch import ae_grid_search, mlp_grid_search
 from satae_torch.train.loop import LogFn
+from satae_torch.train.shard_sweep import (ae_sharded_grid_search,
+                                           mlp_sharded_grid_search)
 from satae_torch.train.vmap_sweep import (ae_vmap_grid_search,
                                           mlp_vmap_grid_search)
 from satae_torch.train.sweep_common import save_best_checkpoint
@@ -100,14 +115,16 @@ BEST_MLP_LR = 1e-4
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> ``cuda`` if a card is present, else raise."""
+    """``None`` -> ``cuda`` if a card is present, else raise. Within a
+    process group a CUDA device without an index is this rank's,
+    ``cuda:LOCAL_RANK`` (satae_torch.parallel.distributed.local_device)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: satae_torch serves on the GPU by default; "
                 "pass device='cpu' to run the plain PyTorch path on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    return local_device(device)
 
 
 @dataclasses.dataclass
@@ -128,17 +145,16 @@ class SatAEPipeline:
     def __init__(self, config: Optional[PipelineConfig] = None, device=None):
         self.config = config or default_config()
         rt = self.config.runtime
-        if rt.n_devices:
-            raise NotImplementedError(
-                "multi-device serving is a later slice (ROADMAP.md §1 "
-                "item 8)")
-        if rt.multihost:
-            # satae initialises its multi-process runtime here; a half-wired
-            # multi-host run must fail loudly, not train on 1/N of the data
-            raise NotImplementedError(
-                "runtime.multihost: the multi-process runtime is a later "
-                "slice (ROADMAP.md §1 item 8)")
+        # the process group first (a no-op unless asked for), then this
+        # rank's device; the mesh's shape is checked before any work
+        maybe_initialize(rt.multihost, resolve_device(device))
         self.device = resolve_device(device)
+        if rt.n_devices:
+            check_world(rt.n_devices)
+            if rt.n_devices % rt.grid_dp:
+                raise ValueError(f"n_devices ({rt.n_devices}) must be "
+                                 f"divisible by grid_dp ({rt.grid_dp})")
+        self._meshes: Dict[str, Any] = {}
         self.ae: Optional[SupervisedAE] = None
         self.mlp: Optional[MLP] = None
         self.classes = None
@@ -151,6 +167,25 @@ class SatAEPipeline:
         # (None for a reused AE): satae draws them into out_dir instead
         self.history: Optional[Dict[str, Optional[Dict[str, List[float]]]]] \
             = None
+
+    # -- meshes --------------------------------------------------------------
+
+    def _mesh(self, grid: bool = False):
+        """None without ``runtime.n_devices``; else the 1-D data mesh over
+        its ranks, or for the sweeps (``grid``) the config x data mesh of
+        ``runtime.grid_dp`` ranks per config (satae's ``_grid_mesh``), each
+        built once."""
+        rt = self.config.runtime
+        if not rt.n_devices:
+            return None
+        key = "grid" if grid and rt.grid_dp > 1 else "data"
+        if key not in self._meshes:
+            self._meshes[key] = (
+                make_grid_mesh(rt.n_devices // rt.grid_dp, rt.grid_dp,
+                               data_axis=rt.mesh_axis, device=self.device)
+                if key == "grid" else
+                make_mesh(rt.n_devices, rt.mesh_axis, self.device))
+        return self._meshes[key]
 
     # -- training ----------------------------------------------------------
 
@@ -215,13 +250,17 @@ class SatAEPipeline:
         if reuse_ae:
             ae_hp = {"reused": True}
         elif grid:
-            search = ae_vmap_grid_search if cfg.runtime.parallel_configs \
-                else ae_grid_search
-            sweep = search(
-                splits.train, splits.val, model_cfg=cfg.model,
-                data_cfg=cfg.data, ae_cfg=cfg.ae, device=dev, seed=seed,
-                out_dir=out_dir, log=log, compute_dtype=dtype,
-                save_curves=curves)
+            kw = dict(model_cfg=cfg.model, data_cfg=cfg.data, ae_cfg=cfg.ae,
+                      device=dev, seed=seed, out_dir=out_dir, log=log,
+                      compute_dtype=dtype, save_curves=curves)
+            if cfg.runtime.n_devices:
+                sweep = ae_sharded_grid_search(
+                    splits.train, splits.val, mesh=self._mesh(grid=True),
+                    **kw)
+            else:
+                search = ae_vmap_grid_search \
+                    if cfg.runtime.parallel_configs else ae_grid_search
+                sweep = search(splits.train, splits.val, **kw)
             ae_res, ae_hp = sweep.best, sweep.best_hparams
         else:
             if out_dir and cfg.ae.checkpoint_every:
@@ -233,7 +272,7 @@ class SatAEPipeline:
                 patience=cfg.ae.patience, seed=seed, log=log,
                 compute_dtype=dtype,
                 checkpoint_path=None if inflight is None else str(inflight),
-                checkpoint_every=cfg.ae.checkpoint_every)
+                checkpoint_every=cfg.ae.checkpoint_every, mesh=self._mesh())
             ae_hp = {"alpha": BEST_ALPHA, "lr": BEST_AE_LR}
         if ae_res is not None:
             ae = SupervisedAE(cfg.model, cfg.data.channels,
@@ -243,20 +282,25 @@ class SatAEPipeline:
             self._ae_src_dir = None  # freshly trained or a sweep's winner
         stage("ae")
 
-        Xtr, ytr = extract_features(self.ae.enc, splits.train, bs, dtype)
-        Xva, yva = extract_features(self.ae.enc, splits.val, bs, dtype)
-        Xte, yte = extract_features(self.ae.enc, splits.test, bs, dtype)
+        mesh = self._mesh()
+        Xtr, ytr = extract_features(self.ae.enc, splits.train, bs, dtype, mesh)
+        Xva, yva = extract_features(self.ae.enc, splits.val, bs, dtype, mesh)
+        Xte, yte = extract_features(self.ae.enc, splits.test, bs, dtype, mesh)
         stage("extract")
 
         if out_dir:
             self._guard_mlp_store(out_dir)
         if grid:
-            search = mlp_vmap_grid_search if cfg.runtime.parallel_configs \
-                else mlp_grid_search
-            msweep = search(
-                Xtr, ytr, Xva, yva, model_cfg=cfg.model, mlp_cfg=cfg.mlp,
-                device=dev, batch_size=bs, seed=seed, out_dir=out_dir,
-                log=log, test_x=Xte, test_y=yte, save_curves=curves)
+            kw = dict(model_cfg=cfg.model, mlp_cfg=cfg.mlp, device=dev,
+                      batch_size=bs, seed=seed, out_dir=out_dir, log=log,
+                      test_x=Xte, test_y=yte, save_curves=curves)
+            if cfg.runtime.n_devices:
+                msweep = mlp_sharded_grid_search(
+                    Xtr, ytr, Xva, yva, mesh=self._mesh(grid=True), **kw)
+            else:
+                search = mlp_vmap_grid_search \
+                    if cfg.runtime.parallel_configs else mlp_grid_search
+                msweep = search(Xtr, ytr, Xva, yva, **kw)
             mlp_res, mlp_hp = msweep.best, msweep.best_hparams
         else:
             mlp_res = train_mlp(
@@ -311,10 +355,12 @@ class SatAEPipeline:
             checkpoint.save_model(out / "ae_global_best.msgpack",
                                   *self._ae_trees(),
                                   meta=dict(summary.ae_hparams))
-        (out / "fit_summary.json").write_text(
+        checkpoint.write_text_atomic(
+            out / "fit_summary.json",
             dump_strict_json(dataclasses.asdict(summary), indent=2))
         if self.classes:
-            (out / "classes.json").write_text(json.dumps(list(self.classes)))
+            checkpoint.write_text_atomic(out / "classes.json",
+                                         json.dumps(list(self.classes)))
         figures = []
         if ae_res is not None and ae_res.history:
             figures.append(("loss_curves", ae_res.history, "ae_best_curves",
@@ -323,7 +369,7 @@ class SatAEPipeline:
             figures.append(("accuracy_curves", mlp_res.history,
                             "mlp_best_curves",
                             f"Best MLP ({summary.mlp_hparams})"))
-        if not figures:
+        if not figures or not is_primary():
             return
         try:
             from satae_torch.eval import plots
@@ -364,7 +410,12 @@ class SatAEPipeline:
                          "mlp_global_best.json"):
                 (out / name).unlink(missing_ok=True)
         out.mkdir(parents=True, exist_ok=True)
-        prov.write_text(json.dumps({"ae_fingerprint": fp}))
+        checkpoint.write_text_atomic(prov, json.dumps({"ae_fingerprint": fp}))
+        mesh = self._mesh()
+        if mesh is not None:
+            # every rank has cleared a stale store before any rank's sweep
+            # reads it
+            mesh.all_reduce_(torch.zeros(1, device=self.device))
 
     # -- satae's trees -----------------------------------------------------
 
@@ -454,7 +505,8 @@ class SatAEPipeline:
             if not same_src:
                 (out / "mlp_global_best.json").unlink(missing_ok=True)
         if self.classes:
-            (out / "classes.json").write_text(json.dumps(list(self.classes)))
+            checkpoint.write_text_atomic(out / "classes.json",
+                                         json.dumps(list(self.classes)))
 
     def export_torch(self, dest_dir: str) -> None:
         """Write the models as the reference notebook's ``.pt`` state_dicts,
@@ -537,9 +589,11 @@ class SatAEPipeline:
 
     def _serve_chunk(self, n: int) -> int:
         """Fixed chunk: one training batch for small inputs, eight otherwise
-        (64 / 512 at the default config), as satae's ``_serve_chunk``."""
+        (64 / 512 at the default config), each rounded up to a multiple of
+        the mesh's devices, as satae's ``_serve_chunk``."""
         bs = self.config.data.batch_size
-        return bs if n <= bs else bs * 8
+        mult = self.config.runtime.n_devices or 1
+        return -(-(bs if n <= bs else bs * 8) // mult) * mult
 
     @torch.no_grad()
     def _serve_batched(self, images: np.ndarray, fe: fast_infer.FoldedEncoder,
@@ -549,7 +603,9 @@ class SatAEPipeline:
         encoded in the compute dtype, its latents chained into ``head`` on
         the device as float32 (satae's api.py:569-570). Returns per-chunk
         outputs covering n + pad rows (padding rows never mix with real
-        ones: eval-mode BN uses running stats, every layer is per image)."""
+        ones: eval-mode BN uses running stats, every layer is per image).
+        With ``runtime.n_devices`` each rank runs its rows of every chunk,
+        head included, and the outputs are all-gathered."""
         imgs = self._to_uint8(np.asarray(images))
         n = len(imgs)
         chunk = self._serve_chunk(n)
@@ -559,10 +615,14 @@ class SatAEPipeline:
         dev[:n].copy_(torch.from_numpy(np.ascontiguousarray(imgs)))
         out = []
         dtype = self.config.compute_dtype
+        mesh = self._mesh()
         for lo in range(0, n + pad, chunk):
-            z = fast_infer.encoder_infer(fe, normalize(dev[lo:lo + chunk],
-                                                       dtype))
-            out.append(head(z.float()))
+            part = dev[lo:lo + chunk]
+            if mesh is not None:
+                part = mesh.shard(part)
+            y = head(fast_infer.encoder_infer(fe, normalize(part,
+                                                            dtype)).float())
+            out.append(y if mesh is None else mesh.gather_rows(y))
         return out
 
     def encode(self, images: np.ndarray) -> np.ndarray:
@@ -634,7 +694,10 @@ class SatAEPipeline:
         pad = (-n) % chunk
         dev = torch.zeros((n + pad, ld), device=self.device)
         dev[:n].copy_(torch.from_numpy(z))
-        step = make_decode_step(self.ae.dec, self.config.compute_dtype)
+        mesh = self._mesh()
+        step = make_decode_step(self.ae.dec, self.config.compute_dtype) \
+            if mesh is None else make_dp_decode_step(
+                mesh, self.ae.dec, self.config.compute_dtype)
         with float32_convs():
             outs = [step(dev[lo:lo + chunk])
                     for lo in range(0, n + pad, chunk)]

@@ -15,10 +15,18 @@ artifacts and standard output, on PyTorch.
 One flag is added, ``--device`` (default ``cuda``): every entry point runs on
 that device, and ``--device cpu`` runs the kernels' plain versions on the
 CPU. ``--parallel`` runs the grid's config-batched (vmap) sweeps
-(satae_torch.train.vmap_sweep). The flags of satae's multi-device runtime
-(``--n-devices``, ``--multihost``, ``--grid-dp`` above 1) raise before any
-work: the port runs on one device (ROADMAP.md §1 item 8). ``--pallas`` is
-accepted and changes nothing: the port always serves through its kernels.
+(satae_torch.train.vmap_sweep). satae's multi-device flags run one process
+per device (satae_torch.parallel): ``--multihost`` joins the process group
+``torchrun`` describes before any device is touched (NCCL on ``cuda``,
+Gloo on ``cpu``), ``--n-devices N`` trains, sweeps and serves over its N
+ranks, and ``--grid-dp`` gives each grid config that many of them:
+
+  torchrun --nproc-per-node N -m satae_torch.cli fit --multihost --n-devices N
+
+Every rank runs the command and prints its output; the files of a run
+directory are written by every rank with the same bytes, figures, reports
+and the metrics log by rank 0 only. ``--pallas`` is accepted and changes
+nothing: the port always serves through its kernels.
 The figures need matplotlib, which is imported only where one is drawn: a
 subcommand that draws raises ``ImportError`` without it, except for the
 figures satae draws unasked: ``fit`` without ``--grid`` logs the two curve
@@ -33,6 +41,7 @@ import dataclasses
 import sys
 from pathlib import Path
 
+from satae_torch.parallel.distributed import is_primary, maybe_initialize
 from satae_torch.utils.strict_json import dump_strict_json
 
 
@@ -78,18 +87,20 @@ def cmd_fit(args) -> None:
 
     cfg = _config_from_args(args)
     pipe = SatAEPipeline(cfg, device=args.device)
+    primary = is_primary()
     if args.ae_torch:
         # notebook-user migration: start from a reference AE_GLOBAL_BEST.pt
         pipe.load_torch(args.ae_torch)
     elif args.reuse_ae:
         pipe.load_ae(args.out)
-    log = MetricsLogger(Path(args.out) / "metrics.jsonl")
+    log = MetricsLogger(Path(args.out) / "metrics.jsonl" if primary else None,
+                        echo=primary)
     summary = pipe.fit(grid=args.grid, out_dir=args.out, log=log,
                        reuse_ae=args.reuse_ae or bool(args.ae_torch))
     print(dump_strict_json(dataclasses.asdict(summary), indent=2))
 
     results_file = Path(args.out) / "validation_losses.json"
-    if results_file.exists():
+    if results_file.exists() and primary:
         from satae_torch.eval import plots
         from satae_torch.io.checkpoint import load_grid_results
         plots.gridsearch_heatmap(load_grid_results(results_file),
@@ -117,7 +128,7 @@ def cmd_calibrate(args) -> None:
                                     seed=args.seed, device=args.device)
     summary = CalibrationSummary.from_ratios(ratios)
     print(dump_strict_json(dataclasses.asdict(summary), indent=2))
-    if args.out:
+    if args.out and is_primary():
         Path(args.out).mkdir(parents=True, exist_ok=True)
         try:
             from satae_torch.eval import plots
@@ -148,6 +159,8 @@ def cmd_evaluate(args) -> None:
     result = pipe.evaluate(ds)
     print(result["report"])
     print(f"\naccuracy: {result['accuracy']:.4f}")
+    if not is_primary():
+        return
     from satae_torch.eval import plots
     plots.confusion_display(result["confusion_matrix"],
                             pipe.classes or [str(i) for i in range(10)],
@@ -175,7 +188,10 @@ def cmd_extract(args) -> None:
     out = Path(args.out)
     for split in ("train", "val", "test"):
         X, y = extract_features(pipe.ae.enc, getattr(splits, split),
-                                cfg.data.batch_size, cfg.compute_dtype)
+                                cfg.data.batch_size, cfg.compute_dtype,
+                                pipe._mesh())
+        if not is_primary():
+            continue
         np.savez(out / f"latents_{split}.npz", X=X, y=y)
         print(f"wrote {out / f'latents_{split}.npz'}  X={X.shape}")
         if args.plot:
@@ -212,6 +228,8 @@ def cmd_predict(args) -> None:
     classes = pipe.classes or tuple(
         str(i) for i in range(cfg.model.num_classes))
     dest = Path(args.csv) if args.csv else Path(args.out) / "predictions.csv"
+    if not is_primary():
+        return
     with open(dest, "w", newline="") as f:
         w = csv.writer(f)
         hdr = ["path", "class_id", "class_name", "confidence"]
@@ -258,6 +276,8 @@ def cmd_reconstruct(args) -> None:
     mse = np.mean(
         np.square(recons - images.astype(np.float32) / 255.0),
         axis=(1, 2, 3))
+    if not is_primary():
+        return
 
     dest = Path(args.dest) if args.dest else Path(args.out) / "reconstructions"
     dest.mkdir(parents=True, exist_ok=True)
@@ -300,6 +320,8 @@ def cmd_export_torch(args) -> None:
     cfg = _config_from_args(args)
     pipe = SatAEPipeline(cfg, device=args.device).load(args.out)
     dest = args.dest or args.out
+    if not is_primary():
+        return
     pipe.export_torch(dest)
     print(f"wrote {Path(dest) / 'AE_GLOBAL_BEST.pt'}")
     print(f"wrote {Path(dest) / 'MLP_GLOBAL_BEST.pt'}")
@@ -316,6 +338,8 @@ def cmd_report(args) -> None:
     from satae_torch.eval import plots
 
     out = Path(args.out)
+    if not is_primary():
+        return
     results_file = out / "validation_losses.json"
     if results_file.exists():
         from satae_torch.io.checkpoint import load_grid_results
@@ -362,14 +386,18 @@ def build_parser() -> argparse.ArgumentParser:
                             "always serves through its kernels (K1/K2 on "
                             "the card)")
         p.add_argument("--n-devices", type=int, default=None,
-                       help="multi-device training and sweeps: not ported "
-                            "yet, refused")
+                       help="device count, one rank each: data-parallel "
+                            "training (grid=False) or config-parallel sweeps "
+                            "(grid=True, one config per device per round); "
+                            "the process group must have that many ranks")
         p.add_argument("--multihost", action="store_true",
-                       help="the multi-process runtime: not ported yet, "
-                            "refused")
+                       help="join the process group torchrun describes "
+                            "(init_method env://) before touching devices; "
+                            "equivalent to SATAE_MULTIHOST=1")
         p.add_argument("--grid-dp", type=int, default=1,
-                       help="data-parallel devices per grid config: not "
-                            "ported yet, values above 1 refused")
+                       help="grid mode: data-parallel devices per config "
+                            "(2-D config x data mesh; n-devices must be "
+                            "divisible by this)")
         p.add_argument("--ae-epochs", type=int, default=None,
                        help="override AE max_epochs (default 80)")
         p.add_argument("--ckpt-every", type=int, default=0,
@@ -466,21 +494,10 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_multi_device(args) -> None:
-    """satae's multi-device flags, before any work."""
-    given = [flag for flag, on in (
-        ("--n-devices", args.n_devices is not None),
-        ("--multihost", args.multihost),
-        ("--grid-dp", args.grid_dp > 1)) if on]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: satae_torch runs on one device; multi-GPU "
-            "training and sweeps are a later slice (ROADMAP.md §1 item 8)")
-
-
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    _refuse_multi_device(args)
+    # the process group must exist before the first device is touched
+    maybe_initialize(args.multihost, args.device)
     args.fn(args)
 
 

@@ -79,6 +79,23 @@ def augment_train_batch(imgs_u8: torch.Tensor, *, crop_padding: int = 4,
     return x
 
 
+def draw_augmentation(shape, crop_padding: int, noise_std: float,
+                      generator: Optional[torch.Generator], device,
+                      dtype: torch.dtype = torch.float32):
+    """The random inputs :func:`augment_train_batch` draws for a batch of
+    ``shape`` (N, H, W, ch), in its order from ``generator``: flips (N, 1),
+    offsets (N, 2) and noise (N, H, W, ch) in ``dtype`` (None without
+    noise). The data-parallel step draws the global batch's and keeps its
+    own rows, so N ranks augment exactly as one device does."""
+    n = shape[0]
+    flip = torch.rand((n, 1), generator=generator, device=device) < 0.5
+    offsets = torch.randint(0, 2 * crop_padding + 1, (n, 2),
+                            generator=generator, device=device)
+    noise = torch.randn(tuple(shape), generator=generator, device=device,
+                        dtype=dtype) if noise_std else None
+    return flip, offsets, noise
+
+
 def draw_stacked_augmentation(n_configs: int, shape, crop_padding: int,
                               generator: Optional[torch.Generator], device,
                               dtype: torch.dtype = torch.float32):

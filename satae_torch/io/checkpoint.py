@@ -248,8 +248,11 @@ def _atomic_write(path: Path, data: bytes) -> None:
     os.replace(tmp, path)
 
 
-def _atomic_write_text(path: Path, text: str) -> None:
-    _atomic_write(path, text.encode())
+def write_text_atomic(path: Path, text: str) -> None:
+    """``path.write_text(text)`` as :func:`_atomic_write` writes: the
+    run directory's JSON files, which every rank of a process group writes
+    with the same bytes."""
+    _atomic_write(Path(path), text.encode())
 
 
 def save_pytree(path: str | Path, tree: Any) -> None:
@@ -264,7 +267,7 @@ def save_model(path: str | Path, params: Any, bn_state: Any,
     and with ``meta`` a strict-JSON ``.json`` sidecar beside it."""
     save_pytree(path, {"params": params, "bn_state": bn_state})
     if meta is not None:
-        _atomic_write_text(Path(path).with_suffix(".json"),
+        write_text_atomic(Path(path).with_suffix(".json"),
                            dump_strict_json(meta, indent=2))
 
 
@@ -286,7 +289,7 @@ def save_train_state(path: str | Path, *, params: Any, bn_state: Any,
     save_pytree(path, {"params": params, "bn_state": bn_state,
                        "opt_state": opt_state})
     meta = {"epoch": int(epoch), **(extra or {})}
-    _atomic_write_text(Path(path).with_suffix(".state.json"),
+    write_text_atomic(Path(path).with_suffix(".state.json"),
                        dump_strict_json(meta))
 
 
@@ -341,5 +344,5 @@ class GridResultStore:
     def record(self, key: str, value: Dict[str, Any]) -> None:
         self.results[key] = value
         self.path.parent.mkdir(parents=True, exist_ok=True)
-        _atomic_write_text(self.path,
+        write_text_atomic(self.path,
                            dump_strict_json(self.results, indent=2))

@@ -33,9 +33,12 @@ tolerances cover it (tests/test_torch_port_bf16.py).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -99,9 +102,46 @@ def batchnorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y * weight.to(dt) + bias.to(dt)
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over a process group whose backward sums the cotangents over it
+    again: each rank's activations then receive the gradient of every
+    rank's loss through the shared batch statistics."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+# (process group, its size) while a data-parallel train step runs: the
+# train-mode BatchNorm of every module takes its moments over the group
+_BN_GROUP = contextvars.ContextVar("satae_torch_bn_group", default=None)
+
+
+@contextlib.contextmanager
+def synced_batchnorm(mesh):
+    """Within it, :func:`bn` in train mode takes global-batch moments over
+    ``mesh``'s data axis (satae_torch.parallel.Mesh; None: no change)."""
+    token = _BN_GROUP.set(None if mesh is None
+                          else (mesh.group, mesh.data_size))
+    try:
+        yield
+    finally:
+        _BN_GROUP.reset(token)
+
+
 def batchnorm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                     running_mean: torch.Tensor, running_var: torch.Tensor,
-                    momentum: float = 0.1, eps: float = 1e-5) -> torch.Tensor:
+                    momentum: float = 0.1, eps: float = 1e-5,
+                    group=None) -> torch.Tensor:
     """Train-mode BatchNorm over the last (channel) axis in satae's
     arithmetic (layers.py:219-242): one-pass float32 moments,
     var = max(E[x^2] - E[x]^2, 0), cast to x's dtype, normalisation with
@@ -109,15 +149,27 @@ def batchnorm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     place with the unbiased variance var * n / (n - 1). Gradients flow
     through the batch moments.
 
+    ``group``, (process group, size), makes the moments the global batch's,
+    as satae's are under GSPMD: each rank's float32 E[x] and E[x^2] are
+    summed over the group (differentiably) and divided by its size, and n
+    is the global count. Every rank holds an equal share of the batch, which
+    the data-parallel steps ensure, so that mean of means is the global
+    mean; a group of one gives the arithmetic without a group bit for bit.
+
     Not ``F.batch_norm(training=True)``: its moments come from another
     algorithm (Welford), which rounds differently."""
     axes = tuple(range(x.dim() - 1))
     xf = x.float()
     mean32 = xf.mean(axes)
     m2 = (xf * xf).mean(axes)
+    n = x.numel() // x.shape[-1]
+    if group is not None:
+        pg, size = group
+        moments = _AllReduceSum.apply(torch.stack([mean32, m2]), pg) / size
+        mean32, m2 = moments[0], moments[1]
+        n *= size
     var32 = torch.clamp(m2 - mean32 * mean32, min=0.0)
     mean, var = mean32.to(x.dtype), var32.to(x.dtype)
-    n = x.numel() // x.shape[-1]
     with torch.no_grad():
         unbiased = var * const_like(n / max(n - 1, 1), x)
         running_mean.copy_((1 - momentum) * running_mean
@@ -132,12 +184,14 @@ def bn(x: torch.Tensor, module: nn.modules.batchnorm._BatchNorm
        ) -> torch.Tensor:
     """``module``'s BatchNorm on NHWC/NC x: batch statistics and a running
     stats update in train mode (as nn.BatchNorm, ``num_batches_tracked``
-    counts the updates), running statistics in eval mode."""
+    counts the updates; global-batch statistics within
+    :func:`synced_batchnorm`), running statistics in eval mode."""
     if module.training:
         module.num_batches_tracked.add_(1)
         return batchnorm_train(x, module.weight, module.bias,
                                module.running_mean, module.running_var,
-                               module.momentum, module.eps)
+                               module.momentum, module.eps,
+                               _BN_GROUP.get())
     return batchnorm(x, module.weight, module.bias, module.running_mean,
                      module.running_var, module.eps)
 

@@ -23,8 +23,18 @@ uploads its own. ``compute_dtype`` is satae's: the AE computes in it
 (bf16 for the bf16 recipe) while its parameters, BatchNorm stats, Adam's
 moments and the selection metrics stay float32, so a bf16 run's snapshots
 and checkpoints are the float32 ones a float32 run writes. The MLP trains
-in float32. Data-parallel training is a later slice (ROADMAP.md §1
-item 8).
+in float32.
+
+``mesh`` (satae_torch.parallel.Mesh) makes the AE training data-parallel
+over its data axis, satae's DP scan epochs (fast_loop.py:147-194): the
+parameters, BatchNorm stats and Adam state are broadcast once from the
+axis's first rank, each step trains this rank's rows of the epoch order's
+batch (satae_torch.train.steps; the batch size must divide over the axis),
+and each rank evaluates its rows of every val batch. Every rank keeps the
+whole training set on its device (14,000 x 64 x 64 x 3 uint8 is 172 MB) and
+gathers its rows by index, where satae shards the upload and reshards each
+step's batch; the batches are the same. The in-flight files are written by
+every rank, identical bytes.
 
 ``checkpoint_path`` with ``checkpoint_every=k`` is satae's in-flight resume
 (fast_loop.py:80-96, :168-196, :262-275): every k epochs the AE's
@@ -53,6 +63,7 @@ from satae_torch.io import checkpoint, convert
 from satae_torch.models.mlp import MLP
 from satae_torch.models.supervised_ae import SupervisedAE
 from satae_torch.nn.init import init_
+from satae_torch.parallel.mesh import replicate
 from satae_torch.train import hbm
 from satae_torch.train.loop import LogFn, TrainResult, _snapshot, _up
 from satae_torch.train.optim import adam_init
@@ -118,12 +129,18 @@ def train_supervised_ae(
     compute_dtype: torch.dtype = torch.float32,
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
+    mesh=None,
 ) -> TrainResult:
     """Train one (alpha, lr) supervised-AE config with early stopping,
     computing in ``compute_dtype``. ``device_data``: :func:`upload_ae_data`
     of the same splits. ``checkpoint_path``/``checkpoint_every``: the
-    in-flight resume of the module docstring."""
+    in-flight resume of the module docstring; ``mesh``: data-parallel, as
+    the module docstring says."""
     _check_full_batch(len(train_ds), data_cfg.batch_size, "train split")
+    if mesh is not None and data_cfg.batch_size % mesh.data_size:
+        raise ValueError(f"batch_size ({data_cfg.batch_size}) must divide "
+                         f"over the {mesh.data_size} devices of the data "
+                         "axis")
     images, labels, val_imgs, val_labs, val_wts = device_data or \
         upload_ae_data(train_ds, val_ds, data_cfg.batch_size, device)
     model = SupervisedAE(model_cfg, data_cfg.channels, data_cfg.image_size)
@@ -154,6 +171,9 @@ def train_supervised_ae(
             history[k] = list(meta.get("history", {}).get(k, []))
         if log:
             log(f"resumed from {checkpoint_path} at epoch {start_epoch}")
+    if mesh is not None:
+        replicate(mesh, model)
+        replicate(mesh, opt.mu + opt.nu)
     # a resumed run that had already stopped trains nothing; epochs_run
     # stays the real count
     epochs_run = start_epoch
@@ -164,9 +184,9 @@ def train_supervised_ae(
                                 epoch)
         tsum = _host(hbm.ae_train_epoch(model, opt, images, labels, order,
                                         alpha, lr, data_cfg, gen,
-                                        compute_dtype))
+                                        compute_dtype, mesh))
         vsum = _host(hbm.ae_eval_sums(model, val_imgs, val_labs, val_wts,
-                                      alpha, compute_dtype))
+                                      alpha, compute_dtype, mesh))
         for k in ("loss", "mse", "ce", "acc"):
             history[f"train_{k}"].append(tsum[k] / n_counted)
             history[f"val_{k}"].append(vsum[k] / vsum["n"])

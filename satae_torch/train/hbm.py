@@ -77,50 +77,70 @@ def _zeros(keys, device) -> Sums:
     return {k: torch.zeros((), device=device) for k in keys}
 
 
+def all_reduced(sums: Sums, mesh) -> Sums:
+    """``sums`` summed over ``mesh``'s data axis, in one collective."""
+    keys = list(sums)
+    total = mesh.all_reduce_(torch.stack([sums[k] for k in keys]))
+    return dict(zip(keys, total))
+
+
 def ae_train_epoch(model: SupervisedAE, opt: AdamState, images: torch.Tensor,
                    labels: torch.Tensor, order: np.ndarray, alpha: float,
                    lr: float, data_cfg: DataConfig,
                    generator: Optional[torch.Generator],
-                   dtype: torch.dtype = torch.float32) -> Sums:
+                   dtype: torch.dtype = torch.float32, mesh=None) -> Sums:
     """One AE epoch over the device-resident uint8 ``images`` in ``order``,
     computing in ``dtype``; returns per-sample weighted float32 metric sums
-    (divide by ``order.size``)."""
+    (divide by ``order.size``). With ``mesh`` each step trains this rank's
+    rows of the order's batch, data-parallel (satae_torch.train.steps)."""
     msum = _zeros(("loss", "mse", "ce", "acc"), images.device)
     for idx in torch.from_numpy(order).to(images.device):
+        mine = idx if mesh is None else mesh.shard(idx)
         metrics, _ = ae_train_step(
-            model, opt, images.index_select(0, idx),
-            labels.index_select(0, idx), alpha, lr, data_cfg,
-            generator=generator, dtype=dtype)
+            model, opt, images.index_select(0, mine),
+            labels.index_select(0, mine), alpha, lr, data_cfg,
+            generator=generator, dtype=dtype, mesh=mesh)
         for k in msum:
             msum[k] += metrics[k] * idx.numel()
     return msum
 
 
+def ae_eval_batch_sums(model: SupervisedAE, imgs_u8: torch.Tensor,
+                       labs: torch.Tensor, wts: torch.Tensor, alpha: float,
+                       dtype: torch.dtype = torch.float32) -> Sums:
+    """One batch's weighted float32 sums of loss, mse, ce, acc and n, the
+    model (in eval mode) run in ``dtype``: satae's ``ae_eval_body`` step and
+    its data-parallel eval (dp.py:50-77)."""
+    imgs = normalize(imgs_u8, dtype)
+    x_hat, logits, _ = model(imgs)
+    se = torch.sum(torch.square((x_hat - imgs).float())
+                   * wts[:, None, None, None]) / x_hat[0].numel()
+    logits32 = logits.float()
+    logz = torch.logsumexp(logits32, dim=-1)
+    tl = logits32.gather(-1, labs[:, None])[:, 0]
+    ce = torch.sum((logz - tl) * wts)
+    return {"loss": alpha * se + ce, "mse": se, "ce": ce,
+            "acc": torch.sum((torch.argmax(logits, -1) == labs) * wts),
+            "n": torch.sum(wts)}
+
+
 @torch.no_grad()
 def ae_eval_sums(model: SupervisedAE, images: torch.Tensor,
                  labels: torch.Tensor, weights: torch.Tensor,
-                 alpha: float, dtype: torch.dtype = torch.float32) -> Sums:
+                 alpha: float, dtype: torch.dtype = torch.float32,
+                 mesh=None) -> Sums:
     """Weighted float32 metric sums over padded eval batches (nb, B, ...),
     the model run in ``dtype``, as satae's ``ae_eval_body``: divide by the
-    returned ``n``."""
+    returned ``n``. With ``mesh`` each rank evaluates its rows of every
+    batch and the sums are summed over the data axis."""
     model.eval()
     msum = _zeros(("loss", "mse", "ce", "acc", "n"), images.device)
-    for imgs_u8, labs, wts in zip(images, labels, weights):
-        imgs = normalize(imgs_u8, dtype)
-        x_hat, logits, _ = model(imgs)
-        se = torch.sum(torch.square((x_hat - imgs).float())
-                       * wts[:, None, None, None]) / x_hat[0].numel()
-        logits32 = logits.float()
-        logz = torch.logsumexp(logits32, dim=-1)
-        tl = logits32.gather(-1, labs[:, None])[:, 0]
-        ce = torch.sum((logz - tl) * wts)
-        correct = torch.sum((torch.argmax(logits, -1) == labs) * wts)
-        msum["loss"] += alpha * se + ce
-        msum["mse"] += se
-        msum["ce"] += ce
-        msum["acc"] += correct
-        msum["n"] += torch.sum(wts)
-    return msum
+    for batch in zip(images, labels, weights):
+        if mesh is not None:
+            batch = [mesh.shard(t) for t in batch]
+        for k, v in ae_eval_batch_sums(model, *batch, alpha, dtype).items():
+            msum[k] += v
+    return msum if mesh is None else all_reduced(msum, mesh)
 
 
 def mlp_train_epoch(model: MLP, opt: AdamState, xs: torch.Tensor,

@@ -15,8 +15,14 @@ accuracy. Parameters start from ``init_`` with
 the augmentation and dropout draws come from a generator on the device
 seeded ``seed``. On a CUDA device every linear layer runs on K1, as in the
 scan engine. ``train_step``/``eval_step`` replace the steps (the tests
-script them); data-parallel training (satae's ``mesh``) is a later slice
-(ROADMAP.md §1 item 8).
+script them).
+
+``mesh`` (satae_torch.parallel.Mesh) trains the AE data-parallel over its
+data axis, as satae's loop.py:114-156: the state broadcast once, each batch
+cut to a multiple of the device count (at most devices - 1 images of the
+shuffled epoch's remainder batch are dropped) and sharded, every step
+satae_torch.parallel.dp's; evaluation pads each batch with zero-weight rows
+instead, so the val metrics cover every sample.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from satae_torch.data.pipeline import ArrayDataset, iter_batches
 from satae_torch.models.mlp import MLP
 from satae_torch.models.supervised_ae import SupervisedAE
 from satae_torch.nn.init import init_
+from satae_torch.parallel.mesh import replicate, shard_batch
 from satae_torch.train import steps as S
 from satae_torch.train.optim import adam_init
 
@@ -99,11 +106,31 @@ def _snapshot(model: torch.nn.Module):
             {k: v.detach().clone() for k, v in model.named_buffers()})
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: data-parallel training is a later slice (ROADMAP.md §1 "
-            "item 8)")
+def _dp_eval(mesh, eval_w, ds: ArrayDataset, batch_size: int,
+             device: torch.device) -> Dict[str, float]:
+    """``eval_w(imgs, labels, weights)`` (the weighted DP eval step) over
+    the batches of ``ds``, each padded with zero-weight rows to a multiple
+    of the device count and sharded: weighted means, one read back."""
+    n_dev = mesh.data_size
+    sums = []
+    for imgs, labs in iter_batches(ds, batch_size, shuffle=False):
+        pad = (-len(labs)) % n_dev
+        w = np.concatenate([np.ones(len(labs), np.float32),
+                            np.zeros(pad, np.float32)])
+        imgs = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:],
+                                              imgs.dtype)])
+        labs = np.concatenate([labs, np.zeros((pad,), labs.dtype)])
+        x, y, w = shard_batch(mesh, imgs, labs, w)
+        sums.append(eval_w(_up(x, device), _up(y, device, torch.long),
+                           _up(w, device)))
+    keys = list(sums[0])
+    total: Dict[str, float] = dict.fromkeys(keys, 0.0)
+    for values in torch.stack([torch.stack([s[k] for k in keys])
+                               for s in sums]).cpu().tolist():
+        for k, v in zip(keys, values):
+            total[k] += float(v)
+    n = total.pop("n")
+    return {k: v / n for k, v in total.items()}
 
 
 def train_supervised_ae(
@@ -127,8 +154,9 @@ def train_supervised_ae(
     """Train one (alpha, lr) supervised-AE config with early stopping on the
     per-batch loop, computing in ``compute_dtype``. ``train_step(model,
     opt, imgs_u8, labels, alpha, lr)`` and ``eval_step(model, imgs_u8,
-    labels, alpha)`` default to satae_torch.train.steps' AE steps."""
-    _refuse_mesh(mesh)
+    labels, alpha)`` default to satae_torch.train.steps' AE steps; with
+    ``mesh`` the data-parallel ones (the module docstring), and
+    ``eval_step`` is not used."""
     model = SupervisedAE(model_cfg, data_cfg.channels, data_cfg.image_size)
     init_(model, torch.Generator().manual_seed(seed))
     model.to(device)
@@ -137,7 +165,12 @@ def train_supervised_ae(
     train_step = train_step or (
         lambda m, o, x, y, a, r: S.ae_train_step(
             m, o, x, y, a, r, data_cfg, generator=gen,
-            dtype=compute_dtype)[0])
+            dtype=compute_dtype, mesh=mesh)[0])
+    if mesh is not None:
+        from satae_torch.parallel.dp import make_dp_ae_eval_step_weighted
+        replicate(mesh, model)
+        replicate(mesh, opt.mu + opt.nu)
+        eval_w = make_dp_ae_eval_step_weighted(mesh, compute_dtype)
     eval_step = eval_step or (
         lambda m, x, y, a: S.ae_eval_step(m, x, y, a, compute_dtype))
 
@@ -157,13 +190,24 @@ def train_supervised_ae(
         for imgs, labels in iter_batches(train_ds, data_cfg.batch_size,
                                          shuffle=True, seed=seed,
                                          epoch=epoch):
+            size = len(labels)
+            if mesh is not None:
+                size -= size % mesh.data_size
+                if size == 0:
+                    continue
+                imgs, labels = shard_batch(mesh, imgs[:size], labels[:size])
             metrics = train_step(model, opt, _up(imgs, device),
                                  _up(labels, device, torch.long), alpha, lr)
-            per_batch.append((metrics, len(labels)))
-            n_seen += len(labels)
+            per_batch.append((metrics, size))
+            n_seen += size
         train_m = _weighted_mean(_reduce_batches(per_batch), n_seen)
-        val_m = run_eval(lambda x, y: eval_step(model, x, y, alpha), val_ds,
-                         data_cfg.batch_size, device)
+        if mesh is not None:
+            val_m = _dp_eval(mesh, lambda x, y, w: eval_w(model, x, y, w,
+                                                          alpha),
+                             val_ds, data_cfg.batch_size, device)
+        else:
+            val_m = run_eval(lambda x, y: eval_step(model, x, y, alpha),
+                             val_ds, data_cfg.batch_size, device)
         for k in ("loss", "mse", "ce", "acc"):
             history[f"train_{k}"].append(train_m[k])
             history[f"val_{k}"].append(val_m[k])

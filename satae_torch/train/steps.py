@@ -48,7 +48,7 @@ import torch
 
 from satae_torch.config import DataConfig
 from satae_torch.data.augment import (augment_stacked_batch,
-                                      augment_train_batch,
+                                      augment_train_batch, draw_augmentation,
                                       draw_stacked_augmentation, normalize)
 from satae_torch.models.mlp import MLP
 from satae_torch.models.stacked import StackedMLP, StackedSupervisedAE
@@ -77,21 +77,39 @@ def ae_train_step(model: SupervisedAE, opt: AdamState, imgs_u8: torch.Tensor,
                   offsets: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None,
                   linear=L.linear,
-                  dtype: torch.dtype = torch.float32) -> StepOut:
+                  dtype: torch.dtype = torch.float32,
+                  mesh=None) -> StepOut:
+    """One AE step on ``imgs_u8``; with ``mesh`` (satae_torch.parallel.Mesh)
+    the data-parallel step on this rank's shard of a global batch: the
+    augmentation draws are the global batch's (drawn from ``generator``,
+    identical on every rank) sliced to this rank's rows, BatchNorm takes
+    global-batch moments, and the gradients and metrics are the data axis's
+    means, so every rank applies the same update."""
+    if mesh is not None and flip is None:
+        shape = (imgs_u8.shape[0] * mesh.data_size,) + imgs_u8.shape[1:]
+        flip, offsets, noise = (
+            None if d is None else mesh.shard(d) for d in draw_augmentation(
+                shape, data_cfg.crop_padding, data_cfg.noise_std, generator,
+                imgs_u8.device, dtype))
     imgs = augment_train_batch(imgs_u8, crop_padding=data_cfg.crop_padding,
                                noise_std=data_cfg.noise_std,
                                generator=generator, flip=flip,
                                offsets=offsets, noise=noise, dtype=dtype)
     model.train()
-    x_hat, logits, _ = model(imgs, linear)
+    with L.synced_batchnorm(mesh):
+        x_hat, logits, _ = model(imgs, linear)
     total, mse, ce = joint_ae_loss(x_hat, logits, imgs, labels, alpha)
     check_finite("AE train step", ["loss"], [total])
     params = list(model.parameters())
     grads = torch.autograd.grad(total, params)
+    metrics = [total.detach(), mse.detach(), ce.detach(),
+               accuracy(logits.detach(), labels)]
+    if mesh is not None:
+        grads = tuple(mesh.mean(grads))
+        metrics = mesh.mean(metrics)
     check_finite("AE train step", _grad_names(model), grads)
     adam_update(params, grads, opt, lr)
-    return ({"loss": total.detach(), "mse": mse.detach(), "ce": ce.detach(),
-             "acc": accuracy(logits.detach(), labels)}, grads)
+    return dict(zip(("loss", "mse", "ce", "acc"), metrics)), grads
 
 
 @torch.no_grad()

@@ -222,10 +222,19 @@ def test_without_matplotlib(fits, tmp_path, monkeypatch, capsys):
                   + _common(run, base / "jcache"))
 
 
-@pytest.mark.parametrize("flags", [["--n-devices", "2"], ["--multihost"],
-                                   ["--grid-dp", "2"]])
-def test_multi_device_flags_are_refused(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="item 8"):
+@pytest.mark.parametrize("flags, match", [
+    (["--n-devices", "2"], "requested 2 devices, have 1"),
+    (["--multihost"], "env://"),
+    (["--n-devices", "1", "--grid-dp", "2"], "divisible by grid_dp")])
+def test_multi_device_flags_are_refused(tmp_path, monkeypatch, flags, match):
+    """The multi-device flags run (tests/test_torch_port_parallel.py runs
+    them on two ranks); what cannot run raises before any work: more
+    devices than ranks, --multihost without torchrun's environment, a
+    --grid-dp that does not divide --n-devices."""
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                "SATAE_MULTIHOST"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match=match):
         tcli.main(["fit", "--out", str(tmp_path / "run"), "--device", "cpu",
                    "--cache-dir", str(tmp_path / "cache")] + flags)
     assert not list(tmp_path.iterdir())

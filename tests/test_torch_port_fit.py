@@ -94,17 +94,24 @@ def test_reuse_ae_after_load_trains_only_the_mlp(tmp_path, test_split):
 
 
 def test_fit_refusals(monkeypatch, tmp_path):
-    """What is not ported raises before any work, naming its ROADMAP item:
-    the sharded sweep engines and the multi-process runtime (item 8); and a
-    fit never drops to the CPU by itself. In-flight resume, the grid's curve
-    figures and the vmap sweep engine (``parallel_configs``), refused until
-    they were ported, now run."""
+    """What cannot run raises before any work: more devices than the
+    process group has ranks (one process is a world of one), a
+    ``multihost`` run without its launcher's environment (a half-wired
+    multi-process run fails loudly), ``grid_dp`` not dividing
+    ``n_devices``; and a fit never drops to the CPU by itself. In-flight
+    resume, the grid's curve figures and the vmap sweep engine
+    (``parallel_configs``), refused until they were ported, now run; so do
+    ``n_devices`` and ``multihost`` (tests/test_torch_port_parallel.py)."""
     run = tmp_path / "run"
     rt = lambda **kw: dataclasses.replace(CFG, runtime=TC.RuntimeConfig(**kw))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         SatAEPipeline(rt(n_devices=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match="env://"):
         SatAEPipeline(rt(multihost=True), device="cpu")
+    with pytest.raises(ValueError, match="divisible by grid_dp"):
+        SatAEPipeline(rt(n_devices=1, grid_dp=2), device="cpu")
     with pytest.raises(ValueError, match="reuse_ae"):
         SatAEPipeline(CFG, device="cpu").fit(reuse_ae=True)
     assert not run.exists()

@@ -241,7 +241,10 @@ def test_port_imports_nothing_of_jax_or_satae():
     assert {"satae_torch.cli", "satae_torch.train.calibrate",
             "satae_torch.data.ingest", "satae_torch.io.native_loader",
             "satae_torch.eval.plots", "satae_torch.eval.parity_report",
-            "satae_torch.utils.logging", "satae_torch.utils.profiling"} \
+            "satae_torch.utils.logging", "satae_torch.utils.profiling",
+            "satae_torch.parallel", "satae_torch.parallel.distributed",
+            "satae_torch.parallel.mesh", "satae_torch.parallel.dp",
+            "satae_torch.train.shard_sweep", "satae_torch.utils.roofline"} \
         <= set(mods)
     code = ("import importlib, sys\n"
             "base = set(sys.modules)\n"
@@ -259,7 +262,9 @@ def test_port_imports_nothing_of_jax_or_satae():
     assert r.returncode == 0, r.stderr
     pat = re.compile(r"^\s*(import\s+(jax|flax|satae)\b|"
                      r"from\s+(jax|flax|satae)(\.|\s))", re.M)
-    for f in [*pkg.rglob("*.py"), REPO / "chip_smoke.py"]:
+    # the spawned ranks of the data-parallel tests import this helper
+    for f in [*pkg.rglob("*.py"), REPO / "chip_smoke.py",
+              REPO / "tests" / "torch_port_dp_worker.py"]:
         assert not pat.search(f.read_text()), f
 
 
@@ -275,6 +280,7 @@ def test_no_silent_cpu(monkeypatch):
         compute_dtype="bfloat16")), device="cpu")
     assert pipe.device == torch.device("cpu")
     assert pipe.config.compute_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # two devices are two ranks: one process cannot serve on them
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         SatAEPipeline(TC.PipelineConfig(runtime=TC.RuntimeConfig(
             n_devices=2)), device="cpu")

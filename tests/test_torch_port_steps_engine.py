@@ -18,6 +18,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from satae import config as JC
 from satae.models.mlp import mlp_init
@@ -27,6 +28,7 @@ from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch import config as TC
 from satae_torch.data.ingest import load_dataset
 from satae_torch.data.pipeline import make_splits
+from satae_torch.parallel import make_mesh
 from satae_torch.train import gridsearch as tgrid
 from satae_torch.train import loop as tloop
 from satae_torch.train import steps as tsteps
@@ -146,10 +148,30 @@ def test_mlp_steps_trainer_matches_satae(monkeypatch):
 
 
 def test_steps_trainer_refuses_a_mesh(splits):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tloop.train_supervised_ae(
-            splits.train, splits.val, model_cfg=TCFG, data_cfg=TDATA,
-            alpha=35.0, lr=1e-3, device=CPU, mesh=object())
+    """A mesh of more devices than the process group has ranks is refused
+    before it reaches the trainer; one of one rank trains as no mesh does,
+    bit for bit (its collectives sum one rank). Its evaluation is satae's
+    data-parallel one, weighted sums over zero-weight-padded batches where
+    the plain loop averages per-batch means, so the val curves agree to
+    float32 rounding."""
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
+        make_mesh(2, device="cpu")
+    kw = dict(model_cfg=TCFG, data_cfg=TDATA, alpha=35.0, lr=1e-3,
+              device=CPU, max_epochs=2)
+    plain = tloop.train_supervised_ae(splits.train, splits.val, **kw)
+    try:
+        meshed = tloop.train_supervised_ae(
+            splits.train, splits.val, mesh=make_mesh(1, device="cpu"), **kw)
+    finally:
+        dist.destroy_process_group()
+    for k, v in plain.history.items():
+        if k.startswith("train_"):
+            assert meshed.history[k] == v, k
+        else:
+            np.testing.assert_allclose(meshed.history[k], v, rtol=1e-6,
+                                       err_msg=k)
+    for k, v in plain.state_dict().items():
+        assert torch.equal(meshed.state_dict()[k], v), k
 
 
 def _spy(monkeypatch, name):
