@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (satae_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the smoke run, phases 1-28
+    python3 chip_smoke.py                  # the smoke run, phases 1-29
     python3 chip_smoke.py --ab PARENT_DIR  # A/B of the kernels' times
     python3 chip_smoke.py --split-sweep    # K1's time for each split count
     python3 chip_smoke.py --vmap           # the build and phases 21-24 alone
     python3 chip_smoke.py --parallel       # build, phases 10 and 12, 25-28
+    python3 chip_smoke.py --example        # the build and phase 29 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -149,7 +150,10 @@ turn it off for their convolutions themselves.
              reconstruct the test split through reconstruct_batched: exact
              launches (K2 4 and K1 2 per chunk of 512 in the compute dtype;
              decode alone K1 1),
-             decode(encode(x)) equal to reconstruct(x), x_hat against the
+             decode(encode(x)) bitwise equal to reconstruct(x), both
+             called again on the same inputs and held bitwise equal to the
+             first calls,
+             x_hat against the
              plain modules on the card (TF32 off) within RECON_ATOL, the
              mean reconstruction MSE within RECON_MSE_RTOL of satae's on
              the CPU (scripts/satae_serving_reference.json), images/s.
@@ -163,6 +167,7 @@ turn it off for their convolutions themselves.
              batch give the median, p5 and p95 of the port's CPU run on it
              within 3*sqrt(2) of satae's bootstrap standard errors; and the
              card's own run within calibrate_band of satae's CPU run.
+             init_ratio of one init, twice on the card: bitwise equal.
 19. inflight -- fit(grid=False, out_dir=chiprun_out/inflight_run,
              checkpoint_every=1) at full width, AE 4 epochs and MLP 2, on
              synthetic-hard per_class 256, in a process of its own, killed
@@ -244,13 +249,30 @@ one device), each a process of its own (PARALLEL_CHILD).
              every config's result phase 12's bit for bit, satae's winners,
              the stores and checkpoints the same bytes from every rank;
              wall times.
-28. sharded serving -- full_run_hard_f32 predicted, encoded and decoded
-             with n_devices 1 beside the plain pipeline: the same launches,
-             predictions equal on >= 99.9 %, accuracy within 0.002 of the
-             recorded, latents within 1e-3, images within phase 17's bounds;
+28. sharded serving -- full_run_hard_f32 predicted, encoded, decoded and
+             reconstructed with n_devices 1 beside the plain pipeline: the
+             same launches, predictions equal on >= 99.9 %, accuracy within
+             0.002 of the recorded, latents within 1e-3, decoded and
+             reconstructed images bitwise the plain pipeline's;
              then torch.distributed.run --standalone --nproc-per-node 1 of
              satae_torch.cli fit --grid --multihost --n-devices 1 (per_class
              12, 1 + 1 epochs): satae's artifacts, K1 and K2 launches.
+
+Phase 29 runs with PyTorch's default TF32 flags, as a user's run would.
+
+29. example -- examples/reproduce_reference_torch.py --quick
+             --synthetic-difficulty hard, its main() in this process (the
+             notebook's flow: ingest, 50-init calibration, the 2 x 2 AE
+             grid for 15 epochs and 2 MLP lrs for 12, evaluation,
+             reconstruction and latents; each figure written, or skipped
+             with a line naming it where matplotlib is absent), launch
+             counts zeroed before and read after: final.json with satae's
+             example's keys, finite losses, K1, K1's backward and K2
+             launched, test accuracy within EXAMPLE_BAND (0.05) of satae's
+             run of its own example on a CPU
+             (scripts/satae_example_quick_hard.json, from
+             scripts/satae_example_reference.py); winners, calibration
+             median and stage seconds printed beside satae's.
 
 The second-to-last line holds the kernels' numbers as JSON; the last line is
 {"ok": true, "device": {...}}. Details go to chiprun_out/chip_smoke.json.
@@ -348,6 +370,17 @@ RECON_MSE_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
 # near 0.5 carries to 2^-4 at single pixels on the CPU)
 RECON_ATOL = {"float32": 1e-3, "bfloat16": 2.0 ** -3}
 RECON_REL_L2 = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# phase 29: satae's run of its example, --quick --synthetic-difficulty hard,
+# on a CPU (scripts/satae_example_reference.py writes it); the band on the
+# test accuracy (about 7 of its 141 test images); final.json's keys
+SATAE_EXAMPLE_REF = REPO / "scripts" / "satae_example_quick_hard.json"
+EXAMPLE_BAND = 0.05
+EXAMPLE_KEYS = ["test_accuracy", "ae", "mlp", "calibration_median",
+                "timings_s"]
+EXAMPLE_FIGURES = ("class_distribution.png", "samples.png",
+                   "ratio_histogram.png", "gridsearch_heatmap.png",
+                   "confusion_matrix.png", "reconstruction_grid.png",
+                   "latent_space_test.png")
 # phase 3's K1 shapes: the serving path at chunk 512 (projection, fc0, fc1
 # with BN folded, fc2), the JAX package's awkward ones, 8192 x 4096 x 64,
 # whose 128 tiles take one split: all of K in one block, the case that holds
@@ -1795,6 +1828,14 @@ def main() -> int:
     par = parallel_phases(card, fit_cfg, raw, splits, cfg.data, fit, grid)
     phase_s.update(par["seconds"])
 
+    # -- 29. the end-to-end example, as a user runs it ---------------------
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32_defaults
+    t_new = time.perf_counter()
+    example = example_phase(card)
+    phase_s[29] = time.perf_counter() - t_new
+    print(f"seconds of phase 29: {phase_s[29]:.2f}", flush=True)
+
     # -- report -------------------------------------------------------------
     def entry(name, source, replaces, err, rs, per, paths):
         ops_ms = sum(r["bound_ms"] for r in rs
@@ -1833,7 +1874,8 @@ def main() -> int:
                  "sharded_grid": [par[27]["launches"],
                                   *par[27]["launches_per_rank_of_two"]],
                  "sharded_serve": [*par[28]["launches"].values(),
-                                   par[28]["cli"]["launches"]]}
+                                   par[28]["cli"]["launches"]],
+                 "example": [example["launches"]]}
     bf16_paths = {"serve": [serve16["launches"]],
                   "fit": [fit16["launches"], fit_tp["launches"]],
                   "grid": [grid16["launches"]],
@@ -1915,7 +1957,8 @@ def main() -> int:
         calibrate=calib, inflight=inflight, cli=cli_res,
         phase_seconds_17_24=phase_s, batched_kernels=k21,
         stacked_steps=stacked, vmap_grid=vgrid, steps_engine=steps_eng,
-        mfu=mfu, parallel=par, **report), indent=1, default=str))
+        mfu=mfu, parallel=par, example=example, **report), indent=1,
+        default=str))
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2357,10 +2400,20 @@ def decode_phase(card: str, data_cfg, test) -> dict:
         dec_launches = kernels.launch_counts()
         check(dec_launches == counts(**{"fused_gemm" + sfx: n_chunks}),
               f"{dtype} decode launches {dec_launches}")
-        # the same computation, but cuDNN may pick another algorithm for
-        # the transposed convolutions between calls
+        # the same inputs again: the decoder's convolutions must repeat bit
+        # for bit (satae's XLA decoder does)
+        again = {"reconstruct": (rec, pipe.reconstruct_batched(test.images)),
+                 "decode": (dec, pipe.decode(z))}
+        repeat = {k: float(np.abs(b - a).max()) for k, (a, b) in again.items()}
+        print(f"{dtype}: reconstruct_batched and decode called again on the "
+              f"same inputs, max |diff| to the first calls {repeat}",
+              flush=True)
+        check(all(v == 0.0 for v in repeat.values()),
+              f"{dtype}: the decoder does not repeat bit for bit: {repeat}")
+        # the same computation on the same chunks, cuDNN's deterministic
+        # algorithms in both
         dec_gap = float(np.abs(dec - rec).max())
-        check(dec_gap <= (1e-5 if sfx == "" else 2.0 ** -8),
+        check(dec_gap == 0.0,
               f"{dtype}: decode(encode(x)) is {dec_gap} from reconstruct(x)")
         # the modules on stock PyTorch ops, TF32 off
         matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -2398,7 +2451,7 @@ def decode_phase(card: str, data_cfg, test) -> dict:
         check(rel <= RECON_MSE_RTOL[dtype], f"{dtype} mean MSE {mse} vs "
               f"satae's {r['satae_mean_mse']}")
         out[dtype] = dict(launches=launches, decode_launches=dec_launches,
-                          decode_gap=dec_gap,
+                          decode_gap=dec_gap, repeat_max_abs=repeat,
                           max_abs_diff_plain=diff, rel_l2_plain=rel_l2,
                           mean_mse=mse,
                           satae_mean_mse=r["satae_mean_mse"], mse_rel_gap=rel,
@@ -2491,6 +2544,13 @@ def calibrate_phase(card: str, splits, data_cfg) -> dict:
         init_(model, torch.Generator(device=dev).manual_seed(base + i))
         fixed[i] = init_ratio(model, x_dev, y_dev)
     sf = CalibrationSummary.from_ratios(fixed.cpu().numpy())
+    init_(model, torch.Generator(device=dev).manual_seed(base))
+    again = [init_ratio(model, x_dev, y_dev) for _ in range(2)]
+    repeats = bool(torch.equal(*again))
+    print(f"calibrate: init_ratio of one init twice on the card: "
+          f"{[float(r) for r in again]!r}, bitwise equal {repeats}",
+          flush=True)
+    check(repeats, f"init_ratio does not repeat bit for bit: {again}")
     port0, fband = cal["port_cpu_by_seed"]["0"], init_band(ref)
     fgaps = {k: abs(getattr(sf, k) - port0[k]) for k in fband}
     print(f"calibrate: the card's {cal['n_inits']} inits on the CPU's "
@@ -2513,7 +2573,7 @@ def calibrate_phase(card: str, splits, data_cfg) -> dict:
                 gaps=gaps, carried=carried, carried_max_rel=carried_rel,
                 cpu_batch_summary=dataclasses.asdict(sf),
                 cpu_batch_port=port0, cpu_batch_band=fband,
-                cpu_batch_gaps=fgaps)
+                cpu_batch_gaps=fgaps, init_ratio_repeats=repeats)
 
 
 def inflight_phase(card: str) -> dict:
@@ -3891,7 +3951,9 @@ def sharded_serve_phase(card: str, data_cfg, test) -> dict:
         res = {}
         for what, fn in (("predict", lambda: pipe.predict(test.images)),
                          ("encode", lambda: pipe.encode(test.images)),
-                         ("decode", lambda: pipe.decode(res["encode"][0]))):
+                         ("decode", lambda: pipe.decode(res["encode"][0])),
+                         ("reconstruct",
+                          lambda: pipe.reconstruct(test.images))):
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
             y = fn()
@@ -3903,25 +3965,27 @@ def sharded_serve_phase(card: str, data_cfg, test) -> dict:
     ref_acc = json.loads((CKPT / "fit_summary.json").read_text())["test_acc"]
     agree = float((s["predict"][0] == p["predict"][0]).mean())
     dz = float(np.abs(s["encode"][0] - p["encode"][0]).max())
-    xs, xp = (torch.from_numpy(r["decode"][0]) for r in (s, p))
-    dx = float((xs - xp).abs().max())
-    rel = float((xs - xp).norm() / xp.norm())
+    # one rank runs the plain pipeline's arithmetic on the same chunks: the
+    # images must be its own bit for bit
+    dx = {w: float(np.abs(s[w][0] - p[w][0]).max())
+          for w in ("decode", "reconstruct")}
+    ops = ("predict", "encode", "decode", "reconstruct")
     print(f"sharded serving of {CKPT.name} at world size 1: accuracy "
           f"{acc:.6f} (recorded {ref_acc:.6f}), predictions equal to the "
           f"plain pipeline's on {agree:.6f}, latents max |diff| {dz:.3g}, "
-          f"decoded images max |diff| {dx:.3g} rel L2 {rel:.3g}; seconds "
+          f"images max |diff| {dx}; seconds "
           + ", ".join(f"{w} {s[w][1]:.3f} (plain {p[w][1]:.3f})"
-                      for w in ("predict", "encode", "decode"))
-          + f"; launches {[s[w][2] for w in ('predict', 'encode', 'decode')]}"
-          f"; card {card}", flush=True)
-    for w in ("predict", "encode", "decode"):
+                      for w in ops)
+          + f"; launches {[s[w][2] for w in ops]}; card {card}", flush=True)
+    for w in ops:
         check(s[w][2] == p[w][2], f"sharded {w} launches {s[w][2]}, plain "
               f"{p[w][2]}")
     check(abs(acc - ref_acc) <= 0.002 and agree >= 0.999,
           f"sharded predict: accuracy {acc}, agreement {agree}")
     check(dz <= 1e-3, f"sharded latents differ by {dz}")
-    check(dx <= RECON_ATOL["float32"] and rel <= RECON_REL_L2["float32"],
-          f"sharded decode differs by {dx} (rel L2 {rel})")
+    check(all(v == 0.0 for v in dx.values()),
+          f"sharded decode / reconstruct differ from the plain pipeline's "
+          f"by {dx}")
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -3966,11 +4030,9 @@ def sharded_serve_phase(card: str, data_cfg, test) -> dict:
     check(cli_launches["fused_gemm"] > 0 and cli_launches["conv2d_bn_act"] > 0
           and cli_launches["fused_gemm_bwd"] > 0,
           f"torchrun cli fit launches {cli_launches}")
-    return dict(accuracy=acc, agree=agree, max_dz=dz, decode_max_abs=dx,
-                decode_rel_l2=rel,
-                seconds={w: (s[w][1], p[w][1])
-                         for w in ("predict", "encode", "decode")},
-                launches={w: s[w][2] for w in ("predict", "encode", "decode")},
+    return dict(accuracy=acc, agree=agree, max_dz=dz, images_max_abs=dx,
+                seconds={w: (s[w][1], p[w][1]) for w in ops},
+                launches={w: s[w][2] for w in ops},
                 cli=dict(seconds=cli_s, files=names, stores=stores,
                          summary=summary, launches=cli_launches), card=card)
 
@@ -3996,6 +4058,99 @@ def parallel_phases(card: str, fit_cfg, raw, splits, data_cfg, fit_ref,
         dist.destroy_process_group()
     res["seconds"] = secs
     return res
+
+
+def example_phase(card: str) -> dict:
+    """Phase 29: examples/reproduce_reference_torch.py --quick
+    --synthetic-difficulty hard, its main() in this process on the card,
+    with the launch counts zeroed before and read after: satae's final.json
+    keys, finite losses, K1, K1's backward and K2 launched, test accuracy
+    within EXAMPLE_BAND of satae's run of its own example; the winners,
+    the calibration median and each stage's seconds printed."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import numpy as np
+
+    from satae_torch import kernels
+    from satae_torch.io.checkpoint import load_grid_results
+
+    ref = json.loads(SATAE_EXAMPLE_REF.read_text())["satae"]
+    check([k for k in ref if k in EXAMPLE_KEYS] == EXAMPLE_KEYS,
+          f"{SATAE_EXAMPLE_REF.name} lacks final.json's keys: {list(ref)}")
+    spec = importlib.util.spec_from_file_location(
+        "reproduce_reference_torch",
+        REPO / "examples" / "reproduce_reference_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    run = REPO / "chiprun_out" / "example_run"
+    shutil.rmtree(run, ignore_errors=True)
+    stdout = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        example.main(["--quick", "--synthetic-difficulty", "hard", "--out",
+                      str(run)])
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    (REPO / "chiprun_out" / "example_stdout.txt").write_text(
+        stdout.getvalue())
+    final = json.loads((run / "final.json").read_text())
+    skipped = sorted(f for f in EXAMPLE_FIGURES if f"matplotlib is not "
+                     f"installed: {f} not written" in stdout.getvalue())
+    written = sorted(p.name for p in run.glob("*.png"))
+    losses = [r["best_val_loss"] for r in load_grid_results(
+        run / "validation_losses.json").values()] + [
+        json.loads((run / "fit_summary.json").read_text())["ae_val_loss"]]
+    gap = abs(final["test_accuracy"] - ref["test_accuracy"])
+    print(f"example --quick --synthetic-difficulty hard: {wall:.2f} s; test "
+          f"accuracy {final['test_accuracy']!r} (satae's run on a CPU "
+          f"{ref['test_accuracy']!r}, gap {gap:.4f}, band {EXAMPLE_BAND}); "
+          f"winners AE {final['ae']} MLP {final['mlp']} (satae AE "
+          f"{ref['ae']} MLP {ref['mlp']}); calibration median "
+          f"{final['calibration_median']:.4f} (satae "
+          f"{ref['calibration_median']:.4f}); stage seconds "
+          f"{final['timings_s']} (satae on a CPU {ref['timings_s']}); "
+          f"launches {launches}; figures written {written}, skipped "
+          f"{skipped}; card {card}", flush=True)
+    check(list(final) == EXAMPLE_KEYS, f"final.json keys {list(final)}")
+    check(list(final["timings_s"]) == list(ref["timings_s"]),
+          f"stages {list(final['timings_s'])}")
+    check(all(launches[k] > 0 for k in ("fused_gemm", "fused_gemm_bwd",
+                                         "conv2d_bn_act")),
+          f"example launches {launches}")
+    check(bool(np.isfinite(losses).all()), f"example losses {losses}")
+    check(set(EXAMPLE_FIGURES) <= set(written) | set(skipped)
+          and not set(written) & set(skipped),
+          f"figures: written {written}, skipped {skipped}")
+    check(gap <= EXAMPLE_BAND, f"example test accuracy "
+          f"{final['test_accuracy']} is {gap} from satae's "
+          f"{ref['test_accuracy']}")
+    shutil.rmtree(run)
+    return dict(seconds=wall, final=final, satae=ref, gap=gap,
+                launches=launches, figures_written=written,
+                figures_skipped=skipped, card=card)
+
+
+def example_main() -> int:
+    """``--example``: build, then phase 29 alone, details in
+    chiprun_out/example.json."""
+    import torch
+
+    from satae_torch.kernels import _build
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    res = example_phase(card)
+    out = REPO / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "example.json").write_text(json.dumps(res, indent=1, default=str))
+    return 0
 
 
 def parallel_main() -> int:
@@ -4437,9 +4592,12 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:] == ["--vmap"]:
         sys.exit(vmap_main())
+    if sys.argv[1:] == ["--example"]:
+        sys.exit(example_main())
     if sys.argv[1:] == ["--parallel"]:
         sys.exit(parallel_main())
     if len(sys.argv) > 1:
         raise SystemExit(f"usage: {sys.argv[0]} [--ab PARENT_DIR | "
-                         "--split-sweep | --vmap | --parallel]")
+                         "--split-sweep | --vmap | --parallel | "
+                         "--example]")
     sys.exit(main())

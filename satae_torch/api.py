@@ -127,6 +127,17 @@ def resolve_device(device=None) -> torch.device:
     return local_device(device)
 
 
+def serve_chunk(n: int, batch_size: int, n_devices: int = 1) -> int:
+    """The fixed serving chunk for ``n`` inputs, as satae's
+    ``_serve_chunk``: one training batch rounded up to a multiple of the
+    devices while ``n`` fits in it, else eight batches rounded up the same
+    way (64 / 512 at the default config on one device)."""
+    small = -(-batch_size // n_devices) * n_devices
+    if n <= small:
+        return small
+    return -(-batch_size * 8 // n_devices) * n_devices
+
+
 @dataclasses.dataclass
 class FitSummary:
     ae_val_loss: Optional[float]  # None for reuse_ae fits (no AE training)
@@ -588,12 +599,8 @@ class SatAEPipeline:
         return self._folded
 
     def _serve_chunk(self, n: int) -> int:
-        """Fixed chunk: one training batch for small inputs, eight otherwise
-        (64 / 512 at the default config), each rounded up to a multiple of
-        the mesh's devices, as satae's ``_serve_chunk``."""
-        bs = self.config.data.batch_size
-        mult = self.config.runtime.n_devices or 1
-        return -(-(bs if n <= bs else bs * 8) // mult) * mult
+        return serve_chunk(n, self.config.data.batch_size,
+                           self.config.runtime.n_devices or 1)
 
     @torch.no_grad()
     def _serve_batched(self, images: np.ndarray, fe: fast_infer.FoldedEncoder,
@@ -698,7 +705,7 @@ class SatAEPipeline:
         step = make_decode_step(self.ae.dec, self.config.compute_dtype) \
             if mesh is None else make_dp_decode_step(
                 mesh, self.ae.dec, self.config.compute_dtype)
-        with float32_convs():
+        with float32_convs(deterministic=True):
             outs = [step(dev[lo:lo + chunk])
                     for lo in range(0, n + pad, chunk)]
             return torch.cat(outs).cpu().numpy()[:n]
@@ -720,7 +727,7 @@ class SatAEPipeline:
             return np.zeros((0,) + self._image_shape(), np.float32)
         fe, _ = self._folded_weights()
         step = make_decode_step(self.ae.dec, self.config.compute_dtype)
-        with float32_convs():
+        with float32_convs(deterministic=True):
             outs = self._serve_batched(images, fe, step)
             return torch.cat(outs).cpu().numpy()[:n]
 

@@ -261,6 +261,37 @@ def save_pytree(path: str | Path, tree: Any) -> None:
     _atomic_write(path, packb(tree))
 
 
+def load_pytree(path: str | Path, like: Any) -> Any:
+    """A :func:`save_pytree` file restored into the structure of the
+    template ``like``, as satae's ``load_pytree`` (flax's ``from_bytes``):
+    every key of a template dict must be in the file's map at that level,
+    else ``ValueError``; keys the template lacks are dropped; lists and
+    tuples must match in length. The leaves are the file's numpy arrays."""
+    return _restore(like, unpackb(Path(path).read_bytes()), "/")
+
+
+def _restore(like: Any, state: Any, at: str) -> Any:
+    if isinstance(like, dict):
+        if not isinstance(state, dict):
+            raise ValueError(f"expected a map at {at}, the file holds "
+                             f"{type(state).__name__}")
+        missing = set(map(str, like)) - set(state)
+        if missing:
+            raise ValueError(f"the template's keys {sorted(missing)} are not "
+                             f"in the file at {at}")
+        return {k: _restore(v, state[str(k)], f"{at}{k}/")
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        # flax writes a sequence as a map of its indices
+        keys = [str(i) for i in range(len(like))]
+        if not isinstance(state, dict) or set(state) != set(keys):
+            raise ValueError(f"the template's {len(like)} entries at {at} do "
+                             "not match the file's")
+        return type(like)(_restore(v, state[k], f"{at}{k}/")
+                          for k, v in zip(keys, like))
+    return state
+
+
 def save_model(path: str | Path, params: Any, bn_state: Any,
                meta: Optional[Dict[str, Any]] = None) -> None:
     """satae's ``save_model``: ``{"params", "bn_state"}`` as ``.msgpack``,
@@ -346,3 +377,15 @@ class GridResultStore:
         self.path.parent.mkdir(parents=True, exist_ok=True)
         write_text_atomic(self.path,
                            dump_strict_json(self.results, indent=2))
+
+    def best(self, metric: str, mode: str = "min"
+             ) -> Optional[Dict[str, Any]]:
+        """The record whose ``metric`` is least (``mode="min"``) or greatest
+        (any other mode), as ``{"key": key, **record}``; None when empty.
+        satae's expression: ``min`` over ``sign * value`` in the store's
+        order, so a NaN met first is kept and a NaN met later is passed."""
+        if not self.results:
+            return None
+        sign = 1.0 if mode == "min" else -1.0
+        key = min(self.results, key=lambda k: sign * self.results[k][metric])
+        return {"key": key, **self.results[key]}

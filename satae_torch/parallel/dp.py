@@ -6,7 +6,7 @@ and the state replicated, and XLA emits the gradient and BatchNorm
 reductions. Here each rank runs the same step body on its shard
 (satae_torch.train.steps with ``mesh``) and the reductions are explicit
 collectives over the mesh's data axis: the train step's BatchNorm moments
-and its gradients and metrics, the weighted eval's sums. The encode and
+and its gradients and metrics, the eval steps' sums. The encode and
 decode steps run this rank's rows through the port's kernel path
 (satae_torch.models.fast_infer, the decoder of
 satae_torch.train.extract.make_decode_step) and all-gather the result;
@@ -44,6 +44,27 @@ def make_dp_ae_train_step(mesh: Mesh, data_cfg: DataConfig,
     def step(model, opt, imgs_u8, labels, alpha, lr, **kw):
         return ae_train_step(model, opt, imgs_u8, labels, alpha, lr,
                              data_cfg, dtype=compute_dtype, mesh=mesh, **kw)
+
+    return step
+
+
+def make_dp_ae_eval_step(mesh: Mesh,
+                         compute_dtype: torch.dtype = torch.float32
+                         ) -> Callable:
+    """``eval(model, imgs_u8, labels, alpha)`` on this rank's rows -> the
+    global batch's means {loss, mse, ce, acc}: satae's unweighted DP eval
+    (dp.py:39-48), which is satae_torch.train.steps.ae_eval_step on the
+    whole batch. Each rank's sums with unit weights are summed over the
+    data axis and divided by the global row count."""
+
+    @torch.no_grad()
+    def step(model, imgs_u8, labels, alpha):
+        model.eval()
+        ones = torch.ones(len(labels), device=imgs_u8.device)
+        sums = hbm.all_reduced(hbm.ae_eval_batch_sums(
+            model, imgs_u8, labels, ones, alpha, compute_dtype), mesh)
+        n = sums.pop("n")
+        return {k: v / n for k, v in sums.items()}
 
     return step
 

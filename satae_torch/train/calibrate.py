@@ -38,9 +38,10 @@ def init_ratio(model: SupervisedAE, imgs: torch.Tensor,
                labels: torch.Tensor) -> torch.Tensor:
     """CE / MSE of ``model``'s train-mode forward (batch statistics) on the
     augmented batch ``imgs`` (the reconstruction target), a 0-d tensor on
-    the device; the convolutions in float32 (TF32 off)."""
+    the device; the convolutions in float32 (TF32 off) with cuDNN's
+    deterministic algorithms, so an init's ratio repeats bit for bit."""
     model.train()
-    with float32_convs():
+    with float32_convs(deterministic=True):
         x_hat, logits, _ = model(imgs)
     return cross_entropy(logits, labels) / mse_loss(x_hat, imgs)
 

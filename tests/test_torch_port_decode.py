@@ -132,18 +132,21 @@ def test_ae_only_pipeline_serves_the_decoder(run_dir, images):
                                    "calibrate"])
 def test_convolutions_run_in_float32(run_dir, images, entry, monkeypatch):
     """Every convolution of decoder serving and of calibration runs with
-    cuDNN's TF32 off, as satae computes them in float32, whatever the
-    caller's flags; the caller's flags come back afterwards."""
+    cuDNN's TF32 off, as satae computes them in float32, and with its
+    deterministic algorithms, so a call repeats bit for bit on the card,
+    whatever the caller's flags; the caller's flags come back afterwards."""
     seen = []
+    cudnn = torch.backends.cudnn
 
     def spy(real):
         def conv(*args, **kw):
-            seen.append(torch.backends.cudnn.allow_tf32)
+            seen.append((cudnn.allow_tf32, cudnn.deterministic))
             return real(*args, **kw)
         return conv
     for name in ("conv2d", "conv_transpose2d"):
         monkeypatch.setattr(F, name, spy(getattr(F, name)))
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(cudnn, "allow_tf32", True)
+    monkeypatch.setattr(cudnn, "deterministic", False)
     _, ours = _pair(run_dir, "float32")
     if entry == "decode":
         ours.decode(np.zeros((3, JCFG.latent_dim), np.float32))
@@ -152,8 +155,8 @@ def test_convolutions_run_in_float32(run_dir, images, entry, monkeypatch):
     else:
         tcal.loss_ratio_calibration(images[:8], np.arange(8) % 10,
                                     model_cfg=TCFG, n_inits=2, device="cpu")
-    assert seen and not any(seen)
-    assert torch.backends.cudnn.allow_tf32
+    assert seen and set(seen) == {(False, True)}
+    assert cudnn.allow_tf32 and not cudnn.deterministic
 
 
 @pytest.mark.slow

@@ -264,6 +264,36 @@ def test_mlp_sweep_selects_as_satae(case, tmp_path, monkeypatch, splits):
     _run_both("mlp", MLP_CASES[case], tmp_path, monkeypatch, splits)
 
 
+BEST_CASES = {
+    "ae_nan_first": ("ae", [NAN, 1.0, INF, 0.5]),
+    "ae_nan_later": ("ae", [1.0, NAN, 0.5, INF]),
+    "ae_all_diverged": ("ae", [INF, NAN, INF, NAN]),
+    "mlp_nan_first": ("mlp", [NAN, 0.1]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BEST_CASES))
+def test_store_best_matches_satae(case, tmp_path, monkeypatch, splits):
+    """GridResultStore.best on the store satae's sweep wrote, diverged
+    configs stored as "inf" / "nan" and restored: the same record as
+    satae's for every metric in both modes (min over sign * value in the
+    store's order: a NaN met first wins, one met later loses); None on an
+    empty store."""
+    kind, metrics = BEST_CASES[case]
+    _run_both(kind, dict(metrics=metrics), tmp_path, monkeypatch, splits)
+    path = tmp_path / "satae" / ("validation_losses.json" if kind == "ae"
+                                 else "mlp_results.json")
+    assert '"nan"' in path.read_text()
+    ours, theirs = GridResultStore(path), JaxStore(path)
+    for metric in ("best_val_loss", "best_val_acc", "best_epoch"):
+        for mode in ("min", "max"):
+            got, want = ours.best(metric, mode), theirs.best(metric, mode)
+            assert json.dumps(got) == json.dumps(want), (metric, mode)
+            assert got["key"] in ours
+    assert GridResultStore(tmp_path / "none.json").best("best_val_loss") \
+        is None is JaxStore(tmp_path / "none.json").best("best_val_loss")
+
+
 def test_steps_engine_selects_as_satae(splits, tmp_path, monkeypatch):
     """satae's per-batch engine (engine="steps", refused until it was
     ported) dispatches to the per-batch trainers with the seeds, selection,

@@ -44,6 +44,7 @@ from satae.parallel import make_mesh as jax_make_mesh
 from satae.parallel import shard_batch as jax_shard_batch
 from satae.parallel.dp import (make_dp_ae_eval_step_weighted as
                                jax_dp_eval_weighted)
+from satae.parallel.dp import make_dp_ae_eval_step as jax_dp_eval
 from satae.parallel.dp import make_dp_ae_train_step as jax_dp_train_step
 from satae.parallel.dp import make_dp_encode_step as jax_dp_encode_step
 from satae.train.extract import extract_features as jax_extract
@@ -53,12 +54,14 @@ import torch_port_dp_worker as W
 from satae_torch import config as TC
 from satae_torch.data.ingest import load_dataset
 from satae_torch.data.pipeline import make_splits
+from satae_torch.io import convert
 from satae_torch.io.convert import sae_to_torch_state_dict, to_tensors
 from satae_torch.models.supervised_ae import SupervisedAE
 from satae_torch.parallel import Mesh, distributed, make_mesh, shard_batch
+from satae_torch.parallel.dp import make_dp_ae_eval_step
 from satae_torch.train import fast_loop, loop
 from satae_torch.train.optim import adam_init
-from satae_torch.train.steps import ae_train_step
+from satae_torch.train.steps import ae_eval_step, ae_train_step
 from test_torch_port_models import numpy_trees
 from test_torch_port_train import (_assert_state_close, _PreBNBiases,
                                    _satae_aug_draws)
@@ -253,6 +256,9 @@ def two_ranks(tmp_path_factory, serving_run, scan_splits):
                 model=TCFG),
             images=_t(_u8(13, 40)), labels=_t(np.arange(13) % 10),
             extract=_t(_u8(21, 41)), alpha=ALPHA, batch_size=8)),
+        "eval": ("dp_eval", dict(
+            model_cfg=TCFG, sd=sd, images=_t(_u8(GB, 50)),
+            labels=_t(np.arange(GB) % 10), alpha=ALPHA)),
         "trainers": ("dp_trainers", dict(
             model_cfg=SCAN_T, data_cfg=SCAN_DATA, train=scan_splits.train,
             val=scan_splits.val, alpha=35.0, lr=2e-3, epochs=2)),
@@ -328,6 +334,49 @@ def test_dp_train_step_matches_the_one_process_step(two_ranks):
         tol = 1e-5 if k.endswith(("running_mean", "running_var")) else 2.1e-3
         np.testing.assert_allclose(ours["final"][k].numpy(), v.numpy(),
                                    atol=tol, rtol=0, err_msg=k)
+
+
+def _eval_model(sd):
+    model = SupervisedAE(TCFG, 3, IMG)
+    model.load_state_dict(sd)
+    return model
+
+
+def _assert_eval_close(got, want):
+    assert set(got) == {"loss", "mse", "ce", "acc"} == set(want)
+    for k in got:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
+                                   err_msg=k)
+
+
+def test_dp_eval_step_at_world_size_one(two_ranks, fresh):
+    """The unweighted DP eval over a group of one rank against the
+    one-process eval step on the same weights and batch (phase 26's
+    1e-5)."""
+    model = _eval_model(two_ranks["sd"])
+    imgs, labels = _t(_u8(GB, 50)), _t(np.arange(GB) % 10)
+    got = make_dp_ae_eval_step(make_mesh(1, device="cpu"))(
+        model, imgs, labels, ALPHA)
+    _assert_eval_close(got, ae_eval_step(model, imgs, labels, ALPHA))
+
+
+def test_dp_eval_step_on_two_ranks(two_ranks):
+    """Two ranks of 8 rows: the global batch's means, as the one-process
+    eval step on the whole batch and as satae's unweighted DP eval on a
+    2-device mesh (tests/test_parallel.py's test_dp_eval_and_encode_match,
+    rtol 1e-5)."""
+    ours = two_ranks["ranks"][0]["eval"]
+    model = _eval_model(two_ranks["sd"])
+    imgs, labels = _u8(GB, 50), np.arange(GB, dtype=np.int32) % 10
+    _assert_eval_close(ours, ae_eval_step(model, _t(imgs),
+                                          _t(labels).long(), ALPHA))
+    mesh = jax_make_mesh(2)
+    x, y = jax_shard_batch(mesh, imgs, labels)
+    params, state = convert.sae_from_torch_state_dict(
+        {k: v.numpy() for k, v in two_ranks["sd"].items()}, TCFG,
+        image_size=IMG)
+    _assert_eval_close(ours, jax_dp_eval(mesh, JCFG)(
+        params, state, x, y, jnp.float32(ALPHA)))
 
 
 def test_dp_eval_extraction_and_serving_match_satae(two_ranks, serving_run):

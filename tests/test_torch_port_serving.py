@@ -4,6 +4,7 @@ committed full-width checkpoint, the data streams, and the port's
 independence from JAX. On the CPU the kernel wrappers run their plain
 versions; satae's Pallas kernel runs in interpret mode."""
 
+import ast
 import dataclasses
 import functools
 import re
@@ -266,6 +267,35 @@ def test_port_imports_nothing_of_jax_or_satae():
     for f in [*pkg.rglob("*.py"), REPO / "chip_smoke.py",
               REPO / "tests" / "torch_port_dp_worker.py"]:
         assert not pat.search(f.read_text()), f
+
+
+@pytest.mark.parametrize("where", ["satae_torch", "chip_smoke.py",
+                                   "examples/reproduce_reference_torch.py"])
+def test_port_files_import_nothing_of_jax_or_satae(where):
+    """An AST walk of the package, the smoke script and the port's example:
+    no ``import`` or ``from ... import`` of jax, flax or satae at any depth
+    (inside functions, several names on one line, in a string of code the
+    script writes for its subprocesses)."""
+    path = REPO / where
+    files = sorted(path.rglob("*.py")) if path.is_dir() else [path]
+    assert files
+
+    def roots(tree):
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                yield from (a.name.split(".")[0] for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                yield node.module.split(".")[0]
+            elif isinstance(node, ast.Constant) and isinstance(
+                    node.value, str) and "import" in node.value:
+                try:
+                    yield from roots(ast.parse(node.value))
+                except SyntaxError:
+                    pass
+
+    for f in files:
+        bad = {"jax", "flax", "satae"} & set(roots(ast.parse(f.read_text())))
+        assert not bad, (f, bad)
 
 
 def test_no_silent_cpu(monkeypatch):

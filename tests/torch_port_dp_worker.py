@@ -34,7 +34,8 @@ from satae_torch.data.pipeline import ArrayDataset  # noqa: E402
 from satae_torch.models.supervised_ae import SupervisedAE  # noqa: E402
 from satae_torch.parallel import make_grid_mesh, make_mesh  # noqa: E402
 from satae_torch.parallel.dp import (  # noqa: E402
-    make_dp_ae_eval_step_weighted, make_dp_ae_train_step)
+    make_dp_ae_eval_step, make_dp_ae_eval_step_weighted,
+    make_dp_ae_train_step)
 from satae_torch.train import fast_loop, loop  # noqa: E402
 from satae_torch.train import shard_sweep  # noqa: E402
 from satae_torch.train.extract import extract_features  # noqa: E402
@@ -115,6 +116,16 @@ def dp_ae_steps(p) -> dict:
         out["metrics"].append(_floats(m))
     out["final"] = _sd(model)
     return out
+
+
+def dp_eval(p) -> dict:
+    """The unweighted DP eval of the global batch ``p["images"]`` (its
+    length a multiple of the world) on the state_dict ``p["sd"]``."""
+    mesh = make_mesh(device="cpu")
+    model = SupervisedAE(p["model_cfg"], 3, p["images"].shape[1])
+    model.load_state_dict(p["sd"])
+    return _floats(make_dp_ae_eval_step(mesh)(
+        model, mesh.shard(p["images"]), mesh.shard(p["labels"]), p["alpha"]))
 
 
 def dp_serving(p) -> dict:
