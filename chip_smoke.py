@@ -14,23 +14,29 @@ Phases, in order; any failure exits non-zero:
 2. build  -- compiles the hand-written kernels from satae_torch/csrc with nvcc
              (sm_90a) and prints the build seconds and the ptxas report
              (registers, shared memory, spills per instantiation); fails on
-             any spill, unless every bf16 kernel of satae::hopper has
-             HGMMA (wgmma) in its SASS (cuobjdump -sass) -- K1's
-             fused_gemm_tma_kernel, which takes the config count C, among
-             them -- and on any ptxas note of serialised wgmmas.
+             any spill, unless every kernel of satae::hopper, float32
+             (3xTF32) and bf16, has HGMMA (wgmma) in its SASS (cuobjdump
+             -sass) -- K1's fused_gemm_tma_kernel, which takes the config
+             count C, among them -- and on any ptxas note of serialised
+             wgmmas.
 3. K1     -- fused_gemm against fused_matmul_plain (TF32 off) at every K1
              shape of the serving path plus the awkward shapes of the JAX
              package's kernel tests, 8192x4096x64 (one split, all of K in
              one block) and the decoder's and calibration's products (their
              plans printed), all three activations; then the split-K
              and ragged-K shapes (SPLIT_SHAPES) in every (trans_a, trans_b)
-             layout and activation, with each shape's plan printed, and
-             repeated calls held bitwise equal; a scale of the wrong length
-             is refused.
+             layout and activation, with each shape's route and plan
+             printed, and repeated calls held bitwise equal; each launch's
+             route held to the rule (f32_route: the wgmma kernel where every
+             buffer's base and rows are 16-byte aligned, else the mma.sync
+             loop); a scale of the wrong length is refused.
 4. K2     -- conv2d_bn_act against conv2d_bn_act_plain at the four encoder
-             layers of a 512-image chunk, non-trivial BatchNorm, plus small
-             convs with Cin % 4 != 0 (4-byte copies) and ragged 32/64-wide
-             tiles; repeated calls at conv1 held bitwise equal.
+             layers of a 512-image chunk with the fold's K-major weights
+             (conv0 on the staged-rows kernel, conv1-3 on TMA im2col, held),
+             non-trivial BatchNorm, plus small convs with Cin % 4 != 0
+             (4-byte copies) and ragged 32/64-wide tiles on the mma.sync
+             loop; repeated calls at conv1 held bitwise equal, and conv1
+             from a contiguous HWIO weight bitwise the K-major one's.
              Tolerance for K1 and K2: |err| <= 1e-4 + 1e-5 * |ref|.
 5. time   -- every K1 and K2 launch of a serving chunk, and the decoder's
              and calibration's K1 launches: back-to-back ms (CUDA events)
@@ -48,16 +54,22 @@ Phases, in order; any failure exits non-zero:
              and read after. Test accuracy must be within 0.002 of the run's
              fit_summary.json; latents and predictions are held against the
              plain PyTorch modules on the same card (TF32 off). Then times
-             predict (images/s) and profiles one predict call.
+             predict (images/s) and profiles one predict call (device us
+             per layer: K2 on conv_rows_kernel / conv_im2col_tma_kernel, K1
+             on fused_gemm_tma_kernel).
 7. layouts -- fused_gemm (K1) with each (trans_a, trans_b) against
              fused_matmul_plain on the same operands, at every product of a
              batch-64 training step (forward, dX, dW of each linear layer)
-             plus 7x33x10 and 1x64x10; tolerance as in 3.
+             plus 7x33x10 and 1x64x10, each launch's route held to
+             f32_route (the wgmma kernel for every buffer pair TMA reads);
+             tolerance as in 3.
 8. bwd    -- K1's autograd function (nn.Linear weight layout) on the card:
              dx, dw, dscale, dshift against fused_matmul_bwd_plain and against
              autograd through fused_matmul_plain, three activations, scale
              requiring a gradient (the z recompute); then the linear layer's
              case, a constant scale: two backward launches, no dscale.
+             Every batch-64 launch on the wgmma route but fc2's dX and dW
+             (40-byte cotangent rows).
              Tolerance as in 3. The cotangent is zero where the pre-activation
              is within 1e-3 of relu's kink, whose side rounding decides.
 9. parity -- 10 AE train steps at full width, batch 64, on the kernels, and
@@ -192,9 +204,9 @@ Phases 21-24 turn TF32 off again (their plain references are full float32).
              11) against the plain version per config on the card: float32
              within 1e-4 + 1e-5*|ref|, bf16 within one ulp + 1e-6 and >= 99
              % bit-equal; three launches bitwise equal; each launch's route
-             printed and held: every bf16 launch on the wgmma kernel but
-             fc2's dX and dW (10-wide cotangent rows, the mma.sync loop),
-             float32 on mma.sync; every config's slice bit-equal to the
+             printed and held: every launch, float32 and bf16, on the
+             wgmma kernel but fc2's dX and dW (10-wide cotangent rows, the
+             mma.sync loop); every config's slice bit-equal to the
              unbatched K1 launched on it wherever the unbatched call takes
              the batched plan on the same route. Device us per launch
              beside C unbatched launches of the same work, torch.bmm (TF32
@@ -287,23 +299,26 @@ every batched K1 launch of phase 21, that both trees have (ms and device us
 per launch) in the tree at PARENT_DIR (another checkout of this repository,
 with its own satae_torch) and in this one, in turns: parent, this, this,
 parent, each in a process of its own that builds that tree's kernels. The
-float32 outputs at the shapes of phases 3 and 4, and the float32 batched
-outputs at phase 21's, must be bitwise equal in all four runs; for every
-bf16 launch it prints the share of outputs bitwise equal to the parent's
-beside both trees' device us and this tree's route. It prints one line per
-launch and writes chiprun_out/ab.json.
+float32 outputs at the shapes of phases 3 and 4, the float32 batched
+outputs at phase 21's, and every timed float32 launch's output must be
+bitwise equal in all four runs (the float32 wgmma kernels sum as the
+mma.sync loop does on the same split plan); for every bf16 launch it prints
+the share of its outputs bitwise equal to the parent's beside both trees'
+device us and this tree's route; and it times each tree's own float32
+predict of the committed model in turns. It prints one line per launch and
+writes chiprun_out/ab.json.
 
 ``--split-sweep`` times K1 at the long-K products (the serving projection
 512x4096x64 and the training one, 64x4096x64 with an (N, K) weight) for 1 to
-64 splits on 32- and 64-wide tiles in float32, and on the bf16 wgmma route
-for clusters of 1 to 16 splits; then the vmap path's two long-K bf16
-launches at C = 45 (the projection forward and the decoder input's dX) on
-the batched wgmma route for every cluster size of 1 to 16 that whole
-64-deep stages give, beside the batched mma.sync launch and torch.bmm; each
-plan held against its plain version (float32 within the tolerance above,
-bf16 within phase 13's bound), beside the plans split_k_plan and
-split_k_plan_tma pick: the measurement the plans rest on. It writes
-chiprun_out/split_sweep.json.
+64 splits on 32- and 64-wide tiles on the float32 mma.sync loop, and on the
+wgmma route, float32 and bf16, for clusters of 1 to 16 splits; then the
+vmap path's two long-K launches at C = 45 (the projection forward and the
+decoder input's dX) on the batched wgmma route, float32 and bf16, for every
+cluster size of 1 to 16 that whole stages give, beside the batched mma.sync
+launch and torch.bmm; each plan held against its plain version (float32
+within the tolerance above, bf16 within phase 13's bound), beside the plans
+split_k_plan and split_k_plan_tma pick: the measurement the plans rest on.
+It writes chiprun_out/split_sweep.json.
 """
 
 from __future__ import annotations
@@ -311,6 +326,7 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -397,12 +413,13 @@ K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
         (3, 7, 5, 9), (2, 9, 6, 40), (3, 11, 8, 72))
 
 
-# the kernel instantiations of a build (ptxas report: K1 16 mma.sync + 4
-# wgmma, which the batched entries launch too; K2 4 mma.sync + 3 wgmma) and
-# those of them on wgmma (fused_gemm_tma_kernel x 4 layouts,
-# conv_im2col_tma_kernel x 2 N tiles, conv_rows_kernel)
-N_INSTANTIATIONS = 27
-N_WGMMA = 7
+# the kernel instantiations of a build (ptxas report: K1 16 mma.sync + 8
+# wgmma, which the batched entries launch too; K2 4 mma.sync + 5 wgmma +
+# float32's weight split) and those of them on wgmma (fused_gemm_tma_kernel
+# x 4 layouts x float32 and bf16, conv_im2col_tma_kernel: bf16 x 2 N tiles
+# and float32, conv_rows_kernel in float32 and bf16)
+N_INSTANTIATIONS = 34
+N_WGMMA = 13
 
 
 def hgmma_counts() -> dict:
@@ -683,6 +700,16 @@ def profiler_check(sessions: int = 20, reps: int = 20) -> dict:
     return out
 
 
+def f32_route(*bufs) -> str:
+    """The K1 route a float32 launch must take on these buffers, the rule
+    restated apart from satae_torch's k1_loader: the wgmma kernel ("tma")
+    where every buffer's base and rows are 16-byte aligned (TMA reads it),
+    else the mma.sync loop ("cp.async")."""
+    ok = all(t.data_ptr() % 16 == 0 and t.shape[-1] * t.element_size() % 16
+             == 0 for t in bufs)
+    return "tma" if ok else "cp.async"
+
+
 def launch_specs():
     """Every K1 and K2 launch of the main paths: (path, layer, kind, args).
     Serving, per 512-image chunk: K2 conv0-3 (n, hw, cin, cout), then K1's
@@ -741,6 +768,10 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False,
     (:func:`bf16_launch`) on bf16 operands (scale and shift float32), the
     library calls in bf16 too, each row's kernel named with ``_bf16``, and
     its route where ``mods`` has ``k1_loader`` / ``conv_route``. With
+    ``mods.k_major`` (a tree whose float32 serving fold is K-major) the
+    float32 serving launches read the fold's buffers: the conv weights the
+    HWIO view of a (Cout, KH, KW, Cin) buffer, the linear weights (N, K);
+    else contiguous HWIO and (K, N), with the same values. With
     ``outputs``, each launch's output (on the CPU) goes into it under
     (kernel, path, layer)."""
     import torch
@@ -751,6 +782,7 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False,
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     dt, size = (torch.bfloat16, 2.0) if bf16 else (torch.float32, 4.0)
+    k_major = getattr(mods, "k_major", False) and not bf16
 
     def rand(*shape, lo=-1.0, hi=1.0):
         return torch.rand(*shape, device=dev, generator=g) * (hi - lo) + lo
@@ -763,6 +795,8 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False,
             n, hw, cin, cout = args
             x = rand(n, hw, hw, cin, lo=0.0).to(dt)
             w = (rand(3, 3, cin, cout) / (9 * cin) ** 0.5).to(dt)
+            if k_major:
+                w = w.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
             scale, shift = rand(cout, lo=0.5, hi=1.5), rand(cout, lo=-0.3,
                                                             hi=0.3)
             oh = hw // 2
@@ -786,8 +820,10 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False,
                 m, k, n_out, act = args
                 a, b = torch.randn(m, k, device=dev, generator=g).to(dt), \
                     (rand(k, n_out) / k ** 0.5).to(dt)
-                ta = tb = False
+                ta, tb = False, k_major
                 av, bv = a, b
+                if k_major:  # the fold's (N, K) weight, read with w_nk
+                    b = b.t().contiguous()
             else:
                 a_shape, b_shape, ta, tb = args
                 act = "none"
@@ -1173,10 +1209,12 @@ def main() -> int:
     from satae_torch.data.pipeline import make_splits
     from satae_torch.kernels import _build
     from satae_torch.kernels.conv import conv2d_bn_act, conv2d_bn_act_plain
+    from satae_torch.kernels.conv import conv_route
     from satae_torch.kernels.matmul import (fused_gemm, fused_matmul,
                                             fused_matmul_bwd,
                                             fused_matmul_bwd_plain,
-                                            fused_matmul_plain, split_k_plan)
+                                            fused_matmul_plain, k1_loader,
+                                            split_k_plan, split_k_plan_tma)
     from satae_torch.models.mlp import MLP
     from satae_torch.models.supervised_ae import SupervisedAE
     from satae_torch.nn import layers as L
@@ -1204,7 +1242,7 @@ def main() -> int:
               flush=True)
     check(len(ptxas) == N_INSTANTIATIONS, f"{len(ptxas)} kernel "
           f"instantiations in the ptxas report, expected {N_INSTANTIATIONS} "
-          "(K1 16 mma.sync + 4 wgmma, K2 4 mma.sync + 3 wgmma)")
+          "(K1 16 mma.sync + 8 wgmma, K2 4 mma.sync + 5 wgmma + 1)")
     spilled = [r["kernel"] for r in ptxas
                if r["spill_stores"] or r["spill_loads"]]
     check(not spilled, f"ptxas spills registers in {spilled}")
@@ -1212,8 +1250,8 @@ def main() -> int:
     for name, n in hgmma.items():
         print(f"  SASS {name}: {n} HGMMA", flush=True)
     check(len(hgmma) == N_WGMMA and all(hgmma.values()),
-          f"expected {N_WGMMA} bf16 kernels running wgmma (HGMMA in their "
-          f"SASS), found {hgmma}")
+          f"expected {N_WGMMA} kernels running wgmma, float32 and bf16 "
+          f"(HGMMA in their SASS), found {hgmma}")
     serialised = wgmma_serialised()
     print(f"  ptxas wgmma serialisation notes (C75xx): {serialised or 'none'}",
           flush=True)
@@ -1234,25 +1272,40 @@ def main() -> int:
         return rand(n, lo=0.5, hi=1.5), rand(n, lo=-0.3, hi=0.3)
 
     # -- 3. K1 --------------------------------------------------------------
-    k1_err = 0.0
+    def plan_of(m, n, k, route):  # the float32 plan of a route
+        return (split_k_plan_tma(m, n, k, dtype=torch.float32)
+                if route == "tma" else split_k_plan(m, n, k))
+
+    def held_route(a_buf, b_buf, what):  # the launch's route, held
+        route = k1_loader(a_buf, b_buf)
+        check(route == f32_route(a_buf, b_buf), f"{what}: K1 on {route}, "
+              f"expected {f32_route(a_buf, b_buf)}")
+        return route
+
+    k1_err, k1_routes = 0.0, collections.Counter()
     for m, k, n in K1_SHAPES:
         x = torch.randn(m, k, device=dev, generator=g)
         w = rand(k, n, lo=-1.0, hi=1.0) / k ** 0.5
         scale, shift = affine(n)
+        k1_routes[held_route(x, w, f"K1 {(m, k, n)}")] += 1
         for act in ACTS:
             k1_err = max(k1_err, max_err(
                 fused_matmul(x, w, scale, shift, act),
                 fused_matmul_plain(x, w, scale, shift, act),
                 f"K1 {(m, k, n)} {act}"))
-    print(f"K1 fused_gemm vs plain: {len(K1_SHAPES) * 3} cases, max |err| "
-          f"{k1_err:.3g}", flush=True)
+    print(f"K1 fused_gemm vs plain: {len(K1_SHAPES) * 3} cases (routes "
+          f"{dict(k1_routes)}), max |err| {k1_err:.3g}", flush=True)
     for path, layer, _, (a_shape, b_shape, _, _) in launch_specs():
         if path not in ("decode", "calibrate"):
             continue
         (m, k), n = a_shape, b_shape[0]
-        tile_m, tile_n, splits_, per = split_k_plan(m, n, k)
+        route = held_route(torch.empty(a_shape, device=dev),
+                           torch.empty(b_shape, device=dev),
+                           f"{path} {layer}")
+        check(route == "tma", f"{path} {layer}: float32 K1 on {route}")
+        tile_m, tile_n, splits_, per = plan_of(m, n, k, route)
         tiles = -(-m // tile_m) * -(-n // tile_n)
-        print(f"  K1 {(m, k, n)} ({layer}): plan {tiles} tiles of "
+        print(f"  K1 {(m, k, n)} ({layer}): {route}, plan {tiles} tiles of "
               f"{tile_m}x{tile_n} x {splits_} splits of {per} = "
               f"{tiles * splits_} blocks", flush=True)
     split_err, plans = 0.0, {}
@@ -1260,9 +1313,12 @@ def main() -> int:
         a = torch.randn(m, k, device=dev, generator=g)
         b = rand(k, n, lo=-1.0, hi=1.0) / k ** 0.5
         scale, shift = affine(n)
+        plans[(m, k, n)] = {}
         for ta, tb in LAYOUTS:
             a_buf = a.t().contiguous() if ta else a
             b_buf = b.t().contiguous() if tb else b
+            route = held_route(a_buf, b_buf, f"K1 {(m, k, n)} {ta} {tb}")
+            plans[(m, k, n)][f"{ta} {tb}"] = [route, plan_of(m, n, k, route)]
             for act in ACTS:
                 split_err = max(split_err, max_err(
                     fused_gemm(a_buf, b_buf, scale, shift, act, ta, tb),
@@ -1274,11 +1330,12 @@ def main() -> int:
                 a_buf, b_buf, scale, shift, "relu", ta, tb)) for _ in range(4))
             check(same, f"K1 {(m, k, n)} trans_a={ta} trans_b={tb}: repeated "
                   "calls differ bitwise")
-        plans[(m, k, n)] = split_k_plan(m, n, k)
-        tile_m, tile_n, splits, per = plans[(m, k, n)]
-        tiles = -(-m // tile_m) * -(-n // tile_n)
-        print(f"  K1 {(m, k, n)}: plan {tiles} tiles of {tile_m}x{tile_n} x "
-              f"{splits} splits of {per} = {tiles * splits} blocks", flush=True)
+        for lay, (route, (tile_m, tile_n, splits, per)) in \
+                plans[(m, k, n)].items():
+            tiles = -(-m // tile_m) * -(-n // tile_n)
+            print(f"  K1 {(m, k, n)} trans_a, trans_b {lay}: {route}, plan "
+                  f"{tiles} tiles of {tile_m}x{tile_n} x {splits} splits of "
+                  f"{per} = {tiles * splits} blocks", flush=True)
     k1_err = max(k1_err, split_err)
     try:  # a scale of the wrong length never reaches the kernel
         fused_gemm(a, b, torch.ones(n + 1, device=dev))
@@ -1290,10 +1347,13 @@ def main() -> int:
           "shape and layout bitwise equal", flush=True)
 
     # -- 4. K2 --------------------------------------------------------------
-    k2_err = 0.0
+    k2_err, k2_routes = 0.0, {}
     for n, hw, cin, cout in K2_SHAPES:
         x = rand(n, hw, hw, cin)
         w = rand(3, 3, cin, cout, lo=-1.0, hi=1.0) / (9 * cin) ** 0.5
+        if n == CHUNK:  # the serving fold's K-major layout, same values
+            w = w.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+        k2_routes[(n, hw, cin, cout)] = conv_route(x, w, 2, 1)[0]
         scale, shift = affine(cout)
         acts = ("relu",) if n == CHUNK else ACTS
         for act in acts:
@@ -1308,14 +1368,33 @@ def main() -> int:
     check(all(torch.equal(first, conv2d_bn_act(x, w, scale, shift, 2, 1,
                                                "relu")) for _ in range(4)),
           "K2 conv1: repeated calls differ bitwise")
+    # a contiguous HWIO weight reaches the wgmma kernel as its K-major copy
+    check(torch.equal(first, conv2d_bn_act(x, w.contiguous(), scale, shift,
+                                           2, 1, "relu")),
+          "K2 conv1 from a contiguous HWIO weight differs from the K-major "
+          "weight's output")
+    serve_k2 = [k2_routes[s_] for s_ in K2_SHAPES[:4]]
     print(f"K2 conv2d_bn_act vs plain: 13 cases (Cin 3, 5 and 6: 4-byte "
           f"copies; Cout 9, 40, 72: ragged 32/64-wide tiles), max |err| "
-          f"{k2_err:.3g}; conv1 5 calls bitwise equal", flush=True)
+          f"{k2_err:.3g}; routes {list(k2_routes.values())}; conv1 5 calls "
+          "bitwise equal, and bitwise the HWIO weight's", flush=True)
+    check(serve_k2 == ["rows", "im2col", "im2col", "im2col"],
+          f"float32 K2 serving layers on routes {serve_k2}")
 
     # -- 5. time ------------------------------------------------------------
     all_rows = kernel_rows(SimpleNamespace(
         fused_gemm=fused_gemm, fused_matmul_plain=fused_matmul_plain,
-        conv2d_bn_act=conv2d_bn_act, conv2d_bn_act_plain=conv2d_bn_act_plain))
+        conv2d_bn_act=conv2d_bn_act, conv2d_bn_act_plain=conv2d_bn_act_plain,
+        k1_loader=k1_loader, conv_route=conv_route, k_major=True))
+    # every float32 main-path launch on wgmma, but the head's backward
+    # (10-wide cotangent rows: 40 bytes, no TMA)
+    off_wgmma = sorted(f"{r['path']} {r['layer']}" for r in all_rows
+                       if r["route"] not in ("tma", "rows", "im2col"))
+    print(f"float32 main-path launches off the wgmma route: {off_wgmma}",
+          flush=True)
+    check(off_wgmma == ["ae fc2 dW", "ae fc2 dX", "mlp fc2 dW",
+                        "mlp fc2 dX"],
+          f"float32 main-path launches off the wgmma route: {off_wgmma}")
     rows = [r for r in all_rows if r["path"] == "serve"]
     train_rows = [r for r in all_rows if r["path"] in ("ae", "mlp")]
     new_rows = [r for r in all_rows if r["path"] in ("decode", "calibrate")]
@@ -1394,13 +1473,17 @@ def main() -> int:
           f"{n_img} images); data generation {data_s:.2f} s on the host; "
           f"card {card}", flush=True)
 
-    layers = {"conv2d_bn_act_kernel": ("conv0", "conv1", "conv2", "conv3"),
-              "fused_gemm_kernel": ("proj", "fc0", "fc1", "fc2")}
+    # K2's and K1's kernels by name (float32 serving runs the wgmma ones)
+    layers = {("conv2d_bn_act_kernel", "conv_rows_kernel",
+               "conv_im2col_tma_kernel"): ("conv0", "conv1", "conv2",
+                                           "conv3"),
+              ("fused_gemm_kernel", "fused_gemm_tma_kernel"): (
+                  "proj", "fc0", "fc1", "fc2")}
     for _ in range(3):  # the profiler may lose records (profiler_check)
         wall_ms, dev_ms, events = profile_device(
             lambda: pipe.predict(test.images))
-        seq = {k: [e.time_range.elapsed_us() for e in events if k in e.name]
-               for k in layers}
+        seq = {k: [e.time_range.elapsed_us() for e in events
+                   if any(name in e.name for name in k)] for k in layers}
         if all(len(v) == 4 * n_chunks for v in seq.values()):
             break
     check(all(len(v) == 4 * n_chunks for v in seq.values()),
@@ -1428,23 +1511,25 @@ def main() -> int:
     products = [pr for m, k, n in train_fwd
                 for pr in ((m, k, n), (m, n, k), (k, m, n))]  # fwd, dX, dW
     products += [(7, 33, 10), (1, 64, 10)]
-    layout_err = 0.0
+    layout_err, layout_routes = 0.0, collections.Counter()
     for m, k, n in products:
         a = torch.randn(m, k, device=dev, generator=g)
         b = rand(k, n, lo=-1.0, hi=1.0) / k ** 0.5
         scale, shift = affine(n)
         ref = fused_matmul_plain(a, b, scale, shift)
         for ta, tb in itertools.product((False, True), repeat=2):
-            out = fused_gemm(a.t().contiguous() if ta else a,
-                             b.t().contiguous() if tb else b, scale, shift,
-                             "none", ta, tb)
+            a_buf = a.t().contiguous() if ta else a
+            b_buf = b.t().contiguous() if tb else b
+            layout_routes[held_route(a_buf, b_buf, f"K1 layout {(m, k, n)} "
+                                     f"{ta} {tb}")] += 1
+            out = fused_gemm(a_buf, b_buf, scale, shift, "none", ta, tb)
             layout_err = max(layout_err, max_err(
                 out, ref, f"K1 layout {(m, k, n)} trans_a={ta} "
                 f"trans_b={tb}"))
     print(f"K1 layouts vs plain: {4 * len(products)} cases (every "
           "(trans_a, trans_b) at the forward, dX and dW products of a "
-          f"batch-{BATCH} train step), max |err| {layout_err:.3g}, tolerance "
-          "1e-4 + 1e-5*|ref|", flush=True)
+          f"batch-{BATCH} train step; routes {dict(layout_routes)}), max "
+          f"|err| {layout_err:.3g}, tolerance 1e-4 + 1e-5*|ref|", flush=True)
 
     # -- 8. K1 backward -----------------------------------------------------
     bwd_err, n_bwd = 0.0, 0
@@ -1456,6 +1541,13 @@ def main() -> int:
         scale, shift = affine(n)
         pre = fused_matmul_plain(x, w.t(), scale, shift)
         cot = torch.randn(m, n, device=dev, generator=g) * (pre.abs() > 1e-3)
+        if (m, k, n) in train_fwd:  # fwd x @ W^T, dX gs @ W, dW gs^T @ x
+            routes = tuple(held_route(a_, b_, f"K1 backward {(m, k, n)}")
+                           for a_, b_ in ((x, w), (cot, w), (cot, x)))
+            want = ("tma",) * 3 if n % 4 == 0 else ("tma", "cp.async",
+                                                    "cp.async")
+            check(routes == want, f"K1 {(m, k, n)} fwd / dX / dW on "
+                  f"{routes}, expected {want}")
         leaves = [t.clone().requires_grad_() for t in (x, w, scale, shift)]
         y = fused_matmul(*leaves, act, w_nk=True)
         y.backward(cot)
@@ -1683,7 +1775,7 @@ def main() -> int:
           f"{[round(x, 3) for x in step_ms[True]]}); MLP "
           f"{mlp_step_ms:.3f} ms/step ({BATCH / mlp_step_ms * 1e3:.1f} "
           f"images/s); card {card}", flush=True)
-    k1_records = sum("fused_gemm_kernel" in e.name for e in tr_events)
+    k1_records = sum("fused_gemm" in e.name for e in tr_events)
     print(f"profile of 5 AE steps: wall {tr_wall:.3f} ms, device busy "
           f"{tr_dev:.3f} ms ({100 * tr_dev / tr_wall:.1f}%), idle "
           f"{100 * (1 - tr_dev / tr_wall):.1f}%, {len(tr_events)} device "
@@ -2020,12 +2112,13 @@ def bf16_serve_phase(card: str, data_cfg, test, f32_ips: float) -> dict:
             h = conv2d_bn_act_plain(h, c.w, c.scale, c.shift, c.stride,
                                     c.padding, "relu")
         p = fe.proj
-        z_fold = fused_matmul_plain(h.reshape(n_img, -1), p.w, p.scale,
+        kn = lambda lay: lay.w.t() if lay.w_nk else lay.w  # (K, N)
+        z_fold = fused_matmul_plain(h.reshape(n_img, -1), kn(p), p.scale,
                                     p.shift, p.act).float()
         logits = z_fold
         for lay in fm.layers:
-            logits = fused_matmul_plain(logits, lay.w, lay.scale, lay.shift,
-                                        lay.act)
+            logits = fused_matmul_plain(logits, kn(lay), lay.scale,
+                                        lay.shift, lay.act)
         preds_fold = torch.argmax(logits, -1).cpu().numpy()
         # the plain modules: satae's bf16 arithmetic layer by layer
         z_mod = pipe.ae.enc(x, L.linear_plain).float()
@@ -2805,13 +2898,10 @@ def gate_config(dtype: str = "float32", parallel: bool = False):
 
 def batched_route(dtype, layer: str, product: str) -> str:
     """The loader a batched K1 launch of :func:`batched_products` must run
-    on: the bf16 wgmma kernel ("tma") for every bf16 launch but fc2's dX
-    and dW, whose 10-wide cotangent rows (20 bytes) TMA cannot read; the
-    mma.sync loop ("cp.async") for those and for float32."""
-    import torch
-
-    tma = dtype == torch.bfloat16 and not (
-        layer == "fc2" and product in ("dX", "dW"))
+    on, float32 or bf16: the wgmma kernel ("tma") for every launch but
+    fc2's dX and dW, whose 10-wide cotangent rows (20 bytes in bf16, 40 in
+    float32) TMA cannot read; the mma.sync loop ("cp.async") for those."""
+    tma = not (layer == "fc2" and product in ("dX", "dW"))
     return "tma" if tma else "cp.async"
 
 
@@ -2868,7 +2958,8 @@ def batched_kernels_phase(card: str) -> dict:
             route = k1_loader(a, b)
             check(route == batched_route(dt, layer, prod), f"{what}: runs on "
                   f"{route}, expected {batched_route(dt, layer, prod)}")
-            planner = split_k_plan_tma if route == "tma" else split_k_plan
+            planner = functools.partial(split_k_plan_tma, dtype=dt) \
+                if route == "tma" else split_k_plan
             plan = planner(m, n, k, batch=c)
             # the unbatched call runs the same kernel with C = 1 where it
             # takes the same plan on the same route: bitwise the same slice
@@ -2921,8 +3012,8 @@ def batched_kernels_phase(card: str) -> dict:
     print(f"phase 21: {len(rows)} cases, float32 max |err| "
           f"{errs['float32']:.3g} (1e-4 + 1e-5*|ref|), bf16 max |err| "
           f"{errs['bf16']:.3g} (one ulp + 1e-6), bf16 bit-equal >= "
-          f"{min_equal:.5f}; {on_tma} bf16 launches on wgmma, the rest of "
-          "bf16 (fc2 dX / dW) and float32 on mma.sync; every config's slice "
+          f"{min_equal:.5f}; {on_tma} launches on wgmma, fc2 dX / dW "
+          "(float32 and bf16) on mma.sync; every config's slice "
           "bit-equal to the unbatched K1 in the cases where it takes the "
           f"batched plan on the same route (mma.sync {same_plan['cp.async']},"
           f" wgmma {same_plan['tma']}); 3 launches per case bitwise equal",
@@ -4243,7 +4334,7 @@ def batched_rows(matmul, outputs: dict, digests: dict) -> list:
     """The --ab rows of the batched K1 (a tree's ``fused_gemm_batched``):
     every launch of phase 21 (:func:`batched_products`, C = 45 AE and 11
     MLP) in float32 and bf16 on phase 21's inputs, back-to-back ms and
-    device us per launch; each bf16 output goes into ``outputs`` and each
+    device us per launch; each output goes into ``outputs`` and each
     float32 output's sha256 into ``digests``, under (kernel, path, layer).
     The route is the tree's loader where its batched K1 has a TMA route
     (split_k_plan_tma takes ``batch``), else the mma.sync loop."""
@@ -4274,9 +4365,8 @@ def batched_rows(matmul, outputs: dict, digests: dict) -> list:
             key = (name, path, f"{layer} {prod}")
             out = run()
             torch.cuda.synchronize()
-            if bf16:
-                outputs[key] = out.cpu()
-            else:
+            outputs[key] = out.cpu()
+            if not bf16:
                 digests["|".join(key)] = hashlib.sha256(
                     out.cpu().numpy().tobytes()).hexdigest()
             nbytes = a.element_size() * c * (m * k + k * n + m * n)
@@ -4292,10 +4382,12 @@ def batched_rows(matmul, outputs: dict, digests: dict) -> list:
 
 def kernel_times_main(root: str, out_file: str) -> int:
     """The --ab child: :func:`kernel_rows` on the kernels of the satae_torch
-    under ``root`` (float32, and bf16 where that tree has the bf16
-    instantiations), :func:`batched_rows` where it has the batched K1, and
-    :func:`f32_digests` (with the float32 batched outputs' digests), as one
-    JSON line; the bf16 launches' outputs go to ``out_file``
+    under ``root`` (float32, on the tree's own serving fold layouts, and
+    bf16 where that tree has the bf16 instantiations), :func:`batched_rows`
+    where it has the batched K1, :func:`f32_digests` (with the float32
+    batched outputs' digests) and the tree's own float32 ``predict`` of the
+    committed model on 2,990 images (ms a call, 10 calls after a warm-up),
+    as one JSON line; every launch's output goes to ``out_file``
     (torch.save)."""
     import torch
 
@@ -4309,13 +4401,14 @@ def kernel_times_main(root: str, out_file: str) -> int:
     check(pkg.is_relative_to(root_), f"satae_torch came from {pkg}, not "
           f"from {root_}")
     mods = SimpleNamespace(fused_gemm=matmul.fused_gemm,
-                           conv2d_bn_act=conv.conv2d_bn_act)
+                           conv2d_bn_act=conv.conv2d_bn_act,
+                           k_major=hasattr(conv, "is_k_major"))
     for fn in ("k1_loader", "conv_route"):  # where the tree has them
         for mod in (matmul, conv):
             if hasattr(mod, fn):
                 setattr(mods, fn, getattr(mod, fn))
-    rows = kernel_rows(mods, reference=False)
     outputs = {}
+    rows = kernel_rows(mods, reference=False, outputs=outputs)
     if torch.bfloat16 in getattr(_build, "OPERAND_DTYPES", {}):
         rows += kernel_rows(mods, reference=False, bf16=True,
                             outputs=outputs)
@@ -4323,17 +4416,35 @@ def kernel_times_main(root: str, out_file: str) -> int:
     if hasattr(matmul, "fused_gemm_batched"):
         rows += batched_rows(matmul, outputs, digests)
     torch.save({"|".join(k): v for k, v in outputs.items()}, out_file)
-    print(json.dumps(dict(rows=rows, digests=digests)), flush=True)
+    # end to end: the tree's serving path, upload and readback included
+    import numpy as np
+
+    from satae_torch.api import SatAEPipeline
+    from satae_torch.config import DataConfig, PipelineConfig
+
+    pipe = SatAEPipeline(PipelineConfig(data=DataConfig(
+        synthetic_difficulty="hard"))).load(str(CKPT))
+    imgs = np.random.default_rng(0).integers(0, 256, (2990, 64, 64, 3),
+                                             dtype=np.uint8)
+    pipe.predict(imgs)  # the fold and the first launches
+    t0 = time.perf_counter()
+    for _ in range(10):
+        pipe.predict(imgs)
+    predict_ms = (time.perf_counter() - t0) / 10 * 1e3
+    print(json.dumps(dict(rows=rows, digests=digests, predict_ms=predict_ms,
+                          predict_images_per_s=len(imgs) / predict_ms * 1e3)),
+          flush=True)
     return 0
 
 
 def ab_main(parent: str) -> int:
     """Every K1 and K2 launch that both trees have, timed in the tree at
     ``parent`` and in this one, in turns parent, this, this, parent, one
-    process each; the float32 outputs at the shapes of phases 3 and 4 must
-    be bitwise equal in all four runs. For each bf16 launch, the share of
-    its outputs bitwise equal to the parent tree's, beside both trees'
-    device us (each tree's two runs must agree bitwise)."""
+    process each; the float32 outputs at the shapes of phases 3 and 4 (and
+    phase 21's batched ones) must be bitwise equal in all four runs, and so
+    must every timed float32 launch's. For each launch the share of its
+    outputs bitwise equal to the parent tree's, beside both trees' device
+    us (each tree's two runs must agree bitwise)."""
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
@@ -4387,13 +4498,19 @@ def ab_main(parent: str) -> int:
               f"{chg[1]['ms']:.4f}", flush=True)
     only = [k for k in by_run[1] if k not in by_run[0]]
     print(f"launches in this tree only, not timed: {only}", flush=True)
-    # bf16: the share of each launch's outputs bitwise equal to the
-    # parent's, beside both trees' device us; each tree against itself
+    ips = [r["predict_images_per_s"] for r in runs]
+    print(f"float32 predict of the committed model, 2,990 images: images/s "
+          f"parent {ips[0]:.1f} {ips[3]:.1f} | change {ips[1]:.1f} "
+          f"{ips[2]:.1f} | change / parent "
+          f"{(ips[1] + ips[2]) / (ips[0] + ips[3]):.3f}", flush=True)
+    # the share of each launch's outputs bitwise equal to the parent's,
+    # beside both trees' device us; each tree against itself
     outs = [torch.load(tmp / f"{i}.pt") for i in range(4)]
     shutil.rmtree(tmp, ignore_errors=True)
-    bf16_equal = {}
-    print("bf16 launches: share of outputs bitwise equal to the parent's | "
-          "device us parent, change (means of two runs each)", flush=True)
+    equal = {}
+    print("launches: share of outputs bitwise equal to the parent's | "
+          "device us parent, change (means of two runs each); every float32 "
+          "one held at 1", flush=True)
     for key in outs[1]:
         k = tuple(key.split("|"))
         if key not in outs[0] or k not in by_run[0]:
@@ -4401,20 +4518,22 @@ def ab_main(parent: str) -> int:
         share = float((outs[1][key] == outs[0][key]).float().mean())
         check(torch.equal(outs[0][key], outs[3][key])
               and torch.equal(outs[1][key], outs[2][key]),
-              f"bf16 {key}: two runs of one tree differ bitwise")
+              f"{key}: two runs of one tree differ bitwise")
         us_p = sum(by_run[j][k]["device_us"] for j in (0, 3)) / 2
         us_c = sum(by_run[j][k]["device_us"] for j in (1, 2)) / 2
-        bf16_equal[key] = dict(share_equal=share, parent_us=us_p,
-                               change_us=us_c,
-                               route=by_run[1][k].get("route"))
+        equal[key] = dict(share_equal=share, parent_us=us_p, change_us=us_c,
+                          route=by_run[1][k].get("route"),
+                          parent_route=by_run[0][k].get("route"))
+        check(by_run[1][k].get("dtype") == "bf16" or share == 1.0,
+              f"float32 {key}: {share} of its outputs bitwise the "
+              "parent's")
         print(f"  {k[0]:26s} {k[1]:6s} {k[2]:10s} "
               f"{by_run[1][k].get('route') or '':8s} equal {share:.6f} | "
               f"us {us_p:.1f} -> {us_c:.1f}", flush=True)
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "ab.json").write_text(json.dumps(dict(
-        card=card, runs=runs, differ=differ, bf16_equal=bf16_equal),
-        indent=1))
+        card=card, runs=runs, differ=differ, equal=equal), indent=1))
     return 0
 
 
@@ -4430,8 +4549,9 @@ def split_sweep_main() -> int:
     check(torch.cuda.is_available(), "no CUDA device")
     from satae_torch.kernels import _build
     from satae_torch.kernels.matmul import (BK, MAX_CLUSTER, TMA_BK,
-                                            _tile_counters, fused_matmul_plain,
-                                            split_k_plan, split_k_plan_tma)
+                                            TMA_BK_F32, _tile_counters,
+                                            fused_matmul_plain, split_k_plan,
+                                            split_k_plan_tma)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -4473,6 +4593,28 @@ def split_sweep_main() -> int:
                                  max_abs_err=err, library_device_us=lib_us))
                 print(f"  tile 64x{tile_n}, {splits:2d} splits of {kps:4d}: "
                       f"{us:7.1f} us  max |err| {err:.3g}", flush=True)
+        # float32 (3xTF32) on the wgmma route: one cluster per tile, of
+        # `splits` blocks, or of up to 16 holding several partials each
+        print(f"float32 wgmma K1 {(m, k, n)} trans_b={tb}: plan "
+              f"{split_k_plan_tma(m, n, k, dtype=torch.float32)}", flush=True)
+        for want in (1, 2, 4, 8, 11, 16, 32, 64):
+            kps = -(-(-(-k // want)) // TMA_BK_F32) * TMA_BK_F32
+            splits = -(-k // kps)
+            out = torch.empty(m, n, device=dev)
+            run = lambda: _build.launch(
+                lib, "satae_fused_gemm_tma", dev, a.data_ptr(), b.data_ptr(),
+                0, 0, out.data_ptr(), m, n, k, 0, 0, int(tb), splits, kps)
+            run()
+            err = max_err(out, ref, f"float32 wgmma K1 {(m, k, n)} {splits} "
+                          "splits")
+            us = device_us(run, floor_us, f"float32 wgmma K1 {(m, k, n)} "
+                           f"{splits} splits", 50)
+            rows.append(dict(dtype="float32", route="tma", shape=[m, k, n],
+                             trans_b=tb, tile_n=64, splits=splits,
+                             k_per_split=kps, device_us=us, max_abs_err=err,
+                             library_device_us=lib_us))
+            print(f"  float32 tile 64x64, cluster of {splits:2d} splits of "
+                  f"{kps:4d}: {us:7.1f} us  max |err| {err:.3g}", flush=True)
         # bf16 on the TMA route: one cluster of `splits` blocks per tile
         a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
         ref16 = fused_matmul_plain(a16, b16.t() if tb else b16, None,
@@ -4514,64 +4656,72 @@ def split_sweep_main() -> int:
 
 
 def batched_split_sweep(lib, dev, g) -> list:
-    """--split-sweep at the vmap path's two long-K bf16 launches, the
-    projection forward (B an (N, K) weight) and the decoder input's dX (B a
-    (K, N) weight), 64 x 4096 x 64 at C = 45: the batched wgmma route for
-    every cluster size 1-16 that a split of whole 64-deep stages gives
+    """--split-sweep at the vmap path's two long-K launches, the projection
+    forward (B an (N, K) weight) and the decoder input's dX (B a (K, N)
+    weight), 64 x 4096 x 64 at C = 45, float32 and bf16: the batched wgmma
+    route for every cluster size 1-16 that a split of whole stages gives
     (split_k_plan_tma's batched basis), each held to its plain version per
     config, beside the batched mma.sync launch on split_k_plan's plan and
-    bf16 torch.bmm."""
+    torch.bmm in the same dtype (TF32 off)."""
     import torch
 
     from satae_torch.kernels import _build
-    from satae_torch.kernels.matmul import (MAX_CLUSTER, TMA_BK,
+    from satae_torch.kernels.matmul import (MAX_CLUSTER, TMA_BK, TMA_BK_F32,
                                             _tile_counters, fused_matmul_plain,
                                             split_k_plan, split_k_plan_tma)
 
     c, m, k, n = VMAP_C["ae"], BATCH, 4096, 64
-    bf = torch.bfloat16
-    floor_us = 2.0 * c * (m * k + k * n + m * n) / HBM_PEAK * 1e6
     rows = []
-    for layer, tb in (("proj fwd", True), ("dec_in dX", False)):
-        a = torch.randn(c, m, k, device=dev, generator=g).to(bf)
+    for (layer, tb), dt in itertools.product(
+            (("proj fwd", True), ("dec_in dX", False)),
+            (torch.float32, torch.bfloat16)):
+        bf16 = dt == torch.bfloat16
+        name, sfx = ("bf16", "_bf16") if bf16 else ("float32", "")
+        floor_us = (2.0 if bf16 else 4.0) * c * (m * k + k * n + m * n) \
+            / HBM_PEAK * 1e6
+        depth = TMA_BK if bf16 else TMA_BK_F32
+        a = torch.randn(c, m, k, device=dev, generator=g).to(dt)
         b = ((torch.rand(c, *((n, k) if tb else (k, n)), device=dev,
-                         generator=g) * 2 - 1) / k ** 0.5).to(bf)
+                         generator=g) * 2 - 1) / k ** 0.5).to(dt)
         bv = b.transpose(1, 2) if tb else b
         zeros = torch.zeros(n, device=dev)
         ref = torch.stack([fused_matmul_plain(a[i], bv[i], None, zeros)
                            for i in range(c)])
         lib_us = device_us(lambda: torch.bmm(a, bv), floor_us / 2,
-                           f"bf16 torch.bmm C={c} {(m, k, n)}", 50)
+                           f"{name} torch.bmm C={c} {(m, k, n)}", 50)
         _, tile_n, s0, kps0 = split_k_plan(m, n, k, batch=c)
-        out = torch.empty(c, m, n, device=dev, dtype=bf)
+        out = torch.empty(c, m, n, device=dev, dtype=dt)
         ws = torch.empty(c * s0 * m * n, device=dev)
         counters = _tile_counters(dev)
         mma_us = device_us(lambda: _build.launch(
-            lib, "satae_fused_gemm_batched_bf16", dev, a.data_ptr(),
+            lib, "satae_fused_gemm_batched" + sfx, dev, a.data_ptr(),
             b.data_ptr(), 0, 0, out.data_ptr(), ws.data_ptr(),
             counters.data_ptr(), c, m, n, k, 0, 0, int(tb), tile_n, s0, kps0),
-            floor_us, f"bf16 batched mma.sync C={c} {layer}", 50)
-        print(f"bf16 batched K1 C={c} {layer} {(m, k, n)} trans_b={tb}: plan "
-              f"{split_k_plan_tma(m, n, k, batch=c)}, torch.bmm {lib_us:.1f} "
-              f"us, mma.sync ({s0} splits of {kps0}) {mma_us:.1f} us",
-              flush=True)
+            floor_us, f"{name} batched mma.sync C={c} {layer}", 50)
+        print(f"{name} batched K1 C={c} {layer} {(m, k, n)} trans_b={tb}: "
+              f"plan {split_k_plan_tma(m, n, k, batch=c, dtype=dt)}, "
+              f"torch.bmm {lib_us:.1f} us, mma.sync ({s0} splits of {kps0}) "
+              f"{mma_us:.1f} us", flush=True)
         seen = set()
         for want in range(1, MAX_CLUSTER + 1):
-            kps = -(-(-(-k // want)) // TMA_BK) * TMA_BK
+            kps = -(-(-(-k // want)) // depth) * depth
             splits = -(-k // kps)
             if splits in seen:
                 continue
             seen.add(splits)
-            out = torch.empty(c, m, n, device=dev, dtype=bf)
+            out = torch.empty(c, m, n, device=dev, dtype=dt)
             run = lambda: _build.launch(
-                lib, "satae_fused_gemm_batched_bf16_tma", dev, a.data_ptr(),
+                lib, f"satae_fused_gemm_batched{sfx}_tma", dev, a.data_ptr(),
                 b.data_ptr(), 0, 0, out.data_ptr(), c, m, n, k, 0, 0,
                 int(tb), splits, kps)
             run()
-            what = f"bf16 batched K1 C={c} {layer} {splits} splits"
-            err, eq = ulp_err(out, ref, what)
+            what = f"{name} batched K1 C={c} {layer} {splits} splits"
+            if bf16:
+                err, eq = ulp_err(out, ref, what)
+            else:
+                err, eq = max_err(out, ref, what), None
             us = device_us(run, floor_us, what, 50)
-            rows.append(dict(dtype="bf16", batch=c, layer=layer,
+            rows.append(dict(dtype=name, batch=c, layer=layer,
                              shape=[m, k, n], trans_b=tb, tile_n=64,
                              splits=splits, k_per_split=kps, device_us=us,
                              max_abs_err=err, bit_equal=eq,
@@ -4579,9 +4729,9 @@ def batched_split_sweep(lib, dev, g) -> list:
                              mma_sync_device_us=mma_us))
             print(f"  C={c} cluster of {splits:2d} splits of {kps:4d} "
                   f"({c * splits} blocks): {us:7.1f} us  max |err| "
-                  f"{err:.3g}, bit-equal {eq:.5f}", flush=True)
+                  f"{err:.3g}" + ("" if eq is None else
+                                  f", bit-equal {eq:.5f}"), flush=True)
     return rows
-
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["--split-sweep"]:

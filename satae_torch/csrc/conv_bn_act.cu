@@ -12,11 +12,12 @@
 // Column k of the patch matrix is tap (kh, kw) = divmod(k / Cin, KW) and
 // channel k % Cin, so the weight is HWIO flattened to (KH * KW * Cin, Cout)
 // (satae_torch/kernels/conv.py::pack_conv_weight), staged by gemm_tile.cuh's
-// RowMajorB loader. The output is NHWC, which is the (M, N) row-major
-// result, written through the shared epilogue with the conv bias folded into
-// the shift. It runs gemm_tile.cuh's main loop: cp.async stages, 3xTF32
-// mma.sync, float4 stores. No split-K: at every encoder layer of a 512-image
-// chunk M >= 8,192 gives >= 128 tiles.
+// RowMajorB loader (the wgmma kernels below read it as their dtype needs).
+// The output is NHWC, which is the (M, N) row-major result, written through
+// the shared epilogue with the conv bias folded into the shift. It runs
+// gemm_tile.cuh's main loop: cp.async stages, 3xTF32 mma.sync, float4
+// stores. No split-K: at every encoder layer of a 512-image chunk M >=
+// 8,192 gives >= 128 tiles.
 //
 // Bound on an H100: conv0 (Cin 3, K = 27) moves 25 MB in and 67 MB out for
 // 0.9 GFLOP and is bound by bytes (27.5 us); conv1-3 do 4.8 GFLOP each and
@@ -43,11 +44,19 @@
 //     windows and zero-fills the padding), the HWIO weight by TMA read
 //     MN-major, two consumer warpgroups on wgmma while the ring runs on
 //     across tiles.
-// Stayed on the mma.sync loop above: float32 (3xTF32, unchanged), and
-// bf16 layers none of these take -- channel counts TMA's im2col cannot cut
-// into loads of 32 or 64 (Cin 5, 6, 8, 16; Cin 32 with Cout > 64), Cout
-// not a multiple of 8, misaligned buffers: the 2-, 4- and 16-byte copies
-// of gemm_tile.cuh.
+// float32 (3xTF32; entry satae_conv2d_bn_act_tma, the weight K-major: a
+// (Cout, KH, KW, Cin) buffer) on the same two kernels: conv0 on
+// conv_rows_kernel, each thread gathering its wgmma A fragments from the
+// staged rows and splitting them in registers, m64n32k8 TF32 wgmmas;
+// conv1-3 on conv_im2col_tma_kernel with 128 x 64 tiles and stages of 32
+// channels, the weight split once per launch into its TF32 halves
+// (split_weight_tf32_kernel), both brought by TMA, A split in registers.
+// Bound (above): conv0 by bytes (27.5 us), conv1-3 by operations (29 us).
+// Stayed on the mma.sync loop above: layers none of these take, float32
+// and bf16 -- channel counts TMA's im2col cannot cut into whole stages
+// (bf16 Cin 5, 6, 8, 16 and Cin 32 with Cout > 64; float32 Cin not a
+// multiple of 32), Cout not a multiple of 8, misaligned buffers: the 2-,
+// 4- and 16-byte copies of gemm_tile.cuh.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -161,58 +170,100 @@ __global__ void __launch_bounds__(kThreads, 4)
 }
 
 
-// ---- bf16 on wgmma ---------------------------------------------------------
+// ---- on wgmma: bf16, and float32 as 3xTF32 ---------------------------------
+
+// The float32 weight (Cout, K) of conv_im2col_tma_kernel split once per
+// launch into TF32 big = tf32_rna(v) and small = tf32_rna(v - big), two
+// (Cout, K) buffers that its stages take by TMA: every tile of a launch
+// multiplies the same weight, so splitting it in every stage of every tile
+// (conv1: 1,024 tiles x 9 stages, in both warpgroups) repeated one split
+// thousands of times. The values are those an in-kernel split gives.
+__global__ void __launch_bounds__(256)
+    split_weight_tf32_kernel(const float* __restrict__ w,
+                             float* __restrict__ big,
+                             float* __restrict__ small, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x) {
+    uint32_t b, s;
+    split_tf32(w[i], b, s);
+    big[i] = __uint_as_float(b);
+    small[i] = __uint_as_float(s);
+  }
+}
 
 namespace hopper {
 
-// The im2col kernel's ring: stages of 64 of K (A 16 KB + B kBN * 128
-// bytes), as many as fit beside the float32 epilogue tile.
-template <int kBN>
+// The im2col kernel's shared memory: a ring of stages, as many as fit
+// beside the float32 epilogue tile. bf16: stages of 64 of K (A 16 KB + B
+// kBN * 128 bytes). float32 (kBN 64 only: the 128-wide stage would leave
+// a ring of two): stages of 32 of K, A 128 pixels x 32 floats (16 KB) and
+// B's TF32 big and small halves, 64 x 32 floats each (16 KB): 5 x 32 + 36
+// + 1 = 197 KB.
+template <class T, int kBN>
 __host__ __device__ constexpr int conv_ring() {
-  return kBN == 64 ? 6 : 4;
+  return kIsF32<T> ? 5 : kBN == 64 ? 6 : 4;
 }
-template <int kBN>
+template <class T, int kBN>
+__host__ __device__ constexpr int conv_stage() {
+  return 2 * kBox + (kIsF32<T> ? 2 * kBox : kBN * 128);
+}
+template <class T, int kBN>
 __host__ __device__ constexpr int conv_smem() {
-  return conv_ring<kBN>() * (2 * kBox + kBN * 128) +
+  return conv_ring<T, kBN>() * conv_stage<T, kBN>() +
          128 * (kBN + kOutPad) * 4 + 1024;
 }
-// Channels per im2col load: a 64-wide N tile takes two loads of 32 (64-byte
-// rows, 64-byte swizzle) per stage, a 128-wide one a load of 64 (128-byte
-// rows and swizzle).
-template <int kBN>
+// Channels per im2col load: bf16, a 64-wide N tile takes two loads of 32
+// (64-byte rows, 64-byte swizzle) per stage, a 128-wide one a load of 64
+// (128-byte rows and swizzle); float32 one load of 32 (128-byte rows).
+template <class T, int kBN>
 __host__ __device__ constexpr int conv_channels() {
-  return kBN == 64 ? 32 : 64;
+  return kIsF32<T> || kBN == 64 ? 32 : 64;
 }
 
 // conv1-3: 128 x kBN tiles of the implicit GEMM, one persistent block per
 // SM walking tiles blockIdx.x, + gridDim.x, ... Threads 0-255 are two
-// consumer warpgroups (rows 0-63 and 64-127 of a tile, wgmma
-// m64n{kBN}k16); thread 256, in a warp of its own, issues the TMA loads.
-// Per stage of 64 of K: the patches of the tile's 128 output pixels by TMA
-// in im2col mode -- the hardware walks the stride-2 windows across rows and
-// images and zero-fills the padding -- as one load of 64 channels of one
-// tap or two of 32, each into its region of the swizzled K-major layout;
-// and the stage's weight box(es) by TMA from the HWIO weight, a row-major
-// (K, Cout) buffer that wgmma reads MN-major. The ring runs on across
-// tiles, so the producer loads the next tile while the consumers run the
-// epilogue (through their own float32 tile, not the ring) and the block
-// never drains between tiles. A gather by 128 threads with 16-byte
-// cp.async into the same layout was slower at conv1-3 on an H100: its
-// instructions, not the L2 or the ring's depth, set its rate.
-template <int kBN>
+// consumer warpgroups (rows 0-63 and 64-127 of a tile); thread 256, in a
+// warp of its own, issues the TMA loads. Per stage: the patches of the
+// tile's 128 output pixels by TMA in im2col mode -- the hardware walks the
+// stride-2 windows across rows and images and zero-fills the padding --
+// and the stage's weight box(es) by TMA. bf16: 64 of K a stage, as one
+// load of 64 channels of one tap or two of 32, each into its region of the
+// swizzled K-major layout; the HWIO weight, a row-major (K, Cout) buffer
+// that wgmma reads MN-major; wgmma m64n{kBN}k16. float32: 32 of K a stage,
+// one load of 32 channels of one tap (Cin a multiple of 32); the weight
+// split once per launch into its TF32 big and small halves
+// (split_weight_tf32_kernel, from the K-major (Cout, K) buffer of
+// satae_torch/kernels/conv.py::pack_conv_weight(k_major=True)), one box of
+// 64 x 32 floats of each per stage (map_w big, map_ws small), landing in
+// the K-major swizzled layout wgmma reads; consume_tf32_presplit per
+// warpgroup: its A fragments split in registers, then 12 TF32 wgmmas on
+// the stage as TMA left it -- no shared-memory writes and no barrier
+// between the warpgroups, so one's wgmmas run while the other splits. The
+// ring
+// runs on across tiles, so the producer loads the next tile while the
+// consumers run the epilogue (through their own float32 tile, not the
+// ring) and the block never drains between tiles. A gather by 128 threads
+// with 16-byte cp.async into the same layout was slower at conv1-3 in bf16
+// on an H100: its instructions, not the L2 or the ring's depth, set its
+// rate.
+template <class T, int kBN>
 __global__ void __launch_bounds__(2 * kWg + 32, 1)
     conv_im2col_tma_kernel(const __grid_constant__ CUtensorMap map_w,
+                           const __grid_constant__ CUtensorMap map_ws,
                            const __grid_constant__ CUtensorMap map_x,
                            const float* __restrict__ scale,
                            const float* __restrict__ shift,
-                           bf16* __restrict__ out, int batch, int Cin,
+                           T* __restrict__ out, int batch, int Cin,
                            int KH, int KW, int Cout, int OH, int OW,
                            int stride, int pad, int act) {
-  constexpr int kRing = conv_ring<kBN>();
-  constexpr int kCh = conv_channels<kBN>();
-  constexpr int kA = 2 * kBox;            // A of a stage: 128 x 128 bytes
-  constexpr int kStage = kA + kBN * 128;  // + B: kBN / 64 boxes
+  constexpr bool kF32 = kIsF32<T>;
+  constexpr int kRing = conv_ring<T, kBN>();
+  constexpr int kCh = conv_channels<T, kBN>();
+  constexpr int kA = 2 * kBox;  // A of a stage: 128 x 128 bytes
+  constexpr int kStage = conv_stage<T, kBN>();
+  constexpr int kDepth = kF32 ? kStageK32 : kStageK;
   constexpr int kLd = kBN + kOutPad;
+  static_assert(!kF32 || kBN == 64, "float32 takes 64-wide N tiles");
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kRing], empty[kRing];
   uint8_t* smem = align1024(smem_raw);
@@ -222,7 +273,7 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
   const int m_tiles = (M + 127) / 128;
   const int tiles = m_tiles * ((Cout + kBN - 1) / kBN);
   const int n_slices = (K + kBK - 1) / kBK;
-  const int n_stages = (n_slices + 1) / 2;
+  const int n_stages = kF32 ? n_slices : (n_slices + 1) / 2;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kRing; ++s) {
       bar_init(&full[s], 1);
@@ -241,10 +292,12 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
         const int s = g % kRing;
         if (g >= kRing) bar_wait(&empty[s], (g / kRing - 1) & 1);
         uint8_t* st = smem + s * kStage;
-        const int k0 = it * kStageK;
-        // the loads of A inside K (a 32-channel stage may end after one)
-        const int loads = kCh == 64 || k0 + 32 >= K ? 1 : 2;
-        bar_expect(&full[s], loads * 128 * kCh * 2 + kBN * 128);
+        const int k0 = it * kDepth;
+        // the loads of A inside K (a bf16 32-channel stage may end after
+        // one)
+        const int loads = kF32 || kCh == 64 || k0 + 32 >= K ? 1 : 2;
+        const int a_bytes = loads * 128 * kCh * static_cast<int>(sizeof(T));
+        bar_expect(&full[s], a_bytes + (kStage - kA));
         for (int h = 0; h < loads; ++h) {
           const int k = k0 + kCh * h, t = k / Cin;
           tma_load_im2col(st + h * kBox, &map_x, &full[s], k - t * Cin,
@@ -252,29 +305,46 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
                           static_cast<uint16_t>(t % KW),
                           static_cast<uint16_t>(t / KW));
         }
+        if constexpr (kF32) {
+          tma_load(st + kA, &map_w, &full[s], k0, n0);
+          tma_load(st + kA + kBox, &map_ws, &full[s], k0, n0);
+        } else {
 #pragma unroll
-        for (int b = 0; b < kBN / 64; ++b)
-          tma_load(st + kA + b * kBox, &map_w, &full[s], n0 + 64 * b, k0);
+          for (int b = 0; b < kBN / 64; ++b)
+            tma_load(st + kA + b * kBox, &map_w, &full[s], n0 + 64 * b, k0);
+        }
       }
     }
   } else if (wg < 2) {
-    // A: 64-channel loads are 128-byte rows, the warpgroups' halves 8 KB
-    // apart; 32-channel ones two tap regions of 64-byte rows, the halves 4
-    // KB apart in each
-    const auto desc = [smem, wg](int s, int j, uint64_t& da, uint64_t& db) {
-      const uint8_t* st = smem + s * kStage;
-      da = kCh == 32 ? desc64(st + (j / 2) * kBox + wg * 4096 + 32 * (j % 2))
-                     : desc_k<false>(st + wg * kBox, j);
-      db = desc_k<true>(st + kA, j);
-    };
     float acc[kBN / 2];
     int g = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int m0 = tile % m_tiles * 128, n0 = tile / m_tiles * kBN;
       const Cols<8> cols =
           store_cols_of<kBN>(scale, shift, n0, Cout, threadIdx.x);
-      consume<kBN, 0, 1, kBN == 64>(acc, desc, full, empty, kRing, n_slices,
-                                    g);
+      if constexpr (kF32) {
+        const auto raw = [smem](int s, const uint8_t*& ra,
+                                const uint8_t*& rb) {
+          ra = smem + s * kStage;
+          rb = ra + kA;
+        };
+        consume_tf32_presplit(acc, raw, 64 * wg, full, empty, kRing,
+                              n_stages, g);
+      } else {
+        // A: 64-channel loads are 128-byte rows, the warpgroups' halves 8
+        // KB apart; 32-channel ones two tap regions of 64-byte rows, the
+        // halves 4 KB apart in each
+        const auto desc = [smem, wg](int s, int j, uint64_t& da,
+                                     uint64_t& db) {
+          const uint8_t* st = smem + s * kStage;
+          da = kCh == 32
+                   ? desc64(st + (j / 2) * kBox + wg * 4096 + 32 * (j % 2))
+                   : desc_k<false>(st + wg * kBox, j);
+          db = desc_k<true>(st + kA, j);
+        };
+        consume<kBN, 0, 1, kBN == 64>(acc, desc, full, empty, kRing,
+                                      n_slices, g);
+      }
       g += n_stages;
       // the previous tile's stores have read cs
       asm volatile("bar.sync 1, %0;\n" ::"n"(2 * kWg) : "memory");
@@ -289,37 +359,55 @@ __global__ void __launch_bounds__(2 * kWg + 32, 1)
 // conv0-like layers (K = KH * KW * Cin <= 32, Cout <= 32, Cout % 8 == 0):
 // a tile of 128 output pixels that are whole output rows of one image.
 // The block copies the input rows those pixels read, halo included (conv0:
-// 9 rows of 64 x 3 bf16, 384 contiguous bytes each), with 16-byte cp.async
-// into shared memory, then builds the 128 x 32 patch tile (K zero-padded to
-// 32) from them in the 128-byte-swizzled K-major layout, and the weight as
-// a K-major 32 x 32 tile; two m64n32k16 wgmmas per 64-row half (one fresh
-// 32-deep slice), and the bf16 output in 16-byte stores. One warpgroup.
-__global__ void __launch_bounds__(kWg)
-    conv_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+// 9 rows of 64 x 3 values, 384 bytes each in bf16, 768 in float32,
+// contiguous), with 16-byte cp.async into shared memory. One warpgroup,
+// one 32-deep slice (K zero-padded to 32) per 64-row half.
+// bf16: it builds the 128 x 32 patch tile from the rows in the 128-byte-
+// swizzled K-major layout, and the HWIO weight as a K-major 32 x 32 tile;
+// two m64n32k16 wgmmas per half.
+// float32: no patch tile: per 64-row half, each thread gathers its wgmma A
+// fragments (rows 16 w + g (+ 8), k q (+ 4) of each k8 step: 16 values)
+// from the rows and splits them in registers, then 4 k8 steps of three
+// m64n32k8 TF32 wgmmas (small*big, big*small, big*big), the first with
+// scale-d 0; the K-major (Cout, K) weight is split once per block into
+// K-major 32 x 32 big and small tiles. Both: the output in 16-byte
+// stores.
+// float32 asks for five blocks an SM (its ~36 KB of shared memory allow
+// six): more warps to hide the gathers' and the stores' latency.
+template <class T>
+__global__ void __launch_bounds__(kWg, kIsF32<T> ? 5 : 1)
+    conv_rows_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const float* __restrict__ scale,
-                     const float* __restrict__ shift, bf16* __restrict__ out,
+                     const float* __restrict__ shift, T* __restrict__ out,
                      int H, int W, int Cin, int KH, int KW, int Cout, int OH,
                      int OW, int stride, int pad, int act) {
   constexpr int kLd = 32 + kOutPad;
+  constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint8_t* as = smem;                  // [128][64 bf16], 16 KB
-  uint8_t* bs = smem + 2 * kBox;       // [32][64 bf16], 4 KB
-  bf16* rows = reinterpret_cast<bf16*>(smem + 2 * kBox + 4096);
-  float* cs = reinterpret_cast<float*>(smem);  // [128][kLd], after the mma
+  // bf16: as [128][64 bf16] 16 KB, bs [32][64 bf16] 4 KB, the rows; the
+  // staging tile cs over as after the mma. float32: bs big and small
+  // [32][32 floats] 4 KB each, the rows, then cs.
+  constexpr int kB = kIsF32<T> ? 2 * 4096 : 2 * kBox + 4096;
+  uint8_t* as = smem;
+  uint8_t* bs = kIsF32<T> ? smem : smem + 2 * kBox;
+  T* rows = reinterpret_cast<T*>(smem + kB);
   const int K = KH * KW * Cin;
   const int m0 = blockIdx.x * 128;
   const int n = m0 / (OH * OW), oh0 = m0 % (OH * OW) / OW;
   const int n_in = (128 / OW - 1) * stride + KH;
   const int ih_first = oh0 * stride - pad;
-  const int row_elems = W * Cin, row_chunks = row_elems / 8;
+  const int row_elems = W * Cin, row_chunks = row_elems / kPer16;
+  float* cs = reinterpret_cast<float*>(
+      kIsF32<T> ? smem + kB + n_in * row_elems * 4 : smem);  // [128][kLd]
   // the input rows, rows outside the image not copied (never read)
   for (int i = threadIdx.x; i < n_in * row_chunks; i += kWg) {
     const int rr = i / row_chunks, cc = i - rr * row_chunks;
     const int ih = ih_first + rr;
     if (static_cast<unsigned>(ih) < static_cast<unsigned>(H))
-      cp_async16(rows + rr * row_elems + cc * 8,
-                 x + (static_cast<size_t>(n) * H + ih) * row_elems + cc * 8,
+      cp_async16(rows + rr * row_elems + cc * kPer16,
+                 x + (static_cast<size_t>(n) * H + ih) * row_elems +
+                     cc * kPer16,
                  true);
   }
   cp_async_commit();
@@ -332,82 +420,140 @@ __global__ void __launch_bounds__(kWg)
     tap_kw[k] = t % KW;
     tap_ci[k] = k % Cin;
   }
-  // the weight, (K, Cout) row-major, as K-major rows n of 64 k (zeros past
-  // K and Cout); only k < 32 is multiplied
-  for (int i = threadIdx.x; i < 32 * 4; i += kWg) {
-    const int nn = i / 4, c = i % 4;
-    uint32_t v[4];
+  // patch value k of the pixel whose kh = 0 input row is rows' row_base
+  // and whose kw = 0 input column is col0 (0 outside the image or past K)
+  const auto patch = [&](int row_base, int col0, int k) -> T {
+    const int kh = tap_kh[k];
+    const int ih = ih_first + row_base + kh, iw = col0 + tap_kw[k];
+    return kh >= 0 && static_cast<unsigned>(ih) < static_cast<unsigned>(H) &&
+                   static_cast<unsigned>(iw) < static_cast<unsigned>(W)
+               ? rows[(row_base + kh) * row_elems + iw * Cin + tap_ci[k]]
+               : T(0.f);
+  };
+  if constexpr (kIsF32<T>) {
+    // the weight, (Cout, K) K-major, split into K-major rows n of 32 k
+    // (zeros past K and Cout): chunk c of row n at chunk c ^ (n % 8)
+    for (int i = threadIdx.x; i < 32 * 8; i += kWg) {
+      const int nn = i / 8, c = i % 8;
+      float v[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      unsigned short h[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int k = 8 * c + 2 * e + u;
-        h[u] = k < K && nn < Cout
-                   ? __bfloat16_as_ushort(w[static_cast<size_t>(k) * Cout + nn])
-                   : 0;
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * c + e;
+        v[e] = k < K && nn < Cout ? w[static_cast<size_t>(nn) * K + k] : 0.f;
       }
-      v[e] = h[0] | static_cast<uint32_t>(h[1]) << 16;
+      split_store(bs, bs + 4096, nn * 128 + ((c ^ (nn & 7)) << 4), v);
     }
-    *reinterpret_cast<uint4*>(bs + nn * 128 + ((c ^ (nn & 7)) << 4)) =
-        make_uint4(v[0], v[1], v[2], v[3]);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  // the patches: row p is pixel m0 + p, chunk c holds k = 8c..8c+7; tap
-  // (kh, kw) and channel ci of each k come from a table (no division per
-  // element)
-  const int p = threadIdx.x;
-  const int oh_rel = p / OW, ow = p - oh_rel * OW;
-  const int row_base = oh_rel * stride;  // input row of kh = 0, in `rows`
-  const int col0 = ow * stride - pad;    // input column of kw = 0
+    cp_async_wait<0>();
+    fence_async_smem();
+    __syncthreads();
+    const int t = threadIdx.x;
+    const int r = 16 * (t / 32) + (t % 32) / 4, q = t % 4;
+    // one 64-row half at a time: one fragment set and one accumulator of
+    // 16 live, so ptxas fits the kernel in fewer registers and more blocks
+    // share an SM
+#pragma unroll 1
+    for (int h = 0; h < 2; ++h) {
+      uint32_t big[4][4], small[4][4];
 #pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    uint32_t v[4];
+      for (int u = 0; u < 2; ++u) {  // the fragment's rows r and r + 8
+        const int p = 64 * h + r + 8 * u, oh_rel = p / OW;
+        const int row_base = oh_rel * stride;
+        const int col0 = (p - oh_rel * OW) * stride - pad;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      unsigned short h[2];
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int k = 8 * c + 2 * e + u;
-        const int kh = tap_kh[k], kw = tap_kw[k];
-        const int ih = ih_first + row_base + kh, iw = col0 + kw;
-        h[u] = kh >= 0 &&
-                       static_cast<unsigned>(ih) <
-                           static_cast<unsigned>(H) &&
-                       static_cast<unsigned>(iw) < static_cast<unsigned>(W)
-                   ? __bfloat16_as_ushort(rows[(row_base + kh) * row_elems +
-                                               iw * Cin + tap_ci[k]])
-                   : 0;
+          for (int e = u; e < 4; e += 2)
+            split_tf32(patch(row_base, col0, 8 * j + q + 4 * (e / 2)),
+                       big[j][e], small[j][e]);
       }
-      v[e] = h[0] | static_cast<uint32_t>(h[1]) << 16;
+      float acc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+      fence_frag(big);
+      fence_frag(small);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t db = desc128(bs + 32 * j, 16, 1024);
+        const uint64_t ds = desc128(bs + 4096 + 32 * j, 16, 1024);
+        mma_k8<32>(acc, small[j], db, j > 0);
+        mma_k8<32>(acc, big[j], ds, 1);
+        mma_k8<32>(acc, big[j], db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      stage_wg_acc<32>(acc, cs, kLd, 64 * h);
     }
-    *reinterpret_cast<uint4*>(as + p * 128 + ((c ^ (p & 7)) << 4)) =
-        make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+    // the weight, (K, Cout) row-major, as K-major rows n of 64 k (zeros
+    // past K and Cout); only k < 32 is multiplied
+    for (int i = threadIdx.x; i < 32 * 4; i += kWg) {
+      const int nn = i / 4, c = i % 4;
+      uint32_t v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        unsigned short h[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int k = 8 * c + 2 * e + u;
+          h[u] = k < K && nn < Cout
+                     ? __bfloat16_as_ushort(
+                           w[static_cast<size_t>(k) * Cout + nn])
+                     : 0;
+        }
+        v[e] = h[0] | static_cast<uint32_t>(h[1]) << 16;
+      }
+      *reinterpret_cast<uint4*>(bs + nn * 128 + ((c ^ (nn & 7)) << 4)) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    // the patches: row p is pixel m0 + p, chunk c holds k = 8c..8c+7; tap
+    // (kh, kw) and channel ci of each k come from a table (no division per
+    // element)
+    const int p = threadIdx.x;
+    const int oh_rel = p / OW, ow = p - oh_rel * OW;
+    const int row_base = oh_rel * stride;  // input row of kh = 0, in rows
+    const int col0 = ow * stride - pad;    // input column of kw = 0
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bf16 lo = patch(row_base, col0, 8 * c + 2 * e);
+        const bf16 hi = patch(row_base, col0, 8 * c + 2 * e + 1);
+        v[e] = __bfloat16_as_ushort(lo) |
+               static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16;
+      }
+      *reinterpret_cast<uint4*>(as + p * 128 + ((c ^ (p & 7)) << 4)) =
+          make_uint4(v[0], v[1], v[2], v[3]);
+    }
+    fence_async_smem();
+    __syncthreads();
+    float acc[2][16];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[h][i] = 0.f;
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wgmma_n32<0, 0>(acc[h], desc_k<false>(as + h * kBox, j),
+                        desc_k<false>(bs, j), j);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc[0]);
+    fence_acc(acc[1]);
+    __syncthreads();  // the whole warpgroup's wgmmas have read as and bs
+    stage_wg_acc<32>(acc[0], cs, kLd, 0);
+    stage_wg_acc<32>(acc[1], cs, kLd, 64);
   }
-  fence_async_smem();
-  __syncthreads();
-  float acc[2][16];
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[h][i] = 0.f;
-  fence_acc(acc[0]);
-  fence_acc(acc[1]);
-  wgmma_fence();
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wgmma_n32<0, 0>(acc[h], desc_k<false>(as + h * kBox, j),
-                      desc_k<false>(bs, j), j);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_acc(acc[0]);
-  fence_acc(acc[1]);
-  __syncthreads();  // the whole warpgroup's wgmmas have read as and bs
-  stage_wg_acc<32>(acc[0], cs, kLd, 0);
-  stage_wg_acc<32>(acc[1], cs, kLd, 64);
   __syncthreads();
   store_rows<32>(cs, kLd, 128, out, m0 + 128, Cout, m0, 0, cols, act,
                  threadIdx.x, kWg);
@@ -456,24 +602,45 @@ int launch_tile(const void* x, const void* w, const float* scale,
 }
 
 
-// One instantiation of the im2col kernel.
-template <int kBN>
-cudaError_t launch_im2col(const void* x, const void* w, const float* scale,
-                          const float* shift, void* out, int batch, int H,
-                          int W, int Cin, int KH, int KW, int Cout, int OH,
-                          int OW, int stride, int pad, int act,
-                          cudaStream_t s) {
-  CUtensorMap map_w, map_x;
-  cudaError_t err = hopper::make_map(&map_w, w, KH * KW * Cin, Cout, 64);
+// One instantiation of the im2col kernel. bf16: the weight map MN-major
+// (the (K, Cout) HWIO buffer, boxes of 64 n x 64 k). float32: the weight
+// split first into ws (big, then small: 2 x Cout x K floats) on the same
+// stream, then two K-major maps of those (boxes of 32 k x 64 n).
+template <class T, int kBN>
+cudaError_t launch_im2col(const void* x, const void* w, float* ws,
+                          const float* scale, const float* shift, void* out,
+                          int batch, int H, int W, int Cin, int KH, int KW,
+                          int Cout, int OH, int OW, int stride, int pad,
+                          int act, cudaStream_t s) {
+  constexpr int kElem = static_cast<int>(sizeof(T));
+  CUtensorMap map_w, map_ws, map_x;
+  const int K = KH * KW * Cin;
+  cudaError_t err = cudaSuccess;
+  if constexpr (kIsF32<T>) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    const int n = Cout * K;
+    const int blocks = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;
+    split_weight_tf32_kernel<<<blocks, 256, 0, s>>>(
+        static_cast<const float*>(w), ws, ws + n, n);
+    err = cudaGetLastError();
+    if (err == cudaSuccess)
+      err = hopper::make_map(&map_w, ws, Cout, K, 64, 0, kElem);
+    if (err == cudaSuccess)
+      err = hopper::make_map(&map_ws, ws + n, Cout, K, 64, 0, kElem);
+  } else {
+    err = hopper::make_map(&map_w, w, K, Cout, 64, 0, kElem);
+    map_ws = map_w;  // unread
+  }
   if (err == cudaSuccess)
     err = hopper::make_im2col_map(&map_x, x, batch, H, W, Cin, KH, KW, stride,
-                                  pad, hopper::conv_channels<kBN>());
+                                  pad, hopper::conv_channels<T, kBN>(),
+                                  kElem);
   int dev = 0, sms = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  constexpr int smem = hopper::conv_smem<kBN>();
-  auto kernel = hopper::conv_im2col_tma_kernel<kBN>;
+  constexpr int smem = hopper::conv_smem<T, kBN>();
+  auto kernel = hopper::conv_im2col_tma_kernel<T, kBN>;
   static unsigned allowed = 0;
   if (err == cudaSuccess)
     err = allow_smem(reinterpret_cast<const void*>(kernel), smem, allowed);
@@ -481,41 +648,51 @@ cudaError_t launch_im2col(const void* x, const void* w, const float* scale,
   const int M = batch * OH * OW;
   const int tiles = (M + 127) / 128 * ((Cout + kBN - 1) / kBN);
   kernel<<<tiles < sms ? tiles : sms, 2 * hopper::kWg + 32, smem, s>>>(
-      map_w, map_x, scale, shift, static_cast<bf16*>(out), batch, Cin, KH, KW,
-      Cout, OH, OW, stride, pad, act);
+      map_w, map_ws, map_x, scale, shift, static_cast<T*>(out), batch, Cin,
+      KH, KW, Cout, OH, OW, stride, pad, act);
   return cudaSuccess;
 }
 
-// The bf16 wgmma kernels: tile_n 32 is the staged-rows kernel (conv0), 64
-// and 128 the im2col kernel with that N tile; the wrapper checks that the
-// layer fits the kernel it names.
-int launch_hopper(const void* x, const void* w, const float* scale,
-                  const float* shift, void* out, int batch, int H, int W,
-                  int Cin, int KH, int KW, int Cout, int OH, int OW,
-                  int stride, int pad, int act, int tile_n, void* stream) {
+// The wgmma kernels of T: tile_n 32 is the staged-rows kernel (conv0), 64
+// (and in bf16 128) the im2col kernel with that N tile; the wrapper checks
+// that the layer fits the kernel it names.
+template <class T>
+int launch_hopper(const void* x, const void* w, float* ws,
+                  const float* scale, const float* shift, void* out,
+                  int batch, int H, int W, int Cin, int KH, int KW, int Cout,
+                  int OH, int OW, int stride, int pad, int act, int tile_n,
+                  void* stream) {
   using hopper::kBox;
   const auto s = static_cast<cudaStream_t>(stream);
   if (tile_n == 32) {
     const int n_in = (128 / OW - 1) * stride + KH;
-    const int smem = 2 * kBox + 4096 + n_in * W * Cin * 2 + 1024;
-    auto kernel = hopper::conv_rows_kernel;
+    const int rows = n_in * W * Cin * static_cast<int>(sizeof(T));
+    // bf16: patch tile, weight tile, rows (the staging tile over the
+    // patches); float32: split weight, rows, staging tile
+    const int smem = kIsF32<T> ? 2 * 4096 + rows + 128 * (32 + kOutPad) * 4 +
+                                     1024
+                               : 2 * kBox + 4096 + rows + 1024;
+    auto kernel = hopper::conv_rows_kernel<T>;
     static unsigned allowed = 0;
     const cudaError_t err =
         allow_smem(reinterpret_cast<const void*>(kernel), 96 * 1024, allowed);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<batch * OH * OW / 128, hopper::kWg, smem, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), scale,
-        shift, static_cast<bf16*>(out), H, W, Cin, KH, KW, Cout, OH, OW,
-        stride, pad, act);
+        static_cast<const T*>(x), static_cast<const T*>(w), scale, shift,
+        static_cast<T*>(out), H, W, Cin, KH, KW, Cout, OH, OW, stride, pad,
+        act);
     return static_cast<int>(cudaGetLastError());
   }
   cudaError_t err = cudaErrorInvalidValue;
-  if (tile_n == 64)
-    err = launch_im2col<64>(x, w, scale, shift, out, batch, H, W, Cin, KH, KW,
-                            Cout, OH, OW, stride, pad, act, s);
-  else if (tile_n == 128)
-    err = launch_im2col<128>(x, w, scale, shift, out, batch, H, W, Cin, KH,
-                             KW, Cout, OH, OW, stride, pad, act, s);
+  if (tile_n == 64) {
+    err = launch_im2col<T, 64>(x, w, ws, scale, shift, out, batch, H, W, Cin,
+                               KH, KW, Cout, OH, OW, stride, pad, act, s);
+  } else if constexpr (!kIsF32<T>) {
+    if (tile_n == 128)
+      err = launch_im2col<T, 128>(x, w, ws, scale, shift, out, batch, H, W,
+                                  Cin, KH, KW, Cout, OH, OW, stride, pad,
+                                  act, s);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -566,9 +743,31 @@ int satae_conv2d_bn_act_bf16_tma(const __nv_bfloat16* x,
                                  int batch, int H, int W, int Cin, int KH,
                                  int KW, int Cout, int OH, int OW, int stride,
                                  int pad, int act, int tile_n, void* stream) {
-  return satae::launch_hopper(x, w, scale, shift, out, batch, H, W, Cin, KH,
-                              KW, Cout, OH, OW, stride, pad, act, tile_n,
-                              stream);
+  return satae::launch_hopper<__nv_bfloat16>(x, w, nullptr, scale, shift,
+                                             out, batch, H, W, Cin, KH, KW,
+                                             Cout, OH, OW, stride, pad, act,
+                                             tile_n, stream);
+}
+
+// satae_conv2d_bn_act on wgmma (3xTF32): w is the K-major (Cout, KH * KW *
+// Cin) buffer, a (Cout, KH, KW, Cin) tensor (pack_conv_weight(k_major=
+// True)). tile_n 32 takes the staged-rows kernel (K <= 32, Cout <= 32 and
+// a multiple of 8, 128 output pixels = whole output rows of one image, W *
+// Cin a multiple of 4, x 16-byte aligned; ws unused); 64 the im2col
+// kernel, TMA for the patches and the weight's TF32 halves (x and w
+// 16-byte aligned, Cin a multiple of 32), which it first writes into ws (2
+// * Cout * K floats, 16-byte aligned) -- two launches on `stream`. The
+// wrapper (satae_torch/kernels/conv.py::conv_route) routes every other
+// layer to satae_conv2d_bn_act, with the weight HWIO.
+int satae_conv2d_bn_act_tma(const float* x, const float* w,
+                            const float* scale, const float* shift,
+                            float* out, float* ws, int batch, int H, int W,
+                            int Cin, int KH, int KW, int Cout, int OH, int OW,
+                            int stride, int pad, int act, int tile_n,
+                            void* stream) {
+  return satae::launch_hopper<float>(x, w, ws, scale, shift, out, batch, H,
+                                     W, Cin, KH, KW, Cout, OH, OW, stride,
+                                     pad, act, tile_n, stream);
 }
 
 const char* satae_error_string(int code) {

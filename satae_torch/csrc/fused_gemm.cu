@@ -55,18 +55,22 @@
 // every config's tiles counted toward the wave. Bound: the float32
 // projection at C = 45 (45 x 64 x 4096 x 64) reads 94 MB (28 us at
 // 3.35 TB/s) and does 1.5 GFLOP (9 us at 165 TFLOP/s 3xTF32): bytes, as
-// every product of the sweep. float32 runs on this mma.sync loop, and so do
-// bf16 buffers TMA cannot read (satae_fused_gemm_batched_bf16: the head's
-// 10-wide cotangent in the backward); every other bf16 batched product runs
-// on the wgmma kernel below (satae_fused_gemm_batched_bf16_tma).
+// every product of the sweep. Buffers TMA cannot read run on this mma.sync
+// loop (satae_fused_gemm_batched / _batched_bf16: the head's 10-wide
+// cotangent in the backward); every other batched product runs on the
+// wgmma kernel below (satae_fused_gemm_batched_tma / _batched_bf16_tma).
 // The wrapper owns the workspace and the counters (one buffer per device,
 // kept zeroed by the kernel); the port launches on one stream, and two
 // concurrent split-K launches would share the counters.
 //
-// bf16 on Hopper's own instructions (hopper::fused_gemm_tma_kernel, entries
-// satae_fused_gemm_bf16_tma, C = 1, and satae_fused_gemm_batched_bf16_tma;
-// wgmma_tile.cuh holds its main loop). Bound at 3.35 TB/s and 989 TFLOP/s,
-// every bf16 product of the main paths is bound by bytes: the serving
+// Hopper's own instructions (hopper::fused_gemm_tma_kernel, float32 and
+// bf16 instantiations; entries satae_fused_gemm_tma / _bf16_tma, C = 1,
+// and satae_fused_gemm_batched_tma / _batched_bf16_tma; wgmma_tile.cuh
+// holds its main loop). float32 is 3xTF32 on wgmma m64n64k8 (the split
+// pass of wgmma_tile.cuh: A split in registers, B into K-major tiles),
+// stages of 32 of K, bound as above (bytes at every product of the main
+// paths). Bound at 3.35 TB/s and 989 TFLOP/s, every bf16 product of the
+// main paths is bound by bytes: the serving
 // projection 512 x 4096 x 64 and the decoder input 512 x 64 x 4096 move
 // 4.8 MB (1.43 us), the batch-64 long products (64 x 4096 x 64, 64 x 64 x
 // 4096) 1.06 MB (0.32 us), the head's products a few KB, far below a
@@ -88,10 +92,18 @@
 // for the serving projection's 8, 4 of 1024 per config at C = 45) whose
 // blocks reduce the float32 partials through distributed shared memory,
 // each block 1/S of the tile, in split order. One launch per call, no
-// workspace, no counters. Stayed on the mma.sync loop above: float32
-// (3xTF32, unchanged), and bf16 buffers TMA cannot read -- a base or row
-// not 16-byte aligned: odd K or N, odd offsets, the head's 10-wide
-// cotangent in its backward (satae_torch/kernels/matmul.py::k1_loader).
+// workspace, no counters. float32 takes the mma.sync loop's plan
+// (split_k_plan: at K = 4096 32 splits of 128 for one tile, 8 of 512 for
+// the serving projection, 2 of 2,048 per config at C = 45), a cluster
+// block holding 1, 2, 4 or 8 consecutive partials where the plan has more
+// than 16, each summed from zero and staged apart; per output element the
+// wgmma kernel then does the mma.sync loop's arithmetic in its order, and
+// every float32 result is that loop's bit for bit (chip_smoke.py --ab
+// holds it). Stayed on the mma.sync loop above: the
+// buffers TMA cannot read, float32 and bf16 -- a base or row not 16-byte
+// aligned: an odd K or N in bf16, K or N not a multiple of 4 in float32,
+// odd offsets, the head's 10-wide cotangent in its backward (fc2's dX and
+// dW; satae_torch/kernels/matmul.py::k1_loader).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -263,17 +275,35 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<typename ATile::Elem>)
 }
 
 
-// ---- bf16 on wgmma, TMA and a cluster's split-K reduction ------------------
+// ---- float32 and bf16 on wgmma, TMA and a cluster's split-K reduction ------
 
 namespace hopper {
 
-// Shared memory of a block of fused_gemm_tma_kernel: a ring of `ring`
-// stages, then with one split the float32 staging tile of the epilogue
-// (split-K stages its partial in the consumed ring), 1024-byte aligned,
-// with the slack of aligning the base.
+// Shared memory of a block of fused_gemm_tma_kernel, 1024-byte aligned,
+// with the slack of aligning the base. bf16: a ring of `ring` stages (two
+// 8 KB boxes each, 64 of K), then with one split the float32 staging tile
+// of the epilogue (split-K stages its partial in the consumed ring).
+// float32: the ring (stages of 32 of K), the warpgroup's two split Bs (big
+// and small, 8 KB each), then a staging tile for each of the block's `sub`
+// partials (one with one split). At C = 1, one split, the ring is the
+// largest that leaves two blocks an SM: bf16 4 x 16 + 18 + 1 = 83 KB,
+// float32 3 x 16 + 32 + 18 + 1 = 99 KB.
 constexpr int kStaging = 64 * (64 + kOutPad) * 4;
-__host__ __device__ constexpr int k1_smem_bytes(int ring, int splits) {
-  return ring * 2 * kBox + (splits > 1 ? 0 : kStaging) + 1024;
+__host__ __device__ constexpr int k1_smem_bytes(int ring, int splits,
+                                                bool f32, int sub = 1) {
+  return f32 ? ring * 2 * kBox + 4 * kBox + sub * kStaging + 1024
+             : ring * 2 * kBox + (splits > 1 ? 0 : kStaging) + 1024;
+}
+__host__ __device__ constexpr int k1_max_ring(bool f32) {
+  return f32 ? kMaxRing - 1 : kMaxRing;
+}
+// float32 split-K: a cluster holds at most 16 blocks, so a plan of more
+// partials gives each block `sub` consecutive ones, the least power of two
+// that makes 16 blocks enough (at most 8: 128 partials, split_k_plan's
+// most).
+constexpr int kMaxSub = 8;
+__host__ __device__ constexpr int k1_sub(int splits) {
+  return splits <= 16 ? 1 : splits <= 32 ? 2 : splits <= 64 ? 4 : 8;
 }
 
 // Config c's scale and shift of columns [n0, n0 + 64) into dst[0, 64) and
@@ -310,6 +340,11 @@ __device__ __forceinline__ int cluster_rank() {
   asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return static_cast<int>(r);
 }
+__device__ __forceinline__ int cluster_blocks() {
+  unsigned r;
+  asm("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
 
 // The 32-deep slices of K range [k_begin, k_begin + k_per_split) of K.
 __device__ __forceinline__ int slices_of(int K, int k_begin,
@@ -317,14 +352,27 @@ __device__ __forceinline__ int slices_of(int K, int k_begin,
   return (min(K, k_begin + k_per_split) - k_begin + kBK - 1) / kBK;
 }
 
+// The ring stages of n_slices slices: two slices a bf16 stage, one a
+// float32 stage.
+template <class T>
+__device__ __forceinline__ int stages_of(int n_slices) {
+  return kIsF32<T> ? n_slices : (n_slices + 1) / 2;
+}
+
 // For c < C, the 64 x 64 tile (blockIdx.x, blockIdx.y) of out[c] =
-// act((A[c] @ B[c]) * scale[c] + shift[c]) in bf16, A[c] (M, K) and B[c]
-// (K, N) read by TMA through 3-D maps -- config c the outermost coordinate
-// -- map_a (C row-major (M, K) buffers, or with kTA (K, M) ones) and map_b
-// (C row-major (N, K) buffers, or with kTB (K, N) ones) into a ring of
-// `ring` stages of 64 of K. The unbatched K1 is C = 1. Threads 0-127 are
-// the consumer warpgroup (wgmma m64n64k16, two scratch accumulators);
-// thread 128, in a warp of its own, issues the TMA loads.
+// act((A[c] @ B[c]) * scale[c] + shift[c]) in T (bf16 or float32), A[c]
+// (M, K) and B[c] (K, N) read by TMA through 3-D maps -- config c the
+// outermost coordinate -- map_a (C row-major (M, K) buffers, or with kTA
+// (K, M) ones) and map_b (C row-major (N, K) buffers, or with kTB (K, N)
+// ones) into a ring of `ring` stages (bf16: 64 of K, one 64-wide box per
+// operand; float32: 32 of K, one box K-major or two 32-wide ones MN-
+// major). The unbatched K1 is C = 1. Threads 0-127 are the consumer
+// warpgroup -- bf16: wgmma m64n64k16 from the ring, two scratch
+// accumulators; float32: consume_tf32, A split in registers, B split into
+// the K-major tiles bs, three m64n64k8 TF32 wgmmas per k8 step (two
+// consumer warpgroups on 64 x 32 halves of the tile, the same sums, ran
+// slower on an H100: one block an SM instead of two); thread 128, in a
+// warp of its own, issues the TMA loads.
 //
 // One split (splits == 1): block z computes configs z, z + gridDim.z, ...
 // of its tile (cluster_z and clusters_z: clusters of one block); the
@@ -334,36 +382,50 @@ __device__ __forceinline__ int slices_of(int K, int k_begin,
 // tile while the consumers run the epilogue outside the ring, through the
 // float32 staging tile cs, in 16-byte stores.
 //
-// Split-K (splits > 1): block z is split z % S of config z / S, and the
-// splits of a tile are one thread-block cluster (1, 1, S): the config is
-// the cluster's z and the split the block's rank in it. Each stages its
-// float32 partial in its own shared memory; after a cluster barrier block
-// r sums rows [64 r / S, 64 (r + 1) / S) of the tile over the S partials,
-// read through distributed shared memory in split order 0..S-1 (bitwise
-// repeatable, the emulation's order), applies the epilogue, rounds once to
-// bf16 and stores; a second barrier keeps every partial alive until all
-// have been read. Every block of the cluster reduces 1/S of the tile, so
-// the fix-up no longer rests on one block, and nothing goes through device
-// memory.
-template <bool kTA, bool kTB>
+// Split-K (splits > 1): the blocks of a tile are one thread-block cluster
+// (1, 1, R): the config is the cluster's z and the block's rank r in it
+// holds partials [r sub, (r + 1) sub) of the S splits (sub = 1, R = S; in
+// float32 sub = S / R rounded up to a power of two where S > 16). Each
+// stages its float32 partials in its own shared memory; after a cluster
+// barrier block r sums rows [64 r / R, 64 (r + 1) / R) of the tile over
+// the S partials, read through distributed shared memory in split order
+// 0..S-1 (bitwise repeatable, the emulation's order), applies the
+// epilogue, rounds once to T and stores; a second barrier keeps every
+// partial alive until all have been read. Every block of the cluster
+// reduces 1/R of the tile, so the fix-up no longer rests on one block, and
+// nothing goes through device memory.
+template <class T, bool kTA, bool kTB>
 __global__ void __launch_bounds__(kWg + 32, 1)
     fused_gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
                           const __grid_constant__ CUtensorMap map_b,
                           const float* __restrict__ scale,
                           const float* __restrict__ shift,
-                          bf16* __restrict__ out, int C, int M, int N, int K,
+                          T* __restrict__ out, int C, int M, int N, int K,
                           int act, int splits, int k_per_split, int ring) {
+  constexpr bool kF32 = kIsF32<T>;
   constexpr int kLd = 64 + kOutPad;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[kMaxRing], empty[kMaxRing];
   __shared__ __align__(16) float col_buf[2][128];  // load_cols, two configs
   uint8_t* smem = align1024(smem_raw);
-  float* cs =
-      reinterpret_cast<float*>(smem + (splits == 1 ? ring * 2 * kBox : 0));
+  uint8_t* bs = smem + ring * 2 * kBox;  // float32: the split Bs
+  // the staging tiles: float32 after the split Bs (one per partial), bf16
+  // after the ring with one split, else in the consumed ring
+  float* cs = reinterpret_cast<float*>(
+      kF32 ? bs + 4 * kBox : splits == 1 ? bs : smem);
+  constexpr int kPlane = 64 * kLd;  // floats of one staging tile
   const int m0 = blockIdx.x * 64, n0 = blockIdx.y * 64;
   const int c0 = cluster_z(), c_step = clusters_z();
-  const int k_begin = cluster_rank() * k_per_split;
-  const int n_slices = slices_of(K, k_begin, k_per_split);
+  // the block holds partials [part0, part0 + n_parts) of the `splits`,
+  // consecutive K ranges of k_per_split (bf16: one; float32: `sub` where
+  // the plan has more partials than a cluster has blocks)
+  const int ranks = cluster_blocks();
+  const int sub = (splits + ranks - 1) / ranks;
+  const int part0 = cluster_rank() * sub;
+  const int n_parts = min(sub, splits - part0);
+  const int k_begin = part0 * k_per_split;
+  const int n_stages =
+      stages_of<T>(slices_of(K, k_begin, n_parts * k_per_split));
   const size_t mn = static_cast<size_t>(M) * N;
   if (threadIdx.x == 0) {
     for (int s = 0; s < ring; ++s) {
@@ -380,25 +442,31 @@ __global__ void __launch_bounds__(kWg + 32, 1)
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                      reinterpret_cast<uint64_t>(&map_b))
                  : "memory");
+    constexpr int kDepth = kF32 ? kStageK32 : kStageK;
     int g = 0;  // stages filled so far
     for (int c = c0; c < C; c += c_step) {
-      for (int i = 0; i < (n_slices + 1) / 2; ++i, ++g) {
+      for (int i = 0; i < n_stages; ++i, ++g) {
         const int s = g % ring;
         if (g >= ring) bar_wait(&empty[s], (g / ring - 1) & 1);
         uint8_t* st = smem + s * 2 * kBox;
-        const int k = k_begin + i * kStageK;
+        const int k = k_begin + i * kDepth;
         bar_expect(&full[s], 2 * kBox);
-        tma_load(st, &map_a, &full[s], kTA ? m0 : k, kTA ? k : m0, c);
-        tma_load(st + kBox, &map_b, &full[s], kTB ? n0 : k, kTB ? k : n0,
-                 c);
+        if (kF32 && kTA) {  // two boxes of 32 M x 32 k
+          tma_load(st, &map_a, &full[s], m0, k, c);
+          tma_load(st + kBox / 2, &map_a, &full[s], m0 + 32, k, c);
+        } else {
+          tma_load(st, &map_a, &full[s], kTA ? m0 : k, kTA ? k : m0, c);
+        }
+        if (kF32 && kTB) {  // two boxes of 32 N x 32 k
+          tma_load(st + kBox, &map_b, &full[s], n0, k, c);
+          tma_load(st + kBox + kBox / 2, &map_b, &full[s], n0 + 32, k, c);
+        } else {
+          tma_load(st + kBox, &map_b, &full[s], kTB ? n0 : k, kTB ? k : n0,
+                   c);
+        }
       }
     }
   } else if (threadIdx.x < kWg) {
-    const auto desc = [smem](int s, int j, uint64_t& da, uint64_t& db) {
-      const uint8_t* st = smem + s * 2 * kBox;
-      da = desc_k<kTA>(st, j);
-      db = desc_k<kTB>(st + kBox, j);
-    };
     float acc[32];
     int g = 0;  // stages consumed so far
     for (int c = c0, i = 0; c < C; c += c_step, ++i) {
@@ -408,13 +476,35 @@ __global__ void __launch_bounds__(kWg + 32, 1)
       if (splits == 1)
         load_cols(cols_s, scale ? scale + c * N : nullptr,
                   shift ? shift + c * N : nullptr, n0, N);
-      consume<64, kTA, kTB, true>(acc, desc, full, empty, ring, n_slices, g);
-      g += (n_slices + 1) / 2;
+      if constexpr (kF32) {
+        const auto raw = [smem](int s, const uint8_t*& ra,
+                                const uint8_t*& rb) {
+          ra = smem + s * 2 * kBox;
+          rb = ra + kBox;
+        };
+        // each partial from a fresh sum, all but the last staged as they
+        // end (k_per_split is whole stages), the pipeline running on
+        const auto done = [cs](int u, const float(&a)[32]) {
+          stage_wg_acc<64>(a, cs + u * kPlane, kLd, 0);
+        };
+        consume_tf32<kTA, kTB>(acc, raw, bs, 0, full, empty, ring, n_stages,
+                               g, 2, k_per_split / kStageK32, done);
+        g += n_stages;
+      } else {
+        const auto desc = [smem](int s, int j, uint64_t& da, uint64_t& db) {
+          const uint8_t* st = smem + s * 2 * kBox;
+          da = desc_k<kTA>(st, j);
+          db = desc_k<kTB>(st + kBox, j);
+        };
+        consume<64, kTA, kTB, true>(acc, desc, full, empty, ring,
+                                    slices_of(K, k_begin, k_per_split), g);
+        g += n_stages;
+      }
       // the previous config's epilogue has read cs; split-K: the
       // warpgroup's wgmmas have read the ring
       asm volatile("bar.sync 1, %0;\n" ::"n"(kWg) : "memory");
-      stage_wg_acc<64>(acc, cs, kLd, 0);
-      if (splits > 1) break;  // the cluster reduces the block's partial
+      stage_wg_acc<64>(acc, cs + (n_parts - 1) * kPlane, kLd, 0);
+      if (splits > 1) break;  // the cluster reduces the block's partials
       cp_async_wait<0>();  // this thread's columns have landed
       asm volatile("bar.sync 1, %0;\n" ::"n"(kWg) : "memory");
       const Cols<8> cols =
@@ -430,33 +520,44 @@ __global__ void __launch_bounds__(kWg + 32, 1)
   const int S = splits;
   const int r = static_cast<int>(cluster.block_rank());
   const int c = c0;
-  const int row_lo = r * 64 / S, row_hi = (r + 1) * 64 / S;
+  const int row_lo = r * 64 / ranks, row_hi = (r + 1) * 64 / ranks;
   out += c * mn;
   // thread i sums quad (i % 16) of rows row_lo + i / 16, ... (blockDim.x is
   // a multiple of 16: one column quad per thread, its scale and shift
-  // loaded once); the S remote loads of a quad are all issued before the
-  // in-order sum
+  // loaded once); partial j sits in tile j % sub of block j / sub, and 16
+  // remote loads of a quad are issued at a time before their in-order sum
   const int q4 = (threadIdx.x % 16) * 4;
-  const bool vec = N % 4 == 0 && aligned(out, 8);
+  const bool vec = N % 4 == 0 && aligned(out, 4 * sizeof(T));
   const Cols<4> quad_cols(scale ? scale + c * N : nullptr,
                           shift ? shift + c * N : nullptr, n0 + q4, N);
   const int nv = N - (n0 + q4) < 4 ? N - (n0 + q4) : 4;
   for (int row = row_lo + static_cast<int>(threadIdx.x) / 16; row < row_hi;
        row += blockDim.x / 16) {
     if (m0 + row >= M || nv <= 0) break;
-    float4 q[16];
-    float4* mine = reinterpret_cast<float4*>(cs + row * kLd + q4);
-#pragma unroll
-    for (int s = 0; s < 16; ++s)
-      if (s < S) q[s] = *cluster.map_shared_rank(mine, s);
+    float* mine = cs + row * kLd + q4;
     float v[4] = {0.f, 0.f, 0.f, 0.f};
+    // partial j0 + t: tile t % sub of block (j0 + t) / sub (sub a power of
+    // two <= 16, so shifts and masks; bf16: 1, one partial a block)
+    const int sub_log = __ffs(sub) - 1;
+    for (int j0 = 0; j0 < S; j0 += 16) {
+      float4 q[16];
 #pragma unroll
-    for (int s = 0; s < 16; ++s) {  // split order
-      if (s < S) {
-        v[0] += q[s].x;
-        v[1] += q[s].y;
-        v[2] += q[s].z;
-        v[3] += q[s].w;
+      for (int t = 0; t < 16; ++t) {
+        if (j0 + t < S) {
+          const int tile = kF32 ? t & (sub - 1) : 0;
+          const int block = kF32 ? (j0 + t) >> sub_log : t;
+          q[t] = *cluster.map_shared_rank(
+              reinterpret_cast<float4*>(mine + tile * kPlane), block);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < 16; ++t) {  // split order
+        if (j0 + t < S) {
+          v[0] += q[t].x;
+          v[1] += q[t].y;
+          v[2] += q[t].z;
+          v[3] += q[t].w;
+        }
       }
     }
     store_cols<4>(out, static_cast<size_t>(m0 + row) * N + n0 + q4, v,
@@ -539,41 +640,55 @@ int launch_plan(const void* x, const void* w, const float* scale,
 }
 
 
-// The bf16 TMA instantiation for the layout, over C configs; the plan is
-// checked by the caller. Tensor maps are encoded per call on the host (a
-// few hundred ns) and passed as __grid_constant__ parameters.
-template <bool kTA, bool kTB>
+// The TMA instantiation of T (bf16 or float32) for the layout, over C
+// configs; the plan is checked by the caller. Tensor maps are encoded per
+// call on the host (a few hundred ns) and passed as __grid_constant__
+// parameters: 128-byte boxes of 64 rows (K-major, and bf16's MN-major) or,
+// for a float32 MN-major operand, of 32 rows of K.
+template <class T, bool kTA, bool kTB>
 int launch_tma(const void* x, const void* w, const float* scale,
                const float* shift, void* out, int C, int M, int N, int K,
                int act, int splits, int k_per_split, cudaStream_t stream) {
   using hopper::kMaxRing;
   using hopper::make_map;
+  constexpr bool kF32 = kIsF32<T>;
+  constexpr int kElem = static_cast<int>(sizeof(T));
+  constexpr int kDepth = kF32 ? hopper::kStageK32 : hopper::kStageK;
+  constexpr int kMNRows = kF32 ? 32 : 64;  // box rows of an MN-major map
   CUtensorMap map_a, map_b;
-  cudaError_t err = kTA ? make_map(&map_a, x, K, M, 64, C)
-                        : make_map(&map_a, x, M, K, 64, C);
+  cudaError_t err = kTA ? make_map(&map_a, x, K, M, kMNRows, C, kElem)
+                        : make_map(&map_a, x, M, K, 64, C, kElem);
   if (err == cudaSuccess)
-    err = kTB ? make_map(&map_b, w, K, N, 64, C)
-              : make_map(&map_b, w, N, K, 64, C);
+    err = kTB ? make_map(&map_b, w, K, N, kMNRows, C, kElem)
+              : make_map(&map_b, w, N, K, 64, C, kElem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int stages = (min(k_per_split, K) + hopper::kStageK - 1) /
-                     hopper::kStageK;
+  const int stages = (min(k_per_split, K) + kDepth - 1) / kDepth;
   // one split: two stages at least, so the producer runs a config ahead;
   // at C = 1 a full ring, whose shared memory holds two blocks an SM (a
   // grid of one block a tile, such as the serving decoder input's 512 tiles,
   // ran faster on an H100 at two blocks an SM than at three); split-K: the
   // partial is staged in the consumed ring
+  constexpr int kRingMax = hopper::k1_max_ring(kF32);
+  // float32: `sub` partials a block where a cluster of 16 holds fewer
+  // blocks than the plan has partials (and a ring of two beside more than
+  // four partials' staging tiles)
+  const int sub = kF32 ? hopper::k1_sub(splits) : 1;
+  const int ranks = (splits + sub - 1) / sub;
+  const int ring_max = sub > 4 ? 2 : kRingMax;
   const int ring = splits == 1 && C == 1
-                       ? kMaxRing
-                       : max(2, stages < kMaxRing ? stages : kMaxRing);
-  const int smem = hopper::k1_smem_bytes(ring, splits);
-  auto kernel = hopper::fused_gemm_tma_kernel<kTA, kTB>;
+                       ? ring_max
+                       : max(2, stages < ring_max ? stages : ring_max);
+  const int smem = hopper::k1_smem_bytes(ring, splits, kF32, sub);
+  auto kernel = hopper::fused_gemm_tma_kernel<T, kTA, kTB>;
   static unsigned allowed = 0;
   err = allow_smem(reinterpret_cast<const void*>(kernel),
-                   hopper::k1_smem_bytes(kMaxRing, 1), allowed, true);
+                   kF32 ? hopper::k1_smem_bytes(2, 2, true, hopper::kMaxSub)
+                        : hopper::k1_smem_bytes(kRingMax, 1, false),
+                   allowed, true);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int m_tiles = (M + 63) / 64, n_tiles = (N + 63) / 64;
   const dim3 block(hopper::kWg + 32);
-  bf16* o = static_cast<bf16*>(out);
+  T* o = static_cast<T*>(out);
   if (splits == 1) {
     // gridDim.z: the configs' tiles in about one wave of the blocks the
     // card holds at once (cached per device and ring), each block walking
@@ -601,7 +716,7 @@ int launch_tma(const void* x, const void* w, const float* scale,
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(m_tiles, n_tiles, C * splits);
+  cfg.gridDim = dim3(m_tiles, n_tiles, C * ranks);
   cfg.blockDim = block;
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -609,7 +724,7 @@ int launch_tma(const void* x, const void* w, const float* scale,
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
   attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = splits;
+  attr[0].val.clusterDim.z = ranks;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, map_a, map_b, scale, shift, o, C, M,
@@ -618,17 +733,22 @@ int launch_tma(const void* x, const void* w, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Checks a TMA plan (C configs; splits <= 16, a cluster of the tile's
-// splits, C * splits <= 65,535; each split a multiple of 64 of K), then
-// launches the layout's instantiation.
+// Checks a TMA plan (C configs; bf16 splits <= 16, a cluster of the
+// tile's splits; float32 splits <= 128, a cluster of up to 16 blocks of
+// k1_sub(splits) partials each; C * blocks <= 65,535; each split whole
+// stages of K: a multiple of 64 in bf16, of 32 in float32), then launches
+// the layout's instantiation of T.
+template <class T>
 int launch_tma_plan(const void* x, const void* w, const float* scale,
                     const float* shift, void* out, int C, int M, int N,
                     int K, int act, int trans_a, int trans_b, int splits,
                     int k_per_split, void* stream) {
+  constexpr int kDepth = kIsF32<T> ? hopper::kStageK32 : hopper::kStageK;
   const bool plan_ok =
-      C >= 1 && K > 0 && splits >= 1 && splits <= 16 &&
+      C >= 1 && K > 0 && splits >= 1 &&
+      splits <= (kIsF32<T> ? 16 * hopper::kMaxSub : 16) &&
       static_cast<long long>(C) * splits <= 65535 && k_per_split > 0 &&
-      k_per_split % hopper::kStageK == 0 &&
+      k_per_split % kDepth == 0 &&
       static_cast<long long>(splits) * k_per_split >= K &&
       static_cast<long long>(splits - 1) * k_per_split < K;
   if (!plan_ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -636,15 +756,18 @@ int launch_tma_plan(const void* x, const void* w, const float* scale,
   // buffer (trans_a), B from a row-major (K, N) one (not trans_b)
   const auto s = static_cast<cudaStream_t>(stream);
   if (trans_a)
-    return trans_b ? launch_tma<true, false>(x, w, scale, shift, out, C, M,
-                                             N, K, act, splits, k_per_split,
-                                             s)
-                   : launch_tma<true, true>(x, w, scale, shift, out, C, M, N,
-                                            K, act, splits, k_per_split, s);
-  return trans_b ? launch_tma<false, false>(x, w, scale, shift, out, C, M, N,
-                                            K, act, splits, k_per_split, s)
-                 : launch_tma<false, true>(x, w, scale, shift, out, C, M, N,
-                                           K, act, splits, k_per_split, s);
+    return trans_b ? launch_tma<T, true, false>(x, w, scale, shift, out, C,
+                                                M, N, K, act, splits,
+                                                k_per_split, s)
+                   : launch_tma<T, true, true>(x, w, scale, shift, out, C, M,
+                                               N, K, act, splits,
+                                               k_per_split, s);
+  return trans_b ? launch_tma<T, false, false>(x, w, scale, shift, out, C, M,
+                                               N, K, act, splits,
+                                               k_per_split, s)
+                 : launch_tma<T, false, true>(x, w, scale, shift, out, C, M,
+                                              N, K, act, splits, k_per_split,
+                                              s);
 }
 
 }  // namespace
@@ -696,9 +819,25 @@ int satae_fused_gemm_bf16_tma(const __nv_bfloat16* x, const __nv_bfloat16* w,
                               __nv_bfloat16* out, int M, int N, int K,
                               int act, int trans_a, int trans_b, int splits,
                               int k_per_split, void* stream) {
-  return satae::launch_tma_plan(x, w, scale, shift, out, 1, M, N, K, act,
-                                trans_a, trans_b, splits, k_per_split,
-                                stream);
+  return satae::launch_tma_plan<__nv_bfloat16>(
+      x, w, scale, shift, out, 1, M, N, K, act, trans_a, trans_b, splits,
+      k_per_split, stream);
+}
+
+// satae_fused_gemm on wgmma (3xTF32), with TMA loads and a cluster's
+// split-K reduction: x and w must be 16-byte aligned with 16-byte-aligned
+// rows (the wrapper routes other buffers to satae_fused_gemm). The plan:
+// `splits` (<= 16, one cluster per tile) K ranges of k_per_split (a
+// multiple of 32) each, on 64 x 64 tiles; no workspace. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan or buffer the
+// kernel does not take.
+int satae_fused_gemm_tma(const float* x, const float* w, const float* scale,
+                         const float* shift, float* out, int M, int N, int K,
+                         int act, int trans_a, int trans_b, int splits,
+                         int k_per_split, void* stream) {
+  return satae::launch_tma_plan<float>(x, w, scale, shift, out, 1, M, N, K,
+                                       act, trans_a, trans_b, splits,
+                                       k_per_split, stream);
 }
 
 // for c < C, out[c] (M, N) = act((A[c] @ B[c]) * scale[c] + shift[c]), all
@@ -751,9 +890,25 @@ int satae_fused_gemm_batched_bf16_tma(const __nv_bfloat16* x,
                                       int K, int act, int trans_a,
                                       int trans_b, int splits,
                                       int k_per_split, void* stream) {
-  return satae::launch_tma_plan(x, w, scale, shift, out, C, M, N, K, act,
-                                trans_a, trans_b, splits, k_per_split,
-                                stream);
+  return satae::launch_tma_plan<__nv_bfloat16>(
+      x, w, scale, shift, out, C, M, N, K, act, trans_a, trans_b, splits,
+      k_per_split, stream);
+}
+
+// satae_fused_gemm_batched on satae_fused_gemm_tma's wgmma kernel (3xTF32):
+// x and w (C contiguous slices each, in its layouts) 16-byte aligned with
+// 16-byte-aligned rows; config c is the outermost coordinate of 3-D tensor
+// maps. The plan: `splits` (<= 16, one cluster per tile, C * splits <=
+// 65,535) K ranges of k_per_split (a multiple of 32) each, the same for
+// every config; one split runs a persistent grid. No workspace.
+int satae_fused_gemm_batched_tma(const float* x, const float* w,
+                                 const float* scale, const float* shift,
+                                 float* out, int C, int M, int N, int K,
+                                 int act, int trans_a, int trans_b,
+                                 int splits, int k_per_split, void* stream) {
+  return satae::launch_tma_plan<float>(x, w, scale, shift, out, C, M, N, K,
+                                       act, trans_a, trans_b, splits,
+                                       k_per_split, stream);
 }
 
 const char* satae_error_string(int code) {

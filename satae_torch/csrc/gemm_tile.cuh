@@ -1,8 +1,12 @@
 // The GEMM main loop that K1 (fused_gemm.cu) and K2 (conv_bn_act.cu) share,
 // the kernels that replace satae/kernels/matmul.py:36 (_mm_kernel) and
 // satae/kernels/conv.py:36 (conv2d_bn_act_infer). Their bounds, and the
-// bf16 design for buffers TMA can read, are in those files and in
-// wgmma_tile.cuh; this loop keeps float32 (3xTF32) and the other bf16:
+// Hopper design for buffers TMA can read (float32 as 3xTF32 and bf16), are
+// in those files and in wgmma_tile.cuh; this loop keeps the buffers TMA
+// cannot read, in either dtype -- a base, row or config stride that is not
+// a multiple of 16 bytes (the head's 10-wide cotangent in K1's backward:
+// 40-byte float32 and 20-byte bf16 rows), K2 layers whose channels TMA's
+// im2col cannot cut into whole stages, misaligned buffers:
 // one 64 x kBN output tile (kBN = 32 or 64) of out = act((A @ B) * scale +
 // shift), with the operands and the output in T -- float32, on tensor cores
 // as 3xTF32, or bf16 -- and the accumulators, scale, shift and epilogue in
@@ -45,8 +49,8 @@
 // per slice and one product per step (a bf16 product is exact in float32).
 // A bf16 fragment register holds two consecutive K values; from an MN-major
 // stage they sit in two shared rows and are packed from two 16-bit loads.
-// bf16 buffers that TMA can read (16-byte-aligned bases and rows) take
-// wgmma_tile.cuh's loop instead; this one keeps the rest.
+// Buffers that TMA can read (16-byte-aligned bases and rows), float32 and
+// bf16, take wgmma_tile.cuh's loop instead; this one keeps the rest.
 // Both: the tensor cores' float32 accumulation drops the low bits of each
 // sum (it does not round to nearest), so an accumulator that runs down all of
 // K drifts towards zero, at K = 4096 outside the float32 tolerance on an

@@ -34,20 +34,26 @@ BUILD_ROOT = _PKG / "_build"
 # source -> {launcher: (device pointers, int arguments)}. A launcher takes
 # its pointers (x, w, scale, shift, out, then K1's split-K workspace and
 # counters), its int arguments, then the stream, and returns
-# cudaGetLastError(). Each kernel has a float32 and a bf16 launcher (x, w
-# and out bf16; scale, shift and the workspace float32), and a bf16 one on
-# wgmma with TMA loads (``_bf16_tma``) for buffers TMA can read; K1 also
-# has batched ones (``_batched``, ``_batched_bf16``, ``_batched_bf16_tma``:
-# C products in one launch of the unbatched launcher's kernel, the config
-# count C first among the ints).
+# cudaGetLastError() (``satae_conv2d_bn_act_tma`` takes a sixth pointer,
+# the workspace of its split weight). Each kernel has a float32 and a bf16
+# launcher on gemm_tile.cuh's mma.sync loop (bf16: x, w and out bf16;
+# scale, shift and the workspace float32), and one of each on wgmma with
+# TMA loads
+# (``_tma``, ``_bf16_tma``) for buffers TMA can read; K1 also has batched
+# ones (``_batched``, ``_batched_bf16``, ``_batched_tma``,
+# ``_batched_bf16_tma``: C products in one launch of the unbatched
+# launcher's kernel, the config count C first among the ints).
 LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": (7, 9),
                             "satae_fused_gemm_bf16": (7, 9),
+                            "satae_fused_gemm_tma": (5, 8),
                             "satae_fused_gemm_bf16_tma": (5, 8),
                             "satae_fused_gemm_batched": (7, 10),
                             "satae_fused_gemm_batched_bf16": (7, 10),
+                            "satae_fused_gemm_batched_tma": (5, 9),
                             "satae_fused_gemm_batched_bf16_tma": (5, 9)},
              "conv_bn_act": {"satae_conv2d_bn_act": (5, 13),
                              "satae_conv2d_bn_act_bf16": (5, 13),
+                             "satae_conv2d_bn_act_tma": (6, 13),
                              "satae_conv2d_bn_act_bf16_tma": (5, 13)}}
 # the operand dtypes the kernels take, and each one's launcher suffix
 OPERAND_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}

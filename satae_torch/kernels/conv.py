@@ -8,7 +8,10 @@ patches in its loads and never writes an im2col matrix. On a CUDA tensor
 :func:`conv2d_bn_act_plain`. There is no fallback from one to the other.
 
 Layouts are the JAX package's: NHWC activations, HWIO weights. A PyTorch
-OIHW weight goes through :func:`pack_conv_weight` once, at load.
+OIHW weight goes through :func:`pack_conv_weight` once, at load; for
+float32 with ``k_major=True``, which keeps it in the (Cout, KH, KW, Cin)
+buffer K2's TF32 wgmma kernels read (the tensor cores take TF32 only
+K-major) and hands out the HWIO view of that buffer.
 
 x and w are both float32 or both bf16 (K2's bf16 instantiation,
 ``satae_conv2d_bn_act_bf16``, counted in ``conv2d_bn_act.launches["_bf16"]``),
@@ -37,11 +40,23 @@ def bn_fold(weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
     return scale, shift
 
 
-def pack_conv_weight(w_oihw: torch.Tensor) -> torch.Tensor:
-    """OIHW -> contiguous HWIO: row k of its (KH*KW*Cin, Cout) view is tap
+def pack_conv_weight(w_oihw: torch.Tensor,
+                     k_major: bool = False) -> torch.Tensor:
+    """OIHW -> HWIO: row k of its (KH*KW*Cin, Cout) view is tap
     (k // Cin) // KW, (k // Cin) % KW and channel k % Cin, the patch order
-    K2 gathers in."""
-    return w_oihw.detach().permute(2, 3, 1, 0).contiguous()
+    K2 gathers in. A contiguous HWIO tensor, or with ``k_major`` the HWIO
+    view of a contiguous (Cout, KH, KW, Cin) buffer -- the same values,
+    each output channel's KH*KW*Cin weights contiguous (:func:`is_k_major`)."""
+    w = w_oihw.detach()
+    if k_major:
+        return w.permute(0, 2, 3, 1).contiguous().permute(1, 2, 3, 0)
+    return w.permute(2, 3, 1, 0).contiguous()
+
+
+def is_k_major(w: torch.Tensor) -> bool:
+    """Whether the HWIO ``w`` is the view of a contiguous (Cout, KH, KW,
+    Cin) buffer."""
+    return w.permute(3, 0, 1, 2).is_contiguous()
 
 
 def _out_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int):
@@ -68,33 +83,45 @@ ROWS_SMEM = 64 * 1024
 
 def conv_route(x: torch.Tensor, w: torch.Tensor, stride: int,
                padding: int) -> Tuple[str, int]:
-    """K2's kernel for NHWC x and HWIO w: (route, tile_n). For bf16 with x
-    and w 16-byte aligned, on wgmma: "rows" (tile_n 32), the staged-rows
-    kernel, for a conv0-like layer -- K = KH * KW * Cin <= 32, Cout <= 32
-    and a multiple of 8, 128 output pixels that are whole output rows of one
-    image, input rows of a multiple of 16 bytes; "im2col", the kernel whose
-    patches and weight come by TMA, for Cout a multiple of 8 and either
-    Cout <= 64 with Cin a multiple of 32 (tile_n 64, loads of 32 channels)
-    or Cin a multiple of 64 (tile_n 128, loads of 64), stride <= 8 and
-    filter and padding <= 64. Everything else, and float32 always: "mma",
-    gemm_tile.cuh's mma.sync loop, tile_n 32 or 64."""
+    """K2's kernel for NHWC x and HWIO w: (route, tile_n), a fixed function
+    of dtype, shape and alignment. For bf16 or float32 with x and w 16-byte
+    aligned, on wgmma: "rows" (tile_n 32), the staged-rows kernel, for a
+    conv0-like layer -- K = KH * KW * Cin <= 32, Cout <= 32 and a multiple
+    of 8, 128 output pixels that are whole output rows of one image, input
+    rows of a multiple of 16 bytes; "im2col", the kernel whose patches and
+    weight come by TMA, for stride <= 8 and filter and padding <= 64
+    (TMA's im2col mode) and -- bf16, Cout a multiple of 8 -- either Cout <=
+    64 with Cin a multiple of 32 (tile_n 64, loads of 32 channels) or Cin a
+    multiple of 64 (tile_n 128, loads of 64); float32 (3xTF32), Cin a
+    multiple of 32 (one load of 32 channels of a tap per 32-deep stage),
+    tile_n 64 (a 128-wide split weight per warpgroup would not fit beside
+    the ring). Everything else: "mma", gemm_tile.cuh's mma.sync loop,
+    tile_n 32 or 64 -- channel counts TMA's im2col cannot cut into whole
+    stages (bf16 Cin 5, 6, 8, 16; float32 Cin 5 or 40), misaligned
+    buffers. Both float32 wgmma kernels read the weight K-major
+    (:func:`pack_conv_weight` with ``k_major``); the mma.sync loop reads
+    it HWIO (:func:`conv2d_bn_act` hands each what it reads)."""
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     oh, ow = _out_hw(h, wd, kh, kw, stride, padding)
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    if x.dtype == torch.bfloat16 and aligned and cout % 8 == 0:
-        rows = ((128 // ow - 1) * stride + kh) * wd * cin * 2 if \
+    esize = x.element_size()
+    if aligned and cout % 8 == 0:
+        rows = ((128 // ow - 1) * stride + kh) * wd * cin * esize if \
             0 < ow <= 128 else 0
         if (kh * kw * cin <= 32 and cout <= 32 and 0 < ow <= 128
                 and 128 % ow == 0 and oh * ow % 128 == 0
-                and wd * cin % 8 == 0 and rows <= ROWS_SMEM):
+                and wd * cin * esize % 16 == 0 and rows <= ROWS_SMEM):
             return "rows", 32
         # TMA's im2col mode walks windows in strides of at most 8, from
         # corners within 8-bit offsets of the image
         if stride <= 8 and max(kh, kw, padding) <= 64:
-            if cout <= 64 and cin % 32 == 0:
+            if x.dtype == torch.float32:
+                if cin % 32 == 0:
+                    return "im2col", 64
+            elif cout <= 64 and cin % 32 == 0:
                 return "im2col", 64
-            if cin % 64 == 0:
+            elif cin % 64 == 0:
                 return "im2col", 128
     return "mma", tile_n_for(cout)
 
@@ -103,7 +130,18 @@ def _conv_cuda(x, w, scale, shift, stride, padding, act):
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     oh, ow = _out_hw(h, wd, kh, kw, stride, padding)
-    suffix = _build.check_operands("conv2d_bn_act", x.device, x, w,
+    route, tile_n = conv_route(x, w, stride, padding)
+    # the buffer the route's kernel reads: the float32 wgmma kernels the
+    # K-major (Cout, KH, KW, Cin) one, everything else HWIO; a weight in
+    # the other layout is copied into it (never on the serving path, whose
+    # fold keeps each dtype's layout)
+    if x.dtype == torch.float32 and route != "mma":
+        w_buf = w.permute(3, 0, 1, 2)
+        if not w_buf.is_contiguous():
+            w_buf = w_buf.contiguous()
+    else:
+        w_buf = w.contiguous() if is_k_major(w) else w
+    suffix = _build.check_operands("conv2d_bn_act", x.device, x, w_buf,
                                    scale=scale, shift=shift)
     if max(x.numel(), n * oh * ow * cout) >= 2 ** 31:
         raise ValueError(f"conv2d_bn_act: input {tuple(x.shape)} exceeds "
@@ -111,12 +149,17 @@ def _conv_cuda(x, w, scale, shift, stride, padding, act):
     out = torch.empty((n, oh, ow, cout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
-    route, tile_n = conv_route(x, w, stride, padding)
+    ptrs = [x.data_ptr(), w_buf.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), out.data_ptr()]
+    if x.dtype == torch.float32 and route != "mma":
+        # the float32 im2col kernel's weight split into its TF32 halves
+        ws = (torch.empty(2 * w.numel(), device=x.device)
+              if route == "im2col" else None)
+        ptrs.append(0 if ws is None else ws.data_ptr())
     _build.launch(_build.load("conv_bn_act"), "satae_conv2d_bn_act" + suffix
-                  + ("" if route == "mma" else "_tma"), x.device,
-                  x.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                  shift.data_ptr(), out.data_ptr(), n, h, wd, cin, kh, kw,
-                  cout, oh, ow, stride, padding, ACTS.index(act), tile_n)
+                  + ("" if route == "mma" else "_tma"), x.device, *ptrs, n, h,
+                  wd, cin, kh, kw, cout, oh, ow, stride, padding,
+                  ACTS.index(act), tile_n)
     count_launch(conv2d_bn_act, x.dtype)
     return out
 
@@ -126,8 +169,9 @@ def conv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                   act: str = "none") -> torch.Tensor:
     """act(conv2d(x, w) * scale + shift) for NHWC x and HWIO w, with the conv
     bias and eval-mode BN folded into scale/shift (Cout,). x and w are both
-    float32 or both bf16, scale and shift float32. Returns NHWC in x's
-    dtype.
+    float32 or both bf16, scale and shift float32. w is a contiguous HWIO
+    tensor or the HWIO view of a (Cout, KH, KW, Cin) buffer
+    (:func:`pack_conv_weight`). Returns NHWC in x's dtype.
 
     A CUDA x launches K2 (counted in ``conv2d_bn_act.launches``); a CPU x
     takes :func:`conv2d_bn_act_plain`."""

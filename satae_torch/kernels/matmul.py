@@ -16,6 +16,10 @@ the (N, K) buffer an ``nn.Linear`` stores; K1 reads either layout, and each
 backward product, in place (its ``trans_a``/``trans_b`` flags), so no
 transposed copy of an operand is ever made.
 
+Where TMA can read both buffers (:func:`k1_loader`) K1 runs its wgmma
+kernel, float32 as 3xTF32 and bf16 alike; other buffers take its mma.sync
+loop.
+
 Operands are float32, or bf16 as in satae's bf16 recipe: x and w of one
 dtype (a mixed pair raises; the callers cast, as satae's layers do), scale
 and shift float32, the product accumulated and the epilogue taken in
@@ -142,20 +146,27 @@ def split_k_plan(m: int, n: int, k: int,
     return TILE_M, tile_n, -(-k // k_per_split), k_per_split
 
 
-# K1's bf16 route on wgmma (satae_torch/csrc/fused_gemm.cu,
-# wgmma_tile.cuh): 64 x 64 tiles, TMA stages of 64 of K; the splits of a
-# tile are one thread-block cluster (at most 16 blocks), each split >=
-# TMA_MIN_SPLIT_K of K, about TMA_WAVE_BLOCKS blocks in all: `chip_smoke.py
-# --split-sweep` on an H100 measured the serving projection 512 x 4096 x 64
-# fastest at 8 splits (64 blocks) and the batch-64 one at 16. A batched
-# launch aims at TMA_WAVE_BLOCKS_BATCHED blocks over all its configs: the
-# same sweep at C = 45 (the vmap sweep's projection and decoder-input dX,
-# 45 tiles) measured 4 splits (180 blocks) fastest at both.
+# K1's route on wgmma (satae_torch/csrc/fused_gemm.cu, wgmma_tile.cuh):
+# 64 x 64 tiles, TMA stages of 128-byte rows -- 64 of K in bf16
+# (TMA_BK), 32 in float32 (TMA_BK_F32); the splits of a tile are one
+# thread-block cluster (at most 16 blocks), each split >= TMA_MIN_SPLIT_K
+# of K, about TMA_WAVE_BLOCKS blocks in all: `chip_smoke.py --split-sweep`
+# on an H100 measured the bf16 serving projection 512 x 4096 x 64 fastest
+# at 8 splits (64 blocks) and the batch-64 one at 16. A batched launch
+# aims at TMA_WAVE_BLOCKS_BATCHED blocks over all its configs: the same
+# sweep at C = 45 (the vmap sweep's projection and decoder-input dX, 45
+# tiles) measured 4 splits (180 blocks) fastest at both. float32 keeps
+# the mma.sync loop's split plan (split_k_plan): its wgmma kernel sums each
+# output element bit for bit as that loop does on the same plan (chip_smoke
+# --ab holds it), so float32 results do not depend on the route; a cluster
+# block holds up to MAX_SUB_F32 of the plan's partials.
 TMA_BK = 64
+TMA_BK_F32 = 32
 TMA_MIN_SPLIT_K = 256
 TMA_WAVE_BLOCKS = 64
 TMA_WAVE_BLOCKS_BATCHED = 180
 MAX_CLUSTER = 16
+MAX_SUB_F32 = 8
 
 
 def tma_ok(t: torch.Tensor) -> bool:
@@ -171,30 +182,45 @@ def tma_ok(t: torch.Tensor) -> bool:
 def k1_loader(x: torch.Tensor, w: torch.Tensor) -> str:
     """Which loader K1 runs on the buffers x and w (in the layouts they are
     passed in; 2-D, or the (C, ., .) stacks of the batched K1): "tma" --
-    the bf16 wgmma kernel, TMA loads into an mbarrier ring -- for a bf16
-    pair that TMA can read (:func:`tma_ok`), else "cp.async", gemm_tile.cuh's
-    mma.sync loop (float32 always; bf16 with an odd K or N, an odd offset or
-    config stride, or a row of 20 bytes, such as the head's N = 10 as the
-    contiguous axis)."""
-    if x.dtype == torch.bfloat16 and tma_ok(x) and tma_ok(w):
+    the wgmma kernel, TMA loads into an mbarrier ring (bf16, or float32 as
+    3xTF32) -- for a pair that TMA can read (:func:`tma_ok`), else
+    "cp.async", gemm_tile.cuh's mma.sync loop. A fixed function of dtype
+    and alignment: the mma.sync loop keeps what TMA cannot read -- a base
+    or a row or config stride that is not a multiple of 16 bytes, such as
+    the head's 10-wide cotangent as the contiguous axis (20-byte bf16 and
+    40-byte float32 rows: fc2's dX and dW), an odd K or N in bf16, or a
+    float32 K or N that is not a multiple of 4."""
+    if tma_ok(x) and tma_ok(w):
         return "tma"
     return "cp.async"
 
 
-def split_k_plan_tma(m: int, n: int, k: int,
-                     batch: int = 1) -> Tuple[int, int, int, int]:
-    """The plan of K1's bf16 TMA route for an (m, k) @ (k, n) product:
-    (tile_m, tile_n, splits, k_per_split), 64 x 64 tiles. Split s covers K
-    range [s * k_per_split, min(k, (s + 1) * k_per_split)), k_per_split a
-    multiple of TMA_BK; the splits of a tile form one cluster, so splits <=
-    MAX_CLUSTER. With the output's tiles alone at TMA_WAVE_BLOCKS or more,
-    or k below 2 * TMA_MIN_SPLIT_K, there is one split; otherwise as many as
-    reach about TMA_WAVE_BLOCKS blocks while each keeps at least
-    TMA_MIN_SPLIT_K of K: fewer blocks than the mma.sync plan's, since a
-    cluster's in-order reduction grows with the splits. ``batch``: the plan
-    of the batched K1 over that many products, every config's tiles
-    counted toward TMA_WAVE_BLOCKS_BATCHED, never more splits than one
-    product's plan."""
+def split_k_plan_tma(m: int, n: int, k: int, batch: int = 1,
+                     dtype: torch.dtype = torch.bfloat16
+                     ) -> Tuple[int, int, int, int]:
+    """The plan of K1's TMA route for an (m, k) @ (k, n) product in
+    ``dtype``: (tile_m, tile_n, splits, k_per_split), 64 x 64 tiles. Split
+    s covers K range [s * k_per_split, min(k, (s + 1) * k_per_split)),
+    k_per_split a multiple of the dtype's stage (TMA_BK of K in bf16,
+    TMA_BK_F32 in float32), so no stage straddles two splits.
+
+    float32: :func:`split_k_plan`'s splits and k_per_split (its own 32- or
+    64-wide tiles aside), so the wgmma kernel's sums are the mma.sync
+    loop's bit for bit; its cluster has ceil(splits / sub) blocks of sub
+    consecutive partials each, sub the least power of two that keeps the
+    cluster within 16 blocks (split_k_plan gives at most 128 = 16 *
+    MAX_SUB_F32 splits).
+
+    bf16: the splits of a tile form one cluster, so splits <= MAX_CLUSTER.
+    With the output's tiles alone at TMA_WAVE_BLOCKS or more, or k below 2
+    * TMA_MIN_SPLIT_K, there is one split; otherwise as many as reach about
+    TMA_WAVE_BLOCKS blocks while each keeps at least TMA_MIN_SPLIT_K of K:
+    fewer blocks than the mma.sync plan's, since a cluster's in-order
+    reduction grows with the splits. ``batch``: the plan of the batched K1
+    over that many products, every config's tiles counted toward
+    TMA_WAVE_BLOCKS_BATCHED, never more splits than one product's plan."""
+    if dtype == torch.float32:
+        return (TILE_M, TILE_M) + split_k_plan(m, n, k, batch)[2:]
     tiles = batch * -(-m // TILE_M) * -(-n // TILE_M)
     wave = TMA_WAVE_BLOCKS if batch == 1 else TMA_WAVE_BLOCKS_BATCHED
     stages = max(-(-k // TMA_BK), 1)
@@ -237,14 +263,14 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     """One launch of K1 on CUDA tensors: act((A @ B) * scale + shift) with
     A = x, or x read in place as its transpose (``trans_a``: x is a (K, M)
     buffer), and B = w, or w read in place as its transpose (``trans_b``: w
-    is an (N, K) buffer), in x's dtype: float32, or bf16 for a bf16 pair
-    (``satae_fused_gemm_bf16_tma`` on wgmma where :func:`k1_loader` says
-    "tma", with :func:`split_k_plan_tma`'s plan, else
-    ``satae_fused_gemm_bf16``). A scale or shift of None is 1 or 0, and
-    nothing is allocated for it. Off the TMA route the plan is
-    :func:`split_k_plan`'s, and a split-K launch takes a workspace of splits
-    * M * N floats. Raises on a refused launch. The callers on the training
-    and serving paths count the launches."""
+    is an (N, K) buffer), in x's dtype, float32 or bf16:
+    ``satae_fused_gemm_tma`` / ``satae_fused_gemm_bf16_tma`` on wgmma where
+    :func:`k1_loader` says "tma", with :func:`split_k_plan_tma`'s plan for
+    the dtype, else ``satae_fused_gemm`` / ``satae_fused_gemm_bf16`` on the
+    mma.sync loop with :func:`split_k_plan`'s, where a split-K launch takes
+    a workspace of splits * M * N floats. A scale or shift of None is 1 or
+    0, and nothing is allocated for it. Raises on a refused launch. The
+    callers on the training and serving paths count the launches."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_gemm: K1 runs on CUDA tensors, x is on "
                          f"{x.device}")
@@ -263,11 +289,13 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     if m == 0 or n == 0:
         return out
     if k1_loader(x, w) == "tma":
-        _, _, splits, k_per_split = split_k_plan_tma(m, n, k)
-        _build.launch(_build.load("fused_gemm"), "satae_fused_gemm_bf16_tma",
-                      x.device, x.data_ptr(), w.data_ptr(), _ptr(scale),
-                      _ptr(shift), out.data_ptr(), m, n, k, ACTS.index(act),
-                      int(trans_a), int(trans_b), splits, k_per_split)
+        _, _, splits, k_per_split = split_k_plan_tma(m, n, k,
+                                                     dtype=x.dtype)
+        _build.launch(_build.load("fused_gemm"),
+                      "satae_fused_gemm" + suffix + "_tma", x.device,
+                      x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
+                      out.data_ptr(), m, n, k, ACTS.index(act), int(trans_a),
+                      int(trans_b), splits, k_per_split)
         return out
     _, tile_n, splits, k_per_split = split_k_plan(m, n, k)
     ws = split_k_workspace(m, n, splits, x.device)
@@ -403,13 +431,13 @@ fused_matmul.launches = _build.launch_counter()
 # (satae_torch/csrc/fused_gemm.cu) over the C configs of a stacked linear,
 # forward and backward: x (C, M, K), W (C, K, N) or, with ``w_nk``, an
 # (N, K) weight per config (C, N, K), scale (C, N) or None, shift (C, N),
-# out (C, M, N). float32 runs the mma.sync kernel with the config folded
-# into the grid's z, on split_k_plan's plan with every config's tiles
-# counted toward the wave; bf16 runs the wgmma kernel with the config as
-# the outermost coordinate of 3-D tensor maps, on split_k_plan_tma's
-# batched plan, where :func:`k1_loader` says "tma", and the bf16 mma.sync
-# kernel otherwise (the head's 10-wide cotangent). The plan is the same
-# for all configs.
+# out (C, M, N). Where :func:`k1_loader` says "tma" it runs the wgmma
+# kernel (float32 as 3xTF32, or bf16) with the config as the outermost
+# coordinate of 3-D tensor maps, on split_k_plan_tma's batched plan;
+# otherwise (the head's 10-wide cotangent) the mma.sync kernel with the
+# config folded into the grid's z, on split_k_plan's plan with every
+# config's tiles counted toward the wave. The plan is the same for all
+# configs.
 
 
 def fused_matmul_batched_plain(x: torch.Tensor, w: torch.Tensor,
@@ -451,12 +479,13 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     act((A[c] @ B[c]) * scale[c] + shift[c]) with A[c] = x[c], or x[c] read
     as its transpose (``trans_a``: x is C x (K, M)), and B[c] = w[c], or
     w[c] read as its transpose (``trans_b``: w is C x (N, K)), in x's dtype:
-    ``satae_fused_gemm_batched_bf16_tma`` on wgmma where :func:`k1_loader`
-    says "tma", with ``split_k_plan_tma(m, n, k, batch=C)``, else
-    ``satae_fused_gemm_batched`` / ``_batched_bf16`` with ``split_k_plan(m,
-    n, k, batch=C)``, where a split-K launch takes a workspace of C * splits
-    * M * N floats. Raises on a refused launch; never falls back to C
-    unbatched launches. The callers count the launches."""
+    ``satae_fused_gemm_batched_tma`` / ``_batched_bf16_tma`` on wgmma where
+    :func:`k1_loader` says "tma", with ``split_k_plan_tma(m, n, k, batch=C,
+    dtype=x.dtype)``, else ``satae_fused_gemm_batched`` / ``_batched_bf16``
+    with ``split_k_plan(m, n, k, batch=C)``, where a split-K launch takes a
+    workspace of C * splits * M * N floats. Raises on a refused launch;
+    never falls back to C unbatched launches. The callers count the
+    launches."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_gemm_batched: K1 runs on CUDA tensors, x is "
                          f"on {x.device}")
@@ -480,9 +509,10 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     if c == 0 or m == 0 or n == 0:
         return out
     if k1_loader(x, w) == "tma":
-        _, _, splits, k_per_split = split_k_plan_tma(m, n, k, batch=c)
+        _, _, splits, k_per_split = split_k_plan_tma(m, n, k, batch=c,
+                                                     dtype=x.dtype)
         _build.launch(_build.load("fused_gemm"),
-                      "satae_fused_gemm_batched_bf16_tma", x.device,
+                      "satae_fused_gemm_batched" + suffix + "_tma", x.device,
                       x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
                       out.data_ptr(), c, m, n, k, ACTS.index(act),
                       int(trans_a), int(trans_b), splits, k_per_split)

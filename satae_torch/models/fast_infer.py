@@ -8,11 +8,17 @@ fast_infer.py:28-47 folds them.
 
 Folding and packing happen once per weight set (:func:`fold_encoder`,
 :func:`fold_mlp`), not per call: conv weights go OIHW -> HWIO (the K2 patch
-order), linear weights (out, in) -> (in, out), and the encoder projection's
-input rows are reordered from the reference's NCHW flatten to the NHWC
-flatten of K2's output, the permutation satae/io/torch_import.py applies.
-A caller that changes the modules' weights folds again (satae_torch.api
-does so when it sees them change).
+order), and the encoder projection's input rows are reordered from the
+reference's NCHW flatten to the NHWC flatten of K2's output, the
+permutation satae/io/torch_import.py applies. In float32 every weight is
+kept K-major, the layout the kernels' TF32 wgmma reads (the tensor cores
+take TF32 only K-major): linear weights stay (out, in), read with
+``w_nk``, and conv weights are the HWIO view of a (Cout, KH, KW, Cin)
+buffer (``pack_conv_weight(k_major=True)``). In bf16 the encoder's linear
+weight goes (out, in) -> (in, out) and its conv weights are contiguous
+HWIO, which K1's and K2's bf16 wgmma kernels read MN-major. Either way the
+values are the same. A caller that changes the modules' weights folds
+again (satae_torch.api does so when it sees them change).
 
 In bf16 (``fold_encoder(enc, torch.bfloat16)``) the encoder is served as
 satae serves it (api.py:399-415, kernels/conv.py:27-33): its weights, biases
@@ -48,14 +54,17 @@ class FoldedConv:
 
 @dataclass(frozen=True)
 class FoldedLinear:
-    """One K1 launch: act((x @ w) * scale + shift)."""
-    w: torch.Tensor  # (in, out)
+    """One K1 launch: act((x @ W) * scale + shift), W = w, or w.T with
+    ``w_nk``."""
+    w: torch.Tensor  # (in, out), or (out, in) with w_nk
     scale: torch.Tensor
     shift: torch.Tensor
     act: str
+    w_nk: bool = False
 
     def __call__(self, h: torch.Tensor) -> torch.Tensor:
-        return fused_matmul(h, self.w, self.scale, self.shift, self.act)
+        return fused_matmul(h, self.w, self.scale, self.shift, self.act,
+                            w_nk=self.w_nk)
 
 
 @dataclass(frozen=True)
@@ -69,11 +78,20 @@ class FoldedMLP:
     layers: Tuple[FoldedLinear, ...]
 
 
-def _plain_linear(w_in_out: torch.Tensor, b: torch.Tensor) -> FoldedLinear:
+def _plain_linear(w_out_in: torch.Tensor, b: torch.Tensor) -> FoldedLinear:
     """satae's ``linear_pallas``: scale 1, shift = bias (float32 of b's
-    values)."""
-    return FoldedLinear(w_in_out.contiguous(), torch.ones_like(b.float()),
-                        b.detach().float(), "none")
+    values), the (out, in) weight kept K-major in float32 and made (in,
+    out) otherwise."""
+    return FoldedLinear(_linear_weight(w_out_in), torch.ones_like(b.float()),
+                        b.detach().float(), "none",
+                        w_out_in.dtype == torch.float32)
+
+
+def _linear_weight(w_out_in: torch.Tensor) -> torch.Tensor:
+    """The buffer K1 reads for an (out, in) weight: itself in float32 (read
+    with ``w_nk``), its (in, out) transpose in bf16."""
+    w = w_out_in.detach()
+    return (w if w.dtype == torch.float32 else w.t()).contiguous()
 
 
 @torch.no_grad()
@@ -88,13 +106,15 @@ def fold_encoder(enc: Encoder,
             bn.weight, bn.bias, bn.running_mean, bn.running_var)), bn.eps)
         # (z + b) * s + t = z * s + (b * s + t)
         shift = shift + conv.bias.to(dtype).float() * scale
-        convs.append(FoldedConv(pack_conv_weight(conv.weight.to(dtype)),
-                                scale, shift, conv.stride[0],
-                                conv.padding[0]))
+        convs.append(FoldedConv(
+            pack_conv_weight(conv.weight.to(dtype),
+                             k_major=dtype == torch.float32),
+            scale, shift, conv.stride[0], conv.padding[0]))
     c = enc.blocks()[-1][0].out_channels
     w = enc.proj.weight.detach().to(dtype)  # (latent, C*S*S), NCHW flatten
     s = int(round((w.shape[1] // c) ** 0.5))
-    w = w.reshape(-1, c, s, s).permute(2, 3, 1, 0).reshape(s * s * c, -1)
+    # (latent, S*S*C): the input axis in the NHWC flatten of K2's output
+    w = w.reshape(-1, c, s, s).permute(0, 2, 3, 1).reshape(w.shape[0], -1)
     return FoldedEncoder(tuple(convs),
                          _plain_linear(w, enc.proj.bias.to(dtype)))
 
@@ -106,9 +126,9 @@ def fold_mlp(mlp: MLP) -> FoldedMLP:
         scale, shift = bn_fold(bn.weight, bn.bias, bn.running_mean,
                                bn.running_var, bn.eps)
         shift = shift + fc.bias.float() * scale
-        layers.append(FoldedLinear(fc.weight.detach().t().contiguous(),
-                                   scale, shift, "relu"))
-    layers.append(_plain_linear(mlp.out.weight.detach().t(), mlp.out.bias))
+        layers.append(FoldedLinear(_linear_weight(fc.weight), scale, shift,
+                                   "relu", fc.weight.dtype == torch.float32))
+    layers.append(_plain_linear(mlp.out.weight, mlp.out.bias))
     return FoldedMLP(tuple(layers))
 
 

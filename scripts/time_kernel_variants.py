@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
-"""Where the bf16 wgmma kernels' time goes, on one CUDA card.
+"""Where the wgmma kernels' time goes, float32 and bf16, on one CUDA card.
 
     python3 scripts/time_kernel_variants.py   # -> chiprun_out/kernel_variants.json
 
 Copies satae_torch/csrc into a temporary directory once per variant, removes
 one part of a kernel by a text substitution (K1: the config walk of the
 one-split grid, the epilogue's stores, the split-K cluster's reduction,
-the wgmmas, or the whole body; K2: the TMA loads of one operand,
-the wgmmas, the epilogue's stores), builds every variant with nvcc in
-parallel (the package's own flags) and times each at the main-path shapes,
-K1 also at the vmap path's batched launches (C = 45), with
-chip_smoke.device_us.
+the wgmmas, float32's split pass, or the whole body; K2: the TMA loads of
+one operand, the wgmmas, float32's split pass, the epilogue's stores),
+builds every variant with nvcc in parallel (the package's own flags) and
+times each at the main-path shapes in float32 and bf16, K1 also at the
+vmap path's batched launches (C = 45), with chip_smoke.device_us.
 A variant computes wrong numbers; its time, beside the unchanged kernel's,
 is the cost of the part it removed. Every variant keeps the kernels'
 mbarrier protocol (each full barrier still completes), so none can hang.
@@ -19,6 +19,7 @@ mbarrier protocol (each full barrier still completes), so none can hang.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import shutil
 import subprocess
@@ -32,6 +33,15 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
 
+# float32: the three TF32 wgmmas of each k8 step, and the split pass (the
+# A fragments stay unset, B's split tiles unwritten)
+TF32_MMA = ("wgmma_tile.cuh",
+            "    mma_k8<64>(d, as[j], big, j > 0);\n"
+            "    mma_k8<64>(d, ab[j], small, 1);\n"
+            "    mma_k8<64>(d, ab[j], big, 1);\n", "")
+TF32_SPLIT = ("wgmma_tile.cuh",
+              "  load_a_tf32<kTA>(ra, row0, ab, as);\n"
+              "  split_b_tf32<kTB>(rb, bs, bs + kBox);\n", "")
 # (variant, source file, old text, new text), applied in order
 K1_VARIANTS = {
     "unchanged": [],
@@ -47,15 +57,18 @@ K1_VARIANTS = {
         "N, m0, n0, cols, act,")],
     "no cluster reduction": [
         ("fused_gemm.cu",
-         "      if (s < S) q[s] = *cluster.map_shared_rank(mine, s);",
-         "      if (s < S) q[s] = *mine;"),
+         "          q[t] = *cluster.map_shared_rank(\n"
+         "              reinterpret_cast<float4*>(mine + tile * kPlane), "
+         "block);",
+         "          q[t] = *reinterpret_cast<float4*>(mine + tile * kPlane);"),
         ("fused_gemm.cu",
          "    store_cols<4>(out, static_cast<size_t>(m0 + row) * N + n0 + q4, "
          "v,\n                  quad_cols, nv, vec, act);", "")],
     "no wgmma": [(
         "wgmma_tile.cuh",
         "      issue_slice<kN, kTA, kTB>(d0, desc, s, 0);\n"
-        "      issue_slice<kN, kTA, kTB>(d1, desc, s, 1);", "")],
+        "      issue_slice<kN, kTA, kTB>(d1, desc, s, 1);", ""), TF32_MMA],
+    "no split": [TF32_SPLIT],
     "empty body": [(
         "fused_gemm.cu", "  constexpr int kLd = 64 + kOutPad;\n",
         "  constexpr int kLd = 64 + kOutPad;\n  if (M > 0) return;\n")],
@@ -64,19 +77,24 @@ K2_VARIANTS = {
     "unchanged": [],
     "no patch loads": [
         ("conv_bn_act.cu",
-         "        bar_expect(&full[s], loads * 128 * kCh * 2 + kBN * 128);",
-         "        bar_expect(&full[s], kBN * 128);"),
+         "        bar_expect(&full[s], a_bytes + (kStage - kA));",
+         "        bar_expect(&full[s], kStage - kA);"),
         ("conv_bn_act.cu",
          "        for (int h = 0; h < loads; ++h) {",
          "        for (int h = 0; h < 0; ++h) {")],
     "no weight loads": [
         ("conv_bn_act.cu",
-         "        bar_expect(&full[s], loads * 128 * kCh * 2 + kBN * 128);",
-         "        bar_expect(&full[s], loads * 128 * kCh * 2);"),
+         "        bar_expect(&full[s], a_bytes + (kStage - kA));",
+         "        bar_expect(&full[s], a_bytes);"),
         ("conv_bn_act.cu",
-         "        for (int b = 0; b < kBN / 64; ++b)\n"
-         "          tma_load(st + kA + b * kBox, &map_w, &full[s], n0 + 64 * "
-         "b, k0);", "")],
+         "          tma_load(st + kA, &map_w, &full[s], k0, n0);\n"
+         "          tma_load(st + kA + kBox, &map_ws, &full[s], k0, n0);\n",
+         ""),
+        ("conv_bn_act.cu",
+         "#pragma unroll\n"
+         "          for (int b = 0; b < kBN / 64; ++b)\n"
+         "            tma_load(st + kA + b * kBox, &map_w, &full[s], "
+         "n0 + 64 * b, k0);\n", "")],
     "no wgmma": [
         ("wgmma_tile.cuh",
          "      issue_slice<kN, kTA, kTB>(d0, desc, s, 0);\n"
@@ -85,7 +103,13 @@ K2_VARIANTS = {
          "      issue_slice<kN, kTA, kTB>(d0, desc, s, 0);\n"
          "      wgmma_commit();", "      wgmma_commit();"),
         ("wgmma_tile.cuh",
-         "      issue_slice<kN, kTA, kTB>(d0, desc, s, 1);\n", "")],
+         "      issue_slice<kN, kTA, kTB>(d0, desc, s, 1);\n", ""), TF32_MMA,
+        ("conv_bn_act.cu",
+         "        mma_k8<32>(acc, small[j], db, j > 0);\n"
+         "        mma_k8<32>(acc, big[j], ds, 1);\n"
+         "        mma_k8<32>(acc, big[j], db, 1);\n", "")],
+    "no split": [("wgmma_tile.cuh",
+                  "    load_a_tf32<false>(ra, row0, ab, as);\n", "")],
     "no epilogue stores": [
         ("conv_bn_act.cu",
          "      store_rows<kBN>(cs, kLd, 128, out, M, Cout, m0, n0, cols, act,"
@@ -145,7 +169,7 @@ def main() -> int:
     import torch
 
     from satae_torch.kernels import _build
-    from satae_torch.kernels.conv import conv_route
+    from satae_torch.kernels.conv import conv_route, pack_conv_weight
     from satae_torch.kernels.matmul import split_k_plan_tma
 
     chip_smoke.check(torch.cuda.is_available(), "no CUDA device")
@@ -166,22 +190,23 @@ def main() -> int:
           flush=True)
 
     dev = torch.device("cuda")
-    bf = torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for c, m, k, n, ta, tb in K1_SHAPES:
+    for (c, m, k, n, ta, tb), dt in itertools.product(
+            K1_SHAPES, (torch.float32, torch.bfloat16)):
+        sfx = "" if dt == torch.float32 else "_bf16"
         a = torch.randn(c, *((k, m) if ta else (m, k)), device=dev,
-                        generator=g).to(bf)
+                        generator=g).to(dt)
         b = torch.randn(c, *((n, k) if tb else (k, n)), device=dev,
-                        generator=g).to(bf)
+                        generator=g).to(dt)
         scale = torch.rand(c, n, device=dev, generator=g) + 0.5
         shift = torch.rand(c, n, device=dev, generator=g) - 0.5
-        out = torch.empty(c, m, n, device=dev, dtype=bf)
-        _, _, splits, kps = split_k_plan_tma(m, n, k, batch=c)
+        out = torch.empty(c, m, n, device=dev, dtype=dt)
+        _, _, splits, kps = split_k_plan_tma(m, n, k, batch=c, dtype=dt)
         # C = 1 through the unbatched entry, C > 1 the batched one: the same
         # kernel
-        entry, lead = (("satae_fused_gemm_bf16_tma", ()) if c == 1 else
-                       ("satae_fused_gemm_batched_bf16_tma", (c,)))
+        entry, lead = ((f"satae_fused_gemm{sfx}_tma", ()) if c == 1 else
+                       (f"satae_fused_gemm_batched{sfx}_tma", (c,)))
         for name in K1_VARIANTS:
             lib = libs[("fused_gemm", name)]
             run = lambda: _build.launch(
@@ -189,32 +214,41 @@ def main() -> int:
                 scale.data_ptr(), shift.data_ptr(), out.data_ptr(), *lead, m,
                 n, k, 0, int(ta), int(tb), splits, kps)
             us = chip_smoke.device_us(run, 0.0, f"K1 {name}", 50)
-            rows.append(dict(kernel="fused_gemm_bf16", batch=c,
+            rows.append(dict(kernel="fused_gemm" + sfx, batch=c,
                              shape=[m, k, n], trans=[ta, tb], splits=splits,
                              variant=name, device_us=us))
-            print(f"K1 C={c:2d} {str((m, k, n)):18s} {str((ta, tb)):14s} "
-                  f"splits {splits:2d} {name:22s} {us:7.2f} us", flush=True)
-    for nimg, hw, cin, cout in K2_SHAPES:
-        x = torch.rand(nimg, hw, hw, cin, device=dev, generator=g).to(bf)
-        w = torch.rand(3, 3, cin, cout, device=dev, generator=g).to(bf)
+            print(f"K1{sfx:5s} C={c:2d} {str((m, k, n)):18s} "
+                  f"{str((ta, tb)):14s} splits {splits:2d} {name:22s} "
+                  f"{us:7.2f} us", flush=True)
+    for (nimg, hw, cin, cout), dt in itertools.product(
+            K2_SHAPES, (torch.float32, torch.bfloat16)):
+        sfx = "" if dt == torch.float32 else "_bf16"
+        x = torch.rand(nimg, hw, hw, cin, device=dev, generator=g).to(dt)
+        w_oihw = torch.rand(cout, cin, 3, 3, device=dev, generator=g).to(dt)
+        # the serving fold's layout: K-major in float32, HWIO in bf16
+        w = pack_conv_weight(w_oihw, k_major=dt == torch.float32)
+        w_buf = w.permute(3, 0, 1, 2) if dt == torch.float32 else w
         scale = torch.ones(cout, device=dev)
         shift = torch.zeros(cout, device=dev)
         oh = hw // 2
-        out = torch.empty(nimg, oh, oh, cout, device=dev, dtype=bf)
+        out = torch.empty(nimg, oh, oh, cout, device=dev, dtype=dt)
         route, tile_n = conv_route(x, w, 2, 1)
+        # float32: the workspace of the weight's TF32 halves
+        ws_buf = torch.empty(2 * w.numel(), device=dev)
+        ws = (ws_buf.data_ptr(),) if dt == torch.float32 else ()
         for name in K2_VARIANTS:
             lib = libs[("conv_bn_act", name)]
             run = lambda: _build.launch(
-                lib, "satae_conv2d_bn_act_bf16_tma", dev, x.data_ptr(),
-                w.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                out.data_ptr(), nimg, hw, hw, cin, 3, 3, cout, oh, oh, 2, 1,
-                1, tile_n)
+                lib, f"satae_conv2d_bn_act{sfx}_tma", dev, x.data_ptr(),
+                w_buf.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                out.data_ptr(), *ws, nimg, hw, hw, cin, 3, 3, cout, oh, oh,
+                2, 1, 1, tile_n)
             us = chip_smoke.device_us(run, 0.0, f"K2 {name}", 20)
-            rows.append(dict(kernel="conv2d_bn_act_bf16",
+            rows.append(dict(kernel="conv2d_bn_act" + sfx,
                              shape=[nimg, hw, hw, cin, cout], route=route,
                              variant=name, device_us=us))
-            print(f"K2 {str((nimg, hw, cin, cout)):18s} {route:6s} "
-                  f"{name:22s} {us:7.2f} us", flush=True)
+            print(f"K2{sfx:5s} {str((nimg, hw, cin, cout)):18s} "
+                  f"{route:6s} {name:22s} {us:7.2f} us", flush=True)
     shutil.rmtree(root, ignore_errors=True)
     out_dir = REPO / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

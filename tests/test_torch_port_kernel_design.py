@@ -58,15 +58,19 @@ def toward_zero(x: torch.Tensor) -> torch.Tensor:
 
 
 def emulate_k1(x, w, scale, shift, act, *, terms=3, per_slice=True,
-               splits=None):
+               splits=None, plan=None):
     """K1's arithmetic on float32 x (M, K), w (K, N): ``terms`` 3 is 3xTF32,
     1 a single TF32 product; ``per_slice`` False runs one accumulator down
-    the whole split; ``splits`` overrides the plan's split count."""
+    the whole split; ``splits`` overrides the mma.sync plan's split count,
+    ``plan`` (splits, k_per_split) gives another, such as the wgmma
+    route's."""
     m, k = x.shape
     n = w.shape[1]
     _, _, s_plan, kps = TM.split_k_plan(m, n, k)
     if splits is not None:
         s_plan, kps = splits, -(-k // splits)
+    if plan is not None:
+        s_plan, kps = plan
     xb, wb = tf32(x), tf32(w)
     xs, ws = tf32(x - xb), tf32(w - wb)
     pairs = [(xs, wb), (xb, ws), (xb, wb)] if terms == 3 else [(xb, wb)]
@@ -432,8 +436,9 @@ def _buffer(shape, dtype=torch.bfloat16, offset=0):
     return store[offset:].view(shape)
 
 
-# the buffers of each bf16 K1 launch of a batch-64 AE step and the decoder
-# input, as fused_gemm gets them (x, w), and the loader each takes
+# the buffers of each K1 launch of a batch-64 AE step and the decoder input,
+# as fused_gemm gets them (x, w), and the loader each takes in bf16 and in
+# float32 alike (fc2's dX and dW: 20- and 40-byte rows)
 _AE_LAUNCHES = {
     "proj fwd": ((64, 4096), (64, 4096), "tma"),
     "proj dX": ((64, 64), (64, 4096), "tma"),
@@ -456,9 +461,10 @@ _AE_LAUNCHES = {
 def test_k1_loader_at_main_path_launches(launch):
     x_shape, w_shape, want = _AE_LAUNCHES[launch]
     assert TM.k1_loader(_buffer(x_shape), _buffer(w_shape)) == want
-    # float32 always takes the mma.sync loop
+    # float32 takes the same route: the wgmma kernel (3xTF32) wherever TMA
+    # reads both buffers
     assert TM.k1_loader(_buffer(x_shape, torch.float32),
-                        _buffer(w_shape, torch.float32)) == "cp.async"
+                        _buffer(w_shape, torch.float32)) == want
 
 
 @pytest.mark.parametrize("case", [
@@ -504,13 +510,13 @@ _STACKED_AE_LAUNCHES = {
 
 @pytest.mark.parametrize("launch", list(_STACKED_AE_LAUNCHES))
 def test_k1_loader_at_stacked_ae_launches(launch):
-    """The 3-D form of the loader at the vmap path's launches: every bf16
-    launch on the wgmma route but fc2's dX and dW, as on the unbatched
-    route; float32 always on the mma.sync loop."""
+    """The 3-D form of the loader at the vmap path's launches: every launch
+    on the wgmma route but fc2's dX and dW, as on the unbatched route, in
+    bf16 and float32 alike."""
     x_shape, w_shape, want = _STACKED_AE_LAUNCHES[launch]
     assert TM.k1_loader(_buffer(x_shape), _buffer(w_shape)) == want
     assert TM.k1_loader(_buffer(x_shape, torch.float32),
-                        _buffer(w_shape, torch.float32)) == "cp.async"
+                        _buffer(w_shape, torch.float32)) == want
 
 
 def _stack(shape, config_stride, offset=0):
@@ -581,34 +587,41 @@ def test_emulated_batched_bf16_plan_matches_vmapped_satae(case):
 
 
 @pytest.mark.parametrize("case", [
-    ((512, 64, 64, 3), 32, ("rows", 32)),  # conv0
-    ((512, 32, 32, 32), 64, ("im2col", 64)),  # conv1
-    ((512, 16, 16, 64), 128, ("im2col", 128)),  # conv2
-    ((512, 8, 8, 128), 256, ("im2col", 128)),  # conv3
-    ((3, 7, 7, 5), 9, ("mma", 32)),
-    ((2, 9, 9, 6), 40, ("mma", 64)),
-    ((3, 11, 11, 8), 72, ("mma", 64)),  # Cin 8: no 32-channel load
-    ((2, 10, 10, 3), 40, ("mma", 64)),  # Cout 40 > 32: not the rows kernel
-    ((5, 13, 13, 16), 24, ("mma", 32)),
-    ((4, 32, 32, 3), 16, ("rows", 32)),
-    ((2, 9, 9, 64), 72, ("im2col", 128)),
-    ((3, 12, 12, 128), 64, ("im2col", 64)),
-    ((2, 9, 9, 32), 72, ("mma", 64)),  # Cin 32, Cout > 64
-    ((3, 7, 7, 32), 40, ("im2col", 64)),
-    ((2, 10, 10, 3), 32, ("mma", 32)),  # 5 x 5 outputs: not whole rows
+    ((512, 64, 64, 3), 32, ("rows", 32), ("rows", 32)),  # conv0
+    ((512, 32, 32, 32), 64, ("im2col", 64), ("im2col", 64)),  # conv1
+    ((512, 16, 16, 64), 128, ("im2col", 128), ("im2col", 64)),  # conv2
+    ((512, 8, 8, 128), 256, ("im2col", 128), ("im2col", 64)),  # conv3
+    ((3, 7, 7, 5), 9, ("mma", 32), ("mma", 32)),
+    ((2, 9, 9, 6), 40, ("mma", 64), ("mma", 64)),
+    # Cin 8: no 32-channel load
+    ((3, 11, 11, 8), 72, ("mma", 64), ("mma", 64)),
+    # Cout 40 > 32: not the rows kernel
+    ((2, 10, 10, 3), 40, ("mma", 64), ("mma", 64)),
+    ((5, 13, 13, 16), 24, ("mma", 32), ("mma", 32)),
+    ((4, 32, 32, 3), 16, ("rows", 32), ("rows", 32)),
+    ((2, 9, 9, 64), 72, ("im2col", 128), ("im2col", 64)),
+    ((3, 12, 12, 128), 64, ("im2col", 64), ("im2col", 64)),
+    # Cin 32, Cout > 64: bf16's 64-wide tile takes Cout <= 64
+    ((2, 9, 9, 32), 72, ("mma", 64), ("im2col", 64)),
+    ((3, 7, 7, 32), 40, ("im2col", 64), ("im2col", 64)),
+    # 5 x 5 outputs: not whole rows
+    ((2, 10, 10, 3), 32, ("mma", 32), ("mma", 32)),
 ], ids=lambda c: f"{c[0]}-{c[1]}" if isinstance(c, tuple) else None)
 def test_conv_route(case):
     """K2's route for the phase-13 layers (stride 2, padding 1), bf16 and
-    float32."""
-    x_shape, cout, want = case
+    float32 (whose im2col kernel takes Cin a multiple of 32 at any Cout,
+    on 64-wide tiles)."""
+    x_shape, cout, want, want_f32 = case
     w_shape = (3, 3, x_shape[3], cout)
     assert TC.conv_route(_buffer(x_shape), _buffer(w_shape), 2, 1) == want
     f32 = TC.conv_route(_buffer(x_shape, torch.float32),
                         _buffer(w_shape, torch.float32), 2, 1)
-    assert f32 == ("mma", TM.tile_n_for(cout))
+    assert f32 == want_f32
     # a misaligned input leaves the wgmma kernels, and so does a stride
     # beyond TMA's im2col mode
-    assert TC.conv_route(_buffer(x_shape, offset=1), _buffer(w_shape), 2,
-                         1)[0] == "mma"
-    assert TC.conv_route(_buffer(x_shape), _buffer(w_shape), 9, 1)[0] in (
-        "rows", "mma")
+    for dtype in (torch.bfloat16, torch.float32):
+        assert TC.conv_route(_buffer(x_shape, dtype, offset=1),
+                             _buffer(w_shape, dtype), 2, 1)[0] == "mma"
+        assert TC.conv_route(_buffer(x_shape, dtype),
+                             _buffer(w_shape, dtype), 9, 1)[0] in (
+            "rows", "mma")
