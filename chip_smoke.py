@@ -414,11 +414,11 @@ K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
 
 
 # the kernel instantiations of a build (ptxas report: K1 16 mma.sync + 8
-# wgmma, which the batched entries launch too; K2 4 mma.sync + 5 wgmma +
-# float32's weight split) and those of them on wgmma (fused_gemm_tma_kernel
-# x 4 layouts x float32 and bf16, conv_im2col_tma_kernel: bf16 x 2 N tiles
-# and float32, conv_rows_kernel in float32 and bf16)
-N_INSTANTIATIONS = 34
+# wgmma, which the batched entries launch too; K2 4 mma.sync + 5 wgmma) and
+# those of them on wgmma (fused_gemm_tma_kernel x 4 layouts x float32 and
+# bf16, conv_im2col_tma_kernel: bf16 x 2 N tiles and float32,
+# conv_rows_kernel in float32 and bf16)
+N_INSTANTIATIONS = 33
 N_WGMMA = 13
 
 
@@ -700,14 +700,50 @@ def profiler_check(sessions: int = 20, reps: int = 20) -> dict:
     return out
 
 
-def f32_route(*bufs) -> str:
-    """The K1 route a float32 launch must take on these buffers, the rule
-    restated apart from satae_torch's k1_loader: the wgmma kernel ("tma")
-    where every buffer's base and rows are 16-byte aligned (TMA reads it),
-    else the mma.sync loop ("cp.async")."""
+def f32_route(a, b, ta: bool = False, tb: bool = False) -> str:
+    """The K1 route a float32 launch must take on the buffers a and b (2-D,
+    or (C, ., .) stacks) read with trans_a / trans_b, the rule restated
+    apart from satae_torch's k1_loader: the wgmma kernel ("tma") where
+    every buffer's base and rows are 16-byte aligned (TMA reads it), else
+    the mma.sync loop ("cp.async"); and the loop also for the launches
+    --ab timed faster on it: N <= 16 (the head's forward), an unbatched
+    product split into parts of >= 512 of K (the serving projection), a
+    batched one with an MN-major B and >= 2^20 multiply-adds a config
+    (the vmap path's 4096-wide dX and dW)."""
     ok = all(t.data_ptr() % 16 == 0 and t.shape[-1] * t.element_size() % 16
-             == 0 for t in bufs)
-    return "tma" if ok else "cp.async"
+             == 0 for t in (a, b))
+    if not ok:
+        return "cp.async"
+    m, k = a.shape[-2:][::-1] if ta else a.shape[-2:]
+    n = b.shape[-2] if tb else b.shape[-1]
+    from satae_torch.kernels.matmul import split_k_plan
+    _, _, splits, per = split_k_plan(m, n, k)
+    if (n <= 16 or (a.dim() == 2 and splits > 1 and per >= 512)
+            or (a.dim() == 3 and not tb and m * n * k >= 1 << 20)):
+        return "cp.async"
+    return "tma"
+
+
+def tree_k1_route(mods, a, b, ta: bool, tb: bool) -> str:
+    """A tree's k1_loader on a launch: with its trans flags where the
+    tree's loader takes them (float32 routes by layout), else on the
+    buffers alone."""
+    import inspect
+
+    if len(inspect.signature(mods.k1_loader).parameters) > 2:
+        return mods.k1_loader(a, b, ta, tb)
+    return mods.k1_loader(a, b)
+
+
+def f32_conv_args(conv, w):
+    """A float32 HWIO conv weight laid out as the tree of module ``conv``
+    reads it, and the keyword arguments its conv2d_bn_act takes beside it:
+    K-major with its TF32 halves (w_tf32) where the tree has split_tf32,
+    else contiguous HWIO; the same values."""
+    if not hasattr(conv, "split_tf32"):
+        return w.contiguous(), {}
+    w = w.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+    return w, dict(w_tf32=conv.split_tf32(w))
 
 
 def launch_specs():
@@ -769,9 +805,9 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False,
     library calls in bf16 too, each row's kernel named with ``_bf16``, and
     its route where ``mods`` has ``k1_loader`` / ``conv_route``. With
     ``mods.k_major`` (a tree whose float32 serving fold is K-major) the
-    float32 serving launches read the fold's buffers: the conv weights the
-    HWIO view of a (Cout, KH, KW, Cin) buffer, the linear weights (N, K);
-    else contiguous HWIO and (K, N), with the same values. With
+    float32 serving launches read the fold's buffers: the conv weights as
+    ``mods.conv`` lays them out (:func:`f32_conv_args`), the linear weights
+    (N, K); else contiguous HWIO and (K, N), with the same values. With
     ``outputs``, each launch's output (on the CPU) goes into it under
     (kernel, path, layer)."""
     import torch
@@ -795,8 +831,9 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False,
             n, hw, cin, cout = args
             x = rand(n, hw, hw, cin, lo=0.0).to(dt)
             w = (rand(3, 3, cin, cout) / (9 * cin) ** 0.5).to(dt)
+            kw_ = {}
             if k_major:
-                w = w.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+                w, kw_ = f32_conv_args(mods.conv, w)
             scale, shift = rand(cout, lo=0.5, hi=1.5), rand(cout, lo=-0.3,
                                                             hi=0.3)
             oh = hw // 2
@@ -804,7 +841,7 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False,
             shape, trans, name = [n, hw, hw, cin, cout], None, "conv2d_bn_act"
             nbytes = size * (x.numel() + w.numel() + m * cout) + 8.0 * cout
             kern = lambda: mods.conv2d_bn_act(x, w, scale, shift, 2, 1,
-                                              "relu")
+                                              "relu", **kw_)
             plain = lambda: mods.conv2d_bn_act_plain(x, w, scale, shift, 2,
                                                      1, "relu")
             w_oihw = w.permute(3, 2, 0, 1).contiguous(
@@ -840,8 +877,8 @@ def kernel_rows(mods, reference: bool = True, bf16: bool = False,
             kern = lambda: mods.fused_gemm(a, b, scale, shift, act, ta, tb)
             plain = lambda: mods.fused_matmul_plain(av, bv, scale, shift, act)
             lib = lambda: torch.matmul(av, bv)
-            route = (mods.k1_loader(a, b) if hasattr(mods, "k1_loader")
-                     else None)
+            route = (tree_k1_route(mods, a, b, ta, tb)
+                     if hasattr(mods, "k1_loader") else None)
         reps = 20 if path == "serve" else 50
         bnd = bounds(2.0 * m * k * n_out, nbytes, bf16)
         what = f"{name} {path} {layer} {shape}"
@@ -1208,6 +1245,7 @@ def main() -> int:
     from satae_torch.data.ingest import load_dataset
     from satae_torch.data.pipeline import make_splits
     from satae_torch.kernels import _build
+    from satae_torch.kernels import conv as conv_mod
     from satae_torch.kernels.conv import conv2d_bn_act, conv2d_bn_act_plain
     from satae_torch.kernels.conv import conv_route
     from satae_torch.kernels.matmul import (fused_gemm, fused_matmul,
@@ -1276,10 +1314,10 @@ def main() -> int:
         return (split_k_plan_tma(m, n, k, dtype=torch.float32)
                 if route == "tma" else split_k_plan(m, n, k))
 
-    def held_route(a_buf, b_buf, what):  # the launch's route, held
-        route = k1_loader(a_buf, b_buf)
-        check(route == f32_route(a_buf, b_buf), f"{what}: K1 on {route}, "
-              f"expected {f32_route(a_buf, b_buf)}")
+    def held_route(a_buf, b_buf, what, ta=False, tb=False):  # held
+        route, want = k1_loader(a_buf, b_buf, ta, tb), f32_route(
+            a_buf, b_buf, ta, tb)
+        check(route == want, f"{what}: K1 on {route}, expected {want}")
         return route
 
     k1_err, k1_routes = 0.0, collections.Counter()
@@ -1295,13 +1333,13 @@ def main() -> int:
                 f"K1 {(m, k, n)} {act}"))
     print(f"K1 fused_gemm vs plain: {len(K1_SHAPES) * 3} cases (routes "
           f"{dict(k1_routes)}), max |err| {k1_err:.3g}", flush=True)
-    for path, layer, _, (a_shape, b_shape, _, _) in launch_specs():
+    for path, layer, _, (a_shape, b_shape, _, tb) in launch_specs():
         if path not in ("decode", "calibrate"):
             continue
         (m, k), n = a_shape, b_shape[0]
         route = held_route(torch.empty(a_shape, device=dev),
                            torch.empty(b_shape, device=dev),
-                           f"{path} {layer}")
+                           f"{path} {layer}", tb=tb)
         check(route == "tma", f"{path} {layer}: float32 K1 on {route}")
         tile_m, tile_n, splits_, per = plan_of(m, n, k, route)
         tiles = -(-m // tile_m) * -(-n // tile_n)
@@ -1317,7 +1355,8 @@ def main() -> int:
         for ta, tb in LAYOUTS:
             a_buf = a.t().contiguous() if ta else a
             b_buf = b.t().contiguous() if tb else b
-            route = held_route(a_buf, b_buf, f"K1 {(m, k, n)} {ta} {tb}")
+            route = held_route(a_buf, b_buf, f"K1 {(m, k, n)} {ta} {tb}",
+                               ta, tb)
             plans[(m, k, n)][f"{ta} {tb}"] = [route, plan_of(m, n, k, route)]
             for act in ACTS:
                 split_err = max(split_err, max_err(
@@ -1350,34 +1389,39 @@ def main() -> int:
     k2_err, k2_routes = 0.0, {}
     for n, hw, cin, cout in K2_SHAPES:
         x = rand(n, hw, hw, cin)
-        w = rand(3, 3, cin, cout, lo=-1.0, hi=1.0) / (9 * cin) ** 0.5
-        if n == CHUNK:  # the serving fold's K-major layout, same values
-            w = w.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0)
+        # the float32 layout (K-major) and its TF32 halves, as the fold has
+        # them
+        w, kw_ = f32_conv_args(conv_mod, rand(
+            3, 3, cin, cout, lo=-1.0, hi=1.0) / (9 * cin) ** 0.5)
         k2_routes[(n, hw, cin, cout)] = conv_route(x, w, 2, 1)[0]
         scale, shift = affine(cout)
         acts = ("relu",) if n == CHUNK else ACTS
         for act in acts:
             k2_err = max(k2_err, max_err(
-                conv2d_bn_act(x, w, scale, shift, 2, 1, act),
+                conv2d_bn_act(x, w, scale, shift, 2, 1, act, **kw_),
                 conv2d_bn_act_plain(x, w, scale, shift, 2, 1, act),
                 f"K2 {(n, hw, hw, cin, cout)} {act}"))
         if (n, cin) == (CHUNK, 32):
-            conv1 = x, w, scale, shift
-    x, w, scale, shift = conv1
-    first = conv2d_bn_act(x, w, scale, shift, 2, 1, "relu")
+            conv1 = x, w, scale, shift, kw_
+    x, w, scale, shift, kw_ = conv1
+    first = conv2d_bn_act(x, w, scale, shift, 2, 1, "relu", **kw_)
     check(all(torch.equal(first, conv2d_bn_act(x, w, scale, shift, 2, 1,
-                                               "relu")) for _ in range(4)),
-          "K2 conv1: repeated calls differ bitwise")
-    # a contiguous HWIO weight reaches the wgmma kernel as its K-major copy
-    check(torch.equal(first, conv2d_bn_act(x, w.contiguous(), scale, shift,
-                                           2, 1, "relu")),
-          "K2 conv1 from a contiguous HWIO weight differs from the K-major "
-          "weight's output")
+                                               "relu", **kw_))
+              for _ in range(4)), "K2 conv1: repeated calls differ bitwise")
+    # the layout of the other dtype, and the im2col kernel without its
+    # TF32 halves, are refused, never copied or split per call
+    for bad, kw_bad in ((w.contiguous(), kw_), (w, {})):
+        try:
+            conv2d_bn_act(x, bad, scale, shift, 2, 1, "relu", **kw_bad)
+            check(False, "K2 took a float32 weight it does not read")
+        except ValueError:
+            pass
     serve_k2 = [k2_routes[s_] for s_ in K2_SHAPES[:4]]
     print(f"K2 conv2d_bn_act vs plain: 13 cases (Cin 3, 5 and 6: 4-byte "
           f"copies; Cout 9, 40, 72: ragged 32/64-wide tiles), max |err| "
           f"{k2_err:.3g}; routes {list(k2_routes.values())}; conv1 5 calls "
-          "bitwise equal, and bitwise the HWIO weight's", flush=True)
+          "bitwise equal; a contiguous HWIO float32 weight and a missing "
+          "w_tf32 refused", flush=True)
     check(serve_k2 == ["rows", "im2col", "im2col", "im2col"],
           f"float32 K2 serving layers on routes {serve_k2}")
 
@@ -1385,15 +1429,19 @@ def main() -> int:
     all_rows = kernel_rows(SimpleNamespace(
         fused_gemm=fused_gemm, fused_matmul_plain=fused_matmul_plain,
         conv2d_bn_act=conv2d_bn_act, conv2d_bn_act_plain=conv2d_bn_act_plain,
-        k1_loader=k1_loader, conv_route=conv_route, k_major=True))
+        k1_loader=k1_loader, conv_route=conv_route, k_major=True,
+        conv=conv_mod))
     # every float32 main-path launch on wgmma, but the head's backward
-    # (10-wide cotangent rows: 40 bytes, no TMA)
+    # (10-wide cotangent rows: 40 bytes, no TMA), and its forward (N = 10)
+    # and the serving projection (8 splits of 512), which --ab timed faster
+    # on the mma.sync loop (k1_loader)
     off_wgmma = sorted(f"{r['path']} {r['layer']}" for r in all_rows
                        if r["route"] not in ("tma", "rows", "im2col"))
     print(f"float32 main-path launches off the wgmma route: {off_wgmma}",
           flush=True)
-    check(off_wgmma == ["ae fc2 dW", "ae fc2 dX", "mlp fc2 dW",
-                        "mlp fc2 dX"],
+    check(off_wgmma == ["ae fc2 dW", "ae fc2 dX", "ae fc2 fwd", "mlp fc2 dW",
+                        "mlp fc2 dX", "mlp fc2 fwd", "serve fc2",
+                        "serve proj"],
           f"float32 main-path launches off the wgmma route: {off_wgmma}")
     rows = [r for r in all_rows if r["path"] == "serve"]
     train_rows = [r for r in all_rows if r["path"] in ("ae", "mlp")]
@@ -2900,8 +2948,15 @@ def batched_route(dtype, layer: str, product: str) -> str:
     """The loader a batched K1 launch of :func:`batched_products` must run
     on, float32 or bf16: the wgmma kernel ("tma") for every launch but
     fc2's dX and dW, whose 10-wide cotangent rows (20 bytes in bf16, 40 in
-    float32) TMA cannot read; the mma.sync loop ("cp.async") for those."""
+    float32) TMA cannot read; the mma.sync loop ("cp.async") for those,
+    and in float32 also for the launches --ab timed faster on it: fc2's
+    forward (N = 10) and the AE's 4096-wide dX and dW (an MN-major B)."""
+    import torch
+
     tma = not (layer == "fc2" and product in ("dX", "dW"))
+    if dtype == torch.float32:
+        tma = tma and not (layer == "fc2" or (
+            layer in ("proj", "dec_in") and product in ("dX", "dW")))
     return "tma" if tma else "cp.async"
 
 
@@ -2955,7 +3010,7 @@ def batched_kernels_phase(card: str) -> dict:
             errs[name16] = max(errs[name16], err)
             check(all(torch.equal(out, run()) for _ in range(2)),
                   f"{what}: repeated launches differ bitwise")
-            route = k1_loader(a, b)
+            route = k1_loader(a, b, ta, tb)
             check(route == batched_route(dt, layer, prod), f"{what}: runs on "
                   f"{route}, expected {batched_route(dt, layer, prod)}")
             planner = functools.partial(split_k_plan_tma, dtype=dt) \
@@ -2964,7 +3019,7 @@ def batched_kernels_phase(card: str) -> dict:
             # the unbatched call runs the same kernel with C = 1 where it
             # takes the same plan on the same route: bitwise the same slice
             natural = (planner(m, n, k) == plan
-                       and k1_loader(a[0], b[0]) == route)
+                       and k1_loader(a[0], b[0], ta, tb) == route)
             same_plan[route] += natural
             for i in range(c if natural else 0):
                 one = fused_gemm(a[i], b[i], None,
@@ -3012,8 +3067,9 @@ def batched_kernels_phase(card: str) -> dict:
     print(f"phase 21: {len(rows)} cases, float32 max |err| "
           f"{errs['float32']:.3g} (1e-4 + 1e-5*|ref|), bf16 max |err| "
           f"{errs['bf16']:.3g} (one ulp + 1e-6), bf16 bit-equal >= "
-          f"{min_equal:.5f}; {on_tma} launches on wgmma, fc2 dX / dW "
-          "(float32 and bf16) on mma.sync; every config's slice "
+          f"{min_equal:.5f}; {on_tma} launches on wgmma, the rest on "
+          "mma.sync (fc2 dX / dW; in float32 also fc2 fwd and the AE's "
+          "4096-wide dX / dW); every config's slice "
           "bit-equal to the unbatched K1 in the cases where it takes the "
           f"batched plan on the same route (mma.sync {same_plan['cp.async']},"
           f" wgmma {same_plan['tma']}); 3 launches per case bitwise equal",
@@ -4288,11 +4344,12 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def f32_digests(fused_gemm, conv2d_bn_act) -> dict:
-    """{case: sha256 of the output} of the float32 K1 and K2 at the shapes of
-    phases 3 and 4 (K1's split shapes in every layout), all activations, on
-    inputs drawn from a fixed seed: equal digests in two trees are bitwise
-    equal outputs."""
+def f32_digests(fused_gemm, conv) -> dict:
+    """{case: sha256 of the output} of the float32 K1 and the K2 of module
+    ``conv`` at the shapes of phases 3 and 4 (K1's split shapes in every
+    layout), all activations, on inputs drawn from a fixed seed, each conv
+    weight in the tree's own float32 layout (:func:`f32_conv_args`): equal
+    digests in two trees are bitwise equal outputs."""
     import hashlib
 
     import torch
@@ -4322,11 +4379,12 @@ def f32_digests(fused_gemm, conv2d_bn_act) -> dict:
                     a_buf, b_buf, scale, shift, act, ta, tb))
     for n, hw, cin, cout in K2_SHAPES:
         x = rand(n, hw, hw, cin)
-        w = rand(3, 3, cin, cout, lo=-1.0, hi=1.0) / (9 * cin) ** 0.5
+        w, kw_ = f32_conv_args(conv, rand(3, 3, cin, cout, lo=-1.0, hi=1.0)
+                               / (9 * cin) ** 0.5)
         scale, shift = rand(cout, lo=0.5, hi=1.5), rand(cout, lo=-0.3, hi=0.3)
         for act in (("relu",) if n == CHUNK else ACTS):
-            out[f"K2 {(n, hw, cin, cout)} {act}"] = digest(conv2d_bn_act(
-                x, w, scale, shift, 2, 1, act))
+            out[f"K2 {(n, hw, cin, cout)} {act}"] = digest(
+                conv.conv2d_bn_act(x, w, scale, shift, 2, 1, act, **kw_))
     return out
 
 
@@ -4374,7 +4432,8 @@ def batched_rows(matmul, outputs: dict, digests: dict) -> list:
             rows.append(dict(
                 kernel=name, path=path, layer=key[2], shape=[c, m, k, n],
                 trans=[ta, tb], dtype="bf16" if bf16 else "float32",
-                route=(matmul.k1_loader(a, b) if has_tma else "cp.async"),
+                route=(tree_k1_route(matmul, a, b, ta, tb) if has_tma
+                       else "cp.async"),
                 ms=time_ms(run, reps=50), device_us=device_us(
                     run, bnd["bound_ms"] * 1e3, " ".join(key)), **bnd))
     return rows
@@ -4384,11 +4443,9 @@ def kernel_times_main(root: str, out_file: str) -> int:
     """The --ab child: :func:`kernel_rows` on the kernels of the satae_torch
     under ``root`` (float32, on the tree's own serving fold layouts, and
     bf16 where that tree has the bf16 instantiations), :func:`batched_rows`
-    where it has the batched K1, :func:`f32_digests` (with the float32
-    batched outputs' digests) and the tree's own float32 ``predict`` of the
-    committed model on 2,990 images (ms a call, 10 calls after a warm-up),
-    as one JSON line; every launch's output goes to ``out_file``
-    (torch.save)."""
+    where it has the batched K1 and :func:`f32_digests` (with the float32
+    batched outputs' digests), as one JSON line; every launch's output goes
+    to ``out_file`` (torch.save)."""
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
@@ -4402,7 +4459,7 @@ def kernel_times_main(root: str, out_file: str) -> int:
           f"from {root_}")
     mods = SimpleNamespace(fused_gemm=matmul.fused_gemm,
                            conv2d_bn_act=conv.conv2d_bn_act,
-                           k_major=hasattr(conv, "is_k_major"))
+                           k_major=hasattr(conv, "is_k_major"), conv=conv)
     for fn in ("k1_loader", "conv_route"):  # where the tree has them
         for mod in (matmul, conv):
             if hasattr(mod, fn):
@@ -4412,29 +4469,181 @@ def kernel_times_main(root: str, out_file: str) -> int:
     if torch.bfloat16 in getattr(_build, "OPERAND_DTYPES", {}):
         rows += kernel_rows(mods, reference=False, bf16=True,
                             outputs=outputs)
-    digests = f32_digests(matmul.fused_gemm, conv.conv2d_bn_act)
+    digests = f32_digests(matmul.fused_gemm, conv)
     if hasattr(matmul, "fused_gemm_batched"):
         rows += batched_rows(matmul, outputs, digests)
     torch.save({"|".join(k): v for k, v in outputs.items()}, out_file)
-    # end to end: the tree's serving path, upload and readback included
-    import numpy as np
+    print(json.dumps(dict(rows=rows, digests=digests)), flush=True)
+    return 0
 
+
+# --ab's serving comparison: windows of PREDICT_WINDOW calls, PREDICT_PAIRS
+# pairs of them in alternating order
+PREDICT_WINDOW = 20
+PREDICT_PAIRS = 12
+
+
+def predict_worker_main(root: str) -> int:
+    """The --ab serving child of the tree at ``root``: the committed float32
+    model and 2,990 random uint8 images; after a warm-up it prints "ready",
+    then for each "go" line on its input times one window -- PREDICT_WINDOW
+    calls of ``predict`` (the pageable upload and the readback included)
+    and PREDICT_WINDOW runs of the same serving path on the images already
+    on the device (the fold's K2 and K1 launches chunk by chunk and the
+    argmax, between CUDA events) -- and prints both rates as one JSON
+    line; for "host" it prints the host's time to issue one call of the
+    device-resident path and one of each of its layers (queued behind a
+    spin kernel, so the card never waits for it), us; anything else ends
+    it."""
+    import numpy as np
+    import torch
+
+    root_ = Path(root).resolve()
+    sys.path.insert(0, str(root_))
+    import satae_torch
     from satae_torch.api import SatAEPipeline
     from satae_torch.config import DataConfig, PipelineConfig
+    from satae_torch.data.augment import normalize
+    from satae_torch.models import fast_infer
 
+    check(Path(satae_torch.__file__).resolve().is_relative_to(root_),
+          f"satae_torch came from {satae_torch.__file__}, not from {root_}")
     pipe = SatAEPipeline(PipelineConfig(data=DataConfig(
         synthetic_difficulty="hard"))).load(str(CKPT))
     imgs = np.random.default_rng(0).integers(0, 256, (2990, 64, 64, 3),
                                              dtype=np.uint8)
-    pipe.predict(imgs)  # the fold and the first launches
-    t0 = time.perf_counter()
-    for _ in range(10):
+    n = len(imgs)
+    chunk = pipe._serve_chunk(n)
+    dev = torch.zeros((n + (-n) % chunk, 64, 64, 3), dtype=torch.uint8,
+                      device="cuda")
+    dev[:n].copy_(torch.from_numpy(imgs))
+    dtype = pipe.config.compute_dtype
+
+    @torch.no_grad()
+    def on_device():
+        fe, fm = pipe._folded_weights()
+        return [torch.argmax(fast_infer.mlp_infer(fm, fast_infer.encoder_infer(
+            fe, normalize(dev[lo:lo + chunk], dtype)).float()), dim=-1)
+            for lo in range(0, len(dev), chunk)]
+
+    check(np.array_equal(torch.cat(on_device()).cpu().numpy()[:n],
+                         pipe.predict(imgs)),
+          "the device-resident path differs from predict")
+    for _ in range(3):
         pipe.predict(imgs)
-    predict_ms = (time.perf_counter() - t0) / 10 * 1e3
-    print(json.dumps(dict(rows=rows, digests=digests, predict_ms=predict_ms,
-                          predict_images_per_s=len(imgs) / predict_ms * 1e3)),
-          flush=True)
+        on_device()
+    torch.cuda.synchronize()
+    print("ready", flush=True)
+
+    def host_us(fn, reps):  # host time to issue one call, card held busy
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 27)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        return dt
+
+    for line in sys.stdin:
+        if line.strip() == "host":
+            fe, fm = pipe._folded_weights()
+            h, layers = normalize(dev[:chunk], dtype), {}
+            for i, c in enumerate(fe.convs):
+                kw_ = {} if getattr(c, "w_tf32", None) is None else dict(
+                    w_tf32=c.w_tf32)
+                layers[f"conv{i}"] = functools.partial(
+                    fast_infer.conv2d_bn_act, h, c.w, c.scale, c.shift,
+                    c.stride, c.padding, "relu", **kw_)
+                h = layers[f"conv{i}"]()
+            h = h.reshape(h.shape[0], -1)
+            for name, lay in [("proj", fe.proj)] + [
+                    (f"fc{i}", lay) for i, lay in enumerate(fm.layers)]:
+                layers[name] = functools.partial(lay, h)
+                h = lay(h).float()
+            out = {name: host_us(fn, 50) for name, fn in layers.items()}
+            out["call"] = host_us(on_device, 5)
+            print(json.dumps(out), flush=True)
+            continue
+        if line.strip() != "go":
+            break
+        t0 = time.perf_counter()
+        for _ in range(PREDICT_WINDOW):
+            pipe.predict(imgs)
+        predict_s = (time.perf_counter() - t0) / PREDICT_WINDOW
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(PREDICT_WINDOW):
+            on_device()
+        end.record()
+        end.synchronize()
+        device_s = start.elapsed_time(end) / 1e3 / PREDICT_WINDOW
+        print(json.dumps(dict(predict_images_per_s=n / predict_s,
+                              device_images_per_s=n / device_s)), flush=True)
     return 0
+
+
+def predict_pairs(parent: str, tmp: Path) -> dict:
+    """Each tree's float32 serving of the committed model in one long-lived
+    process (:func:`predict_worker_main`), the two processes timed in turn:
+    PREDICT_PAIRS pairs of windows, parent first in the even pairs and the
+    change first in the odd ones. Returns each tree's rates (predict and
+    device-resident, images/s) with their medians and quartiles, and the
+    median of the pairs' change / parent ratios."""
+    import statistics
+
+    procs = {}
+    for label, root in (("parent", parent), ("change", REPO)):
+        err = open(tmp / f"predict_{label}.err", "w")
+        procs[label] = (subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--predict-worker", str(root)], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=err, text=True), err)
+
+    def read(label, want):  # the worker's next line that starts with want
+        proc, err = procs[label]
+        while True:
+            line = proc.stdout.readline()
+            if not line:
+                err.flush()
+                check(False, f"predict worker {label} ended:\n" + (
+                    tmp / f"predict_{label}.err").read_text()[-4000:])
+            if line.startswith(want):
+                return line.strip()
+
+    try:
+        for label in procs:
+            read(label, "ready")
+        rates = {label: [] for label in procs}
+        for i in range(PREDICT_PAIRS):
+            for label in (("parent", "change") if i % 2 == 0
+                          else ("change", "parent")):
+                procs[label][0].stdin.write("go\n")
+                procs[label][0].stdin.flush()
+                rates[label].append(json.loads(read(label, "{")))
+        host = {}
+        for label in procs:
+            procs[label][0].stdin.write("host\n")
+            procs[label][0].stdin.flush()
+            host[label] = json.loads(read(label, "{"))
+    finally:
+        for proc, err in procs.values():
+            if proc.poll() is None:
+                proc.stdin.close()
+                proc.wait(timeout=60)
+            err.close()
+    out = {}
+    for metric in ("predict_images_per_s", "device_images_per_s"):
+        per = {label: [r[metric] for r in rates[label]] for label in rates}
+        q = {label: statistics.quantiles(v, n=4) for label, v in per.items()}
+        out[metric] = dict(
+            runs=per, median={k: q[k][1] for k in q},
+            quartiles={k: [q[k][0], q[k][2]] for k in q},
+            pair_ratio_median=statistics.median(
+                c / p for c, p in zip(per["change"], per["parent"])))
+    out["host_us"] = host
+    return out
 
 
 def ab_main(parent: str) -> int:
@@ -4444,7 +4653,9 @@ def ab_main(parent: str) -> int:
     phase 21's batched ones) must be bitwise equal in all four runs, and so
     must every timed float32 launch's. For each launch the share of its
     outputs bitwise equal to the parent tree's, beside both trees' device
-    us (each tree's two runs must agree bitwise)."""
+    us (each tree's two runs must agree bitwise). Then each tree's float32
+    serving of the committed model in alternating windows
+    (:func:`predict_pairs`)."""
     import torch
 
     check(torch.cuda.is_available(), "no CUDA device")
@@ -4498,11 +4709,21 @@ def ab_main(parent: str) -> int:
               f"{chg[1]['ms']:.4f}", flush=True)
     only = [k for k in by_run[1] if k not in by_run[0]]
     print(f"launches in this tree only, not timed: {only}", flush=True)
-    ips = [r["predict_images_per_s"] for r in runs]
-    print(f"float32 predict of the committed model, 2,990 images: images/s "
-          f"parent {ips[0]:.1f} {ips[3]:.1f} | change {ips[1]:.1f} "
-          f"{ips[2]:.1f} | change / parent "
-          f"{(ips[1] + ips[2]) / (ips[0] + ips[3]):.3f}", flush=True)
+    serve = predict_pairs(parent, tmp)
+    print("host us to issue one call of the device-resident serving path "
+          "and each of its layers, parent | change: " + ", ".join(
+              f"{k} {serve['host_us']['parent'][k]:.1f} | "
+              f"{serve['host_us']['change'][k]:.1f}"
+              for k in serve["host_us"]["change"]), flush=True)
+    for metric, r in ((k, v) for k, v in serve.items() if k != "host_us"):
+        print(f"float32 {metric} of the committed model, 2,990 images, "
+              f"{PREDICT_PAIRS} alternating pairs of {PREDICT_WINDOW}-call "
+              f"windows: median (quartiles) parent {r['median']['parent']:.1f}"
+              f" ({r['quartiles']['parent'][0]:.1f}-"
+              f"{r['quartiles']['parent'][1]:.1f}) | change "
+              f"{r['median']['change']:.1f} ({r['quartiles']['change'][0]:.1f}"
+              f"-{r['quartiles']['change'][1]:.1f}) | median of the pairs' "
+              f"change / parent {r['pair_ratio_median']:.4f}", flush=True)
     # the share of each launch's outputs bitwise equal to the parent's,
     # beside both trees' device us; each tree against itself
     outs = [torch.load(tmp / f"{i}.pt") for i in range(4)]
@@ -4533,7 +4754,8 @@ def ab_main(parent: str) -> int:
     out = REPO / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "ab.json").write_text(json.dumps(dict(
-        card=card, runs=runs, differ=differ, equal=equal), indent=1))
+        card=card, runs=runs, differ=differ, equal=equal, serve=serve),
+        indent=1))
     return 0
 
 
@@ -4738,6 +4960,8 @@ if __name__ == "__main__":
         sys.exit(split_sweep_main())
     if sys.argv[1:2] == ["--kernel-times"] and len(sys.argv) == 4:
         sys.exit(kernel_times_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--predict-worker"] and len(sys.argv) == 3:
+        sys.exit(predict_worker_main(sys.argv[2]))
     if sys.argv[1:2] == ["--ab"] and len(sys.argv) == 3:
         sys.exit(ab_main(sys.argv[2]))
     if sys.argv[1:] == ["--vmap"]:

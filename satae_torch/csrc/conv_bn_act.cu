@@ -10,9 +10,12 @@
 //
 // GEMM view: M = N_img * OH * OW output pixels, K = KH * KW * Cin, N = Cout.
 // Column k of the patch matrix is tap (kh, kw) = divmod(k / Cin, KW) and
-// channel k % Cin, so the weight is HWIO flattened to (KH * KW * Cin, Cout)
-// (satae_torch/kernels/conv.py::pack_conv_weight), staged by gemm_tile.cuh's
-// RowMajorB loader (the wgmma kernels below read it as their dtype needs).
+// channel k % Cin. The weight's layout follows the dtype
+// (satae_torch/kernels/conv.py::pack_conv_weight): bf16 HWIO flattened to
+// (KH * KW * Cin, Cout), staged by gemm_tile.cuh's MNMajor loader; float32
+// the K-major (Cout, KH * KW * Cin) buffer, staged by its KMajor loader
+// (the TF32 wgmma kernels below take only K-major operands, and every
+// float32 kernel here reads the one layout).
 // The output is NHWC, which is the (M, N) row-major result, written through
 // the shared epilogue with the conv bias folded into the shift. It runs
 // gemm_tile.cuh's main loop: cp.async stages, 3xTF32 mma.sync, float4
@@ -49,8 +52,9 @@
 // conv_rows_kernel, each thread gathering its wgmma A fragments from the
 // staged rows and splitting them in registers, m64n32k8 TF32 wgmmas;
 // conv1-3 on conv_im2col_tma_kernel with 128 x 64 tiles and stages of 32
-// channels, the weight split once per launch into its TF32 halves
-// (split_weight_tf32_kernel), both brought by TMA, A split in registers.
+// channels, the weight's TF32 halves (split once per weight set, when the
+// serving fold packs it: satae_torch/kernels/conv.py::split_tf32) both
+// brought by TMA, A split in registers.
 // Bound (above): conv0 by bytes (27.5 us), conv1-3 by operations (29 us).
 // Stayed on the mma.sync loop above: layers none of these take, float32
 // and bf16 -- channel counts TMA's im2col cannot cut into whole stages
@@ -128,6 +132,11 @@ struct Im2colA : KMajorLayout<T, kBM> {
   }
 };
 
+// The weight's loader: the K-major (Cout, K) buffer in float32, HWIO's
+// (K, Cout) in bf16.
+template <class T, int kBN>
+using ConvB = std::conditional_t<kIsF32<T>, KMajor<T, kBN>, MNMajor<T, kBN>>;
+
 // At least four blocks per SM, as their 55 KB of shared memory allow: the
 // bound holds ptxas to <= 128 registers, where its own choice for the 32-wide
 // float32 tile spilled 4 bytes.
@@ -161,35 +170,16 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
   __syncthreads();
   const Im2colA<T> a(x, img, ih0, iw0, H, W, Cin, KW);
-  const MNMajor<T, kBN> b(w, Cout, K, n0);
+  const ConvB<T, kBN> b(w, Cout, K, n0);
   Frag<kBN> f;
-  mainloop<Im2colA<T>, MNMajor<T, kBN>, kBN>(a, b, reinterpret_cast<T*>(smem4),
-                                             0, K, f);
+  mainloop<Im2colA<T>, ConvB<T, kBN>, kBN>(a, b, reinterpret_cast<T*>(smem4),
+                                           0, K, f);
   stage_acc<kBN>(f, smem);
   store_tile<kBN>(smem, out, M, Cout, m0, n0, scale, shift, act);
 }
 
 
 // ---- on wgmma: bf16, and float32 as 3xTF32 ---------------------------------
-
-// The float32 weight (Cout, K) of conv_im2col_tma_kernel split once per
-// launch into TF32 big = tf32_rna(v) and small = tf32_rna(v - big), two
-// (Cout, K) buffers that its stages take by TMA: every tile of a launch
-// multiplies the same weight, so splitting it in every stage of every tile
-// (conv1: 1,024 tiles x 9 stages, in both warpgroups) repeated one split
-// thousands of times. The values are those an in-kernel split gives.
-__global__ void __launch_bounds__(256)
-    split_weight_tf32_kernel(const float* __restrict__ w,
-                             float* __restrict__ big,
-                             float* __restrict__ small, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    uint32_t b, s;
-    split_tf32(w[i], b, s);
-    big[i] = __uint_as_float(b);
-    small[i] = __uint_as_float(s);
-  }
-}
 
 namespace hopper {
 
@@ -230,12 +220,14 @@ __host__ __device__ constexpr int conv_channels() {
 // load of 64 channels of one tap or two of 32, each into its region of the
 // swizzled K-major layout; the HWIO weight, a row-major (K, Cout) buffer
 // that wgmma reads MN-major; wgmma m64n{kBN}k16. float32: 32 of K a stage,
-// one load of 32 channels of one tap (Cin a multiple of 32); the weight
-// split once per launch into its TF32 big and small halves
-// (split_weight_tf32_kernel, from the K-major (Cout, K) buffer of
-// satae_torch/kernels/conv.py::pack_conv_weight(k_major=True)), one box of
-// 64 x 32 floats of each per stage (map_w big, map_ws small), landing in
-// the K-major swizzled layout wgmma reads; consume_tf32_presplit per
+// one load of 32 channels of one tap (Cin a multiple of 32); the weight's
+// TF32 big and small halves, two K-major (Cout, K) buffers split once per
+// weight set (satae_torch/kernels/conv.py::split_tf32: every tile of every
+// launch multiplies the same weight, so a split per stage repeated one
+// split thousands of times, and one per launch cost a second kernel each
+// call), one box of 64 x 32 floats of each per stage (map_w big, map_ws
+// small), landing in the K-major swizzled layout wgmma reads;
+// consume_tf32_presplit per
 // warpgroup: its A fragments split in registers, then 12 TF32 wgmmas on
 // the stage as TMA left it -- no shared-memory writes and no barrier
 // between the warpgroups, so one's wgmmas run while the other splits. The
@@ -571,7 +563,7 @@ int launch(const void* x, const void* w, const float* scale,
            const float* shift, void* out, int batch, int H, int W, int Cin,
            int KH, int KW, int Cout, int OH, int OW, int stride, int pad,
            int act, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<Im2colA<T>, MNMajor<T, kBN>, kBN>();
+  constexpr int smem = smem_bytes<Im2colA<T>, ConvB<T, kBN>, kBN>();
   auto kernel = conv2d_bn_act_kernel<T, kBN>;
   static unsigned allowed = 0;
   const cudaError_t err =
@@ -603,11 +595,11 @@ int launch_tile(const void* x, const void* w, const float* scale,
 
 
 // One instantiation of the im2col kernel. bf16: the weight map MN-major
-// (the (K, Cout) HWIO buffer, boxes of 64 n x 64 k). float32: the weight
-// split first into ws (big, then small: 2 x Cout x K floats) on the same
-// stream, then two K-major maps of those (boxes of 32 k x 64 n).
+// (the (K, Cout) HWIO buffer, boxes of 64 n x 64 k). float32: two K-major
+// maps (boxes of 32 k x 64 n) of the weight's TF32 halves in w_tf32 (big,
+// then small: 2 x Cout x K floats).
 template <class T, int kBN>
-cudaError_t launch_im2col(const void* x, const void* w, float* ws,
+cudaError_t launch_im2col(const void* x, const void* w, const float* w_tf32,
                           const float* scale, const float* shift, void* out,
                           int batch, int H, int W, int Cin, int KH, int KW,
                           int Cout, int OH, int OW, int stride, int pad,
@@ -617,16 +609,11 @@ cudaError_t launch_im2col(const void* x, const void* w, float* ws,
   const int K = KH * KW * Cin;
   cudaError_t err = cudaSuccess;
   if constexpr (kIsF32<T>) {
-    if (ws == nullptr) return cudaErrorInvalidValue;
-    const int n = Cout * K;
-    const int blocks = (n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024;
-    split_weight_tf32_kernel<<<blocks, 256, 0, s>>>(
-        static_cast<const float*>(w), ws, ws + n, n);
-    err = cudaGetLastError();
+    if (w_tf32 == nullptr) return cudaErrorInvalidValue;
+    err = hopper::make_map(&map_w, w_tf32, Cout, K, 64, 0, kElem);
     if (err == cudaSuccess)
-      err = hopper::make_map(&map_w, ws, Cout, K, 64, 0, kElem);
-    if (err == cudaSuccess)
-      err = hopper::make_map(&map_ws, ws + n, Cout, K, 64, 0, kElem);
+      err = hopper::make_map(&map_ws, w_tf32 + static_cast<size_t>(Cout) * K,
+                             Cout, K, 64, 0, kElem);
   } else {
     err = hopper::make_map(&map_w, w, K, Cout, 64, 0, kElem);
     map_ws = map_w;  // unread
@@ -657,7 +644,7 @@ cudaError_t launch_im2col(const void* x, const void* w, float* ws,
 // (and in bf16 128) the im2col kernel with that N tile; the wrapper checks
 // that the layer fits the kernel it names.
 template <class T>
-int launch_hopper(const void* x, const void* w, float* ws,
+int launch_hopper(const void* x, const void* w, const float* w_tf32,
                   const float* scale, const float* shift, void* out,
                   int batch, int H, int W, int Cin, int KH, int KW, int Cout,
                   int OH, int OW, int stride, int pad, int act, int tile_n,
@@ -685,11 +672,11 @@ int launch_hopper(const void* x, const void* w, float* ws,
   }
   cudaError_t err = cudaErrorInvalidValue;
   if (tile_n == 64) {
-    err = launch_im2col<T, 64>(x, w, ws, scale, shift, out, batch, H, W, Cin,
+    err = launch_im2col<T, 64>(x, w, w_tf32, scale, shift, out, batch, H, W, Cin,
                                KH, KW, Cout, OH, OW, stride, pad, act, s);
   } else if constexpr (!kIsF32<T>) {
     if (tile_n == 128)
-      err = launch_im2col<T, 128>(x, w, ws, scale, shift, out, batch, H, W,
+      err = launch_im2col<T, 128>(x, w, w_tf32, scale, shift, out, batch, H, W,
                                   Cin, KH, KW, Cout, OH, OW, stride, pad,
                                   act, s);
   }
@@ -703,7 +690,7 @@ int launch_hopper(const void* x, const void* w, float* ws,
 
 extern "C" {
 
-// NHWC x, HWIO w flattened to (KH * KW * Cin, Cout), NHWC out, all float32;
+// NHWC x, the K-major (Cout, KH * KW * Cin) w, NHWC out, all float32;
 // tile_n (32 or 64) output channels per tile. Launches on `stream` and
 // returns cudaGetLastError() (0 on success).
 int satae_conv2d_bn_act(const float* x, const float* w, const float* scale,
@@ -716,7 +703,8 @@ int satae_conv2d_bn_act(const float* x, const float* w, const float* scale,
                                    tile_n, stream);
 }
 
-// satae_conv2d_bn_act with bf16 x, w and out; scale and shift float32, out
+// satae_conv2d_bn_act with bf16 x, w (HWIO flattened to (KH * KW * Cin,
+// Cout)) and out; scale and shift float32, out
 // rounded once (to nearest even) after the float32 epilogue.
 int satae_conv2d_bn_act_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                              const float* scale, const float* shift,
@@ -750,23 +738,23 @@ int satae_conv2d_bn_act_bf16_tma(const __nv_bfloat16* x,
 }
 
 // satae_conv2d_bn_act on wgmma (3xTF32): w is the K-major (Cout, KH * KW *
-// Cin) buffer, a (Cout, KH, KW, Cin) tensor (pack_conv_weight(k_major=
-// True)). tile_n 32 takes the staged-rows kernel (K <= 32, Cout <= 32 and
-// a multiple of 8, 128 output pixels = whole output rows of one image, W *
-// Cin a multiple of 4, x 16-byte aligned; ws unused); 64 the im2col
-// kernel, TMA for the patches and the weight's TF32 halves (x and w
-// 16-byte aligned, Cin a multiple of 32), which it first writes into ws (2
-// * Cout * K floats, 16-byte aligned) -- two launches on `stream`. The
-// wrapper (satae_torch/kernels/conv.py::conv_route) routes every other
-// layer to satae_conv2d_bn_act, with the weight HWIO.
+// Cin) buffer, a (Cout, KH, KW, Cin) tensor (pack_conv_weight of a float32
+// weight), w_tf32 its TF32 halves (conv.py::split_tf32: big, then small, 2
+// * Cout * K floats, 16-byte aligned). tile_n 32 takes the staged-rows
+// kernel (K <= 32, Cout <= 32 and a multiple of 8, 128 output pixels =
+// whole output rows of one image, W * Cin a multiple of 4, x 16-byte
+// aligned; reads w, not w_tf32); 64 the im2col kernel, TMA for the patches
+// and w_tf32 (x 16-byte aligned, Cin a multiple of 32; reads w_tf32, not
+// w). The wrapper (satae_torch/kernels/conv.py::conv_route) routes every
+// other layer to satae_conv2d_bn_act, with the same w.
 int satae_conv2d_bn_act_tma(const float* x, const float* w,
-                            const float* scale, const float* shift,
-                            float* out, float* ws, int batch, int H, int W,
-                            int Cin, int KH, int KW, int Cout, int OH, int OW,
-                            int stride, int pad, int act, int tile_n,
+                            const float* w_tf32, const float* scale,
+                            const float* shift, float* out, int batch, int H,
+                            int W, int Cin, int KH, int KW, int Cout, int OH,
+                            int OW, int stride, int pad, int act, int tile_n,
                             void* stream) {
-  return satae::launch_hopper<float>(x, w, ws, scale, shift, out, batch, H,
-                                     W, Cin, KH, KW, Cout, OH, OW, stride,
+  return satae::launch_hopper<float>(x, w, w_tf32, scale, shift, out, batch,
+                                     H, W, Cin, KH, KW, Cout, OH, OW, stride,
                                      pad, act, tile_n, stream);
 }
 

@@ -103,7 +103,13 @@
 // buffers TMA cannot read, float32 and bf16 -- a base or row not 16-byte
 // aligned: an odd K or N in bf16, K or N not a multiple of 4 in float32,
 // odd offsets, the head's 10-wide cotangent in its backward (fc2's dX and
-// dW; satae_torch/kernels/matmul.py::k1_loader).
+// dW); and the float32 launches chip_smoke.py --ab timed faster here, the
+// same sums either way: N <= 16 (the head's forward: a 64-wide wgmma tile
+// does 6x the work), an unbatched product split into parts of >= 512 of K
+// (the serving projection: 16 stages in a row per cluster block), a
+// batched one whose B is MN-major with >= 2^20 multiply-adds a config (the
+// vmap path's 4096-wide dX and dW: the transposing split costs half)
+// (satae_torch/kernels/matmul.py::k1_loader).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

@@ -6,7 +6,10 @@
 // cannot read, in either dtype -- a base, row or config stride that is not
 // a multiple of 16 bytes (the head's 10-wide cotangent in K1's backward:
 // 40-byte float32 and 20-byte bf16 rows), K2 layers whose channels TMA's
-// im2col cannot cut into whole stages, misaligned buffers:
+// im2col cannot cut into whole stages, misaligned buffers -- and the
+// float32 K1 launches it runs faster than the wgmma kernel (the head's
+// forward, the serving projection, the vmap path's 4096-wide dX and dW;
+// kernels/matmul.py::k1_loader):
 // one 64 x kBN output tile (kBN = 32 or 64) of out = act((A @ B) * scale +
 // shift), with the operands and the output in T -- float32, on tensor cores
 // as 3xTF32, or bf16 -- and the accumulators, scale, shift and epilogue in

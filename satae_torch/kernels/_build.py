@@ -34,8 +34,8 @@ BUILD_ROOT = _PKG / "_build"
 # source -> {launcher: (device pointers, int arguments)}. A launcher takes
 # its pointers (x, w, scale, shift, out, then K1's split-K workspace and
 # counters), its int arguments, then the stream, and returns
-# cudaGetLastError() (``satae_conv2d_bn_act_tma`` takes a sixth pointer,
-# the workspace of its split weight). Each kernel has a float32 and a bf16
+# cudaGetLastError() (``satae_conv2d_bn_act_tma`` takes a third pointer
+# after x and w, the weight's TF32 halves). Each kernel has a float32 and a bf16
 # launcher on gemm_tile.cuh's mma.sync loop (bf16: x, w and out bf16;
 # scale, shift and the workspace float32), and one of each on wgmma with
 # TMA loads

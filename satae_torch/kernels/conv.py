@@ -8,10 +8,12 @@ patches in its loads and never writes an im2col matrix. On a CUDA tensor
 :func:`conv2d_bn_act_plain`. There is no fallback from one to the other.
 
 Layouts are the JAX package's: NHWC activations, HWIO weights. A PyTorch
-OIHW weight goes through :func:`pack_conv_weight` once, at load; for
-float32 with ``k_major=True``, which keeps it in the (Cout, KH, KW, Cin)
-buffer K2's TF32 wgmma kernels read (the tensor cores take TF32 only
-K-major) and hands out the HWIO view of that buffer.
+OIHW weight goes through :func:`pack_conv_weight` once, at load, into the
+buffer its dtype's kernels read: a contiguous HWIO tensor in bf16; in
+float32 a (Cout, KH, KW, Cin) buffer, handed out as its HWIO view (K2's
+TF32 wgmma kernels take the weight only K-major, as the tensor cores take
+TF32, and its float32 mma.sync loop reads the same buffer), with its TF32
+halves (:func:`split_tf32`), which the float32 im2col kernel reads.
 
 x and w are both float32 or both bf16 (K2's bf16 instantiation,
 ``satae_conv2d_bn_act_bf16``, counted in ``conv2d_bn_act.launches["_bf16"]``),
@@ -22,7 +24,7 @@ computes through ``fused_matmul``.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,15 +42,15 @@ def bn_fold(weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
     return scale, shift
 
 
-def pack_conv_weight(w_oihw: torch.Tensor,
-                     k_major: bool = False) -> torch.Tensor:
+def pack_conv_weight(w_oihw: torch.Tensor) -> torch.Tensor:
     """OIHW -> HWIO: row k of its (KH*KW*Cin, Cout) view is tap
     (k // Cin) // KW, (k // Cin) % KW and channel k % Cin, the patch order
-    K2 gathers in. A contiguous HWIO tensor, or with ``k_major`` the HWIO
-    view of a contiguous (Cout, KH, KW, Cin) buffer -- the same values,
-    each output channel's KH*KW*Cin weights contiguous (:func:`is_k_major`)."""
+    K2 gathers in. In the layout K2 reads in the weight's dtype, and
+    nothing else: a contiguous HWIO tensor in bf16, the HWIO
+    view of a contiguous (Cout, KH, KW, Cin) buffer in float32 -- the same
+    values, each output channel's KH*KW*Cin weights contiguous."""
     w = w_oihw.detach()
-    if k_major:
+    if w.dtype == torch.float32:
         return w.permute(0, 2, 3, 1).contiguous().permute(1, 2, 3, 0)
     return w.permute(2, 3, 1, 0).contiguous()
 
@@ -57,6 +59,27 @@ def is_k_major(w: torch.Tensor) -> bool:
     """Whether the HWIO ``w`` is the view of a contiguous (Cout, KH, KW,
     Cin) buffer."""
     return w.permute(3, 0, 1, 2).is_contiguous()
+
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the bits, as gemm_tile.cuh's ``to_tf32``: add
+    half of the 13 dropped mantissa bits' range to the magnitude, clear
+    them."""
+    return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(w: torch.Tensor) -> torch.Tensor:
+    """The TF32 halves of the float32 K-major weight ``w`` (from
+    :func:`pack_conv_weight`) that K2's float32 im2col kernel reads: big =
+    tf32_rna(v), then small = tf32_rna(v - big), each in the (Cout, KH *
+    KW * Cin) order, one (2 * w.numel(),) buffer -- the values the kernels
+    split in registers. Made once per weight set, with the fold."""
+    if w.dtype != torch.float32 or not is_k_major(w):
+        raise ValueError("split_tf32: takes a float32 weight from "
+                         "pack_conv_weight")
+    v = w.detach().permute(3, 0, 1, 2).reshape(-1)
+    big = _tf32(v)
+    return torch.cat([big, _tf32(v - big)])
 
 
 def _out_hw(h: int, w: int, kh: int, kw: int, stride: int, padding: int):
@@ -98,9 +121,8 @@ def conv_route(x: torch.Tensor, w: torch.Tensor, stride: int,
     the ring). Everything else: "mma", gemm_tile.cuh's mma.sync loop,
     tile_n 32 or 64 -- channel counts TMA's im2col cannot cut into whole
     stages (bf16 Cin 5, 6, 8, 16; float32 Cin 5 or 40), misaligned
-    buffers. Both float32 wgmma kernels read the weight K-major
-    (:func:`pack_conv_weight` with ``k_major``); the mma.sync loop reads
-    it HWIO (:func:`conv2d_bn_act` hands each what it reads)."""
+    buffers. Every route reads the weight in the one layout of its dtype
+    (:func:`pack_conv_weight`)."""
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     oh, ow = _out_hw(h, wd, kh, kw, stride, padding)
@@ -126,21 +148,25 @@ def conv_route(x: torch.Tensor, w: torch.Tensor, stride: int,
     return "mma", tile_n_for(cout)
 
 
-def _conv_cuda(x, w, scale, shift, stride, padding, act):
+def _conv_cuda(x, w, scale, shift, stride, padding, act, w_tf32):
     n, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     oh, ow = _out_hw(h, wd, kh, kw, stride, padding)
     route, tile_n = conv_route(x, w, stride, padding)
-    # the buffer the route's kernel reads: the float32 wgmma kernels the
-    # K-major (Cout, KH, KW, Cin) one, everything else HWIO; a weight in
-    # the other layout is copied into it (never on the serving path, whose
-    # fold keeps each dtype's layout)
-    if x.dtype == torch.float32 and route != "mma":
-        w_buf = w.permute(3, 0, 1, 2)
-        if not w_buf.is_contiguous():
-            w_buf = w_buf.contiguous()
-    else:
-        w_buf = w.contiguous() if is_k_major(w) else w
+    f32 = x.dtype == torch.float32
+    # the buffer K2 reads (pack_conv_weight): (Cout, KH, KW, Cin) in
+    # float32, HWIO in bf16
+    w_buf = w.permute(3, 0, 1, 2) if f32 else w
+    if not w_buf.is_contiguous():
+        raise ValueError("conv2d_bn_act: the weight is not in the layout K2 "
+                         f"reads in {w.dtype} (pack_conv_weight)")
+    f32_im2col = f32 and route == "im2col"
+    if f32_im2col and (w_tf32 is None or w_tf32.shape != (2 * w.numel(),)
+                       or w_tf32.dtype != torch.float32
+                       or w_tf32.device != x.device
+                       or not w_tf32.is_contiguous()):
+        raise ValueError("conv2d_bn_act: the float32 im2col kernel reads "
+                         "w_tf32 = split_tf32(w), beside x")
     suffix = _build.check_operands("conv2d_bn_act", x.device, x, w_buf,
                                    scale=scale, shift=shift)
     if max(x.numel(), n * oh * ow * cout) >= 2 ** 31:
@@ -149,15 +175,12 @@ def _conv_cuda(x, w, scale, shift, stride, padding, act):
     out = torch.empty((n, oh, ow, cout), device=x.device, dtype=x.dtype)
     if out.numel() == 0:
         return out
-    ptrs = [x.data_ptr(), w_buf.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), out.data_ptr()]
-    if x.dtype == torch.float32 and route != "mma":
-        # the float32 im2col kernel's weight split into its TF32 halves
-        ws = (torch.empty(2 * w.numel(), device=x.device)
-              if route == "im2col" else None)
-        ptrs.append(0 if ws is None else ws.data_ptr())
+    ptrs = [x.data_ptr(), w_buf.data_ptr()]
+    if f32 and route != "mma":
+        ptrs.append(w_tf32.data_ptr() if f32_im2col else 0)
     _build.launch(_build.load("conv_bn_act"), "satae_conv2d_bn_act" + suffix
-                  + ("" if route == "mma" else "_tma"), x.device, *ptrs, n, h,
+                  + ("" if route == "mma" else "_tma"), x.device, *ptrs,
+                  scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h,
                   wd, cin, kh, kw, cout, oh, ow, stride, padding,
                   ACTS.index(act), tile_n)
     count_launch(conv2d_bn_act, x.dtype)
@@ -166,15 +189,19 @@ def _conv_cuda(x, w, scale, shift, stride, padding, act):
 
 def conv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                   shift: torch.Tensor, stride: int = 1, padding: int = 0,
-                  act: str = "none") -> torch.Tensor:
+                  act: str = "none", *,
+                  w_tf32: Optional[torch.Tensor] = None) -> torch.Tensor:
     """act(conv2d(x, w) * scale + shift) for NHWC x and HWIO w, with the conv
     bias and eval-mode BN folded into scale/shift (Cout,). x and w are both
-    float32 or both bf16, scale and shift float32. w is a contiguous HWIO
-    tensor or the HWIO view of a (Cout, KH, KW, Cin) buffer
-    (:func:`pack_conv_weight`). Returns NHWC in x's dtype.
+    float32 or both bf16, scale and shift float32. Returns NHWC in x's
+    dtype.
 
-    A CUDA x launches K2 (counted in ``conv2d_bn_act.launches``); a CPU x
-    takes :func:`conv2d_bn_act_plain`."""
+    A CUDA x launches K2 (counted in ``conv2d_bn_act.launches``), which
+    reads w in place in the layout :func:`pack_conv_weight` gives its dtype
+    and raises on another; in float32 it takes ``w_tf32 = split_tf32(w)``
+    too, which its im2col kernel reads (``conv_route``'s "im2col"; it
+    raises without it). A CPU x takes :func:`conv2d_bn_act_plain`, in
+    either layout."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
     if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[2]:
@@ -186,7 +213,7 @@ def conv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if stride < 1 or padding < 0:
         raise ValueError("conv2d_bn_act: stride >= 1 and padding >= 0")
     if x.device.type == "cuda":
-        return _conv_cuda(x, w, scale, shift, stride, padding, act)
+        return _conv_cuda(x, w, scale, shift, stride, padding, act, w_tf32)
     if x.device.type == "cpu":
         _build.check_dtypes("conv2d_bn_act", x, w, scale, shift)
         return conv2d_bn_act_plain(x, w, scale, shift, stride, padding, act)

@@ -17,8 +17,8 @@ backward product, in place (its ``trans_a``/``trans_b`` flags), so no
 transposed copy of an operand is ever made.
 
 Where TMA can read both buffers (:func:`k1_loader`) K1 runs its wgmma
-kernel, float32 as 3xTF32 and bf16 alike; other buffers take its mma.sync
-loop.
+kernel, float32 as 3xTF32 and bf16 alike; other buffers, and the float32
+shapes the mma.sync loop runs faster, take that loop.
 
 Operands are float32, or bf16 as in satae's bf16 recipe: x and w of one
 dtype (a mixed pair raises; the callers cast, as satae's layers do), scale
@@ -174,25 +174,66 @@ def tma_ok(t: torch.Tensor) -> bool:
     ``t``: a 16-byte-aligned base, the last axis contiguous, and every
     other stride (rows, and a stack's config stride) a multiple of 16
     bytes, none of the axes empty."""
-    return (t.numel() > 0 and t.data_ptr() % 16 == 0 and t.stride(-1) == 1
-            and all(st * t.element_size() % 16 == 0
-                    for st in t.stride()[:-1]))
+    es, st = t.element_size(), t.stride()
+    rows_ok = st[-2] * es % 16 == 0 and (len(st) == 2 or st[0] * es % 16 == 0)
+    return (t.numel() > 0 and t.data_ptr() % 16 == 0 and st[-1] == 1
+            and rows_ok)
 
 
-def k1_loader(x: torch.Tensor, w: torch.Tensor) -> str:
-    """Which loader K1 runs on the buffers x and w (in the layouts they are
-    passed in; 2-D, or the (C, ., .) stacks of the batched K1): "tma" --
-    the wgmma kernel, TMA loads into an mbarrier ring (bf16, or float32 as
-    3xTF32) -- for a pair that TMA can read (:func:`tma_ok`), else
-    "cp.async", gemm_tile.cuh's mma.sync loop. A fixed function of dtype
-    and alignment: the mma.sync loop keeps what TMA cannot read -- a base
-    or a row or config stride that is not a multiple of 16 bytes, such as
-    the head's 10-wide cotangent as the contiguous axis (20-byte bf16 and
-    40-byte float32 rows: fc2's dX and dW), an odd K or N in bf16, or a
-    float32 K or N that is not a multiple of 4."""
-    if tma_ok(x) and tma_ok(w):
+# float32 launches that stay on the mma.sync loop although TMA can read
+# them, where `chip_smoke.py --ab` on an H100 timed the loop faster (device
+# us per launch, wgmma against mma.sync; the two sum every float32 output
+# bit for bit alike, so the route changes no result):
+#   N <= F32_MMA_MAX_N: the head's forward, 512 x 64 x 10 5.5 / 5.4,
+#     64 x 128 x 10 7.1 / 6.4, batched C = 45 7.3 / 5.9 and C = 11 5.5 /
+#     4.5 (a 64-wide wgmma tile does >= 6x the work the loop's 32-wide one
+#     does);
+#   an unbatched product split K into parts of F32_MMA_SPLIT_K or more:
+#     the serving projection 512 x 4096 x 64, 8 splits of 512, 19.3 / 17.8
+#     (each cluster block runs 16 stages in a row, ~1 us each);
+#   a batched launch with an MN-major B (trans_b False: the backward's dX
+#     and dW) of F32_MMA_BATCHED_MACS or more multiply-adds a config: at C
+#     = 45 proj dX and dW 73.5 / 50.2 and 73.4 / 50.8, dec_in dX 69.0 /
+#     62.9, dec_in dW 73.0 / 51.0 (the consumers' transposing split of B
+#     takes half the time); the smaller ones there (2^19 multiply-adds: fc1
+#     and the MLP's layers, 5.6-7.7 / 6.2-8.3) and every unbatched
+#     MN-major B are faster on wgmma.
+F32_MMA_MAX_N = 16
+F32_MMA_SPLIT_K = 512
+F32_MMA_BATCHED_MACS = 1 << 20
+
+
+def k1_loader(x: torch.Tensor, w: torch.Tensor, trans_a: bool = False,
+              trans_b: bool = False) -> str:
+    """Which loader K1 runs on the buffers x and w, read as
+    :func:`fused_gemm` (2-D) or :func:`fused_gemm_batched` (the (C, ., .)
+    stacks) reads them with ``trans_a`` / ``trans_b``: "tma" -- the wgmma
+    kernel, TMA loads into an mbarrier ring (bf16, or float32 as 3xTF32) --
+    for a pair that TMA can read (:func:`tma_ok`), else "cp.async",
+    gemm_tile.cuh's mma.sync loop. A fixed function of dtype, shape,
+    layout and alignment. The mma.sync loop keeps what TMA cannot read -- a
+    base or a row or config stride that is not a multiple of 16 bytes, such
+    as the head's 10-wide cotangent as the contiguous axis (20-byte bf16
+    and 40-byte float32 rows: fc2's dX and dW), an odd K or N in bf16, or a
+    float32 K or N that is not a multiple of 4 -- and the float32 launches
+    it runs faster (the rules above F32_MMA_MAX_N)."""
+    if not (tma_ok(x) and tma_ok(w)):
+        return "cp.async"
+    if x.dtype != torch.float32:
         return "tma"
-    return "cp.async"
+    xs = x.shape
+    m, k = (xs[-1], xs[-2]) if trans_a else (xs[-2], xs[-1])
+    n = w.shape[-2] if trans_b else w.shape[-1]
+    if n <= F32_MMA_MAX_N:
+        return "cp.async"
+    if len(xs) == 3:  # batched
+        return ("cp.async" if not trans_b
+                and m * n * k >= F32_MMA_BATCHED_MACS else "tma")
+    if k < 2 * F32_MMA_SPLIT_K:  # no split of that depth
+        return "tma"
+    _, _, splits, k_per_split = split_k_plan(m, n, k)
+    return ("cp.async" if splits > 1 and k_per_split >= F32_MMA_SPLIT_K
+            else "tma")
 
 
 def split_k_plan_tma(m: int, n: int, k: int, batch: int = 1,
@@ -288,7 +329,7 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     if m == 0 or n == 0:
         return out
-    if k1_loader(x, w) == "tma":
+    if k1_loader(x, w, trans_a, trans_b) == "tma":
         _, _, splits, k_per_split = split_k_plan_tma(m, n, k,
                                                      dtype=x.dtype)
         _build.launch(_build.load("fused_gemm"),
@@ -434,7 +475,8 @@ fused_matmul.launches = _build.launch_counter()
 # out (C, M, N). Where :func:`k1_loader` says "tma" it runs the wgmma
 # kernel (float32 as 3xTF32, or bf16) with the config as the outermost
 # coordinate of 3-D tensor maps, on split_k_plan_tma's batched plan;
-# otherwise (the head's 10-wide cotangent) the mma.sync kernel with the
+# otherwise (the head's 10-wide cotangent, and float32's 4096-wide dX and
+# dW and the head's forward) the mma.sync kernel with the
 # config folded into the grid's z, on split_k_plan's plan with every
 # config's tiles counted toward the wave. The plan is the same for all
 # configs.
@@ -508,7 +550,7 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((c, m, n), device=x.device, dtype=x.dtype)
     if c == 0 or m == 0 or n == 0:
         return out
-    if k1_loader(x, w) == "tma":
+    if k1_loader(x, w, trans_a, trans_b) == "tma":
         _, _, splits, k_per_split = split_k_plan_tma(m, n, k, batch=c,
                                                      dtype=x.dtype)
         _build.launch(_build.load("fused_gemm"),

@@ -10,15 +10,16 @@ Folding and packing happen once per weight set (:func:`fold_encoder`,
 :func:`fold_mlp`), not per call: conv weights go OIHW -> HWIO (the K2 patch
 order), and the encoder projection's input rows are reordered from the
 reference's NCHW flatten to the NHWC flatten of K2's output, the
-permutation satae/io/torch_import.py applies. In float32 every weight is
-kept K-major, the layout the kernels' TF32 wgmma reads (the tensor cores
-take TF32 only K-major): linear weights stay (out, in), read with
-``w_nk``, and conv weights are the HWIO view of a (Cout, KH, KW, Cin)
-buffer (``pack_conv_weight(k_major=True)``). In bf16 the encoder's linear
-weight goes (out, in) -> (in, out) and its conv weights are contiguous
-HWIO, which K1's and K2's bf16 wgmma kernels read MN-major. Either way the
-values are the same. A caller that changes the modules' weights folds
-again (satae_torch.api does so when it sees them change).
+permutation satae/io/torch_import.py applies. Each weight's layout follows
+its dtype. In float32 every weight is kept K-major, the layout the
+kernels' TF32 wgmma reads (the tensor cores take TF32 only K-major):
+linear weights stay (out, in), read with ``w_nk``, and conv weights are
+the HWIO view of a (Cout, KH, KW, Cin) buffer (:func:`pack_conv_weight`),
+with their TF32 halves split once here (:func:`split_tf32`). In bf16 the
+encoder's linear weight goes (out, in) -> (in, out) and its conv weights
+are contiguous HWIO, which K1's and K2's bf16 wgmma kernels read MN-major.
+Either way the values are the same. A caller that changes the modules'
+weights folds again (satae_torch.api does so when it sees them change).
 
 In bf16 (``fold_encoder(enc, torch.bfloat16)``) the encoder is served as
 satae serves it (api.py:399-415, kernels/conv.py:27-33): its weights, biases
@@ -31,12 +32,13 @@ float32: the latents reach it as float32.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 from satae_torch.data.augment import normalize
-from satae_torch.kernels.conv import bn_fold, conv2d_bn_act, pack_conv_weight
+from satae_torch.kernels.conv import (bn_fold, conv2d_bn_act,
+                                      pack_conv_weight, split_tf32)
 from satae_torch.kernels.matmul import fused_matmul
 from satae_torch.models.encoder import Encoder
 from satae_torch.models.mlp import MLP
@@ -44,23 +46,29 @@ from satae_torch.models.mlp import MLP
 
 @dataclass(frozen=True)
 class FoldedConv:
-    """One K2 launch: act(conv(x, w) * scale + shift), stride, padding."""
-    w: torch.Tensor  # HWIO
+    """One K2 launch: act(conv(x, w) * scale + shift), stride, padding;
+    in float32 with w's TF32 halves."""
+    w: torch.Tensor  # HWIO, laid out by pack_conv_weight
     scale: torch.Tensor
     shift: torch.Tensor
     stride: int
     padding: int
+    w_tf32: Optional[torch.Tensor] = None  # split_tf32(w) in float32
 
 
 @dataclass(frozen=True)
 class FoldedLinear:
     """One K1 launch: act((x @ W) * scale + shift), W = w, or w.T with
     ``w_nk``."""
-    w: torch.Tensor  # (in, out), or (out, in) with w_nk
+    w: torch.Tensor  # (out, in) in float32, (in, out) otherwise
     scale: torch.Tensor
     shift: torch.Tensor
     act: str
-    w_nk: bool = False
+
+    @property
+    def w_nk(self) -> bool:
+        """Whether w is the (out, in) buffer: in float32 (K-major)."""
+        return self.w.dtype == torch.float32
 
     def __call__(self, h: torch.Tensor) -> torch.Tensor:
         return fused_matmul(h, self.w, self.scale, self.shift, self.act,
@@ -83,8 +91,7 @@ def _plain_linear(w_out_in: torch.Tensor, b: torch.Tensor) -> FoldedLinear:
     values), the (out, in) weight kept K-major in float32 and made (in,
     out) otherwise."""
     return FoldedLinear(_linear_weight(w_out_in), torch.ones_like(b.float()),
-                        b.detach().float(), "none",
-                        w_out_in.dtype == torch.float32)
+                        b.detach().float(), "none")
 
 
 def _linear_weight(w_out_in: torch.Tensor) -> torch.Tensor:
@@ -106,10 +113,10 @@ def fold_encoder(enc: Encoder,
             bn.weight, bn.bias, bn.running_mean, bn.running_var)), bn.eps)
         # (z + b) * s + t = z * s + (b * s + t)
         shift = shift + conv.bias.to(dtype).float() * scale
+        w = pack_conv_weight(conv.weight.to(dtype))
         convs.append(FoldedConv(
-            pack_conv_weight(conv.weight.to(dtype),
-                             k_major=dtype == torch.float32),
-            scale, shift, conv.stride[0], conv.padding[0]))
+            w, scale, shift, conv.stride[0], conv.padding[0],
+            split_tf32(w) if dtype == torch.float32 else None))
     c = enc.blocks()[-1][0].out_channels
     w = enc.proj.weight.detach().to(dtype)  # (latent, C*S*S), NCHW flatten
     s = int(round((w.shape[1] // c) ** 0.5))
@@ -127,7 +134,7 @@ def fold_mlp(mlp: MLP) -> FoldedMLP:
                                bn.running_var, bn.eps)
         shift = shift + fc.bias.float() * scale
         layers.append(FoldedLinear(_linear_weight(fc.weight), scale, shift,
-                                   "relu", fc.weight.dtype == torch.float32))
+                                   "relu"))
     layers.append(_plain_linear(mlp.out.weight, mlp.out.bias))
     return FoldedMLP(tuple(layers))
 
@@ -138,7 +145,7 @@ def encoder_infer(fe: FoldedEncoder, x: torch.Tensor) -> torch.Tensor:
     h = x.contiguous()
     for c in fe.convs:
         h = conv2d_bn_act(h, c.w, c.scale, c.shift, stride=c.stride,
-                          padding=c.padding, act="relu")
+                          padding=c.padding, act="relu", w_tf32=c.w_tf32)
     return fe.proj(h.reshape(h.shape[0], -1))
 
 

@@ -169,7 +169,8 @@ def main() -> int:
     import torch
 
     from satae_torch.kernels import _build
-    from satae_torch.kernels.conv import conv_route, pack_conv_weight
+    from satae_torch.kernels.conv import (conv_route, pack_conv_weight,
+                                          split_tf32)
     from satae_torch.kernels.matmul import split_k_plan_tma
 
     chip_smoke.check(torch.cuda.is_available(), "no CUDA device")
@@ -225,24 +226,24 @@ def main() -> int:
         sfx = "" if dt == torch.float32 else "_bf16"
         x = torch.rand(nimg, hw, hw, cin, device=dev, generator=g).to(dt)
         w_oihw = torch.rand(cout, cin, 3, 3, device=dev, generator=g).to(dt)
-        # the serving fold's layout: K-major in float32, HWIO in bf16
-        w = pack_conv_weight(w_oihw, k_major=dt == torch.float32)
+        # the serving fold's layout: K-major in float32 (with its TF32
+        # halves), HWIO in bf16
+        w = pack_conv_weight(w_oihw)
         w_buf = w.permute(3, 0, 1, 2) if dt == torch.float32 else w
         scale = torch.ones(cout, device=dev)
         shift = torch.zeros(cout, device=dev)
         oh = hw // 2
         out = torch.empty(nimg, oh, oh, cout, device=dev, dtype=dt)
         route, tile_n = conv_route(x, w, 2, 1)
-        # float32: the workspace of the weight's TF32 halves
-        ws_buf = torch.empty(2 * w.numel(), device=dev)
-        ws = (ws_buf.data_ptr(),) if dt == torch.float32 else ()
+        halves = split_tf32(w) if dt == torch.float32 else None
+        w_tf32 = (halves.data_ptr(),) if dt == torch.float32 else ()
         for name in K2_VARIANTS:
             lib = libs[("conv_bn_act", name)]
             run = lambda: _build.launch(
                 lib, f"satae_conv2d_bn_act{sfx}_tma", dev, x.data_ptr(),
-                w_buf.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                out.data_ptr(), *ws, nimg, hw, hw, cin, 3, 3, cout, oh, oh,
-                2, 1, 1, tile_n)
+                w_buf.data_ptr(), *w_tf32, scale.data_ptr(),
+                shift.data_ptr(), out.data_ptr(), nimg, hw, hw, cin, 3, 3,
+                cout, oh, oh, 2, 1, 1, tile_n)
             us = chip_smoke.device_us(run, 0.0, f"K2 {name}", 20)
             rows.append(dict(kernel="conv2d_bn_act" + sfx,
                              shape=[nimg, hw, hw, cin, cout], route=route,

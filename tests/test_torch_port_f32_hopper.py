@@ -28,7 +28,8 @@ import torch
 from hypothesis import given, settings, strategies as st
 
 import satae.kernels.matmul as KM
-from test_torch_port_kernel_design import TOL, _buffer, _case, emulate_k1
+from test_torch_port_kernel_design import (TOL, _buffer, _case, emulate_k1,
+                                           tf32)
 from torch_port_threads import two_threads  # noqa: F401 (autouse)
 from satae_torch import config as TCfg
 from satae_torch.kernels import conv as TC
@@ -155,14 +156,18 @@ _BATCHED_F32 = [(45, 8, 4096, 16, "none"), (7, 40, 64, 72, "sigmoid")]
                               for c, m, k, n, _ in _BATCHED_F32])
 def test_emulated_f32_batched_plan_matches_vmapped_satae(case):
     """The kernel's arithmetic per config on the batched float32 plan
-    against jax.vmap of satae's kernel (interpret mode)."""
+    against jax.vmap of satae's kernel (interpret mode). The 16-wide
+    product runs on the mma.sync loop (k1_loader's N rule), whose sums on
+    the same splits are the wgmma kernel's bit for bit: the emulation
+    models both."""
     c, m, k, n, act = case
     parts = [_case((m, k, n), seed=i) for i in range(c)]
     x, w, scale, shift = (np.stack(a) for a in zip(*parts))
     ref = np.asarray(jax.vmap(
         lambda a, b, sc, sh: KM.fused_matmul(a, b, sc, sh, act))(
             *(jnp.asarray(a) for a in (x, w, scale, shift))))
-    assert TM.k1_loader(torch.from_numpy(x), torch.from_numpy(w)) == "tma"
+    assert TM.k1_loader(torch.from_numpy(x), torch.from_numpy(w)) == (
+        "cp.async" if n <= TM.F32_MMA_MAX_N else "tma")
     _, _, splits, kps = TM.split_k_plan_tma(m, n, k, batch=c, dtype=F32)
     assert (splits, kps) == {4096: (3, 1376), 64: (1, 64)}[k]
     for i in range(c):
@@ -302,16 +307,18 @@ def test_f32_fold_is_k_major_with_bitwise_the_same_values(full_width):
     """The float32 fold keeps every weight K-major -- conv weights the HWIO
     view of a (Cout, KH, KW, Cin) buffer, linear weights (out, in) read
     with w_nk -- with bitwise the values of the (K, N) layouts it used to
-    hand K1 and K2; the bf16 fold keeps those layouts."""
+    hand K1 and K2, and the conv weights' TF32 halves beside them; the bf16
+    fold keeps those layouts and has no halves."""
     ae, mlp = full_width
     fe, fm = fast_infer.fold_encoder(ae.enc), fast_infer.fold_mlp(mlp)
     fe16 = fast_infer.fold_encoder(ae.enc, torch.bfloat16)
     for c, (conv, _), c16 in zip(fe.convs, ae.enc.blocks(), fe16.convs):
         assert TC.is_k_major(c.w) and not c.w.is_contiguous()
-        hwio = TC.pack_conv_weight(conv.weight)
-        assert hwio.is_contiguous() and torch.equal(c.w, hwio)
-        assert c16.w.is_contiguous() and torch.equal(
-            c16.w, TC.pack_conv_weight(conv.weight.to(torch.bfloat16)))
+        hwio = conv.weight.detach().permute(2, 3, 1, 0).contiguous()
+        assert torch.equal(c.w, hwio)
+        assert torch.equal(c.w_tf32, TC.split_tf32(c.w))
+        assert c16.w.is_contiguous() and c16.w_tf32 is None and torch.equal(
+            c16.w, hwio.to(torch.bfloat16))
     # the projection: rows of the NHWC flatten, as the (K, N) fold had them
     c = ae.enc.blocks()[-1][0].out_channels
     w = ae.enc.proj.weight.detach()
@@ -345,8 +352,9 @@ def test_f32_fold_serves_as_the_plain_modules(full_width):
 def test_f32_serving_launches_take_the_wgmma_route(full_width):
     """Every float32 launch of a 512-image serving chunk on the fold's own
     buffers: conv0 on the staged-rows kernel, conv1-3 on the TMA im2col
-    kernel, the projection and every MLP layer on K1's wgmma route (the
-    head's (10, 128) weight is K-major: 512-byte rows)."""
+    kernel, fc0 and fc1 on K1's wgmma route; the projection (8 splits of
+    512) and the 10-wide head on the mma.sync loop, which --ab timed faster
+    there (k1_loader's rules)."""
     ae, mlp = full_width
     fe, fm = fast_infer.fold_encoder(ae.enc), fast_infer.fold_mlp(mlp)
     h, routes = 64, []
@@ -356,25 +364,47 @@ def test_f32_serving_launches_take_the_wgmma_route(full_width):
         h //= 2
     assert routes == [("rows", 32)] + [("im2col", 64)] * 3
     k = fe.proj.w.shape[1]
-    assert TM.k1_loader(_buffer((512, k), F32), fe.proj.w) == "tma"
-    for layer in fm.layers:
-        x = _buffer((512, layer.w.shape[1]), F32)
-        assert TM.k1_loader(x, layer.w) == "tma"
+    assert TM.k1_loader(_buffer((512, k), F32), fe.proj.w,
+                        trans_b=fe.proj.w_nk) == "cp.async"
+    assert [TM.k1_loader(_buffer((512, layer.w.shape[1]), F32), layer.w,
+                         trans_b=layer.w_nk) for layer in fm.layers] == [
+        "tma", "tma", "cp.async"]
 
 
-@pytest.mark.parametrize("k_major", [False, True], ids=["HWIO", "K-major"])
-def test_conv_takes_either_weight_layout_on_the_cpu(k_major):
-    """conv2d_bn_act's plain version takes the K-major view as it takes the
-    contiguous HWIO weight (the wrapper hands each kernel the buffer it
-    reads)."""
-    rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.normal(size=(2, 16, 16, 32)).astype(np.float32))
+@pytest.mark.parametrize("shape", [(3, 3, 32, 64), (3, 3, 3, 32),
+                                   (1, 1, 5, 9)], ids=str)
+def test_split_tf32_is_the_kernels_split(shape):
+    """split_tf32 (the fold's TF32 halves of a float32 conv weight, which
+    the im2col kernel reads) against the kernels' split in registers as the
+    emulation models it: big = tf32_rna(v), small = tf32_rna(v - big), in
+    the K-major (Cout, KH * KW * Cin) order, bit for bit."""
+    rng = np.random.default_rng(3)
+    w_oihw = torch.from_numpy(rng.normal(
+        size=(shape[3], shape[2], shape[0], shape[1])).astype(np.float32))
+    w = TC.pack_conv_weight(w_oihw)
+    halves = TC.split_tf32(w)
+    v = w_oihw.permute(0, 2, 3, 1).reshape(-1)
+    big = tf32(v)
+    assert halves.dtype == F32 and halves.shape == (2 * v.numel(),)
+    assert torch.equal(halves.view(torch.int32),
+                       torch.cat([big, tf32(v - big)]).view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [F32, torch.bfloat16], ids=str)
+def test_pack_conv_weight_lays_out_by_dtype(dtype):
+    """pack_conv_weight picks K2's layout from the weight's dtype alone --
+    K-major in float32, contiguous HWIO in bf16, the same values either way
+    -- never the other dtype's layout (split_tf32 takes only the float32
+    one)."""
+    rng = np.random.default_rng(4)
     w_oihw = torch.from_numpy(
-        rng.normal(size=(64, 32, 3, 3)).astype(np.float32) / 17)
-    scale, shift = torch.rand(64) + 0.5, torch.rand(64) - 0.5
-    w = TC.pack_conv_weight(w_oihw, k_major=k_major)
-    assert TC.is_k_major(w) == k_major
-    out = TC.conv2d_bn_act(x, w, scale, shift, 2, 1, "relu")
-    ref = TC.conv2d_bn_act_plain(x, TC.pack_conv_weight(w_oihw), scale,
-                                 shift, 2, 1, "relu")
-    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+        rng.normal(size=(64, 32, 3, 3)).astype(np.float32)).to(dtype)
+    w = TC.pack_conv_weight(w_oihw)
+    hwio = w_oihw.permute(2, 3, 1, 0).contiguous()
+    other = (hwio if dtype == F32
+             else hwio.permute(3, 0, 1, 2).contiguous().permute(1, 2, 3, 0))
+    assert torch.equal(w, hwio) and torch.equal(other, hwio)
+    assert TC.is_k_major(w) == (dtype == F32) != w.is_contiguous()
+    assert TC.is_k_major(other) == (dtype != F32) != other.is_contiguous()
+    with pytest.raises(ValueError, match="split_tf32"):
+        TC.split_tf32(hwio.float() if dtype == F32 else w)

@@ -436,35 +436,36 @@ def _buffer(shape, dtype=torch.bfloat16, offset=0):
     return store[offset:].view(shape)
 
 
-# the buffers of each K1 launch of a batch-64 AE step and the decoder input,
-# as fused_gemm gets them (x, w), and the loader each takes in bf16 and in
-# float32 alike (fc2's dX and dW: 20- and 40-byte rows)
+# the buffers of each K1 launch of a batch-64 AE step, the decoder input and
+# the serving projection, as fused_gemm gets them (x, w, trans_a, trans_b),
+# and the loader each takes in bf16 and in float32: fc2's dX and dW (20- and
+# 40-byte rows) on the mma.sync loop in both; in float32 also the head's
+# forward (N = 10) and the serving projection (8 splits of 512), which
+# `chip_smoke.py --ab` timed faster there (k1_loader's rules)
 _AE_LAUNCHES = {
-    "proj fwd": ((64, 4096), (64, 4096), "tma"),
-    "proj dX": ((64, 64), (64, 4096), "tma"),
-    "proj dW": ((64, 64), (64, 4096), "tma"),
-    "dec_in fwd": ((64, 64), (4096, 64), "tma"),
-    "dec_in dX": ((64, 4096), (4096, 64), "tma"),
-    "dec_in dW": ((64, 4096), (64, 64), "tma"),
-    "fc1 fwd": ((64, 64), (128, 64), "tma"),
-    "fc1 dX": ((64, 128), (128, 64), "tma"),
-    "fc1 dW": ((64, 128), (64, 64), "tma"),
-    "fc2 fwd": ((64, 128), (10, 128), "tma"),
-    "fc2 dX": ((64, 10), (10, 128), "cp.async"),  # 20-byte rows
-    "fc2 dW": ((64, 10), (64, 128), "cp.async"),
-    "decode dec_in": ((512, 64), (4096, 64), "tma"),
-    "serve proj": ((512, 4096), (4096, 64), "tma"),
+    "proj fwd": ((64, 4096), (64, 4096), False, True, "tma", "tma"),
+    "proj dX": ((64, 64), (64, 4096), False, False, "tma", "tma"),
+    "proj dW": ((64, 64), (64, 4096), True, False, "tma", "tma"),
+    "dec_in fwd": ((64, 64), (4096, 64), False, True, "tma", "tma"),
+    "dec_in dX": ((64, 4096), (4096, 64), False, False, "tma", "tma"),
+    "dec_in dW": ((64, 4096), (64, 64), True, False, "tma", "tma"),
+    "fc1 fwd": ((64, 64), (128, 64), False, True, "tma", "tma"),
+    "fc1 dX": ((64, 128), (128, 64), False, False, "tma", "tma"),
+    "fc1 dW": ((64, 128), (64, 64), True, False, "tma", "tma"),
+    "fc2 fwd": ((64, 128), (10, 128), False, True, "tma", "cp.async"),
+    "fc2 dX": ((64, 10), (10, 128), False, False, "cp.async", "cp.async"),
+    "fc2 dW": ((64, 10), (64, 128), True, False, "cp.async", "cp.async"),
+    "decode dec_in": ((512, 64), (4096, 64), False, True, "tma", "tma"),
+    "serve proj": ((512, 4096), (4096, 64), False, False, "tma", "cp.async"),
 }
 
 
 @pytest.mark.parametrize("launch", list(_AE_LAUNCHES))
 def test_k1_loader_at_main_path_launches(launch):
-    x_shape, w_shape, want = _AE_LAUNCHES[launch]
-    assert TM.k1_loader(_buffer(x_shape), _buffer(w_shape)) == want
-    # float32 takes the same route: the wgmma kernel (3xTF32) wherever TMA
-    # reads both buffers
+    x_shape, w_shape, ta, tb, want, want_f32 = _AE_LAUNCHES[launch]
+    assert TM.k1_loader(_buffer(x_shape), _buffer(w_shape), ta, tb) == want
     assert TM.k1_loader(_buffer(x_shape, torch.float32),
-                        _buffer(w_shape, torch.float32)) == want
+                        _buffer(w_shape, torch.float32), ta, tb) == want_f32
 
 
 @pytest.mark.parametrize("case", [
@@ -488,35 +489,44 @@ def test_k1_loader_by_alignment(case):
     assert TM.k1_loader(x, w) == want
 
 
-# the buffers of each batched bf16 K1 launch of a stacked AE step (C = 45)
-# as fused_gemm_batched gets them (x, w): forward x @ W^T with the (out, in)
-# weights read in place, dX = gs @ W, dW = gs^T @ x (gs read transposed);
-# and the loader each takes
+# the buffers of each batched K1 launch of a stacked AE step (C = 45) as
+# fused_gemm_batched gets them (x, w, trans_a, trans_b): forward x @ W^T
+# with the (out, in) weights read in place, dX = gs @ W, dW = gs^T @ x (gs
+# read transposed); and the loader each takes in bf16 and in float32
 _STACKED_AE_LAUNCHES = {
-    "proj fwd": ((45, 64, 4096), (45, 64, 4096), "tma"),
-    "proj dX": ((45, 64, 64), (45, 64, 4096), "tma"),
-    "proj dW": ((45, 64, 64), (45, 64, 4096), "tma"),
-    "dec_in fwd": ((45, 64, 64), (45, 4096, 64), "tma"),
-    "dec_in dX": ((45, 64, 4096), (45, 4096, 64), "tma"),
-    "dec_in dW": ((45, 64, 4096), (45, 64, 64), "tma"),
-    "fc1 fwd": ((45, 64, 64), (45, 128, 64), "tma"),
-    "fc1 dX": ((45, 64, 128), (45, 128, 64), "tma"),
-    "fc1 dW": ((45, 64, 128), (45, 64, 64), "tma"),
-    "fc2 fwd": ((45, 64, 128), (45, 10, 128), "tma"),
-    "fc2 dX": ((45, 64, 10), (45, 10, 128), "cp.async"),  # 20-byte rows
-    "fc2 dW": ((45, 64, 10), (45, 64, 128), "cp.async"),
+    "proj fwd": ((45, 64, 4096), (45, 64, 4096), False, True, "tma", "tma"),
+    "proj dX": ((45, 64, 64), (45, 64, 4096), False, False, "tma",
+                "cp.async"),
+    "proj dW": ((45, 64, 64), (45, 64, 4096), True, False, "tma",
+                "cp.async"),
+    "dec_in fwd": ((45, 64, 64), (45, 4096, 64), False, True, "tma", "tma"),
+    "dec_in dX": ((45, 64, 4096), (45, 4096, 64), False, False, "tma",
+                  "cp.async"),
+    "dec_in dW": ((45, 64, 4096), (45, 64, 64), True, False, "tma",
+                  "cp.async"),
+    "fc1 fwd": ((45, 64, 64), (45, 128, 64), False, True, "tma", "tma"),
+    "fc1 dX": ((45, 64, 128), (45, 128, 64), False, False, "tma", "tma"),
+    "fc1 dW": ((45, 64, 128), (45, 64, 64), True, False, "tma", "tma"),
+    "fc2 fwd": ((45, 64, 128), (45, 10, 128), False, True, "tma",
+                "cp.async"),
+    "fc2 dX": ((45, 64, 10), (45, 10, 128), False, False, "cp.async",
+               "cp.async"),  # 20-byte rows
+    "fc2 dW": ((45, 64, 10), (45, 64, 128), True, False, "cp.async",
+               "cp.async"),
 }
 
 
 @pytest.mark.parametrize("launch", list(_STACKED_AE_LAUNCHES))
 def test_k1_loader_at_stacked_ae_launches(launch):
-    """The 3-D form of the loader at the vmap path's launches: every launch
-    on the wgmma route but fc2's dX and dW, as on the unbatched route, in
-    bf16 and float32 alike."""
-    x_shape, w_shape, want = _STACKED_AE_LAUNCHES[launch]
-    assert TM.k1_loader(_buffer(x_shape), _buffer(w_shape)) == want
+    """The 3-D form of the loader at the vmap path's launches: in bf16
+    every launch on the wgmma route but fc2's dX and dW, as on the
+    unbatched route; in float32 also the 4096-wide dX and dW (an MN-major
+    B, 2^24 multiply-adds a config) and the head's forward on the mma.sync
+    loop, which `chip_smoke.py --ab` timed faster there."""
+    x_shape, w_shape, ta, tb, want, want_f32 = _STACKED_AE_LAUNCHES[launch]
+    assert TM.k1_loader(_buffer(x_shape), _buffer(w_shape), ta, tb) == want
     assert TM.k1_loader(_buffer(x_shape, torch.float32),
-                        _buffer(w_shape, torch.float32)) == want
+                        _buffer(w_shape, torch.float32), ta, tb) == want_f32
 
 
 def _stack(shape, config_stride, offset=0):
