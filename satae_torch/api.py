@@ -105,7 +105,7 @@ from satae_torch.train.shard_sweep import (ae_sharded_grid_search,
 from satae_torch.train.vmap_sweep import (ae_vmap_grid_search,
                                           mlp_vmap_grid_search)
 from satae_torch.train.sweep_common import save_best_checkpoint
-from satae_torch.utils.profiling import debug_mode
+from satae_torch.utils.profiling import debug_mode, span
 from satae_torch.utils.strict_json import dump_strict_json
 
 # Reference-optimal single-config hyperparameters (satae/api.py:33-35)
@@ -617,9 +617,10 @@ class SatAEPipeline:
         n = len(imgs)
         chunk = self._serve_chunk(n)
         pad = (-n) % chunk
-        dev = torch.zeros((n + pad,) + imgs.shape[1:], dtype=torch.uint8,
-                          device=self.device)
-        dev[:n].copy_(torch.from_numpy(np.ascontiguousarray(imgs)))
+        with span("satae.serve.upload", bytes=imgs.nbytes):
+            dev = torch.zeros((n + pad,) + imgs.shape[1:],
+                              dtype=torch.uint8, device=self.device)
+            dev[:n].copy_(torch.from_numpy(np.ascontiguousarray(imgs)))
         out = []
         dtype = self.config.compute_dtype
         mesh = self._mesh()
@@ -647,35 +648,40 @@ class SatAEPipeline:
         return self.predict_proba_batched(images)
 
     def encode_batched(self, images: np.ndarray) -> np.ndarray:
-        self._require_fitted()
-        n = len(np.asarray(images))
-        if n == 0:
-            return np.zeros((0, self.config.model.latent_dim), np.float32)
-        fe, _ = self._folded_weights()
-        zs = self._serve_batched(images, fe, lambda z: z)
-        return torch.cat(zs).cpu().numpy()[:n]
+        with span("satae.serve"):
+            self._require_fitted()
+            n = len(np.asarray(images))
+            if n == 0:
+                return np.zeros((0, self.config.model.latent_dim),
+                                np.float32)
+            fe, _ = self._folded_weights()
+            zs = self._serve_batched(images, fe, lambda z: z)
+            return torch.cat(zs).cpu().numpy()[:n]
 
     def predict_batched(self, images: np.ndarray) -> np.ndarray:
-        self._require_fitted(mlp=True)
-        n = len(np.asarray(images))
-        if n == 0:
-            return np.zeros((0,), np.int32)
-        fe, fm = self._folded_weights()
-        preds = self._serve_batched(
-            images, fe,
-            lambda z: torch.argmax(fast_infer.mlp_infer(fm, z), dim=-1))
-        return torch.cat(preds).to(torch.int32).cpu().numpy()[:n]
+        with span("satae.serve"):
+            self._require_fitted(mlp=True)
+            n = len(np.asarray(images))
+            if n == 0:
+                return np.zeros((0,), np.int32)
+            fe, fm = self._folded_weights()
+            preds = self._serve_batched(
+                images, fe,
+                lambda z: torch.argmax(fast_infer.mlp_infer(fm, z), dim=-1))
+            return torch.cat(preds).to(torch.int32).cpu().numpy()[:n]
 
     def predict_proba_batched(self, images: np.ndarray) -> np.ndarray:
-        self._require_fitted(mlp=True)
-        n = len(np.asarray(images))
-        if n == 0:
-            return np.zeros((0, self.config.model.num_classes), np.float32)
-        fe, fm = self._folded_weights()
-        probs = self._serve_batched(
-            images, fe,
-            lambda z: torch.softmax(fast_infer.mlp_infer(fm, z), dim=-1))
-        return torch.cat(probs).cpu().numpy()[:n]
+        with span("satae.serve"):
+            self._require_fitted(mlp=True)
+            n = len(np.asarray(images))
+            if n == 0:
+                return np.zeros((0, self.config.model.num_classes),
+                                np.float32)
+            fe, fm = self._folded_weights()
+            probs = self._serve_batched(
+                images, fe,
+                lambda z: torch.softmax(fast_infer.mlp_infer(fm, z), dim=-1))
+            return torch.cat(probs).cpu().numpy()[:n]
 
     def _image_shape(self) -> Tuple[int, int, int]:
         d = self.config.data

@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from satae_torch.kernels import _build
-from satae_torch.kernels.matmul import (ACTS, apply_act, count_launch,
+from satae_torch.kernels.matmul import (ACTS, apply_act, launch_span,
                                         tile_n_for)
 
 
@@ -178,12 +178,12 @@ def _conv_cuda(x, w, scale, shift, stride, padding, act, w_tf32):
     ptrs = [x.data_ptr(), w_buf.data_ptr()]
     if f32 and route != "mma":
         ptrs.append(w_tf32.data_ptr() if f32_im2col else 0)
-    _build.launch(_build.load("conv_bn_act"), "satae_conv2d_bn_act" + suffix
-                  + ("" if route == "mma" else "_tma"), x.device, *ptrs,
-                  scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h,
-                  wd, cin, kh, kw, cout, oh, ow, stride, padding,
-                  ACTS.index(act), tile_n)
-    count_launch(conv2d_bn_act, x.dtype)
+    with launch_span("satae.k2", conv2d_bn_act, x.dtype):
+        _build.launch(_build.load("conv_bn_act"), "satae_conv2d_bn_act"
+                      + suffix + ("" if route == "mma" else "_tma"), x.device,
+                      *ptrs, scale.data_ptr(), shift.data_ptr(),
+                      out.data_ptr(), n, h, wd, cin, kh, kw, cout, oh, ow,
+                      stride, padding, ACTS.index(act), tile_n)
     return out
 
 

@@ -30,7 +30,9 @@ gradient and ``g * scale`` in bf16, dX and dW as bf16 K1 launches, dscale
 and dshift in float32. Each wrapper's ``launches`` counts its launches per
 instantiation, keyed by the launcher suffix ("" float32, "_bf16" bf16;
 ``satae_torch.kernels.launch_counts`` names them ``fused_gemm_bf16`` and so
-on), so a count shows which instantiation ran.
+on), so a count shows which instantiation ran. Each launch is counted by its
+span (:class:`launch_span`: ``satae.k1``), the one point of instrumentation
+of a launch.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from satae_torch.kernels import _build
+from satae_torch.utils.profiling import span
 
 ACTS = ("none", "relu", "sigmoid")
 
@@ -283,6 +286,29 @@ def split_k_workspace(m: int, n: int, splits: int,
     return torch.empty(splits * m * n, device=device, dtype=torch.float32)
 
 
+class launch_span:
+    """``with launch_span(name, wrapper, dtype): <one launch>``: the launch
+    inside the span ``name`` (on the card too, :func:`span`'s
+    ``device=True``), counted as one launch of ``wrapper``'s kernel in
+    ``dtype``'s instantiation when the block ends without raising, whether
+    or not a profiler is on (a ``wrapper`` of None counts nothing)."""
+    __slots__ = ("span", "counter", "key")
+
+    def __init__(self, name: str, wrapper, dtype: torch.dtype):
+        self.span = span(name, device=True)
+        self.counter = None if wrapper is None else wrapper.launches
+        self.key = _build.OPERAND_DTYPES[dtype]
+
+    def __enter__(self) -> None:
+        self.span.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        self.span.__exit__(*exc)
+        if exc[0] is None and self.counter is not None:
+            self.counter[self.key] += 1
+        return False
+
+
 # one int32 counter per output tile of a split-K launch, per device; a
 # split-K plan has fewer than WAVE_BLOCKS tiles (a batched one fewer than
 # WAVE_BLOCKS over all its configs), and the kernel leaves every counter at 0
@@ -300,7 +326,8 @@ def _tile_counters(device: torch.device) -> torch.Tensor:
 def fused_gemm(x: torch.Tensor, w: torch.Tensor,
                scale: Optional[torch.Tensor] = None,
                shift: Optional[torch.Tensor] = None, act: str = "none",
-               trans_a: bool = False, trans_b: bool = False) -> torch.Tensor:
+               trans_a: bool = False, trans_b: bool = False, *,
+               counted=None) -> torch.Tensor:
     """One launch of K1 on CUDA tensors: act((A @ B) * scale + shift) with
     A = x, or x read in place as its transpose (``trans_a``: x is a (K, M)
     buffer), and B = w, or w read in place as its transpose (``trans_b``: w
@@ -311,7 +338,10 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     mma.sync loop with :func:`split_k_plan`'s, where a split-K launch takes
     a workspace of splits * M * N floats. A scale or shift of None is 1 or
     0, and nothing is allocated for it. Raises on a refused launch. The
-    callers on the training and serving paths count the launches."""
+    launch runs inside the span ``satae.k1`` (:class:`launch_span`) and is
+    counted in ``counted.launches``, the wrapper the training and serving
+    paths pass (:func:`fused_matmul`, :func:`fused_matmul_bwd`); None counts
+    nothing."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_gemm: K1 runs on CUDA tensors, x is on "
                          f"{x.device}")
@@ -332,31 +362,29 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     if k1_loader(x, w, trans_a, trans_b) == "tma":
         _, _, splits, k_per_split = split_k_plan_tma(m, n, k,
                                                      dtype=x.dtype)
-        _build.launch(_build.load("fused_gemm"),
-                      "satae_fused_gemm" + suffix + "_tma", x.device,
-                      x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
-                      out.data_ptr(), m, n, k, ACTS.index(act), int(trans_a),
-                      int(trans_b), splits, k_per_split)
+        with launch_span("satae.k1", counted, x.dtype):
+            _build.launch(_build.load("fused_gemm"),
+                          "satae_fused_gemm" + suffix + "_tma", x.device,
+                          x.data_ptr(), w.data_ptr(), _ptr(scale),
+                          _ptr(shift), out.data_ptr(), m, n, k,
+                          ACTS.index(act), int(trans_a), int(trans_b), splits,
+                          k_per_split)
         return out
     _, tile_n, splits, k_per_split = split_k_plan(m, n, k)
     ws = split_k_workspace(m, n, splits, x.device)
     counters = None if ws is None else _tile_counters(x.device)
-    _build.launch(_build.load("fused_gemm"), "satae_fused_gemm" + suffix,
-                  x.device,
-                  x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
-                  out.data_ptr(), _ptr(ws), _ptr(counters), m, n, k,
-                  ACTS.index(act), int(trans_a), int(trans_b), tile_n, splits,
-                  k_per_split)
+    with launch_span("satae.k1", counted, x.dtype):
+        _build.launch(_build.load("fused_gemm"), "satae_fused_gemm" + suffix,
+                      x.device,
+                      x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
+                      out.data_ptr(), _ptr(ws), _ptr(counters), m, n, k,
+                      ACTS.index(act), int(trans_a), int(trans_b), tile_n,
+                      splits, k_per_split)
     return out
 
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
-
-
-def count_launch(wrapper, dtype: torch.dtype) -> None:
-    """One launch of ``wrapper``'s kernel in ``dtype``'s instantiation."""
-    wrapper.launches[_build.OPERAND_DTYPES[dtype]] += 1
 
 
 def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
@@ -382,9 +410,8 @@ def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     gs = (g if scale is None else g * scale.to(g.dtype)).contiguous()
 
     def product(a, b, trans_a, trans_b):  # scale 1, shift 0, no act
-        out = fused_gemm(a, b, None, None, "none", trans_a, trans_b)
-        count_launch(fused_matmul_bwd, a.dtype)
-        return out
+        return fused_gemm(a, b, None, None, "none", trans_a, trans_b,
+                          counted=fused_matmul_bwd)
 
     dx = dw = dscale = None
     if needs[0]:  # dx (M, K) = gs @ W^T; an (N, K) weight is that B as it is
@@ -403,9 +430,8 @@ fused_matmul_bwd.launches = _build.launch_counter()
 
 def _forward(x, w, scale, shift, act, w_nk):
     if x.device.type == "cuda":
-        y = fused_gemm(x, w, scale, shift, act, False, w_nk)
-        count_launch(fused_matmul, x.dtype)
-        return y
+        return fused_gemm(x, w, scale, shift, act, False, w_nk,
+                          counted=fused_matmul)
     return fused_matmul_plain(x, w.t() if w_nk else w, scale, shift, act)
 
 
@@ -516,7 +542,8 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                        scale: Optional[torch.Tensor] = None,
                        shift: Optional[torch.Tensor] = None,
                        act: str = "none", trans_a: bool = False,
-                       trans_b: bool = False) -> torch.Tensor:
+                       trans_b: bool = False, *,
+                       counted=None) -> torch.Tensor:
     """One launch of the batched K1 on CUDA tensors: for each config c,
     act((A[c] @ B[c]) * scale[c] + shift[c]) with A[c] = x[c], or x[c] read
     as its transpose (``trans_a``: x is C x (K, M)), and B[c] = w[c], or
@@ -526,8 +553,10 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     dtype=x.dtype)``, else ``satae_fused_gemm_batched`` / ``_batched_bf16``
     with ``split_k_plan(m, n, k, batch=C)``, where a split-K launch takes a
     workspace of C * splits * M * N floats. Raises on a refused launch;
-    never falls back to C unbatched launches. The callers count the
-    launches."""
+    never falls back to C unbatched launches. The launch runs inside the
+    span ``satae.k1`` and is counted in ``counted.launches``
+    (:func:`fused_matmul_batched`, :func:`fused_matmul_batched_bwd`), as in
+    :func:`fused_gemm`."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_gemm_batched: K1 runs on CUDA tensors, x is "
                          f"on {x.device}")
@@ -553,21 +582,24 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     if k1_loader(x, w, trans_a, trans_b) == "tma":
         _, _, splits, k_per_split = split_k_plan_tma(m, n, k, batch=c,
                                                      dtype=x.dtype)
-        _build.launch(_build.load("fused_gemm"),
-                      "satae_fused_gemm_batched" + suffix + "_tma", x.device,
-                      x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
-                      out.data_ptr(), c, m, n, k, ACTS.index(act),
-                      int(trans_a), int(trans_b), splits, k_per_split)
+        with launch_span("satae.k1", counted, x.dtype):
+            _build.launch(_build.load("fused_gemm"),
+                          "satae_fused_gemm_batched" + suffix + "_tma",
+                          x.device, x.data_ptr(), w.data_ptr(), _ptr(scale),
+                          _ptr(shift), out.data_ptr(), c, m, n, k,
+                          ACTS.index(act), int(trans_a), int(trans_b), splits,
+                          k_per_split)
         return out
     _, tile_n, splits, k_per_split = split_k_plan(m, n, k, batch=c)
     ws = split_k_workspace(c * m, n, splits, x.device)
     counters = None if ws is None else _tile_counters(x.device)
-    _build.launch(_build.load("fused_gemm"),
-                  "satae_fused_gemm_batched" + suffix, x.device,
-                  x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
-                  out.data_ptr(), _ptr(ws), _ptr(counters), c, m, n, k,
-                  ACTS.index(act), int(trans_a), int(trans_b), tile_n, splits,
-                  k_per_split)
+    with launch_span("satae.k1", counted, x.dtype):
+        _build.launch(_build.load("fused_gemm"),
+                      "satae_fused_gemm_batched" + suffix, x.device,
+                      x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
+                      out.data_ptr(), _ptr(ws), _ptr(counters), c, m, n, k,
+                      ACTS.index(act), int(trans_a), int(trans_b), tile_n,
+                      splits, k_per_split)
     return out
 
 
@@ -594,9 +626,8 @@ def fused_matmul_batched_bwd(g: torch.Tensor, x: torch.Tensor,
     gs = (g if scale is None else g * scale[:, None].to(g.dtype)).contiguous()
 
     def product(a, b, trans_a, trans_b):  # scale 1, shift 0, no act
-        out = fused_gemm_batched(a, b, None, None, "none", trans_a, trans_b)
-        count_launch(fused_matmul_batched_bwd, a.dtype)
-        return out
+        return fused_gemm_batched(a, b, None, None, "none", trans_a,
+                                  trans_b, counted=fused_matmul_batched_bwd)
 
     dx = dw = dscale = None
     if needs[0]:
@@ -615,9 +646,8 @@ fused_matmul_batched_bwd.launches = _build.launch_counter()
 
 def _forward_batched(x, w, scale, shift, act, w_nk):
     if x.device.type == "cuda":
-        y = fused_gemm_batched(x, w, scale, shift, act, False, w_nk)
-        count_launch(fused_matmul_batched, x.dtype)
-        return y
+        return fused_gemm_batched(x, w, scale, shift, act, False, w_nk,
+                                  counted=fused_matmul_batched)
     return fused_matmul_batched_plain(x, w, scale, shift, act, w_nk)
 
 

@@ -59,7 +59,7 @@ from satae_torch.train.losses import (accuracy, cross_entropy, joint_ae_loss,
                                       stacked_accuracy, stacked_cross_entropy,
                                       stacked_joint_ae_loss)
 from satae_torch.train.optim import AdamState, adam_update
-from satae_torch.utils.profiling import check_finite
+from satae_torch.utils.profiling import check_finite, span
 
 Metrics = Dict[str, torch.Tensor]
 StepOut = Tuple[Metrics, Tuple[torch.Tensor, ...]]
@@ -170,24 +170,38 @@ def stacked_ae_train_step(model: StackedSupervisedAE, opt: AdamState,
                           dtype: torch.dtype = torch.float32) -> StepOut:
     """One AE step of every config on the shared batch ``imgs_u8``
     (B, H, W, ch); the draws are drawn from ``generator``
-    (satae_torch.data.augment.draw_stacked_augmentation) unless passed."""
-    if flip is None:
-        flip, offsets, noise = draw_stacked_augmentation(
-            model.n_configs, imgs_u8.shape, data_cfg.crop_padding,
-            generator, imgs_u8.device, dtype)
-    x = fold(augment_stacked_batch(
-        imgs_u8, flip, offsets, noise, crop_padding=data_cfg.crop_padding,
-        noise_std=data_cfg.noise_std, dtype=dtype))
-    model.train()
-    x_hat, logits, _ = model(x)
-    total, mse, ce = stacked_joint_ae_loss(x_hat, logits, x, labels, alphas)
-    check_finite("stacked AE train step", ["loss"], [total])
-    params = list(model.parameters())
-    grads = torch.autograd.grad(total.sum(), params)
-    check_finite("stacked AE train step", _grad_names(model), grads)
-    adam_update(params, grads, opt, lrs)
-    return ({"loss": total.detach(), "mse": mse.detach(), "ce": ce.detach(),
-             "acc": stacked_accuracy(logits.detach(), labels)}, grads)
+    (satae_torch.data.augment.draw_stacked_augmentation) unless passed.
+
+    Under a profiler the step is the span ``satae.train.step`` around the
+    spans of its phases, each timed on the card too
+    (satae_torch.utils.profiling.span): ``satae.train.forward`` (draws,
+    augmentation, the model, the loss), ``satae.train.backward`` and
+    ``satae.train.adam``."""
+    on_card = imgs_u8.is_cuda
+    with span("satae.train.step"):
+        with span("satae.train.forward", device=on_card):
+            if flip is None:
+                flip, offsets, noise = draw_stacked_augmentation(
+                    model.n_configs, imgs_u8.shape, data_cfg.crop_padding,
+                    generator, imgs_u8.device, dtype)
+            x = fold(augment_stacked_batch(
+                imgs_u8, flip, offsets, noise,
+                crop_padding=data_cfg.crop_padding,
+                noise_std=data_cfg.noise_std, dtype=dtype))
+            model.train()
+            x_hat, logits, _ = model(x)
+            total, mse, ce = stacked_joint_ae_loss(x_hat, logits, x, labels,
+                                                   alphas)
+        check_finite("stacked AE train step", ["loss"], [total])
+        params = list(model.parameters())
+        with span("satae.train.backward", device=on_card):
+            grads = torch.autograd.grad(total.sum(), params)
+        check_finite("stacked AE train step", _grad_names(model), grads)
+        with span("satae.train.adam", device=on_card):
+            adam_update(params, grads, opt, lrs)
+        return ({"loss": total.detach(), "mse": mse.detach(),
+                 "ce": ce.detach(),
+                 "acc": stacked_accuracy(logits.detach(), labels)}, grads)
 
 
 def stacked_mlp_train_step(model: StackedMLP, opt: AdamState,
