@@ -28,8 +28,11 @@ Adam are stock PyTorch ops, as they are XLA ops in satae.
 :meth:`load_torch`), saves it (:meth:`save`, :meth:`export_torch`),
 evaluates a split (:meth:`evaluate`) and serves ``encode``, ``predict``,
 ``predict_proba``, ``decode`` and ``reconstruct`` through the fixed-chunk
-bulk path of satae (api.py:527-655): one upload, chunks of 64 images (or
-latents) for inputs of up to 64, of 512 otherwise, padding rows sliced off.
+bulk path of satae (api.py:527-655): chunks of 64 images (or latents) for
+inputs of up to 64, of 512 otherwise, padding rows sliced off. On a card,
+page-locked images of several chunks are uploaded in slices of whole chunks
+on a copy stream, each chunk computing while the next slice uploads
+(:func:`upload_slices`).
 On a CUDA device every chunk runs satae_torch.models.fast_infer on the
 hand-written kernels (K2 per conv layer, K1 per linear layer; the encoder in
 the compute dtype, its weights cast once, the MLP on float32 latents, as
@@ -138,6 +141,31 @@ def serve_chunk(n: int, batch_size: int, n_devices: int = 1) -> int:
     return -(-batch_size * 8 // n_devices) * n_devices
 
 
+# Most host-to-device copies one serving call issues on its copy stream
+UPLOAD_SLICES = 8
+
+
+def upload_slices(n: int, chunk: int,
+                  overlap: bool) -> List[Tuple[int, int]]:
+    """The row ranges [lo, hi) of the padded serving buffer (``n`` rows
+    padded to whole ``chunk``-row chunks) that ``_serve_batched`` uploads
+    one copy each, every range a run of whole chunks. ``overlap``: whether a
+    copy can run under the card's compute, which takes a CUDA device and
+    page-locked host rows (from pageable memory the driver stages each copy
+    through the host and it ran under no kernel). One range, the whole
+    buffer, without it or when the rows fit in one chunk; else the chunks
+    split evenly into at most ``UPLOAD_SLICES`` ranges: one chunk a range
+    for a few large chunks, several for many small ones, so the copies a
+    call issues stay few where its host already launches a kernel every
+    few microseconds."""
+    total = n + (-n) % chunk
+    chunks = total // chunk
+    if not overlap or chunks == 1:
+        return [(0, total)]
+    step = -(-chunks // UPLOAD_SLICES) * chunk
+    return [(lo, min(lo + step, total)) for lo in range(0, total, step)]
+
+
 @dataclasses.dataclass
 class FitSummary:
     ae_val_loss: Optional[float]  # None for reuse_ae fits (no AE training)
@@ -174,6 +202,7 @@ class SatAEPipeline:
         self._ae_src_dir: Optional[str] = None
         self._folded = None
         self._folded_src = None
+        self._copier: Optional[torch.cuda.Stream] = None
         # per-epoch train/val curves of the last fit, {"ae": ..., "mlp": ...}
         # (None for a reused AE): satae draws them into out_dir instead
         self.history: Optional[Dict[str, Optional[Dict[str, List[float]]]]] \
@@ -606,31 +635,74 @@ class SatAEPipeline:
     def _serve_batched(self, images: np.ndarray, fe: fast_infer.FoldedEncoder,
                        head: Callable[[torch.Tensor], torch.Tensor]
                        ) -> List[torch.Tensor]:
-        """One upload, padded on the device to whole fixed-size chunks, each
+        """The input padded on the device to whole fixed-size chunks, each
         encoded in the compute dtype, its latents chained into ``head`` on
         the device as float32 (satae's api.py:569-570). Returns per-chunk
         outputs covering n + pad rows (padding rows never mix with real
         ones: eval-mode BN uses running stats, every layer is per image).
         With ``runtime.n_devices`` each rank runs its rows of every chunk,
-        head included, and the outputs are all-gathered."""
+        head included, and the outputs are all-gathered.
+
+        The upload follows :func:`upload_slices`. With one slice (pageable
+        images among them) it is one copy on the current stream. With
+        several, each slice is copied on a copy stream and the current
+        stream waits for a slice's event just before its chunks: slice 0 is
+        copied first, and each next slice's copy is issued after the
+        previous slice's chunks are launched, so it runs under their
+        kernels. The span ``satae.serve.upload`` holds the buffer and the
+        first slice's copy; its ``overlapped_bytes`` count the later
+        slices'."""
         imgs = self._to_uint8(np.asarray(images))
         n = len(imgs)
         chunk = self._serve_chunk(n)
         pad = (-n) % chunk
-        with span("satae.serve.upload", bytes=imgs.nbytes):
-            dev = torch.zeros((n + pad,) + imgs.shape[1:],
+        host = torch.from_numpy(np.ascontiguousarray(imgs))
+        card = self.device.type == "cuda"
+        slices = upload_slices(n, chunk, card and host.is_pinned())
+        side = len(slices) > 1 and card
+        later = sum(min(hi, n) - lo for lo, hi in slices[1:])
+        compute = torch.cuda.current_stream(self.device) if side else None
+
+        def put(lo: int, hi: int) -> Optional[torch.cuda.Event]:
+            """Issue the copy of rows [lo, min(hi, n)); the event that ends
+            it on the copy stream, or None on the current stream."""
+            hi = min(hi, n)
+            if not side:
+                dev[lo:hi].copy_(host[lo:hi])
+                return None
+            with torch.cuda.stream(self._copier):
+                dev[lo:hi].copy_(host[lo:hi], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+            return ev
+
+        with span("satae.serve.upload", bytes=imgs.nbytes,
+                  overlapped_bytes=later * (imgs.nbytes // n)):
+            dev = torch.empty((n + pad,) + imgs.shape[1:],
                               dtype=torch.uint8, device=self.device)
-            dev[:n].copy_(torch.from_numpy(np.ascontiguousarray(imgs)))
+            if pad:
+                dev[n:].zero_()
+            if side:
+                if self._copier is None:
+                    self._copier = torch.cuda.Stream(self.device)
+                # the buffer's block may have served the current stream
+                self._copier.wait_stream(compute)
+            ready = put(*slices[0])
         out = []
         dtype = self.config.compute_dtype
         mesh = self._mesh()
-        for lo in range(0, n + pad, chunk):
-            part = dev[lo:lo + chunk]
-            if mesh is not None:
-                part = mesh.shard(part)
-            y = head(fast_infer.encoder_infer(fe, normalize(part,
-                                                            dtype)).float())
-            out.append(y if mesh is None else mesh.gather_rows(y))
+        for i, (s_lo, s_hi) in enumerate(slices):
+            if ready is not None:
+                compute.wait_event(ready)
+            for lo in range(s_lo, s_hi, chunk):
+                part = dev[lo:lo + chunk]
+                if mesh is not None:
+                    part = mesh.shard(part)
+                y = head(fast_infer.encoder_infer(fe, normalize(part,
+                                                                dtype)).float())
+                out.append(y if mesh is None else mesh.gather_rows(y))
+            if i + 1 < len(slices):
+                ready = put(*slices[i + 1])
         return out
 
     def encode(self, images: np.ndarray) -> np.ndarray:
@@ -726,7 +798,8 @@ class SatAEPipeline:
         """Encoder and decoder in eval mode, chunk by chunk on the device:
         the folded encoder (K2 per conv layer and K1 for the projection on
         the card), its float32 latents into the decoder with no host round
-        trip (TF32 off, as :meth:`decode`); one upload and one readback."""
+        trip (TF32 off, as :meth:`decode`); the upload of
+        :meth:`_serve_batched` and one readback."""
         self._require_fitted()
         n = len(np.asarray(images))
         if n == 0:

@@ -30,8 +30,9 @@ from satae.models.fast_infer import (encoder_infer_pallas,
 from satae.models.mlp import mlp_init
 from satae.models.supervised_ae import supervised_ae_init
 from torch_port_threads import two_threads  # noqa: F401 (autouse)
+from satae_torch import api
 from satae_torch import config as TC
-from satae_torch.api import SatAEPipeline
+from satae_torch.api import UPLOAD_SLICES, SatAEPipeline, upload_slices
 from satae_torch.data.augment import normalize
 from satae_torch.data.ingest import load_dataset
 from satae_torch.data.pipeline import make_splits
@@ -157,6 +158,65 @@ def test_pipeline_input_contract(pipelines):
     assert tp.predict(np.zeros((0, IMG, IMG, 3), np.uint8)).shape == (0,)
     with pytest.raises(RuntimeError, match="not loaded"):
         SatAEPipeline(device="cpu").encode(_u8(1, size=64))
+
+
+@pytest.mark.parametrize("n,chunk,count", [
+    (1, 64, 1), (63, 64, 1), (64, 64, 1), (65, 512, 1), (513, 512, 2),
+    (3 * 512 + 5, 512, 4), (29241, 8192, 4), (3 * 8192 + 5, 8192, 4),
+    (29241, 512, 8), (9 * 512 + 5, 512, 5), (64 * 512, 512, 8)])
+def test_upload_slices_are_whole_chunks(n, chunk, count):
+    """Every row of the padded buffer in exactly one slice, in order, each
+    slice whole chunks holding at least one real row; one slice when the
+    rows fit in a chunk, at most UPLOAD_SLICES (a tile's 58 float32 chunks:
+    8), one chunk a slice for the bf16 tile's 4; one slice where no copy
+    can run under the card's compute (the CPU, pageable memory)."""
+    total = n + (-n) % chunk
+    plan = upload_slices(n, chunk, True)
+    assert len(plan) == count <= UPLOAD_SLICES
+    rows = np.concatenate([np.arange(lo, hi) for lo, hi in plan])
+    np.testing.assert_array_equal(rows, np.arange(total))
+    assert all(lo % chunk == 0 and hi % chunk == 0 and lo < n
+               for lo, hi in plan)
+    assert upload_slices(n, chunk, False) == [(0, total)]
+
+
+@pytest.fixture(scope="module")
+def small_chunks(trees):
+    """The port's pipeline at batch 2: chunks of 2 rows for up to 2 inputs,
+    of 16 otherwise."""
+    tp = SatAEPipeline(TC.PipelineConfig(
+        data=TC.DataConfig(image_size=IMG, batch_size=2), model=TCFG),
+        device="cpu")
+    tp.ae, tp.mlp = _port_models(trees)
+    return tp
+
+
+@pytest.mark.parametrize("n,slices", [(1, 1), (15, 1), (16, 1), (17, 2),
+                                      (3 * 16 + 5, 4), (9 * 16 + 5, 5)])
+@pytest.mark.parametrize("method", ["predict", "predict_proba", "encode",
+                                    "reconstruct"])
+def test_sliced_upload_serves_what_one_copy_serves(small_chunks, monkeypatch,
+                                                   method, n, slices):
+    """The serving loop over the slice plan of page-locked images on a card
+    (its stream calls left out on the CPU) returns bit for bit what one
+    copy of the whole input returns: every chunk computes on the same
+    rows."""
+    imgs = _u8(n, seed=n)
+    call = getattr(small_chunks, method)
+    one = call(imgs)
+    plans = []
+
+    def card_plan(n, chunk, overlap):
+        assert not overlap
+        plans.append(upload_slices(n, chunk, True))
+        return plans[-1]
+
+    monkeypatch.setattr(api, "upload_slices", card_plan)
+    sliced = call(imgs)
+    assert len(plans) == 1
+    assert len(plans[0]) == slices
+    assert sliced.dtype == one.dtype and sliced.shape == one.shape
+    np.testing.assert_array_equal(sliced, one)
 
 
 def test_full_width_committed_checkpoint_matches_satae():

@@ -13,7 +13,9 @@
     off, and in no wrapper's count where none is given (``launch_counts()``
     on the card: the kernel and fit phases of chip_smoke.py);
   * a CPU ``predict`` / ``predict_proba`` / ``encode`` (one ``satae.serve``
-    around one ``satae.serve.upload`` of the uint8 input's bytes) and a
+    around one ``satae.serve.upload`` of the uint8 input's bytes, none of
+    them overlapped; over the card's slice plan the later slices' bytes,
+    and ``upload_overlapped_share.serve``'s reading of them) and a
     stacked AE train step (``satae.train.step`` around its three phases);
   * ``trace``'s Chrome trace carrying the spans.
 """
@@ -28,6 +30,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from torch_port_threads import two_threads  # noqa: F401 (autouse)
+from portbench import run as RUN
+from satae_torch import api
 from satae_torch import config as C
 from satae_torch.api import SatAEPipeline
 from satae_torch.kernels import matmul
@@ -289,7 +293,7 @@ def test_cpu_serving_call_spans(pipe, method):
     assert set(by) == {"satae.serve", "satae.serve.upload"}
     (serve,), (upload,) = by["satae.serve"], by["satae.serve.upload"]
     assert serve.parent is None and upload.parent == serve.id
-    assert upload.counts == {"bytes": imgs.nbytes}
+    assert upload.counts == {"bytes": imgs.nbytes, "overlapped_bytes": 0}
     assert serve.t0_ns <= upload.t0_ns <= upload.t1_ns <= serve.t1_ns
     names = {e.name for e in prof.events()}
     assert {"satae.serve", "satae.serve.upload"} <= names
@@ -300,7 +304,61 @@ def test_cpu_serving_float_input_uploads_the_uint8_bytes(pipe):
     with _cpu_profile():
         pipe.predict(imgs.astype(np.float32) / 255.0)
     (upload,) = _by_name(profiling.spans().records)["satae.serve.upload"]
-    assert upload.counts == {"bytes": imgs.nbytes}
+    assert upload.counts == {"bytes": imgs.nbytes, "overlapped_bytes": 0}
+
+
+def test_cpu_serving_sliced_upload_counts_the_later_slices(pipe,
+                                                          monkeypatch):
+    """Over the plan of page-locked rows on a card (600 rows: chunks of 512,
+    two slices),
+    the upload span counts the whole input and, as overlapped, the second
+    slice's 88 rows; ``upload_overlapped_share.serve`` reads their share."""
+    imgs = _u8(600, seed=2)
+    plan = api.upload_slices
+    monkeypatch.setattr(api, "upload_slices",
+                        lambda n, chunk, _: plan(n, chunk, True))
+    with _cpu_profile():
+        pipe.predict(imgs)
+    recs = profiling.spans().records
+    (upload,) = _by_name(recs)["satae.serve.upload"]
+    assert upload.counts == {"bytes": imgs.nbytes,
+                             "overlapped_bytes": 88 * imgs[0].nbytes}
+    t0 = min(r.t0_ns for r in recs) * 1e-9
+    run = RUN.Run(RUN.Cell("c", {}, {}, 1, {}, 0), 1.0, 1.0,
+                  [(t0, t0 + 60.0, {})], {}, None, object(), {"calls": 1})
+    assert _share(run) == pytest.approx(100.0 * 88 / 600)
+
+
+def _share(run):
+    return RUN._module("metrics", "upload_overlapped_share.serve").read(run)
+
+
+def test_overlapped_share_reads_nothing_without_the_counter(monkeypatch):
+    """None from a program whose upload span has no ``overlapped_bytes``
+    (one older than it), from a window without upload spans, and without
+    a trace; 0 % from single-copy calls."""
+    def rec(i, **counts):
+        return profiling.SpanRecord("satae.serve.upload", i, None,
+                                    10 ** 10 + i, 10 ** 10 + i + 1, counts)
+
+    run = RUN.Run(RUN.Cell("c", {}, {}, 1, {}, 0), 1.0, 1.0,
+                  [(9.0, 11.0, {})], {}, None, object(), {"calls": 2})
+    stores = {"older": [rec(0, bytes=100), rec(1, bytes=100)],
+              "mixed": [rec(0, bytes=100),
+                        rec(1, bytes=100, overlapped_bytes=60)],
+              "none": [],
+              "single": [rec(0, bytes=100, overlapped_bytes=0)] * 2,
+              "sliced": [rec(0, bytes=100, overlapped_bytes=60),
+                         rec(1, bytes=300, overlapped_bytes=240)]}
+    got = {}
+    for name, recs in stores.items():
+        monkeypatch.setattr(profiling, "spans",
+                            lambda recs=recs: profiling.Spans(recs, 0))
+        got[name] = _share(run)
+    assert got == {"older": None, "mixed": None, "none": None,
+                   "single": 0.0, "sliced": pytest.approx(75.0)}
+    run.trace = None
+    assert _share(run) is None
 
 
 def test_stacked_ae_step_spans_its_phases():
