@@ -7,6 +7,7 @@
     python3 chip_smoke.py --vmap           # the build and phases 21-24 alone
     python3 chip_smoke.py --parallel       # build, phases 10 and 12, 25-28
     python3 chip_smoke.py --example        # the build and phase 29 alone
+    python3 chip_smoke.py --vit            # the build and phase 30 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -413,13 +414,15 @@ K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
         (3, 7, 5, 9), (2, 9, 6, 40), (3, 11, 8, 72))
 
 
-# the kernel instantiations of a build (ptxas report: K1 16 mma.sync + 8
-# wgmma, which the batched entries launch too; K2 4 mma.sync + 5 wgmma) and
+# the kernel instantiations of a build (ptxas report: K1 16 mma.sync + 9
+# wgmma, which the batched entries launch too, one of them the bf16 GELU
+# epilogue's; K2 4 mma.sync + 5 wgmma; the ViT encoder's attention and
+# LayerNorm, one each) and
 # those of them on wgmma (fused_gemm_tma_kernel x 4 layouts x float32 and
 # bf16, conv_im2col_tma_kernel: bf16 x 2 N tiles and float32,
 # conv_rows_kernel in float32 and bf16)
-N_INSTANTIATIONS = 33
-N_WGMMA = 13
+N_INSTANTIATIONS = 36
+N_WGMMA = 14
 
 
 def hgmma_counts() -> dict:
@@ -467,7 +470,8 @@ def counts(**given) -> dict:
     """Launch counts as satae_torch.kernels.launch_counts() gives them, with
     every kernel and dtype not in ``given`` at 0."""
     names = ("fused_gemm", "fused_gemm_bwd", "conv2d_bn_act",
-             "fused_gemm_batched", "fused_gemm_batched_bwd")
+             "fused_gemm_batched", "fused_gemm_batched_bwd", "attention",
+             "layer_norm")
     out = {n + s: 0 for s in ("", "_bf16") for n in names}
     check(set(given) <= set(out), f"unknown kernel names {set(given)}")
     out.update(given)
@@ -1280,7 +1284,8 @@ def main() -> int:
               flush=True)
     check(len(ptxas) == N_INSTANTIATIONS, f"{len(ptxas)} kernel "
           f"instantiations in the ptxas report, expected {N_INSTANTIATIONS} "
-          "(K1 16 mma.sync + 8 wgmma, K2 4 mma.sync + 5 wgmma + 1)")
+          "(K1 16 mma.sync + 9 wgmma, K2 4 mma.sync + 5 wgmma + 1, "
+          "attention 1, LayerNorm 1)")
     spilled = [r["kernel"] for r in ptxas
                if r["spill_stores"] or r["spill_loads"]]
     check(not spilled, f"ptxas spills registers in {spilled}")
@@ -4336,6 +4341,272 @@ def parallel_main() -> int:
     return 0
 
 
+# phase 30's shapes: Prithvi-EO-1.0-100M's encoder on a 64-chip serving
+# chunk (589 tokens a chip, 12 heads of 64, width 768, MLP 3,072)
+VIT_CHIPS, VIT_TOKENS, VIT_HEADS, VIT_DIM, VIT_MLP = 64, 589, 12, 768, 3072
+VIT_ROWS = VIT_CHIPS * VIT_TOKENS
+# its K1 launches (name, m, k, n, act)
+VIT_GEMMS = (("patch", VIT_CHIPS * 588, 1536, VIT_DIM, "none"),
+             ("qkv", VIT_ROWS, VIT_DIM, 3 * VIT_DIM, "none"),
+             ("proj", VIT_ROWS, VIT_DIM, VIT_DIM, "none"),
+             ("fc1", VIT_ROWS, VIT_DIM, VIT_MLP, "gelu"),
+             ("fc2", VIT_ROWS, VIT_MLP, VIT_DIM, "none"))
+
+
+def vit_kernels_phase(card: str) -> dict:
+    """Phase 30a: the attention and LayerNorm kernels and K1 at the ViT's
+    shapes (fc1 with GELU in its epilogue) against their plain versions on
+    the same card (TF32 off), each timed (device us) beside its bound and a
+    library yardstick: SDPA, F.layer_norm, bf16 torch.matmul."""
+    import torch
+    import torch.nn.functional as F
+
+    from satae_torch.kernels.attention import attention, attention_plain
+    from satae_torch.kernels.layernorm import layer_norm, layer_norm_plain
+    from satae_torch.kernels.matmul import fused_gemm, fused_matmul_plain
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(30)
+    rows = []
+    # attention: a chunk's qkv at the scale a block's LayerNorm'd input
+    # gives it, and the 589-key tail
+    qkv = (torch.randn(VIT_ROWS, 3 * VIT_DIM, generator=g, device=dev)
+           * 1.5).to(torch.bfloat16)
+    out = attention(qkv, VIT_CHIPS, VIT_HEADS)
+    ref = attention_plain(qkv, VIT_CHIPS, VIT_HEADS)
+    err = (out.float() - ref.float()).abs()
+    # the kernel rounds P to bf16 (2^-9 of each weight) before P V, so an
+    # output's error scales with sum_j p_j |v_j| (the plain version on |v|),
+    # not with the output, which may cancel; then the output's own rounding
+    scale = attention_plain(
+        torch.cat([qkv[:, :2 * VIT_DIM], qkv[:, 2 * VIT_DIM:].abs()], 1),
+        VIT_CHIPS, VIT_HEADS).float()
+    lim = bf16_ulp(ref) + scale * 2.0 ** -8 + 1e-6
+    check(bool(torch.isfinite(out).all()), "attention: non-finite output")
+    check(bool((err <= lim).all()), f"attention: max |err| "
+          f"{float(err.max()):.3g}, {float((err / lim).max()):.3g} x the "
+          "bound of one bf16 ulp + 2^-8 sum_j p_j |v_j|")
+    check(torch.equal(out, attention(qkv, VIT_CHIPS, VIT_HEADS)),
+          "attention: two calls differ")
+    flops = 4.0 * VIT_CHIPS * VIT_HEADS * VIT_TOKENS ** 2 * 64
+    nbytes = VIT_ROWS * 4 * VIT_DIM * 2.0
+    b = bounds(flops, nbytes, bf16=True)
+    us = device_us(lambda: attention(qkv, VIT_CHIPS, VIT_HEADS),
+                   b["bound_ms"] * 1e3, "attention")
+    q, k, v = qkv.view(VIT_CHIPS, VIT_TOKENS, 3, VIT_HEADS, 64) \
+        .permute(2, 0, 3, 1, 4)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    sdpa_us = device_us(lambda: F.scaled_dot_product_attention(q, k, v),
+                        b["bound_ms"] * 1e3, "SDPA")
+    rows.append(dict(kernel="attention", shape=[VIT_CHIPS, VIT_TOKENS,
+                                                VIT_HEADS, 64],
+                     max_abs_err=float(err.max()),
+                     max_err_over_bound=float((err / lim).max()),
+                     mean_abs_err=float(err.mean()),
+                     bit_equal=float((out == ref).float().mean()),
+                     device_us=us, sdpa_device_us=sdpa_us,
+                     bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"]))
+    print(f"attention {VIT_CHIPS}x{VIT_TOKENS}x{VIT_HEADS}x64: "
+          f"{us:.1f} us (SDPA {sdpa_us:.1f}, bound {b['bound_ms'] * 1e3:.1f}"
+          f" by {b['bound_by']}), max |err| {float(err.max()):.3g}",
+          flush=True)
+    del qkv, out, ref, q, k, v, err, lim, scale
+    # LayerNorm, plain and with the residual add
+    x = (torch.randn(VIT_ROWS, VIT_DIM, generator=g, device=dev) * 3
+         + 0.5).to(torch.bfloat16)
+    r = torch.randn(VIT_ROWS, VIT_DIM, generator=g, device=dev) \
+        .to(torch.bfloat16)
+    w = torch.rand(VIT_DIM, generator=g, device=dev) + 0.5
+    bb = torch.randn(VIT_DIM, generator=g, device=dev) * 0.1
+    w16, b16 = w.bfloat16(), bb.bfloat16()
+    for res in (False, True):
+        xa, xb = x.clone(), x.clone()
+        ha, ya = layer_norm(xa, w, bb, 1e-6, r if res else None)
+        hb, yb = layer_norm_plain(xb, w, bb, 1e-6, r if res else None)
+        check(torch.equal(ha, hb), f"layer_norm residual={res}: the sum "
+              "differs from the plain version's")
+        e, eq = ulp_err(ya, yb, f"layer_norm residual={res}")
+        nbytes = VIT_ROWS * VIT_DIM * 2.0 * (4 if res else 2)
+        b = bounds(10.0 * VIT_ROWS * VIT_DIM, nbytes, bf16=True)
+        xc = x.clone()
+        us = device_us(lambda: layer_norm(xc, w, bb, 1e-6,
+                                          r if res else None),
+                       b["bound_ms"] * 1e3, f"layer_norm residual={res}")
+        lib_us = device_us(lambda: F.layer_norm(x, (VIT_DIM,), w16, b16,
+                                                1e-6),
+                           b["bound_ms"] * 1e3, "F.layer_norm")
+        rows.append(dict(kernel="layer_norm", residual=res,
+                         shape=[VIT_ROWS, VIT_DIM], max_abs_err=e,
+                         bit_equal=eq, device_us=us,
+                         f_layer_norm_device_us=lib_us,
+                         bound_us=b["bound_ms"] * 1e3,
+                         bound_by=b["bound_by"]))
+        print(f"layer_norm {VIT_ROWS}x{VIT_DIM} residual={res}: {us:.1f} "
+              f"us (F.layer_norm {lib_us:.1f}, bound "
+              f"{b['bound_ms'] * 1e3:.1f}), bit-equal {eq:.5f}", flush=True)
+    del x, r, xa, xb, xc, ha, hb, ya, yb
+    # K1 at the ViT's shapes, fc1 with GELU
+    for name, m, k, n, act in VIT_GEMMS:
+        a = (torch.randn(m, k, generator=g, device=dev)).to(torch.bfloat16)
+        wt = (torch.randn(k, n, generator=g, device=dev)
+              / k ** 0.5).to(torch.bfloat16)
+        sh = torch.randn(n, generator=g, device=dev) * 0.1
+        out = fused_gemm(a, wt, None, sh, act)
+        ref = fused_matmul_plain(a, wt, None, sh, act)
+        # one bf16 ulp, and for outputs near 0 (a sum of up to 3,072
+        # products that cancel) the two float32 sums' orders: 2^-18 of the
+        # sum of the products' magnitudes
+        mag = a.float().abs() @ wt.float().abs()
+        e, eq = ulp_err(out, ref, f"K1 {name} {act}",
+                        bound=bf16_ulp(ref) + 2.0 ** -18 * mag)
+        del mag
+        b = bounds(2.0 * m * k * n, (m * k + k * n + m * n) * 2.0,
+                   bf16=True)
+        us = device_us(lambda: fused_gemm(a, wt, None, sh, act),
+                       b["bound_ms"] * 1e3, f"K1 {name}")
+        lib_us = device_us(lambda: a @ wt, b["bound_ms"] * 1e3,
+                           f"torch.matmul {name}")
+        rows.append(dict(kernel="fused_gemm_bf16", layer=name,
+                         shape=[m, k, n], act=act, max_abs_err=e,
+                         bit_equal=eq, device_us=us, matmul_device_us=lib_us,
+                         bound_us=b["bound_ms"] * 1e3,
+                         bound_by=b["bound_by"]))
+        print(f"K1 {name} {m}x{k}x{n} {act}: {us:.1f} us (torch.matmul "
+              f"{lib_us:.1f}, bound {b['bound_ms'] * 1e3:.1f}), bit-equal "
+              f"{eq:.5f}", flush=True)
+        del a, wt, out, ref
+    return {"card": card, "rows": rows}
+
+
+def vit_serve_phase(card: str) -> dict:
+    """Phase 30b: Prithvi-EO-1.0-100M's encoder and the pipeline's MLP served
+    through SatAEPipeline.predict on 256 int16 chips (4 chunks of 64, page
+    -locked): exact launch counts (K1 49 bf16 + 3 float32, attention 12 and
+    LayerNorm 25 a chunk, nothing else of the port), no SDPA or
+    F.layer_norm kernel in the profile of a call, the latents of 16 chips
+    against the plain float32 reference of tests/prithvi_reference.py, the
+    served classes against its logits, and the calls timed."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import prithvi_reference as PR
+    from satae_torch import config as C
+    from satae_torch import kernels
+    from satae_torch.api import SatAEPipeline
+
+    vc = C.PRITHVI_EO1_100M
+    cfg = {k: getattr(vc, k) for k in (
+        "img_size", "patch_size", "num_frames", "tubelet_size", "in_chans",
+        "embed_dim", "depth", "num_heads", "mlp_ratio", "norm_eps")}
+    vc = C.ViTConfig(band_mean=(5000.0,) * 6, band_std=(2886.75,) * 6)
+    p = PR.init_params(cfg, 30)
+    hp = PR.head_init([768, 128, 64, 10], 31)
+    n = 256
+    rng = np.random.default_rng(30)
+    # chips that differ: a level and a texture per chip and band
+    base = rng.uniform(500, 9000, (n, 6, 1, 1, 1))
+    tex = rng.normal(0, 800, (n, 6, 3, 224, 224))
+    chips = np.clip(base + tex, 0, 10000).astype(np.int16)
+    host = torch.from_numpy(chips).pin_memory()
+    pc = C.PipelineConfig(
+        data=C.DataConfig(batch_size=8),
+        model=C.ModelConfig(latent_dim=768),
+        runtime=C.RuntimeConfig(compute_dtype="bfloat16"))
+    pipe = SatAEPipeline(pc, device="cuda", encoder=vc).load_torch(p, hp)
+    pipe.predict(host.numpy())
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    preds = pipe.predict(host.numpy())
+    got = kernels.launch_counts()
+    want = counts(fused_gemm_bf16=4 * 49, fused_gemm=4 * 3,
+                  attention_bf16=4 * 12, layer_norm_bf16=4 * 25)
+    check(got == want, f"ViT predict launches {got}, expected {want}")
+    records, _ = device_records(lambda: pipe.predict(host.numpy()), 1,
+                                pad_s=0.05, warm=True)
+    names = sorted({e.name for e in records})
+    banned = [nm for nm in names if any(b in nm.lower() for b in (
+        "flash", "fmha", "attention_kernel_", "efficient_attention",
+        "layer_norm_kernel", "layernorm_kernel"))
+        and "satae" not in nm]
+    check(not banned, f"library kernels on the ViT path: {banned}")
+    with PR.no_tf32():
+        sel = torch.from_numpy(chips[:16]).cuda()
+        dp = {k: v.cuda() for k, v in p.items()}
+        dh = {k: v.cuda() for k, v in hp.items()}
+        z_ref = PR.latents(dp, cfg, sel, vc.band_mean, vc.band_std)
+        lg_ref = torch.cat([PR.head_logits(dh, PR.latents(
+            dp, cfg, torch.from_numpy(chips[i:i + 32]).cuda(), vc.band_mean,
+            vc.band_std)) for i in range(0, n, 32)]).cpu().numpy()
+    z = torch.from_numpy(pipe.encode(chips[:16])).cuda()
+    rel = float(((z - z_ref).norm(dim=1) / z_ref.norm(dim=1)).max())
+    gap = float((lg_ref.max(1) - np.take_along_axis(
+        lg_ref, preds[:, None].astype(np.int64), 1)[:, 0]).max())
+    agree = float((preds == lg_ref.argmax(1)).mean())
+    print(f"ViT predict: launches {got}; latent worst relative L2 gap "
+          f"{rel:.4g}; logit gap {gap:.4g}; classes agreeing {agree:.4f}",
+          flush=True)
+    check(rel < 0.05, f"ViT latents {rel:.4g} off the float32 reference")
+    ms = time_ms(lambda: pipe.predict(host.numpy()), reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"ViT predict of {n} chips: {ms:.2f} ms a call, "
+          f"{n / ms * 1e3:.0f} chips/s, {256 * 114.23e9 / (ms * 1e-3) / 989e12 * 100:.1f} % "
+          f"of bf16 peak; memory peak {peak / 1e9:.2f} GB", flush=True)
+    device_ops = collections.Counter()
+    for e in records:
+        device_ops[e.name[:100]] += (e.time_range.end - e.time_range.start)
+    return {"launches": got, "kernel_names": names[:40],
+            "latent_rel_l2": rel, "logit_gap": gap, "agree": agree,
+            "call_ms": ms, "memory_peak_bytes": peak,
+            "device_us_by_op": device_ops.most_common(15)}
+
+
+def vit_main() -> int:
+    """The build and phase 30 (the ViT encoder's kernels and its serving)
+    alone -> chiprun_out/vit.json."""
+    import torch
+
+    from satae_torch.kernels import _build
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    report = _build.ptxas_report()
+    for r in report:
+        if "fused_gemm_tma_kernel" in r["kernel"]:
+            print(f"  ptxas {r['kernel']}: {r['registers']} registers",
+                  flush=True)
+    ptxas = [r for r in report if r["source"] in ("attention", "layernorm")]
+    for r in ptxas:
+        print(f"  ptxas {r['kernel']}: {r['registers']} registers, "
+              f"{r['smem']} B static shared memory, spills "
+              f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded",
+              flush=True)
+    check(len(ptxas) == 2 and not any(r["spill_stores"] or r["spill_loads"]
+                                      for r in ptxas),
+          f"attention / LayerNorm: {ptxas}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"card": card, "ptxas": ptxas}
+    from satae_torch.kernels.matmul import fused_gemm
+    a32 = torch.ones(64, 64, device="cuda")
+    try:
+        fused_gemm(a32, a32, None, None, "gelu")
+        check(False, "a float32 K1 launch with GELU was not refused")
+    except ValueError:
+        pass
+    out["kernels"] = vit_kernels_phase(card)
+    out["serve"] = vit_serve_phase(card)
+    path = REPO / "chiprun_out" / "vit.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1, default=str))
+    print(json.dumps({"ok": True, "card": card}), flush=True)
+    return 0
+
+
 def card_line() -> str:
     """nvidia-smi's name and power limit of the first card."""
     return subprocess.run(
@@ -4970,8 +5241,10 @@ if __name__ == "__main__":
         sys.exit(example_main())
     if sys.argv[1:] == ["--parallel"]:
         sys.exit(parallel_main())
+    if sys.argv[1:] == ["--vit"]:
+        sys.exit(vit_main())
     if len(sys.argv) > 1:
         raise SystemExit(f"usage: {sys.argv[0]} [--ab PARENT_DIR | "
                          "--split-sweep | --vmap | --parallel | "
-                         "--example]")
+                         "--example | --vit]")
     sys.exit(main())

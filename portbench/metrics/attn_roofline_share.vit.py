@@ -1,0 +1,19 @@
+"""attn_roofline_share.vit: the least time of the traced window's attention
+(q k^T and P v of every block at the bf16 peak, or the bytes of qkv read
+and the heads' output written; portbench/work_vit.py: max(operations /
+peak, bytes / 3.35 TB/s), real chips only) over the card's time inside the
+window's ``satae.attn`` spans, %. None where the program has no such span
+or the cell no such work."""
+
+from portbench import spans
+
+
+def read(run):
+    recs = spans.named(run, "satae.attn")
+    least = run.work.get("attn_least_s") if run.work else None
+    if recs is None or not least or any(r.device_ms is None for r in recs):
+        return None
+    busy_s = sum(r.device_ms for r in recs) * 1e-3
+    if busy_s <= 0:
+        return None
+    return 100.0 * len(run.units) * least / busy_s

@@ -4,7 +4,9 @@
 reference config, optionally into a run directory in satae's format), and
 ``satae_torch.SatAEPipeline`` loads, saves, evaluates or serves a fitted one
 (``encode``, ``predict``) on hand-written CUDA kernels
-(``satae_torch.kernels``). It imports neither JAX nor the ``satae`` package.
+(``satae_torch.kernels``), with the autoencoder's encoder or a frozen ViT
+encoder (``ViTConfig``; ``PRITHVI_EO1_100M``). It imports neither JAX nor
+the ``satae`` package.
 """
 
 from satae_torch.api import (FitSummary, SatAEPipeline, encode,  # noqa: F401
@@ -16,6 +18,8 @@ from satae_torch.config import (  # noqa: F401
     MLPTrainConfig,
     ModelConfig,
     PipelineConfig,
+    PRITHVI_EO1_100M,
     RuntimeConfig,
+    ViTConfig,
     default_config,
 )

@@ -58,6 +58,19 @@ raises where there is none: the pipeline never drops to the CPU by itself.
 at once, satae's vmap engine (satae_torch.train.vmap_sweep: stacked models,
 the batched K1 for every linear layer on the card).
 
+``SatAEPipeline(config, encoder=ViTConfig(...))`` serves a ViT encoder in
+place of the autoencoder's (satae_torch.models.vit: MAE's encoder, as
+Prithvi-EO-1.0-100M has it, loaded with :meth:`load_torch` from its
+``state_dict``) and the MLP of ``config.model`` on its latents
+(``latent_dim`` = the ViT's ``embed_dim``). Its input is int16 reflectance
+chips (N, bands, frames, H, W), uploaded as int16 and normalised per band
+on the card; ``encode``, ``predict`` and ``predict_proba`` (and their
+``_batched`` forms) serve it through the same chunks and upload, each chunk
+on ``fast_infer.vit_encoder_infer`` (K1 for every Linear, the attention
+and LayerNorm kernels, bf16 on the card). Training it (MAE pretraining),
+decoding and the run-directory formats are the autoencoder's alone: those
+methods raise.
+
 ``runtime.n_devices = N`` runs satae's multi-device paths over a world of
 N ranks, one process and one device each (satae_torch.parallel: a process
 group of N ranks, from ``torchrun`` with ``runtime.multihost``; one rank
@@ -85,7 +98,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from satae_torch.config import PipelineConfig, default_config
+from satae_torch.config import PipelineConfig, ViTConfig, default_config
 from satae_torch.data.augment import normalize
 from satae_torch.data.ingest import RawDataset, load_dataset
 from satae_torch.data.pipeline import ArrayDataset, make_splits
@@ -94,6 +107,7 @@ from satae_torch.io import checkpoint, convert
 from satae_torch.models import fast_infer
 from satae_torch.models.mlp import MLP
 from satae_torch.models.supervised_ae import SupervisedAE
+from satae_torch.models.vit import ViTEncoder, encoder_state_dict
 from satae_torch.nn.layers import float32_convs
 from satae_torch.parallel import make_grid_mesh, make_mesh
 from satae_torch.parallel.distributed import (check_world, is_primary,
@@ -179,11 +193,22 @@ class FitSummary:
 
 class SatAEPipeline:
     """Autoencoder + MLP, fitted or loaded, run on ``device`` through the
-    kernels."""
+    kernels; with ``encoder`` a ViT encoder (loaded, frozen) + MLP."""
 
-    def __init__(self, config: Optional[PipelineConfig] = None, device=None):
+    def __init__(self, config: Optional[PipelineConfig] = None, device=None,
+                 encoder: Optional[ViTConfig] = None):
         self.config = config or default_config()
         rt = self.config.runtime
+        self.vit_config = encoder
+        if encoder is not None:
+            if self.config.model.latent_dim != encoder.embed_dim:
+                raise ValueError(
+                    f"the MLP on the ViT's latents needs model.latent_dim = "
+                    f"embed_dim ({encoder.embed_dim}), got "
+                    f"{self.config.model.latent_dim}")
+            if rt.n_devices:
+                raise ValueError("the ViT encoder is served on one device "
+                                 "(runtime.n_devices unset)")
         # the process group first (a no-op unless asked for), then this
         # rank's device; the mesh's shape is checked before any work
         maybe_initialize(rt.multihost, resolve_device(device))
@@ -195,6 +220,7 @@ class SatAEPipeline:
                                  f"divisible by grid_dp ({rt.grid_dp})")
         self._meshes: Dict[str, Any] = {}
         self.ae: Optional[SupervisedAE] = None
+        self.vit: Optional[ViTEncoder] = None
         self.mlp: Optional[MLP] = None
         self.classes = None
         # the run directory the autoencoder was loaded from (resolved), so
@@ -252,6 +278,7 @@ class SatAEPipeline:
         flushes its in-flight state every N epochs (``inflight/``) and a
         rerun resumes from it; the files are removed once the winner is
         recorded."""
+        self._require_ae("fit")
         cfg = self.config
         if reuse_ae and self.ae is None:
             raise ValueError("reuse_ae=True requires a loaded autoencoder - "
@@ -484,6 +511,7 @@ class SatAEPipeline:
     def load_ae(self, out_dir: str) -> "SatAEPipeline":
         """Load only the autoencoder of a run directory, for
         ``fit(reuse_ae=True)`` (the reference's phase-2 restart)."""
+        self._require_ae("load_ae")
         ae_file = Path(out_dir) / "ae_global_best.msgpack"
         if not ae_file.exists():
             raise FileNotFoundError(f"no AE checkpoint at {ae_file}")
@@ -501,6 +529,7 @@ class SatAEPipeline:
         + ``mlp_global_best.msgpack``, optional ``classes.json``)."""
         ae_file = Path(out_dir) / "ae_global_best.msgpack"
         mlp_file = Path(out_dir) / "mlp_global_best.msgpack"
+        self._require_ae("load")
         missing = [str(p) for p in (ae_file, mlp_file) if not p.exists()]
         if missing:
             raise FileNotFoundError(
@@ -511,15 +540,26 @@ class SatAEPipeline:
             *checkpoint.load_model(mlp_file), self.config.model)))
         return self
 
-    def load_torch(self, ae_pt: str,
-                   mlp_pt: Optional[str] = None) -> "SatAEPipeline":
+    def load_torch(self, ae_pt, mlp_pt=None) -> "SatAEPipeline":
         """Load the reference notebook's ``AE_GLOBAL_BEST.pt`` (and
         ``MLP_GLOBAL_BEST.pt``) state_dicts, strictly. Without ``mlp_pt``
         only the autoencoder is replaced: a loaded MLP stays, as in satae
         (api.py:758-778); pair it with ``fit(reuse_ae=True)`` to train the
-        MLP on the notebook's encoder."""
-        load = lambda p: torch.load(p, map_location="cpu", weights_only=True)
-        self._install_ae(load(ae_pt))
+        MLP on the notebook's encoder. Each argument is a file or the
+        state_dict itself.
+
+        With a ViT ``encoder``, ``ae_pt`` is its ``state_dict`` under the
+        source's keys (``patch_embed.proj.weight``, ``blocks.{i}.attn.qkv``,
+        ...); a full MAE checkpoint's decoder and mask token are left out,
+        every other key must match."""
+        load = lambda p: p if isinstance(p, dict) else \
+            torch.load(p, map_location="cpu", weights_only=True)
+        if self.vit_config is not None:
+            vit = ViTEncoder(self.vit_config)
+            vit.load_state_dict(encoder_state_dict(load(ae_pt)), strict=True)
+            self.vit = vit.to(self.device).eval()
+        else:
+            self._install_ae(load(ae_pt))
         self._ae_src_dir = None  # a foreign checkpoint, no run directory
         if mlp_pt is not None:
             self._install_mlp(load(mlp_pt))
@@ -532,6 +572,7 @@ class SatAEPipeline:
         directory also removes its ``*_global_best.json`` sidecars: they
         describe the previous weights' sweep metrics, and would mislabel
         the new checkpoints and compete in a later sweep's resume."""
+        self._require_ae("save")
         self._require_fitted()
         out = Path(out_dir)
         same_src = self._ae_src_dir == str(out.resolve())
@@ -553,6 +594,7 @@ class SatAEPipeline:
         ``AE_GLOBAL_BEST.pt`` (+ ``MLP_GLOBAL_BEST.pt``): the dicts satae's
         ``export_torch`` writes, the same keys and values, on the CPU,
         ``num_batches_tracked`` 0."""
+        self._require_ae("export_torch")
         self._require_fitted()
         dest = Path(dest_dir)
         dest.mkdir(parents=True, exist_ok=True)
@@ -600,8 +642,33 @@ class SatAEPipeline:
                 "silently clipped to 0")
         return np.rint(np.clip(imgs, 0.0, 1.0) * 255.0).astype(np.uint8)
 
+    def _to_int16(self, images: np.ndarray) -> np.ndarray:
+        """The ViT encoder's input: int16 reflectance chips (N, bands,
+        frames, H, W) of its config, as they are; any other dtype or shape
+        is refused (uint8 images are the autoencoder's)."""
+        imgs = np.asarray(images)
+        shape = self.vit_config.chip_shape
+        if imgs.dtype != np.int16:
+            raise TypeError(f"the ViT encoder takes int16 reflectance chips "
+                            f"(N, {', '.join(map(str, shape))}), got "
+                            f"{imgs.dtype}")
+        if imgs.ndim != 5 or imgs.shape[1:] != shape:
+            raise ValueError(f"chips must be (N, {', '.join(map(str, shape))})"
+                             f", got {imgs.shape}")
+        return imgs
+
+    def _require_ae(self, what: str) -> None:
+        if self.vit_config is not None:
+            raise NotImplementedError(
+                f"{what}: the ViT encoder is served frozen from its loaded "
+                "weights; its MAE pretraining, decoder and the run-directory "
+                "formats are not implemented (they are the autoencoder's)")
+
+    def _encoder(self):
+        return self.ae if self.vit_config is None else self.vit
+
     def _require_fitted(self, mlp: bool = False) -> None:
-        if self.ae is None:
+        if self._encoder() is None:
             raise RuntimeError("pipeline is not loaded — call fit(), load() "
                                "or load_torch()")
         if mlp and self.mlp is None:
@@ -614,17 +681,20 @@ class SatAEPipeline:
         compute dtype), computed once per weight set: refreshed when
         ``ae``/``mlp`` are reassigned or their tensors change in place
         (``load_state_dict`` bumps their versions)."""
+        enc = self._encoder()
         versions = tuple((t.data_ptr(), t._version)
-                         for m in (self.ae, self.mlp) if m is not None
+                         for m in (enc, self.mlp) if m is not None
                          for t in m.state_dict().values())
         src = self._folded_src
-        if src is None or src[0] is not self.ae or src[1] is not self.mlp \
+        if src is None or src[0] is not enc or src[1] is not self.mlp \
                 or src[2] != versions:
+            dtype = self.config.compute_dtype
             self._folded = (
-                fast_infer.fold_encoder(self.ae.enc,
-                                        self.config.compute_dtype),
+                fast_infer.fold_encoder(enc.enc, dtype)
+                if self.vit_config is None else
+                fast_infer.fold_vit(enc, self.vit_config, dtype),
                 None if self.mlp is None else fast_infer.fold_mlp(self.mlp))
-            self._folded_src = (self.ae, self.mlp, versions)
+            self._folded_src = (enc, self.mlp, versions)
         return self._folded
 
     def _serve_chunk(self, n: int) -> int:
@@ -632,12 +702,15 @@ class SatAEPipeline:
                            self.config.runtime.n_devices or 1)
 
     @torch.no_grad()
-    def _serve_batched(self, images: np.ndarray, fe: fast_infer.FoldedEncoder,
+    def _serve_batched(self, images: np.ndarray, fe,
                        head: Callable[[torch.Tensor], torch.Tensor]
                        ) -> List[torch.Tensor]:
         """The input padded on the device to whole fixed-size chunks, each
         encoded in the compute dtype, its latents chained into ``head`` on
-        the device as float32 (satae's api.py:569-570). Returns per-chunk
+        the device as float32 (satae's api.py:569-570): uint8 images through
+        ``fe``, the folded autoencoder's encoder, or with a ViT encoder
+        int16 chips through ``fe``, its :class:`fast_infer.FoldedViT`
+        (uploaded as int16, normalised on the card). Returns per-chunk
         outputs covering n + pad rows (padding rows never mix with real
         ones: eval-mode BN uses running stats, every layer is per image).
         With ``runtime.n_devices`` each rank runs its rows of every chunk,
@@ -652,7 +725,9 @@ class SatAEPipeline:
         kernels. The span ``satae.serve.upload`` holds the buffer and the
         first slice's copy; its ``overlapped_bytes`` count the later
         slices'."""
-        imgs = self._to_uint8(np.asarray(images))
+        vit = self.vit_config is not None
+        imgs = self._to_int16(images) if vit else \
+            self._to_uint8(np.asarray(images))
         n = len(imgs)
         chunk = self._serve_chunk(n)
         pad = (-n) % chunk
@@ -679,7 +754,7 @@ class SatAEPipeline:
         with span("satae.serve.upload", bytes=imgs.nbytes,
                   overlapped_bytes=later * (imgs.nbytes // n)):
             dev = torch.empty((n + pad,) + imgs.shape[1:],
-                              dtype=torch.uint8, device=self.device)
+                              dtype=host.dtype, device=self.device)
             if pad:
                 dev[n:].zero_()
             if side:
@@ -698,8 +773,11 @@ class SatAEPipeline:
                 part = dev[lo:lo + chunk]
                 if mesh is not None:
                     part = mesh.shard(part)
-                y = head(fast_infer.encoder_infer(fe, normalize(part,
-                                                                dtype)).float())
+                if vit:
+                    z = fast_infer.vit_encoder_infer(fe, part)
+                else:
+                    z = fast_infer.encoder_infer(fe, normalize(part, dtype))
+                y = head(z.float())
                 out.append(y if mesh is None else mesh.gather_rows(y))
             if i + 1 < len(slices):
                 ready = put(*slices[i + 1])
@@ -767,6 +845,7 @@ class SatAEPipeline:
         chunk runs the eval-mode decoder in the compute dtype (its input
         linear one K1 launch on the card, its transposed convolutions
         cuDNN's with TF32 off)."""
+        self._require_ae("decode")
         self._require_fitted()
         z = np.asarray(latents, np.float32)
         ld = self.config.model.latent_dim
@@ -800,6 +879,7 @@ class SatAEPipeline:
         the card), its float32 latents into the decoder with no host round
         trip (TF32 off, as :meth:`decode`); the upload of
         :meth:`_serve_batched` and one readback."""
+        self._require_ae("reconstruct")
         self._require_fitted()
         n = len(np.asarray(images))
         if n == 0:

@@ -8,6 +8,13 @@ device the serving and training paths always run the hand-written kernels,
 and on the CPU their plain PyTorch versions (satae_torch.kernels).
 
 ``PipelineConfig.compute_dtype`` returns a ``torch.dtype``.
+
+:class:`ViTConfig` is the other encoder family the pipeline serves: a ViT
+over multi-temporal, multispectral chips (MAE's encoder, as
+Prithvi-EO-1.0-100M has it), handed to ``SatAEPipeline(..., encoder=)``;
+``ModelConfig`` then gives the MLP on its latents (``latent_dim`` the
+ViT's ``embed_dim``). :data:`PRITHVI_EO1_100M` holds that model's
+published widths.
 """
 
 from __future__ import annotations
@@ -83,6 +90,67 @@ class ModelConfig:
     num_classes: int = 10
     bn_momentum: float = 0.1
     bn_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class ViTConfig:
+    """A ViT encoder served frozen: chips (in_chans, num_frames, img_size,
+    img_size) of int16 reflectance, normalised per band as (x - band_mean)
+    / band_std, cut into tubelet_size x patch_size x patch_size patches, a
+    class token prepended, ``depth`` pre-LayerNorm blocks (attention of
+    ``num_heads``, an MLP of ``mlp_ratio`` x ``embed_dim`` with the exact
+    GELU), a final LayerNorm; the latent is the mean of the patch tokens.
+    The defaults are Prithvi-EO-1.0-100M's widths (its
+    ``Prithvi_100M_config.yaml``); ``norm_eps`` is MAE's 1e-6 and the band
+    constants are placeholders (0 and 1): set them to the checkpoint's."""
+
+    img_size: int = 224
+    patch_size: int = 16
+    num_frames: int = 3
+    tubelet_size: int = 1
+    in_chans: int = 6
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    norm_eps: float = 1e-6
+    band_mean: Tuple[float, ...] = (0.0,) * 6
+    band_std: Tuple[float, ...] = (1.0,) * 6
+
+    def __post_init__(self):
+        if self.img_size % self.patch_size \
+                or self.num_frames % self.tubelet_size:
+            raise ValueError("img_size and num_frames must be multiples of "
+                             "patch_size and tubelet_size")
+        if self.embed_dim % self.num_heads:
+            raise ValueError("embed_dim must be a multiple of num_heads")
+        if len(self.band_mean) != self.in_chans \
+                or len(self.band_std) != self.in_chans:
+            raise ValueError(f"band_mean and band_std need {self.in_chans} "
+                             "values, one a band")
+
+    @property
+    def grid(self) -> Tuple[int, int, int]:
+        """Patches along time, height and width."""
+        side = self.img_size // self.patch_size
+        return self.num_frames // self.tubelet_size, side, side
+
+    @property
+    def num_patches(self) -> int:
+        t, h, w = self.grid
+        return t * h * w
+
+    @property
+    def mlp_dim(self) -> int:
+        return int(self.embed_dim * self.mlp_ratio)
+
+    @property
+    def chip_shape(self) -> Tuple[int, int, int, int]:
+        """One chip's (bands, frames, height, width)."""
+        return (self.in_chans, self.num_frames, self.img_size, self.img_size)
+
+
+PRITHVI_EO1_100M = ViTConfig()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -400,7 +400,11 @@ __device__ __forceinline__ int stages_of(int n_slices) {
 // partial alive until all have been read. Every block of the cluster
 // reduces 1/R of the tile, so the fix-up no longer rests on one block, and
 // nothing goes through device memory.
-template <class T, bool kTA, bool kTB>
+//
+// kGelu: the instantiation whose epilogue is the GELU (act == kActGelu),
+// built for bf16 with A row-major and B read from a (K, N) buffer, the ViT
+// encoder's linears; every other instantiation's code has no GELU in it.
+template <class T, bool kTA, bool kTB, bool kGelu = false>
 __global__ void __launch_bounds__(kWg + 32, 1)
     fused_gemm_tma_kernel(const __grid_constant__ CUtensorMap map_a,
                           const __grid_constant__ CUtensorMap map_b,
@@ -515,8 +519,8 @@ __global__ void __launch_bounds__(kWg + 32, 1)
       asm volatile("bar.sync 1, %0;\n" ::"n"(kWg) : "memory");
       const Cols<8> cols =
           store_cols_of<64>(cols_s, cols_s + 64, 0, 64, threadIdx.x);
-      store_rows<64>(cs, kLd, 64, out + c * mn, M, N, m0, n0, cols, act,
-                     threadIdx.x, kWg);
+      store_rows<64, T, kGelu>(cs, kLd, 64, out + c * mn, M, N, m0, n0, cols,
+                               act, threadIdx.x, kWg);
     }
   }
   if (splits == 1) return;
@@ -566,8 +570,8 @@ __global__ void __launch_bounds__(kWg + 32, 1)
         }
       }
     }
-    store_cols<4>(out, static_cast<size_t>(m0 + row) * N + n0 + q4, v,
-                  quad_cols, nv, vec, act);
+    store_cols<4, T, kGelu>(out, static_cast<size_t>(m0 + row) * N + n0 + q4,
+                            v, quad_cols, nv, vec, act);
   }
   cluster.sync();  // no block leaves while another reads its partial
 }
@@ -621,14 +625,16 @@ int launch_layout(const void* x, const void* w, const float* scale,
 }
 
 // Checks the plan (C configs of `splits` blocks each along the grid's z, at
-// most 65,535), then launches the instantiation of T for it.
+// most 65,535; no GELU, which only the wgmma kernel has), then launches the
+// instantiation of T for it.
 template <class T>
 int launch_plan(const void* x, const void* w, const float* scale,
                 const float* shift, void* out, float* ws, int* counters,
                 int C, int M, int N, int K, int act, int trans_a, int trans_b,
                 int tile_n, int splits, int k_per_split, void* stream) {
   const bool plan_ok =
-      (tile_n == 32 || tile_n == 64) && C >= 1 && splits >= 1 &&
+      act != kActGelu && (tile_n == 32 || tile_n == 64) && C >= 1 &&
+      splits >= 1 &&
       static_cast<long long>(C) * splits <= 65535 && k_per_split > 0 &&
       static_cast<long long>(splits) * k_per_split >= K &&
       (splits == 1 || (ws != nullptr && counters != nullptr &&
@@ -651,7 +657,7 @@ int launch_plan(const void* x, const void* w, const float* scale,
 // call on the host (a few hundred ns) and passed as __grid_constant__
 // parameters: 128-byte boxes of 64 rows (K-major, and bf16's MN-major) or,
 // for a float32 MN-major operand, of 32 rows of K.
-template <class T, bool kTA, bool kTB>
+template <class T, bool kTA, bool kTB, bool kGelu = false>
 int launch_tma(const void* x, const void* w, const float* scale,
                const float* shift, void* out, int C, int M, int N, int K,
                int act, int splits, int k_per_split, cudaStream_t stream) {
@@ -685,7 +691,7 @@ int launch_tma(const void* x, const void* w, const float* scale,
                        ? ring_max
                        : max(2, stages < ring_max ? stages : ring_max);
   const int smem = hopper::k1_smem_bytes(ring, splits, kF32, sub);
-  auto kernel = hopper::fused_gemm_tma_kernel<T, kTA, kTB>;
+  auto kernel = hopper::fused_gemm_tma_kernel<T, kTA, kTB, kGelu>;
   static unsigned allowed = 0;
   err = allow_smem(reinterpret_cast<const void*>(kernel),
                    kF32 ? hopper::k1_smem_bytes(2, 2, true, hopper::kMaxSub)
@@ -742,8 +748,9 @@ int launch_tma(const void* x, const void* w, const float* scale,
 // Checks a TMA plan (C configs; bf16 splits <= 16, a cluster of the
 // tile's splits; float32 splits <= 128, a cluster of up to 16 blocks of
 // k1_sub(splits) partials each; C * blocks <= 65,535; each split whole
-// stages of K: a multiple of 64 in bf16, of 32 in float32), then launches
-// the layout's instantiation of T.
+// stages of K: a multiple of 64 in bf16, of 32 in float32; GELU in bf16
+// with A row-major and B a (K, N) buffer only), then launches the layout's
+// instantiation of T.
 template <class T>
 int launch_tma_plan(const void* x, const void* w, const float* scale,
                     const float* shift, void* out, int C, int M, int N,
@@ -761,6 +768,15 @@ int launch_tma_plan(const void* x, const void* w, const float* scale,
   // the kernel's flags say which operand is MN-major: A read from a (K, M)
   // buffer (trans_a), B from a row-major (K, N) one (not trans_b)
   const auto s = static_cast<cudaStream_t>(stream);
+  if (act == kActGelu) {
+    if constexpr (!kIsF32<T>) {
+      if (!trans_a && !trans_b)
+        return launch_tma<T, false, true, true>(x, w, scale, shift, out, C,
+                                                M, N, K, act, splits,
+                                                k_per_split, s);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (trans_a)
     return trans_b ? launch_tma<T, true, false>(x, w, scale, shift, out, C,
                                                 M, N, K, act, splits,

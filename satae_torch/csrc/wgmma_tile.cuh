@@ -695,8 +695,8 @@ struct Cols {
 // out[off..off + kV) = epilogue(v) in T (float32, or bf16 rounded once to
 // nearest even), one store of kV * sizeof(T) bytes (two 16-byte ones for 8
 // floats) when `vec` and all kV columns exist (nv == kV), else element by
-// element.
-template <int kV, class T>
+// element; with kGelu the GELU epilogue (epilogue_t).
+template <int kV, class T, bool kGelu = false>
 __device__ __forceinline__ void store_cols(T* out, size_t off,
                                            const float (&v)[kV],
                                            const Cols<kV>& cols, int nv,
@@ -704,7 +704,7 @@ __device__ __forceinline__ void store_cols(T* out, size_t off,
   float o[kV];
 #pragma unroll
   for (int j = 0; j < kV; ++j)
-    o[j] = epilogue(v[j], cols.scale[j], cols.shift[j], act);
+    o[j] = epilogue_t<kGelu>(v[j], cols.scale[j], cols.shift[j], act);
   if (vec && nv == kV) {
     if constexpr (kIsF32<T>) {
       static_assert(kV == 4 || kV == 8, "16-byte float32 stores");
@@ -749,8 +749,8 @@ __device__ __forceinline__ Cols<8> store_cols_of(const float* scale,
 // (M, N) at (m0, n0), in T, 16 bytes per store where N and out allow, by
 // n_threads threads (thread index tid; n_threads a multiple of kN / 8, so
 // each thread keeps one column chunk, whose scale and shift `cols` holds:
-// store_cols_of).
-template <int kN, class T>
+// store_cols_of); kGelu as store_cols.
+template <int kN, class T, bool kGelu = false>
 __device__ __forceinline__ void store_rows(const float* cs, int ld, int rows,
                                            T* out, int M, int N, int m0,
                                            int n0, const Cols<8>& cols,
@@ -766,8 +766,8 @@ __device__ __forceinline__ void store_rows(const float* cs, int ld, int rows,
     const float4 lo = *reinterpret_cast<const float4*>(cs + r * ld + c);
     const float4 hi = *reinterpret_cast<const float4*>(cs + r * ld + c + 4);
     const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-    store_cols<8>(out, static_cast<size_t>(m0 + r) * N + n0 + c, v, cols, nv,
-                  vec, act);
+    store_cols<8, T, kGelu>(out, static_cast<size_t>(m0 + r) * N + n0 + c, v,
+                            cols, nv, vec, act);
   }
 }
 

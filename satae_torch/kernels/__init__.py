@@ -4,14 +4,18 @@
 ``conv2d_bn_act`` (csrc/conv_bn_act.cu), each with a float32 and a bf16
 instantiation, and K1's batched entry over a config axis
 (``fused_matmul_batched`` and its backward ``fused_matmul_batched_bwd``),
-which the config-batched sweep's linears run on. A CUDA tensor launches the
-kernel, a CPU tensor takes the plain version."""
+which the config-batched sweep's linears run on; and the ViT encoder's
+bf16 ``attention`` (csrc/attention.cu) and ``layer_norm``
+(csrc/layernorm.cu). A CUDA tensor launches the kernel, a CPU tensor takes
+the plain version."""
 
 from __future__ import annotations
 
 from typing import Dict
 
+from satae_torch.kernels.attention import attention
 from satae_torch.kernels.conv import conv2d_bn_act
+from satae_torch.kernels.layernorm import layer_norm
 from satae_torch.kernels.matmul import (fused_matmul, fused_matmul_batched,
                                         fused_matmul_batched_bwd,
                                         fused_matmul_bwd)
@@ -19,7 +23,8 @@ from satae_torch.kernels.matmul import (fused_matmul, fused_matmul_batched,
 _WRAPPERS = {"fused_gemm": fused_matmul, "fused_gemm_bwd": fused_matmul_bwd,
              "conv2d_bn_act": conv2d_bn_act,
              "fused_gemm_batched": fused_matmul_batched,
-             "fused_gemm_batched_bwd": fused_matmul_batched_bwd}
+             "fused_gemm_batched_bwd": fused_matmul_batched_bwd,
+             "attention": attention, "layer_norm": layer_norm}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -28,7 +33,8 @@ def launch_counts() -> Dict[str, int]:
     the float32 K1 launches of its backward, ``conv2d_bn_act`` K2's float32
     launches, ``fused_gemm_batched`` and ``fused_gemm_batched_bwd`` the
     batched K1's float32 launches forward and backward, and each name with
-    ``_bf16`` the launches of the bf16 instantiation."""
+    ``_bf16`` the launches of the bf16 instantiation (``attention`` and
+    ``layer_norm`` have only that one)."""
     return {name + suffix: n for name, fn in _WRAPPERS.items()
             for suffix, n in fn.launches.items()}
 

@@ -42,7 +42,11 @@ BUILD_ROOT = _PKG / "_build"
 # (``_tma``, ``_bf16_tma``) for buffers TMA can read; K1 also has batched
 # ones (``_batched``, ``_batched_bf16``, ``_batched_tma``,
 # ``_batched_bf16_tma``: C products in one launch of the unbatched
-# launcher's kernel, the config count C first among the ints).
+# launcher's kernel, the config count C first among the ints). The ViT
+# encoder's kernels are bf16 only: attention (qkv, out; B, L, H) and
+# LayerNorm (x, r, w, b, sum, out; M, N; then one float, eps): a third
+# count, where there is one, is the launcher's float arguments, after its
+# ints.
 LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": (7, 9),
                             "satae_fused_gemm_bf16": (7, 9),
                             "satae_fused_gemm_tma": (5, 8),
@@ -54,7 +58,9 @@ LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": (7, 9),
              "conv_bn_act": {"satae_conv2d_bn_act": (5, 13),
                              "satae_conv2d_bn_act_bf16": (5, 13),
                              "satae_conv2d_bn_act_tma": (6, 13),
-                             "satae_conv2d_bn_act_bf16_tma": (5, 13)}}
+                             "satae_conv2d_bn_act_bf16_tma": (5, 13)},
+             "attention": {"satae_attention_bf16": (2, 3)},
+             "layernorm": {"satae_layernorm_bf16": (6, 2, 1)}}
 # the operand dtypes the kernels take, and each one's launcher suffix
 OPERAND_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 SOURCES = tuple(LAUNCHERS)
@@ -179,11 +185,14 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build_all()[name]))
-            for fn_name, (n_ptrs, n_ints) in LAUNCHERS[name].items():
+            for fn_name, (n_ptrs, n_ints, *n_floats) in \
+                    LAUNCHERS[name].items():
                 fn = getattr(lib, fn_name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = ([ctypes.c_void_p] * n_ptrs
-                               + [ctypes.c_int] * n_ints + [ctypes.c_void_p])
+                               + [ctypes.c_int] * n_ints
+                               + [ctypes.c_float] * sum(n_floats)
+                               + [ctypes.c_void_p])
             lib.satae_error_string.restype = ctypes.c_char_p
             lib.satae_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib

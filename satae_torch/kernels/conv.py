@@ -34,6 +34,10 @@ from satae_torch.kernels.matmul import (ACTS, apply_act, launch_span,
                                         tile_n_for)
 
 
+# K2's activations: K1's but the GELU, which only K1's bf16 wgmma kernel has
+K2_ACTS = ACTS[:3]
+
+
 def bn_fold(weight: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
             var: torch.Tensor, eps: float = 1e-5):
     """Eval-mode BN -> (scale, shift) with y = x * scale + shift."""
@@ -202,8 +206,8 @@ def conv2d_bn_act(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     too, which its im2col kernel reads (``conv_route``'s "im2col"; it
     raises without it). A CPU x takes :func:`conv2d_bn_act_plain`, in
     either layout."""
-    if act not in ACTS:
-        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    if act not in K2_ACTS:
+        raise ValueError(f"act must be one of {K2_ACTS}, got {act!r}")
     if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[2]:
         raise ValueError(f"conv2d_bn_act: bad shapes x {tuple(x.shape)} "
                          f"(NHWC), w {tuple(w.shape)} (HWIO)")

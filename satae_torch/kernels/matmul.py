@@ -44,7 +44,10 @@ import torch
 from satae_torch.kernels import _build
 from satae_torch.utils.profiling import span
 
-ACTS = ("none", "relu", "sigmoid")
+# the epilogue's activations (csrc/epilogue.cuh), in its order; "gelu" is
+# the exact erf form of ViT's MLP, which on the card only the wgmma kernel of
+# bf16 operands computes, for A and B read as they are (gelu_ok)
+ACTS = ("none", "relu", "sigmoid", "gelu")
 
 Grads = Tuple[Optional[torch.Tensor], ...]
 
@@ -54,6 +57,8 @@ def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
         return torch.relu(y)
     if act == "sigmoid":
         return torch.sigmoid(y)
+    if act == "gelu":
+        return torch.nn.functional.gelu(y)
     return y
 
 
@@ -70,13 +75,20 @@ def fused_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     return apply_act(y + shift.float(), act).to(x.dtype)
 
 
-def _act_grad(g: torch.Tensor, y: torch.Tensor, act: str) -> torch.Tensor:
-    """The cotangent through the activation, from its output y, in g's
-    dtype."""
+def _act_grad(g: torch.Tensor, y: torch.Tensor, act: str,
+              pre: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The cotangent through the activation, in g's dtype: from its output
+    y, or for "gelu", which its output does not determine, from its input
+    ``pre``: GELU'(u) = Phi(u) + u * phi(u), in float32."""
     if act == "relu":
         return g * (y > 0).to(g.dtype)
     if act == "sigmoid":
         return g * y * (1.0 - y)
+    if act == "gelu":
+        u = pre.float()
+        d = 0.5 * (1.0 + torch.erf(u * 0.7071067811865476)) \
+            + u * torch.exp(-0.5 * u * u) * 0.3989422804014327
+        return (g.float() * d).to(g.dtype)
     return g
 
 
@@ -90,16 +102,25 @@ def fused_matmul_bwd_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                            scale: Optional[torch.Tensor], y: torch.Tensor,
                            act: str = "none",
                            needs: Sequence[bool] = (True, True, True, True),
-                           w_nk: bool = False) -> Grads:
+                           w_nk: bool = False, *,
+                           shift: Optional[torch.Tensor] = None) -> Grads:
     """satae's ``_bwd`` (matmul.py:100-118) in plain PyTorch ops: the
     gradients (dx, dw, dscale, dshift) of act((x @ W) * scale + shift) for
     the cotangent g of its output y, W = w or w.T (``w_nk``). dx and dw come
     in g's dtype, dw in w's own layout, dscale and dshift in float32; an
     entry whose ``needs`` flag is False is None. A scale of None is 1 and
-    has no gradient."""
-    g = _act_grad(g, y, act)
-    gs = g if scale is None else g * scale.to(g.dtype)
+    has no gradient. For "gelu" the activation's input is recomputed from
+    x, w, scale and ``shift`` (None is 0)."""
     w_kn = w.t() if w_nk else w
+    pre = None
+    if act == "gelu":
+        pre = (x.float() @ w_kn.float())
+        if scale is not None:
+            pre = pre * scale.float()
+        if shift is not None:
+            pre = pre + shift.float()
+    g = _act_grad(g, y, act, pre)
+    gs = g if scale is None else g * scale.to(g.dtype)
     dx = _mm_plain(gs, w_kn.t()) if needs[0] else None
     dw = None
     if needs[1]:
@@ -239,6 +260,22 @@ def k1_loader(x: torch.Tensor, w: torch.Tensor, trans_a: bool = False,
             else "tma")
 
 
+def gelu_ok(x: torch.Tensor, w: torch.Tensor, trans_a: bool,
+            trans_b: bool) -> bool:
+    """Whether K1 on the card computes act "gelu" for these buffers: bf16,
+    on the wgmma route (:func:`k1_loader`), neither operand transposed (the
+    one instantiation built with the GELU in its epilogue)."""
+    return (x.dtype == torch.bfloat16 and not trans_a and not trans_b
+            and k1_loader(x, w, trans_a, trans_b) == "tma")
+
+
+def _check_gelu(what: str, x, w, act, trans_a, trans_b) -> None:
+    if act == "gelu" and not gelu_ok(x, w, trans_a, trans_b):
+        raise ValueError(f"{what}: act 'gelu' runs on K1's bf16 wgmma "
+                         f"route with row-major A and a (K, N) B only; got "
+                         f"{x.dtype}, trans_a={trans_a}, trans_b={trans_b}")
+
+
 def split_k_plan_tma(m: int, n: int, k: int, batch: int = 1,
                      dtype: torch.dtype = torch.bfloat16
                      ) -> Tuple[int, int, int, int]:
@@ -289,13 +326,15 @@ def split_k_workspace(m: int, n: int, splits: int,
 class launch_span:
     """``with launch_span(name, wrapper, dtype): <one launch>``: the launch
     inside the span ``name`` (on the card too, :func:`span`'s
-    ``device=True``), counted as one launch of ``wrapper``'s kernel in
-    ``dtype``'s instantiation when the block ends without raising, whether
-    or not a profiler is on (a ``wrapper`` of None counts nothing)."""
+    ``device=True``, with the span's ``counts``), counted as one launch of
+    ``wrapper``'s kernel in ``dtype``'s instantiation when the block ends
+    without raising, whether or not a profiler is on (a ``wrapper`` of None
+    counts nothing)."""
     __slots__ = ("span", "counter", "key")
 
-    def __init__(self, name: str, wrapper, dtype: torch.dtype):
-        self.span = span(name, device=True)
+    def __init__(self, name: str, wrapper, dtype: torch.dtype,
+                 **counts: float):
+        self.span = span(name, device=True, **counts)
         self.counter = None if wrapper is None else wrapper.launches
         self.key = _build.OPERAND_DTYPES[dtype]
 
@@ -356,6 +395,7 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
                          "indexing")
     if any(t is not None and t.shape != (n,) for t in (scale, shift)):
         raise ValueError(f"fused_gemm: scale/shift must be ({n},)")
+    _check_gelu("fused_gemm", x, w, act, trans_a, trans_b)
     out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     if m == 0 or n == 0:
         return out
@@ -391,22 +431,30 @@ def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                      scale: Optional[torch.Tensor], y: torch.Tensor,
                      act: str = "none",
                      needs: Sequence[bool] = (True, True, True, True),
-                     w_nk: bool = False) -> Grads:
+                     w_nk: bool = False, *,
+                     shift: Optional[torch.Tensor] = None) -> Grads:
     """The backward of :func:`fused_matmul`, step by step as satae's
     ``_bwd``: g through the activation, gs = g * scale, then dx = gs @ W^T
     and dw = x^T @ gs (or gs^T @ x for an (N, K) weight) as one K1 launch
     each, and z = x @ W recomputed on K1 for dscale only when ``needs[2]``.
     The activation gradient, the scale product and the column sums stay
     PyTorch ops, as they stay XLA ops outside the Pallas kernel in satae;
-    all but the float32 column sums run in g's dtype.
+    all but the float32 column sums run in g's dtype. For "gelu" the
+    activation's input is one more K1 launch (act "none", scale and
+    ``shift``).
 
     A CUDA x launches K1 (counted in ``fused_matmul_bwd.launches``); a CPU
     x takes :func:`fused_matmul_bwd_plain`."""
     if x.device.type == "cpu":
-        return fused_matmul_bwd_plain(g, x, w, scale, y, act, needs, w_nk)
+        return fused_matmul_bwd_plain(g, x, w, scale, y, act, needs, w_nk,
+                                      shift=shift)
     if x.device.type != "cuda":
         raise ValueError(f"fused_matmul_bwd: no kernel for device {x.device}")
-    g = _act_grad(g, y, act)
+    pre = None
+    if act == "gelu":
+        pre = fused_gemm(x, w, scale, shift, "none", False, w_nk,
+                         counted=fused_matmul_bwd)
+    g = _act_grad(g, y, act, pre)
     gs = (g if scale is None else g * scale.to(g.dtype)).contiguous()
 
     def product(a, b, trans_a, trans_b):  # scale 1, shift 0, no act
@@ -441,15 +489,17 @@ class _FusedMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, scale, shift, act, w_nk):
         y = _forward(x, w, scale, shift, act, w_nk)
-        ctx.save_for_backward(x, w, scale, y)
+        ctx.save_for_backward(x, w, scale, y,
+                              shift if act == "gelu" else None)
         ctx.act, ctx.w_nk = act, w_nk
         return y
 
     @staticmethod
     def backward(ctx, g):
-        x, w, scale, y = ctx.saved_tensors
+        x, w, scale, y, shift = ctx.saved_tensors
         grads = fused_matmul_bwd(g, x, w, scale, y, ctx.act,
-                                 ctx.needs_input_grad[:4], ctx.w_nk)
+                                 ctx.needs_input_grad[:4], ctx.w_nk,
+                                 shift=shift)
         return (*grads, None, None)
 
 
@@ -526,13 +576,16 @@ def fused_matmul_batched_bwd_plain(g: torch.Tensor, x: torch.Tensor,
                                    y: torch.Tensor, act: str = "none",
                                    needs: Sequence[bool] = (True, True, True,
                                                             True),
-                                   w_nk: bool = False) -> Grads:
+                                   w_nk: bool = False, *,
+                                   shift: Optional[torch.Tensor] = None
+                                   ) -> Grads:
     """The plain backward of the batched K1: :func:`fused_matmul_bwd_plain`
     on each config's slices, each gradient stacked over the configs (None
     where ``needs`` says so)."""
     per = [fused_matmul_bwd_plain(g[c], x[c], w[c],
                                   None if scale is None else scale[c], y[c],
-                                  act, needs, w_nk)
+                                  act, needs, w_nk,
+                                  shift=None if shift is None else shift[c])
            for c in range(x.shape[0])]
     return tuple(None if parts[0] is None else torch.stack(parts)
                  for parts in zip(*per))
@@ -576,6 +629,7 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
                          "int32 indexing")
     if any(t is not None and t.shape != (c, n) for t in (scale, shift)):
         raise ValueError(f"fused_gemm_batched: scale/shift must be {(c, n)}")
+    _check_gelu("fused_gemm_batched", x, w, act, trans_a, trans_b)
     out = torch.empty((c, m, n), device=x.device, dtype=x.dtype)
     if c == 0 or m == 0 or n == 0:
         return out
@@ -607,22 +661,28 @@ def fused_matmul_batched_bwd(g: torch.Tensor, x: torch.Tensor,
                              w: torch.Tensor, scale: Optional[torch.Tensor],
                              y: torch.Tensor, act: str = "none",
                              needs: Sequence[bool] = (True, True, True, True),
-                             w_nk: bool = False) -> Grads:
+                             w_nk: bool = False, *,
+                             shift: Optional[torch.Tensor] = None) -> Grads:
     """The backward of :func:`fused_matmul_batched`, as
     :func:`fused_matmul_bwd` per config: dx = gs @ W^T and dw = x^T @ gs
     (or gs^T @ x for (N, K) weights) as one batched K1 launch each over all
-    configs, z = x @ W recomputed on it for dscale only when ``needs[2]``;
+    configs, z = x @ W recomputed on it for dscale only when ``needs[2]``
+    (and for "gelu" the activation's input, with scale and ``shift``);
     dscale and dshift (C, N) in float32.
 
     A CUDA x launches K1 (counted in ``fused_matmul_batched_bwd.launches``);
     a CPU x takes :func:`fused_matmul_batched_bwd_plain`."""
     if x.device.type == "cpu":
         return fused_matmul_batched_bwd_plain(g, x, w, scale, y, act, needs,
-                                              w_nk)
+                                              w_nk, shift=shift)
     if x.device.type != "cuda":
         raise ValueError(f"fused_matmul_batched_bwd: no kernel for device "
                          f"{x.device}")
-    g = _act_grad(g, y, act)
+    pre = None
+    if act == "gelu":
+        pre = fused_gemm_batched(x, w, scale, shift, "none", False, w_nk,
+                                 counted=fused_matmul_batched_bwd)
+    g = _act_grad(g, y, act, pre)
     gs = (g if scale is None else g * scale[:, None].to(g.dtype)).contiguous()
 
     def product(a, b, trans_a, trans_b):  # scale 1, shift 0, no act
@@ -658,15 +718,17 @@ class _FusedMatmulBatched(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, scale, shift, act, w_nk):
         y = _forward_batched(x, w, scale, shift, act, w_nk)
-        ctx.save_for_backward(x, w, scale, y)
+        ctx.save_for_backward(x, w, scale, y,
+                              shift if act == "gelu" else None)
         ctx.act, ctx.w_nk = act, w_nk
         return y
 
     @staticmethod
     def backward(ctx, g):
-        x, w, scale, y = ctx.saved_tensors
+        x, w, scale, y, shift = ctx.saved_tensors
         grads = fused_matmul_batched_bwd(g, x, w, scale, y, ctx.act,
-                                         ctx.needs_input_grad[:4], ctx.w_nk)
+                                         ctx.needs_input_grad[:4], ctx.w_nk,
+                                         shift=shift)
         return (*grads, None, None)
 
 

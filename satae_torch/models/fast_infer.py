@@ -27,6 +27,21 @@ and BatchNorm parameters and stats are cast to bf16 once, scale and shift
 are folded in float32 from those bf16 values and stay float32 into K1's and
 K2's epilogue, and the activations run in bf16 end to end. The MLP is always
 float32: the latents reach it as float32.
+
+The ViT encoder (satae_torch.models.vit) is served the same way:
+:func:`fold_vit` packs its weights once per weight set and
+:func:`vit_encoder_infer` runs a chunk of int16 chips on the kernels. Per
+chunk: the patchify and per-band normalisation (PyTorch's copies and
+elementwise ops, in the span ``satae.vit.embed``), the patch embedding as
+one K1 launch with its bias, the position table added and the class token
+set (PyTorch), then per block a LayerNorm launch (the residual add of the
+block before it inside), K1 for qkv, one attention launch, K1 for proj, a
+LayerNorm launch with the residual add, K1 for fc1 with GELU in its
+epilogue and K1 for fc2; a final LayerNorm launch with the last residual
+add, and the mean of the patch tokens in float32 (PyTorch). Every Linear is
+K1 with scale 1 and its bias as the shift; the residual stream stays in
+the compute dtype. On the card the attention and LayerNorm kernels are
+bf16 only; on the CPU the plain versions run in float32 or bf16.
 """
 
 from __future__ import annotations
@@ -36,12 +51,17 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from satae_torch.config import ViTConfig
 from satae_torch.data.augment import normalize
+from satae_torch.kernels.attention import attention
 from satae_torch.kernels.conv import (bn_fold, conv2d_bn_act,
                                       pack_conv_weight, split_tf32)
+from satae_torch.kernels.layernorm import layer_norm
 from satae_torch.kernels.matmul import fused_matmul
 from satae_torch.models.encoder import Encoder
 from satae_torch.models.mlp import MLP
+from satae_torch.models.vit import ViTEncoder
+from satae_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -156,6 +176,105 @@ def mlp_infer(fm: FoldedMLP, z: torch.Tensor) -> torch.Tensor:
     for layer in fm.layers:
         h = layer(h)
     return h
+
+
+@dataclass(frozen=True)
+class FoldedViTBlock:
+    ln1: Tuple[torch.Tensor, torch.Tensor]  # LayerNorm weight, bias (float32)
+    qkv: FoldedLinear
+    proj: FoldedLinear
+    ln2: Tuple[torch.Tensor, torch.Tensor]
+    fc1: FoldedLinear  # GELU in its epilogue
+    fc2: FoldedLinear
+
+
+@dataclass(frozen=True)
+class FoldedViT:
+    cfg: ViTConfig
+    band_mean: torch.Tensor  # (in_chans,) float32
+    band_std: torch.Tensor
+    patch: FoldedLinear  # (in_chans * tubelet * patch^2 -> embed_dim)
+    cls: torch.Tensor  # cls_token + pos_embed[0], (embed_dim,)
+    pos: torch.Tensor  # pos_embed[1:], (num_patches, embed_dim)
+    blocks: Tuple[FoldedViTBlock, ...]
+    norm: Tuple[torch.Tensor, torch.Tensor]
+
+
+def _vit_linear(lin: torch.nn.Linear, dtype: torch.dtype,
+                act: str = "none") -> FoldedLinear:
+    """A ViT Linear as one K1 launch: scale None (1), its bias the shift."""
+    return FoldedLinear(_linear_weight(lin.weight.to(dtype)), None,
+                        lin.bias.detach().float(), act)
+
+
+@torch.no_grad()
+def fold_vit(enc: ViTEncoder, cfg: ViTConfig,
+             dtype: torch.dtype = torch.bfloat16) -> FoldedViT:
+    """The encoder's launches for activations in ``dtype``: each weight
+    cast to ``dtype`` once and laid out for K1 (the patch projection as its
+    (embed_dim, in_chans * tubelet * patch^2) matrix, columns in (band,
+    frame, row, column) order), biases and LayerNorm parameters float32, the
+    class token and the position table in ``dtype``. ``cfg`` gives the band
+    constants."""
+    dev = enc.cls_token.device
+    ln = lambda m: (m.weight.detach().float().contiguous(),
+                    m.bias.detach().float().contiguous())
+    w = enc.patch_embed.proj.weight
+    patch = FoldedLinear(_linear_weight(w.reshape(w.shape[0], -1).to(dtype)),
+                         None, enc.patch_embed.proj.bias.detach().float(),
+                         "none")
+    pos = enc.pos_embed.detach()[0]
+    blocks = tuple(FoldedViTBlock(
+        ln(b.norm1), _vit_linear(b.attn.qkv, dtype),
+        _vit_linear(b.attn.proj, dtype), ln(b.norm2),
+        _vit_linear(b.mlp.fc1, dtype, "gelu"), _vit_linear(b.mlp.fc2, dtype))
+        for b in enc.blocks)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    return FoldedViT(cfg, f32(cfg.band_mean), f32(cfg.band_std), patch,
+                     (enc.cls_token.detach()[0, 0] + pos[0]).to(dtype),
+                     pos[1:].to(dtype).contiguous(), blocks, ln(enc.norm))
+
+
+def vit_patches(fv: FoldedViT, x: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """int16 chips (n, in_chans, num_frames, H, W) -> the patch matrix (n *
+    num_patches, in_chans * tubelet * patch^2) in ``dtype``, each band
+    normalised as (x - mean) / std in float32: rows in (t, h, w) order, the
+    columns of the Conv3d weight's flatten."""
+    c = fv.cfg
+    n = len(x)
+    gt, gh, gw = c.grid
+    p, tb = c.patch_size, c.tubelet_size
+    xs = x.view(n, c.in_chans, gt, tb, gh, p, gw, p) \
+        .permute(0, 2, 4, 6, 1, 3, 5, 7).float()
+    xs.sub_(fv.band_mean.view(-1, 1, 1, 1)).div_(fv.band_std.view(-1, 1, 1, 1))
+    out = torch.empty(xs.shape, dtype=dtype, device=x.device)
+    out.copy_(xs)
+    return out.view(n * c.num_patches, -1)
+
+
+def vit_encoder_infer(fv: FoldedViT, x: torch.Tensor) -> torch.Tensor:
+    """Eval-mode ViT encoder on the kernels, as the module docstring says:
+    int16 chips (n, in_chans, num_frames, H, W) -> the mean of the patch
+    tokens after the final LayerNorm, (n, embed_dim) float32; the
+    activations in the dtype ``fv`` was folded for."""
+    c = fv.cfg
+    n, d, t = len(x), c.embed_dim, c.num_patches + 1
+    dtype = fv.pos.dtype
+    with span("satae.vit.embed", device=True):
+        patches = vit_patches(fv, x, dtype)
+    e = fv.patch(patches).view(n, c.num_patches, d)
+    tok = torch.empty((n, t, d), dtype=dtype, device=x.device)
+    tok[:, 0] = fv.cls
+    torch.add(e, fv.pos, out=tok[:, 1:])
+    h, r = tok.view(n * t, d), None
+    for blk in fv.blocks:
+        h, xn = layer_norm(h, *blk.ln1, c.norm_eps, residual=r)
+        a = blk.proj(attention(blk.qkv(xn), n, c.num_heads))
+        h, xn = layer_norm(h, *blk.ln2, c.norm_eps, residual=a)
+        r = blk.fc2(blk.fc1(xn))
+    _, y = layer_norm(h, *fv.norm, c.norm_eps, residual=r)
+    return torch.mean(y.view(n, t, d)[:, 1:], dim=1, dtype=torch.float32)
 
 
 def make_encode_classify(enc: Encoder, mlp: MLP,

@@ -92,7 +92,7 @@ def test_wrappers_validate_and_count_only_kernel_launches():
     x, w = torch.zeros(4, 3), torch.zeros(3, 2)
     one, zero = torch.ones(2), torch.zeros(2)
     with pytest.raises(ValueError, match="act"):
-        TM.fused_matmul(x, w, one, zero, "gelu")
+        TM.fused_matmul(x, w, one, zero, "tanh")
     with pytest.raises(ValueError, match="shapes"):
         TM.fused_matmul(x, torch.zeros(4, 2), one, zero)
     with pytest.raises(ValueError, match="scale/shift"):
