@@ -303,11 +303,12 @@ parent, each in a process of its own that builds that tree's kernels. The
 float32 outputs at the shapes of phases 3 and 4, the float32 batched
 outputs at phase 21's, and every timed float32 launch's output must be
 bitwise equal in all four runs (the float32 wgmma kernels sum as the
-mma.sync loop does on the same split plan); for every bf16 launch it prints
-the share of its outputs bitwise equal to the parent's beside both trees'
-device us and this tree's route; and it times each tree's own float32
-predict of the committed model in turns. It prints one line per launch and
-writes chiprun_out/ab.json.
+mma.sync loop does on the same split plan); for every launch it prints the
+share of its outputs bitwise equal to the parent's beside both trees'
+device us and this tree's route, and holds that share at 1 and the route
+off K1's wide kernel (none of these launches is the ViT's); and it times
+each tree's own float32 predict of the committed model in turns. It prints
+one line per launch and writes chiprun_out/ab.json.
 
 ``--split-sweep`` times K1 at the long-K products (the serving projection
 512x4096x64 and the training one, 64x4096x64 with an (N, K) weight) for 1 to
@@ -416,13 +417,13 @@ K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
 
 # the kernel instantiations of a build (ptxas report: K1 16 mma.sync + 9
 # wgmma, which the batched entries launch too, one of them the bf16 GELU
-# epilogue's; K2 4 mma.sync + 5 wgmma; the ViT encoder's attention and
-# LayerNorm, one each) and
-# those of them on wgmma (fused_gemm_tma_kernel x 4 layouts x float32 and
-# bf16, conv_im2col_tma_kernel: bf16 x 2 N tiles and float32,
-# conv_rows_kernel in float32 and bf16)
-N_INSTANTIATIONS = 36
-N_WGMMA = 14
+# epilogue's, and the wide kernel's 4, one per activation; K2 4 mma.sync + 5
+# wgmma; the ViT encoder's attention and LayerNorm, one each) and those of
+# them on wgmma (fused_gemm_tma_kernel x 4 layouts x float32 and bf16,
+# fused_gemm_wide_kernel x 4, conv_im2col_tma_kernel: bf16 x 2 N
+# tiles and float32, conv_rows_kernel in float32 and bf16)
+N_INSTANTIATIONS = 40
+N_WGMMA = 18
 
 
 def hgmma_counts() -> dict:
@@ -471,7 +472,7 @@ def counts(**given) -> dict:
     every kernel and dtype not in ``given`` at 0."""
     names = ("fused_gemm", "fused_gemm_bwd", "conv2d_bn_act",
              "fused_gemm_batched", "fused_gemm_batched_bwd", "attention",
-             "layer_norm")
+             "layer_norm", "fused_gemm_wide")
     out = {n + s: 0 for s in ("", "_bf16") for n in names}
     check(set(given) <= set(out), f"unknown kernel names {set(given)}")
     out.update(given)
@@ -731,9 +732,13 @@ def f32_route(a, b, ta: bool = False, tb: bool = False) -> str:
 def tree_k1_route(mods, a, b, ta: bool, tb: bool) -> str:
     """A tree's k1_loader on a launch: with its trans flags where the
     tree's loader takes them (float32 routes by layout), else on the
-    buffers alone."""
+    buffers alone; "wide" where the tree has k1_wide and it takes the
+    launch."""
     import inspect
 
+    if getattr(mods, "k1_wide", None) is not None and \
+            mods.k1_wide(a, b, ta, tb):
+        return "wide"
     if len(inspect.signature(mods.k1_loader).parameters) > 2:
         return mods.k1_loader(a, b, ta, tb)
     return mods.k1_loader(a, b)
@@ -1284,8 +1289,8 @@ def main() -> int:
               flush=True)
     check(len(ptxas) == N_INSTANTIATIONS, f"{len(ptxas)} kernel "
           f"instantiations in the ptxas report, expected {N_INSTANTIATIONS} "
-          "(K1 16 mma.sync + 9 wgmma, K2 4 mma.sync + 5 wgmma + 1, "
-          "attention 1, LayerNorm 1)")
+          "(K1 16 mma.sync + 9 wgmma + 4 wide, K2 4 mma.sync + 5 wgmma "
+          "+ 1, attention 1, LayerNorm 1)")
     spilled = [r["kernel"] for r in ptxas
                if r["spill_stores"] or r["spill_loads"]]
     check(not spilled, f"ptxas spills registers in {spilled}")
@@ -4351,23 +4356,54 @@ VIT_GEMMS = (("patch", VIT_CHIPS * 588, 1536, VIT_DIM, "none"),
              ("proj", VIT_ROWS, VIT_DIM, VIT_DIM, "none"),
              ("fc1", VIT_ROWS, VIT_DIM, VIT_MLP, "gelu"),
              ("fc2", VIT_ROWS, VIT_MLP, VIT_DIM, "none"))
+# shapes at and around k1_wide's thresholds (m, k, n), each timed on both
+# bf16 routes: K below WIDE_MIN_K (the decoder input's 64, and 128) and at
+# it, tiles below one wave (48, 96) and above it (198)
+VIT_THRESHOLDS = ((VIT_ROWS, 64, VIT_DIM), (VIT_ROWS, 128, VIT_DIM),
+                  (VIT_ROWS, 256, VIT_DIM), (2048, VIT_DIM, VIT_DIM),
+                  (4096, VIT_DIM, VIT_DIM), (8448, VIT_DIM, VIT_DIM))
 
 
 def vit_kernels_phase(card: str) -> dict:
     """Phase 30a: the attention and LayerNorm kernels and K1 at the ViT's
     shapes (fc1 with GELU in its epilogue) against their plain versions on
     the same card (TF32 off), each timed (device us) beside its bound and a
-    library yardstick: SDPA, F.layer_norm, bf16 torch.matmul."""
+    library yardstick: SDPA, F.layer_norm, bf16 torch.matmul. K1 on the
+    wide route fused_gemm takes there (one bf16 ulp + 1e-6, >= 99 %
+    bit-equal) and, for comparison, on the 64 x 64 wgmma route; then both
+    routes at and around the wide route's thresholds (VIT_THRESHOLDS)."""
     import torch
     import torch.nn.functional as F
 
+    from satae_torch.kernels import _build
     from satae_torch.kernels.attention import attention, attention_plain
     from satae_torch.kernels.layernorm import layer_norm, layer_norm_plain
-    from satae_torch.kernels.matmul import fused_gemm, fused_matmul_plain
+    from satae_torch.kernels.matmul import (ACTS, fused_gemm,
+                                            fused_gemm_wide,
+                                            fused_matmul_plain, k1_wide,
+                                            split_k_plan_tma)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(30)
     rows = []
+
+    def k1_launch(lib, fn, a, wt, sh, act, *ints):
+        m, k = a.shape
+        out = torch.empty(m, wt.shape[1], device=dev, dtype=a.dtype)
+        _build.launch(_build.load(lib), fn, dev, a.data_ptr(), wt.data_ptr(),
+                      0, sh.data_ptr(), out.data_ptr(), m, wt.shape[1], k,
+                      ACTS.index(act), *ints)
+        return out
+
+    def k1_narrow(a, wt, sh, act):  # the 64 x 64 wgmma route, its plan
+        _, _, splits, kps = split_k_plan_tma(a.shape[0], wt.shape[1],
+                                             a.shape[1])
+        return k1_launch("fused_gemm", "satae_fused_gemm_bf16_tma", a, wt,
+                         sh, act, 0, 0, splits, kps)
+
+    def k1_wide_launch(a, wt, sh, act):  # the wide kernel, any shape it takes
+        return k1_launch("gemm_wide", "satae_fused_gemm_bf16_wide", a, wt,
+                         sh, act)
     # attention: a chunk's qkv at the scale a block's LayerNorm'd input
     # gives it, and the 589-key tail
     qkv = (torch.randn(VIT_ROWS, 3 * VIT_DIM, generator=g, device=dev)
@@ -4445,36 +4481,78 @@ def vit_kernels_phase(card: str) -> dict:
               f"us (F.layer_norm {lib_us:.1f}, bound "
               f"{b['bound_ms'] * 1e3:.1f}), bit-equal {eq:.5f}", flush=True)
     del x, r, xa, xb, xc, ha, hb, ya, yb
-    # K1 at the ViT's shapes, fc1 with GELU
+    # K1 at the ViT's shapes, fc1 with GELU: the wide route fused_gemm
+    # takes (k1_wide), the 64 x 64 wgmma route beside it, launched directly
     for name, m, k, n, act in VIT_GEMMS:
         a = (torch.randn(m, k, generator=g, device=dev)).to(torch.bfloat16)
         wt = (torch.randn(k, n, generator=g, device=dev)
               / k ** 0.5).to(torch.bfloat16)
         sh = torch.randn(n, generator=g, device=dev) * 0.1
+        check(k1_wide(a, wt), f"K1 {name}: not on the wide route")
+        before = fused_gemm_wide.launches["_bf16"]
         out = fused_gemm(a, wt, None, sh, act)
+        check(fused_gemm_wide.launches["_bf16"] == before + 1,
+              f"K1 {name}: fused_gemm did not launch the wide kernel")
         ref = fused_matmul_plain(a, wt, None, sh, act)
-        # one bf16 ulp, and for outputs near 0 (a sum of up to 3,072
-        # products that cancel) the two float32 sums' orders: 2^-18 of the
-        # sum of the products' magnitudes
-        mag = a.float().abs() @ wt.float().abs()
-        e, eq = ulp_err(out, ref, f"K1 {name} {act}",
-                        bound=bf16_ulp(ref) + 2.0 ** -18 * mag)
-        del mag
+        narrow = k1_narrow(a, wt, sh, act)
+        # phase 30's bf16 K1 tolerance: one bf16 ulp + 1e-6, and for
+        # outputs near 0 (a sum of up to 3,072 products that cancel) the two
+        # float32 sums' orders, 2^-18 of the sum of the products'
+        # magnitudes; at least 99 % bit-equal
+        lim = bf16_ulp(ref) + 2.0 ** -18 * (a.float().abs()
+                                            @ wt.float().abs())
+        e, eq = ulp_err(out, ref, f"K1 wide {name} {act}", bound=lim)
+        e_n, eq_n = ulp_err(narrow, ref, f"K1 64x64 {name} {act}", bound=lim)
+        del lim
+        check(torch.equal(out, fused_gemm(a, wt, None, sh, act)),
+              f"K1 wide {name}: two calls differ")
         b = bounds(2.0 * m * k * n, (m * k + k * n + m * n) * 2.0,
                    bf16=True)
         us = device_us(lambda: fused_gemm(a, wt, None, sh, act),
-                       b["bound_ms"] * 1e3, f"K1 {name}")
+                       b["bound_ms"] * 1e3, f"K1 wide {name}")
+        narrow_us = device_us(lambda: k1_narrow(a, wt, sh, act),
+                              b["bound_ms"] * 1e3, f"K1 64x64 {name}")
         lib_us = device_us(lambda: a @ wt, b["bound_ms"] * 1e3,
                            f"torch.matmul {name}")
-        rows.append(dict(kernel="fused_gemm_bf16", layer=name,
+        rows.append(dict(kernel="fused_gemm_bf16", layer=name, route="wide",
                          shape=[m, k, n], act=act, max_abs_err=e,
-                         bit_equal=eq, device_us=us, matmul_device_us=lib_us,
+                         bit_equal=eq, bit_equal_64x64=eq_n,
+                         max_abs_err_64x64=e_n,
+                         equal_to_64x64=float((out == narrow).float().mean()),
+                         device_us=us, device_us_64x64=narrow_us,
+                         matmul_device_us=lib_us,
                          bound_us=b["bound_ms"] * 1e3,
                          bound_by=b["bound_by"]))
-        print(f"K1 {name} {m}x{k}x{n} {act}: {us:.1f} us (torch.matmul "
-              f"{lib_us:.1f}, bound {b['bound_ms'] * 1e3:.1f}), bit-equal "
-              f"{eq:.5f}", flush=True)
-        del a, wt, out, ref
+        print(f"K1 {name} {m}x{k}x{n} {act}: wide {us:.1f} us, 64x64 "
+              f"{narrow_us:.1f} us, torch.matmul {lib_us:.1f} us, bound "
+              f"{b['bound_ms'] * 1e3:.1f} ({b['bound_by']}); bit-equal the "
+              f"plain version wide {eq:.5f} / 64x64 {eq_n:.5f}", flush=True)
+        del a, wt, out, ref, narrow
+    # both routes at and around the wide route's thresholds
+    for m, k, n in VIT_THRESHOLDS:
+        a = (torch.randn(m, k, generator=g, device=dev)).to(torch.bfloat16)
+        wt = (torch.randn(k, n, generator=g, device=dev)
+              / k ** 0.5).to(torch.bfloat16)
+        sh = torch.randn(n, generator=g, device=dev) * 0.1
+        wide = lambda: k1_wide_launch(a, wt, sh, "none")
+        ref = fused_matmul_plain(a, wt, None, sh)
+        e, eq = ulp_err(wide(), ref, f"K1 wide {m}x{k}x{n}", bound=(
+            bf16_ulp(ref) + 2.0 ** -18 * (a.float().abs()
+                                          @ wt.float().abs())))
+        b = bounds(2.0 * m * k * n, (m * k + k * n + m * n) * 2.0,
+                   bf16=True)
+        us = device_us(wide, b["bound_ms"] * 1e3, f"K1 wide {m}x{k}x{n}")
+        narrow_us = device_us(lambda: k1_narrow(a, wt, sh, "none"),
+                              b["bound_ms"] * 1e3, f"K1 64x64 {m}x{k}x{n}")
+        rows.append(dict(kernel="fused_gemm_bf16", layer="threshold",
+                         shape=[m, k, n], picked=k1_wide(a, wt),
+                         bit_equal=eq, device_us_wide=us,
+                         device_us_64x64=narrow_us,
+                         bound_us=b["bound_ms"] * 1e3))
+        print(f"K1 threshold {m}x{k}x{n} (k1_wide {k1_wide(a, wt)}): wide "
+              f"{us:.1f} us, 64x64 {narrow_us:.1f} us, bound "
+              f"{b['bound_ms'] * 1e3:.1f}", flush=True)
+        del a, wt, ref
     return {"card": card, "rows": rows}
 
 
@@ -4520,7 +4598,8 @@ def vit_serve_phase(card: str) -> dict:
     preds = pipe.predict(host.numpy())
     got = kernels.launch_counts()
     want = counts(fused_gemm_bf16=4 * 49, fused_gemm=4 * 3,
-                  attention_bf16=4 * 12, layer_norm_bf16=4 * 25)
+                  fused_gemm_wide_bf16=4 * 49, attention_bf16=4 * 12,
+                  layer_norm_bf16=4 * 25)
     check(got == want, f"ViT predict launches {got}, expected {want}")
     records, _ = device_records(lambda: pipe.predict(host.numpy()), 1,
                                 pad_s=0.05, warm=True)
@@ -4579,18 +4658,39 @@ def vit_main() -> int:
         if "fused_gemm_tma_kernel" in r["kernel"]:
             print(f"  ptxas {r['kernel']}: {r['registers']} registers",
                   flush=True)
-    ptxas = [r for r in report if r["source"] in ("attention", "layernorm")]
+    check(len(report) == N_INSTANTIATIONS, f"{len(report)} kernel "
+          f"instantiations in the ptxas report, expected {N_INSTANTIATIONS}")
+    ptxas = [r for r in report
+             if r["source"] in ("attention", "layernorm", "gemm_wide")]
     for r in ptxas:
         print(f"  ptxas {r['kernel']}: {r['registers']} registers, "
               f"{r['smem']} B static shared memory, spills "
               f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded",
               flush=True)
-    check(len(ptxas) == 2 and not any(r["spill_stores"] or r["spill_loads"]
-                                      for r in ptxas),
-          f"attention / LayerNorm: {ptxas}")
+    # checked after the phase, whose times a failed build still reports
+    spilled = len(ptxas) != 6 or any(r["spill_stores"] or r["spill_loads"]
+                                     for r in ptxas)
+    log = (_build.build_dir() / "gemm_wide.log").read_text()
+    notes = [ln.strip() for ln in log.splitlines()
+             if "C75" in ln or "setmaxnreg" in ln]
+    print(f"  ptxas notes of the wide K1: {notes or 'none'}", flush=True)
+    if spilled:  # where: the SASS around each local-memory access
+        tool = str(Path(_build.nvcc_path()).parent / "cuobjdump")
+        sass = subprocess.run(
+            [tool, "-sass", str(_build.build_all()["gemm_wide"])],
+            capture_output=True, text=True, timeout=300).stdout.splitlines()
+        for i, ln in enumerate(sass):
+            if "Function :" in ln or "STL" in ln or "LDL" in ln:
+                near = sass[max(i - 2, 0):i + 2]
+                print("  sass " + " | ".join(x.strip()[:60] for x in near),
+                      flush=True)
+    hgmma = {k: v for k, v in hgmma_counts().items() if "wide" in k}
+    print(f"  SASS HGMMA of the wide K1: {hgmma}", flush=True)
+    check(len(hgmma) == 4 and all(hgmma.values()),
+          f"wide K1 instantiations with HGMMA: {hgmma}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    out = {"card": card, "ptxas": ptxas}
+    out = {"card": card, "ptxas": ptxas, "ptxas_notes": notes}
     from satae_torch.kernels.matmul import fused_gemm
     a32 = torch.ones(64, 64, device="cuda")
     try:
@@ -4603,6 +4703,9 @@ def vit_main() -> int:
     path = REPO / "chiprun_out" / "vit.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out, indent=1, default=str))
+    check(not spilled, f"attention / LayerNorm / wide K1: {ptxas}")
+    check(not notes, f"wide K1: ptxas serialised its wgmmas or ignored "
+          f"setmaxnreg: {notes}")
     print(json.dumps({"ok": True, "card": card}), flush=True)
     return 0
 
@@ -4731,7 +4834,7 @@ def kernel_times_main(root: str, out_file: str) -> int:
     mods = SimpleNamespace(fused_gemm=matmul.fused_gemm,
                            conv2d_bn_act=conv.conv2d_bn_act,
                            k_major=hasattr(conv, "is_k_major"), conv=conv)
-    for fn in ("k1_loader", "conv_route"):  # where the tree has them
+    for fn in ("k1_loader", "k1_wide", "conv_route"):  # where it has them
         for mod in (matmul, conv):
             if hasattr(mod, fn):
                 setattr(mods, fn, getattr(mod, fn))
@@ -5001,8 +5104,8 @@ def ab_main(parent: str) -> int:
     shutil.rmtree(tmp, ignore_errors=True)
     equal = {}
     print("launches: share of outputs bitwise equal to the parent's | "
-          "device us parent, change (means of two runs each); every float32 "
-          "one held at 1", flush=True)
+          "device us parent, change (means of two runs each); every one "
+          "held at 1", flush=True)
     for key in outs[1]:
         k = tuple(key.split("|"))
         if key not in outs[0] or k not in by_run[0]:
@@ -5016,9 +5119,11 @@ def ab_main(parent: str) -> int:
         equal[key] = dict(share_equal=share, parent_us=us_p, change_us=us_c,
                           route=by_run[1][k].get("route"),
                           parent_route=by_run[0][k].get("route"))
-        check(by_run[1][k].get("dtype") == "bf16" or share == 1.0,
-              f"float32 {key}: {share} of its outputs bitwise the "
-              "parent's")
+        check(share == 1.0, f"{key}: {share} of its outputs bitwise the "
+              "parent's (no launch --ab times takes K1's wide route)")
+        check(by_run[1][k].get("route") != "wide",
+              f"{key}: a launch of the autoencoder's paths on the wide "
+              "route")
         print(f"  {k[0]:26s} {k[1]:6s} {k[2]:10s} "
               f"{by_run[1][k].get('route') or '':8s} equal {share:.6f} | "
               f"us {us_p:.1f} -> {us_c:.1f}", flush=True)

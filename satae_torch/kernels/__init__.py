@@ -2,7 +2,9 @@
 ``fused_matmul`` (csrc/fused_gemm.cu) with its backward
 ``fused_matmul_bwd``, whose products are K1 launches too, and K2
 ``conv2d_bn_act`` (csrc/conv_bn_act.cu), each with a float32 and a bf16
-instantiation, and K1's batched entry over a config axis
+instantiation, K1's wide kernel for the ViT encoder's large bf16
+products (``fused_gemm_wide``, csrc/gemm_wide.cu), and K1's batched entry
+over a config axis
 (``fused_matmul_batched`` and its backward ``fused_matmul_batched_bwd``),
 which the config-batched sweep's linears run on; and the ViT encoder's
 bf16 ``attention`` (csrc/attention.cu) and ``layer_norm``
@@ -16,7 +18,8 @@ from typing import Dict
 from satae_torch.kernels.attention import attention
 from satae_torch.kernels.conv import conv2d_bn_act
 from satae_torch.kernels.layernorm import layer_norm
-from satae_torch.kernels.matmul import (fused_matmul, fused_matmul_batched,
+from satae_torch.kernels.matmul import (fused_gemm_wide, fused_matmul,
+                                        fused_matmul_batched,
                                         fused_matmul_batched_bwd,
                                         fused_matmul_bwd)
 
@@ -24,7 +27,8 @@ _WRAPPERS = {"fused_gemm": fused_matmul, "fused_gemm_bwd": fused_matmul_bwd,
              "conv2d_bn_act": conv2d_bn_act,
              "fused_gemm_batched": fused_matmul_batched,
              "fused_gemm_batched_bwd": fused_matmul_batched_bwd,
-             "attention": attention, "layer_norm": layer_norm}
+             "attention": attention, "layer_norm": layer_norm,
+             "fused_gemm_wide": fused_gemm_wide}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -34,7 +38,9 @@ def launch_counts() -> Dict[str, int]:
     launches, ``fused_gemm_batched`` and ``fused_gemm_batched_bwd`` the
     batched K1's float32 launches forward and backward, and each name with
     ``_bf16`` the launches of the bf16 instantiation (``attention`` and
-    ``layer_norm`` have only that one)."""
+    ``layer_norm`` have only that one); ``fused_gemm_wide_bf16`` counts the
+    K1 launches of ``fused_gemm`` and ``fused_gemm_bwd`` that ran K1's wide
+    kernel (bf16 only), which those two names count too."""
     return {name + suffix: n for name, fn in _WRAPPERS.items()
             for suffix, n in fn.launches.items()}
 

@@ -42,7 +42,9 @@ BUILD_ROOT = _PKG / "_build"
 # (``_tma``, ``_bf16_tma``) for buffers TMA can read; K1 also has batched
 # ones (``_batched``, ``_batched_bf16``, ``_batched_tma``,
 # ``_batched_bf16_tma``: C products in one launch of the unbatched
-# launcher's kernel, the config count C first among the ints). The ViT
+# launcher's kernel, the config count C first among the ints), and a wide
+# bf16 one in a library of its own (``gemm_wide``: x, w, scale, shift,
+# out; M, N, K, act), for the ViT encoder's large products. The ViT
 # encoder's kernels are bf16 only: attention (qkv, out; B, L, H) and
 # LayerNorm (x, r, w, b, sum, out; M, N; then one float, eps): a third
 # count, where there is one, is the launcher's float arguments, after its
@@ -59,6 +61,7 @@ LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": (7, 9),
                              "satae_conv2d_bn_act_bf16": (5, 13),
                              "satae_conv2d_bn_act_tma": (6, 13),
                              "satae_conv2d_bn_act_bf16_tma": (5, 13)},
+             "gemm_wide": {"satae_fused_gemm_bf16_wide": (5, 4)},
              "attention": {"satae_attention_bf16": (2, 3)},
              "layernorm": {"satae_layernorm_bf16": (6, 2, 1)}}
 # the operand dtypes the kernels take, and each one's launcher suffix

@@ -18,7 +18,9 @@ transposed copy of an operand is ever made.
 
 Where TMA can read both buffers (:func:`k1_loader`) K1 runs its wgmma
 kernel, float32 as 3xTF32 and bf16 alike; other buffers, and the float32
-shapes the mma.sync loop runs faster, take that loop.
+shapes the mma.sync loop runs faster, take that loop. The ViT encoder's
+large bf16 products run K1's wide kernel instead (:func:`k1_wide`,
+satae_torch/csrc/gemm_wide.cu).
 
 Operands are float32, or bf16 as in satae's bf16 recipe: x and w of one
 dtype (a mixed pair raises; the callers cast, as satae's layers do), scale
@@ -260,6 +262,49 @@ def k1_loader(x: torch.Tensor, w: torch.Tensor, trans_a: bool = False,
             else "tma")
 
 
+# K1's wide route (satae_torch/csrc/gemm_wide.cu): 128 x 256 tiles, two
+# consumer warpgroups on wgmma m64n256k16, one persistent block an SM, for
+# the ViT encoder's large products, which are bound by operations. It takes
+# N a multiple of WIDE_TILE_N (the ViT's 768, 2,304 and 3,072: no masked
+# columns), K a multiple of the 64-deep stage and at least WIDE_MIN_K, and
+# at least WIDE_MIN_TILES output tiles, one wave of blocks on a 132-SM
+# H100. The thresholds scope the route; they do not mark where it stops
+# winning: `chip_smoke.py --vit` on an H100 timed it faster than the 64 x
+# 64 route below both (device us, wide / 64 x 64, at N = 768: M = 37,696
+# and K = 64, 128, 256 33.5 / 68.1, 38.6 / 82.9, 47.6 / 108.2; K = 768 and
+# 48, 96, 198 tiles 13.6 / 17.2, 13.9 / 25.2, 24.7 / 49.2). WIDE_MIN_K keeps
+# the decoder input (K = 64) on the route whose bits the tests and
+# `chip_smoke.py --ab` hold, as N % WIDE_TILE_N keeps every other product
+# of the autoencoder's paths (N <= 128).
+WIDE_TILE_M = 128
+WIDE_TILE_N = 256
+WIDE_MIN_K = 256
+WIDE_MIN_TILES = 132
+
+
+def k1_wide(x: torch.Tensor, w: torch.Tensor, trans_a: bool = False,
+            trans_b: bool = False) -> bool:
+    """Whether K1 runs its wide kernel on the buffers x and w, read as
+    :func:`fused_gemm` reads them: a fixed function of dtype, shape, layout
+    and alignment, like :func:`k1_loader`. True for a bf16, unbatched
+    product with A row-major and B a (K, N) buffer (neither transposed)
+    that TMA can read, which :func:`split_k_plan_tma` does not split, with
+    N a multiple of WIDE_TILE_N, K a multiple of TMA_BK and at least
+    WIDE_MIN_K, and at least WIDE_MIN_TILES tiles of WIDE_TILE_M x
+    WIDE_TILE_N: the ViT encoder's linears. Every other launch -- the
+    autoencoder's (N <= 128, the decoder input's K = 64), any batched, any
+    float32 one, every dX and dW (an operand read transposed) -- keeps
+    :func:`k1_loader`'s route."""
+    if x.dtype != torch.bfloat16 or x.dim() != 2 or trans_a or trans_b:
+        return False
+    m, k = x.shape
+    n = w.shape[1]
+    return (n % WIDE_TILE_N == 0 and k % TMA_BK == 0 and k >= WIDE_MIN_K
+            and -(-m // WIDE_TILE_M) * (n // WIDE_TILE_N) >= WIDE_MIN_TILES
+            and split_k_plan_tma(m, n, k)[2] == 1
+            and tma_ok(x) and tma_ok(w))
+
+
 def gelu_ok(x: torch.Tensor, w: torch.Tensor, trans_a: bool,
             trans_b: bool) -> bool:
     """Whether K1 on the card computes act "gelu" for these buffers: bf16,
@@ -371,13 +416,15 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     A = x, or x read in place as its transpose (``trans_a``: x is a (K, M)
     buffer), and B = w, or w read in place as its transpose (``trans_b``: w
     is an (N, K) buffer), in x's dtype, float32 or bf16:
+    :func:`fused_gemm_wide` where :func:`k1_wide` takes the launch, else
     ``satae_fused_gemm_tma`` / ``satae_fused_gemm_bf16_tma`` on wgmma where
     :func:`k1_loader` says "tma", with :func:`split_k_plan_tma`'s plan for
     the dtype, else ``satae_fused_gemm`` / ``satae_fused_gemm_bf16`` on the
     mma.sync loop with :func:`split_k_plan`'s, where a split-K launch takes
     a workspace of splits * M * N floats. A scale or shift of None is 1 or
     0, and nothing is allocated for it. Raises on a refused launch. The
-    launch runs inside the span ``satae.k1`` (:class:`launch_span`) and is
+    launch runs inside the span ``satae.k1`` (:class:`launch_span`), whose
+    counter ``wide`` is 1 on the wide route and 0 on the others, and is
     counted in ``counted.launches``, the wrapper the training and serving
     paths pass (:func:`fused_matmul`, :func:`fused_matmul_bwd`); None counts
     nothing."""
@@ -399,10 +446,13 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((m, n), device=x.device, dtype=x.dtype)
     if m == 0 or n == 0:
         return out
+    if k1_wide(x, w, trans_a, trans_b):
+        fused_gemm_wide(x, w, scale, shift, act, out, counted=counted)
+        return out
     if k1_loader(x, w, trans_a, trans_b) == "tma":
         _, _, splits, k_per_split = split_k_plan_tma(m, n, k,
                                                      dtype=x.dtype)
-        with launch_span("satae.k1", counted, x.dtype):
+        with launch_span("satae.k1", counted, x.dtype, wide=0):
             _build.launch(_build.load("fused_gemm"),
                           "satae_fused_gemm" + suffix + "_tma", x.device,
                           x.data_ptr(), w.data_ptr(), _ptr(scale),
@@ -413,7 +463,7 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     _, tile_n, splits, k_per_split = split_k_plan(m, n, k)
     ws = split_k_workspace(m, n, splits, x.device)
     counters = None if ws is None else _tile_counters(x.device)
-    with launch_span("satae.k1", counted, x.dtype):
+    with launch_span("satae.k1", counted, x.dtype, wide=0):
         _build.launch(_build.load("fused_gemm"), "satae_fused_gemm" + suffix,
                       x.device,
                       x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
@@ -425,6 +475,29 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
 
 def _ptr(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+def fused_gemm_wide(x: torch.Tensor, w: torch.Tensor,
+                    scale: Optional[torch.Tensor],
+                    shift: Optional[torch.Tensor], act: str,
+                    out: torch.Tensor, *, counted=None) -> None:
+    """One launch of K1's wide kernel into ``out`` (M, N): act((x @ w) *
+    scale + shift) for bf16 x (M, K) and w (K, N) that :func:`k1_wide`
+    takes (:func:`fused_gemm` checks and routes them), launched by
+    ``satae_fused_gemm_bf16_wide`` (satae_torch/csrc/gemm_wide.cu) inside
+    the span ``satae.k1`` with the counter ``wide`` at 1, counted in
+    ``counted.launches`` as :func:`fused_gemm` counts, and in this
+    function's own ``launches``."""
+    m, k = x.shape
+    with launch_span("satae.k1", counted, x.dtype, wide=1):
+        _build.launch(_build.load("gemm_wide"), "satae_fused_gemm_bf16_wide",
+                      x.device, x.data_ptr(), w.data_ptr(), _ptr(scale),
+                      _ptr(shift), out.data_ptr(), m, w.shape[1], k,
+                      ACTS.index(act))
+    fused_gemm_wide.launches[_build.OPERAND_DTYPES[x.dtype]] += 1
+
+
+fused_gemm_wide.launches = _build.launch_counter()
 
 
 def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
@@ -607,7 +680,8 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     with ``split_k_plan(m, n, k, batch=C)``, where a split-K launch takes a
     workspace of C * splits * M * N floats. Raises on a refused launch;
     never falls back to C unbatched launches. The launch runs inside the
-    span ``satae.k1`` and is counted in ``counted.launches``
+    span ``satae.k1`` (counter ``wide`` 0) and is counted in
+    ``counted.launches``
     (:func:`fused_matmul_batched`, :func:`fused_matmul_batched_bwd`), as in
     :func:`fused_gemm`."""
     if x.device.type != "cuda":
@@ -636,7 +710,7 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     if k1_loader(x, w, trans_a, trans_b) == "tma":
         _, _, splits, k_per_split = split_k_plan_tma(m, n, k, batch=c,
                                                      dtype=x.dtype)
-        with launch_span("satae.k1", counted, x.dtype):
+        with launch_span("satae.k1", counted, x.dtype, wide=0):
             _build.launch(_build.load("fused_gemm"),
                           "satae_fused_gemm_batched" + suffix + "_tma",
                           x.device, x.data_ptr(), w.data_ptr(), _ptr(scale),
@@ -647,7 +721,7 @@ def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
     _, tile_n, splits, k_per_split = split_k_plan(m, n, k, batch=c)
     ws = split_k_workspace(c * m, n, splits, x.device)
     counters = None if ws is None else _tile_counters(x.device)
-    with launch_span("satae.k1", counted, x.dtype):
+    with launch_span("satae.k1", counted, x.dtype, wide=0):
         _build.launch(_build.load("fused_gemm"),
                       "satae_fused_gemm_batched" + suffix, x.device,
                       x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
