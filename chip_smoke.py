@@ -2979,9 +2979,9 @@ def batched_kernels_phase(card: str) -> dict:
     beside C unbatched launches, torch.bmm and its bound."""
     import torch
 
-    from satae_torch.kernels.matmul import (fused_gemm, fused_gemm_batched,
-                                            fused_matmul_plain, k1_loader,
-                                            split_k_plan, split_k_plan_tma)
+    from satae_torch.kernels.matmul import (fused_gemm, fused_matmul_plain,
+                                            k1_loader, split_k_plan,
+                                            split_k_plan_tma)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(21)
@@ -3002,7 +3002,7 @@ def batched_kernels_phase(card: str) -> dict:
                 if prod == "fwd" else None
             what = f"batched K1 {name16} {path} {layer} {prod} C={c} " \
                 f"{(m, k, n)}"
-            run = lambda: fused_gemm_batched(a, b, None, shift, act, ta, tb)
+            run = lambda: fused_gemm(a, b, None, shift, act, ta, tb)
             out = run()
             zeros = torch.zeros(n, device=dev)
 
@@ -4387,23 +4387,23 @@ def vit_kernels_phase(card: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(30)
     rows = []
 
-    def k1_launch(lib, fn, a, wt, sh, act, *ints):
+    def k1_launch(lib, fn, a, wt, sh, act, lead, *ints):
         m, k = a.shape
         out = torch.empty(m, wt.shape[1], device=dev, dtype=a.dtype)
         _build.launch(_build.load(lib), fn, dev, a.data_ptr(), wt.data_ptr(),
-                      0, sh.data_ptr(), out.data_ptr(), m, wt.shape[1], k,
-                      ACTS.index(act), *ints)
+                      0, sh.data_ptr(), out.data_ptr(), *lead, m,
+                      wt.shape[1], k, ACTS.index(act), *ints)
         return out
 
     def k1_narrow(a, wt, sh, act):  # the 64 x 64 wgmma route, its plan
         _, _, splits, kps = split_k_plan_tma(a.shape[0], wt.shape[1],
                                              a.shape[1])
-        return k1_launch("fused_gemm", "satae_fused_gemm_bf16_tma", a, wt,
-                         sh, act, 0, 0, splits, kps)
+        return k1_launch("fused_gemm", "satae_fused_gemm_batched_bf16_tma",
+                         a, wt, sh, act, (1,), 0, 0, splits, kps)
 
     def k1_wide_launch(a, wt, sh, act):  # the wide kernel, any shape it takes
         return k1_launch("gemm_wide", "satae_fused_gemm_bf16_wide", a, wt,
-                         sh, act)
+                         sh, act, ())
     # attention: a chunk's qkv at the scale a block's LayerNorm'd input
     # gives it, and the 589-key tail
     qkv = (torch.randn(VIT_ROWS, 3 * VIT_DIM, generator=g, device=dev)
@@ -4763,7 +4763,8 @@ def f32_digests(fused_gemm, conv) -> dict:
 
 
 def batched_rows(matmul, outputs: dict, digests: dict) -> list:
-    """The --ab rows of the batched K1 (a tree's ``fused_gemm_batched``):
+    """The --ab rows of the batched K1 (a tree's ``fused_gemm`` on 3-D
+    stacks, or its ``fused_gemm_batched`` where it has one):
     every launch of phase 21 (:func:`batched_products`, C = 45 AE and 11
     MLP) in float32 and bf16 on phase 21's inputs, back-to-back ms and
     device us per launch; each output goes into ``outputs`` and each
@@ -4779,6 +4780,7 @@ def batched_rows(matmul, outputs: dict, digests: dict) -> list:
     g = torch.Generator(device=dev).manual_seed(21)
     has_tma = "batch" in inspect.signature(
         getattr(matmul, "split_k_plan_tma", lambda: None)).parameters
+    gemm = getattr(matmul, "fused_gemm_batched", matmul.fused_gemm)
     rows = []
     for dt in (torch.float32, torch.bfloat16):
         bf16 = dt == torch.bfloat16
@@ -4790,8 +4792,7 @@ def batched_rows(matmul, outputs: dict, digests: dict) -> list:
                              generator=g) * 2 - 1) / k ** 0.5).to(dt)
             shift = torch.randn(c, n, device=dev, generator=g) * 0.3 \
                 if prod == "fwd" else None
-            run = lambda: matmul.fused_gemm_batched(a, b, None, shift, act,
-                                                    ta, tb)
+            run = lambda: gemm(a, b, None, shift, act, ta, tb)
             name = "fused_gemm_batched" + ("" if prod == "fwd" else "_bwd") \
                 + ("_bf16" if bf16 else "")
             key = (name, path, f"{layer} {prod}")
@@ -4844,7 +4845,7 @@ def kernel_times_main(root: str, out_file: str) -> int:
         rows += kernel_rows(mods, reference=False, bf16=True,
                             outputs=outputs)
     digests = f32_digests(matmul.fused_gemm, conv)
-    if hasattr(matmul, "fused_gemm_batched"):
+    if "satae_fused_gemm_batched" in _build.LAUNCHERS["fused_gemm"]:
         rows += batched_rows(matmul, outputs, digests)
     torch.save({"|".join(k): v for k, v in outputs.items()}, out_file)
     print(json.dumps(dict(rows=rows, digests=digests)), flush=True)
@@ -5177,9 +5178,10 @@ def split_sweep_main() -> int:
                 out = torch.empty(m, n, device=dev)
                 ws = torch.empty(splits * m * n, device=dev)
                 run = lambda: _build.launch(
-                    lib, "satae_fused_gemm", dev, a.data_ptr(), b.data_ptr(),
-                    0, 0, out.data_ptr(), ws.data_ptr(), counters.data_ptr(),
-                    m, n, k, 0, 0, int(tb), tile_n, splits, kps)
+                    lib, "satae_fused_gemm_batched", dev, a.data_ptr(),
+                    b.data_ptr(), 0, 0, out.data_ptr(), ws.data_ptr(),
+                    counters.data_ptr(), 1, m, n, k, 0, 0, int(tb), tile_n,
+                    splits, kps)
                 run()
                 err = max_err(out, ref, f"K1 {(m, k, n)} tile_n {tile_n} "
                               f"{splits} splits")
@@ -5200,8 +5202,9 @@ def split_sweep_main() -> int:
             splits = -(-k // kps)
             out = torch.empty(m, n, device=dev)
             run = lambda: _build.launch(
-                lib, "satae_fused_gemm_tma", dev, a.data_ptr(), b.data_ptr(),
-                0, 0, out.data_ptr(), m, n, k, 0, 0, int(tb), splits, kps)
+                lib, "satae_fused_gemm_batched_tma", dev, a.data_ptr(),
+                b.data_ptr(), 0, 0, out.data_ptr(), 1, m, n, k, 0, 0,
+                int(tb), splits, kps)
             run()
             err = max_err(out, ref, f"float32 wgmma K1 {(m, k, n)} {splits} "
                           "splits")
@@ -5230,9 +5233,9 @@ def split_sweep_main() -> int:
                 continue
             out = torch.empty(m, n, device=dev, dtype=torch.bfloat16)
             run = lambda: _build.launch(
-                lib, "satae_fused_gemm_bf16_tma", dev, a16.data_ptr(),
-                b16.data_ptr(), 0, 0, out.data_ptr(), m, n, k, 0, 0, int(tb),
-                splits, kps)
+                lib, "satae_fused_gemm_batched_bf16_tma", dev, a16.data_ptr(),
+                b16.data_ptr(), 0, 0, out.data_ptr(), 1, m, n, k, 0, 0,
+                int(tb), splits, kps)
             run()
             err, eq = ulp_err(out, ref16, f"bf16 K1 {(m, k, n)} {splits} "
                               "splits")

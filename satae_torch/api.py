@@ -99,7 +99,6 @@ import numpy as np
 import torch
 
 from satae_torch.config import PipelineConfig, ViTConfig, default_config
-from satae_torch.data.augment import normalize
 from satae_torch.data.ingest import RawDataset, load_dataset
 from satae_torch.data.pipeline import ArrayDataset, make_splits
 from satae_torch.eval import metrics as M
@@ -621,42 +620,6 @@ class SatAEPipeline:
 
     # -- inference ---------------------------------------------------------
 
-    @staticmethod
-    def _to_uint8(images: np.ndarray) -> np.ndarray:
-        """Accept uint8 images or floats in [0,1] (rounded back to the uint8
-        grid). Floats on a 0-255 scale, or below 0, are rejected rather than
-        silently saturated."""
-        imgs = np.asarray(images)
-        if imgs.dtype == np.uint8:
-            return imgs
-        mx = float(imgs.max(initial=0.0))
-        if mx > 1.0 + 1e-3:
-            raise ValueError(
-                f"float images must be normalized to [0,1] (max={mx:.3g}); "
-                "pass uint8 for raw 0-255 pixel values")
-        mn = float(imgs.min(initial=0.0))
-        if mn < -1e-3:
-            raise ValueError(
-                f"float images must be normalized to [0,1] (min={mn:.3g}); "
-                "[-1,1]-standardized inputs would have every negative pixel "
-                "silently clipped to 0")
-        return np.rint(np.clip(imgs, 0.0, 1.0) * 255.0).astype(np.uint8)
-
-    def _to_int16(self, images: np.ndarray) -> np.ndarray:
-        """The ViT encoder's input: int16 reflectance chips (N, bands,
-        frames, H, W) of its config, as they are; any other dtype or shape
-        is refused (uint8 images are the autoencoder's)."""
-        imgs = np.asarray(images)
-        shape = self.vit_config.chip_shape
-        if imgs.dtype != np.int16:
-            raise TypeError(f"the ViT encoder takes int16 reflectance chips "
-                            f"(N, {', '.join(map(str, shape))}), got "
-                            f"{imgs.dtype}")
-        if imgs.ndim != 5 or imgs.shape[1:] != shape:
-            raise ValueError(f"chips must be (N, {', '.join(map(str, shape))})"
-                             f", got {imgs.shape}")
-        return imgs
-
     def _require_ae(self, what: str) -> None:
         if self.vit_config is not None:
             raise NotImplementedError(
@@ -707,10 +670,10 @@ class SatAEPipeline:
                        ) -> List[torch.Tensor]:
         """The input padded on the device to whole fixed-size chunks, each
         encoded in the compute dtype, its latents chained into ``head`` on
-        the device as float32 (satae's api.py:569-570): uint8 images through
-        ``fe``, the folded autoencoder's encoder, or with a ViT encoder
-        int16 chips through ``fe``, its :class:`fast_infer.FoldedViT`
-        (uploaded as int16, normalised on the card). Returns per-chunk
+        the device as float32 (satae's api.py:569-570), through ``fe``, the
+        folded encoder (:class:`fast_infer.FoldedEncoder` on uint8 images,
+        :class:`fast_infer.FoldedViT` on int16 chips, normalised on the
+        card), which checks the input (``fe.host``). Returns per-chunk
         outputs covering n + pad rows (padding rows never mix with real
         ones: eval-mode BN uses running stats, every layer is per image).
         With ``runtime.n_devices`` each rank runs its rows of every chunk,
@@ -725,9 +688,7 @@ class SatAEPipeline:
         kernels. The span ``satae.serve.upload`` holds the buffer and the
         first slice's copy; its ``overlapped_bytes`` count the later
         slices'."""
-        vit = self.vit_config is not None
-        imgs = self._to_int16(images) if vit else \
-            self._to_uint8(np.asarray(images))
+        imgs = fe.host(images)
         n = len(imgs)
         chunk = self._serve_chunk(n)
         pad = (-n) % chunk
@@ -764,7 +725,6 @@ class SatAEPipeline:
                 self._copier.wait_stream(compute)
             ready = put(*slices[0])
         out = []
-        dtype = self.config.compute_dtype
         mesh = self._mesh()
         for i, (s_lo, s_hi) in enumerate(slices):
             if ready is not None:
@@ -773,11 +733,7 @@ class SatAEPipeline:
                 part = dev[lo:lo + chunk]
                 if mesh is not None:
                     part = mesh.shard(part)
-                if vit:
-                    z = fast_infer.vit_encoder_infer(fe, part)
-                else:
-                    z = fast_infer.encoder_infer(fe, normalize(part, dtype))
-                y = head(z.float())
+                y = head(fe(part).float())
                 out.append(y if mesh is None else mesh.gather_rows(y))
             if i + 1 < len(slices):
                 ready = put(*slices[i + 1])

@@ -50,8 +50,8 @@
 // jax.vmap gives _mm_kernel's pallas_call a batch grid axis. The config
 // joins the split in the grid's z: block z computes config z / S, split
 // z % S, on config c's slices of x, w, scale, shift and out, its own S
-// workspace planes and its own tile counters; the unbatched entries are the
-// same kernel launched with C = 1. The plan is one for all configs, with
+// workspace planes and its own tile counters; a 2-D product is the same
+// launch with C = 1. The plan is one for all configs, with
 // every config's tiles counted toward the wave. Bound: the float32
 // projection at C = 45 (45 x 64 x 4096 x 64) reads 94 MB (28 us at
 // 3.35 TB/s) and does 1.5 GFLOP (9 us at 165 TFLOP/s 3xTF32): bytes, as
@@ -64,9 +64,9 @@
 // concurrent split-K launches would share the counters.
 //
 // Hopper's own instructions (hopper::fused_gemm_tma_kernel, float32 and
-// bf16 instantiations; entries satae_fused_gemm_tma / _bf16_tma, C = 1,
-// and satae_fused_gemm_batched_tma / _batched_bf16_tma; wgmma_tile.cuh
-// holds its main loop). float32 is 3xTF32 on wgmma m64n64k8 (the split
+// bf16 instantiations; entries satae_fused_gemm_batched_tma /
+// _batched_bf16_tma, C = 1 for a 2-D product; wgmma_tile.cuh holds its
+// main loop). float32 is 3xTF32 on wgmma m64n64k8 (the split
 // pass of wgmma_tile.cuh: A split in registers, B into K-major tiles),
 // stages of 32 of K, bound as above (bytes at every product of the main
 // paths). Bound at 3.35 TB/s and 989 TFLOP/s, every bf16 product of the
@@ -798,79 +798,18 @@ int launch_tma_plan(const void* x, const void* w, const float* scale,
 
 extern "C" {
 
-// out (M, N) = act((A @ B) * scale + shift), all float32. A is x, a
-// row-major (M, K) buffer, or with trans_a x read as the transpose of a
-// row-major (K, M) buffer; B is w, row-major (K, N), or with trans_b the
-// transpose of a row-major (N, K) buffer. scale / shift may be null (1 / 0).
-// The plan: tile_n (32 or 64) columns per tile, `splits` K ranges of
-// k_per_split (a multiple of 32) each; with splits > 1, `ws` holds splits *
-// M * N floats and `counters` one zeroed int per tile. Launches on `stream`
-// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
-// for a plan the kernel does not take.
-int satae_fused_gemm(const float* x, const float* w, const float* scale,
-                     const float* shift, float* out, float* ws, int* counters,
-                     int M, int N, int K, int act, int trans_a, int trans_b,
-                     int tile_n, int splits, int k_per_split, void* stream) {
-  return satae::launch_plan<float>(x, w, scale, shift, out, ws, counters, 1,
-                                   M, N, K, act, trans_a, trans_b, tile_n,
-                                   splits, k_per_split, stream);
-}
-
-// satae_fused_gemm with bf16 x, w and out; scale, shift and the split-K
-// workspace stay float32, and out is rounded once (to nearest even) after
-// the float32 epilogue.
-int satae_fused_gemm_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                          const float* scale, const float* shift,
-                          __nv_bfloat16* out, float* ws, int* counters, int M,
-                          int N, int K, int act, int trans_a, int trans_b,
-                          int tile_n, int splits, int k_per_split,
-                          void* stream) {
-  return satae::launch_plan<__nv_bfloat16>(
-      x, w, scale, shift, out, ws, counters, 1, M, N, K, act, trans_a,
-      trans_b, tile_n, splits, k_per_split, stream);
-}
-
-// satae_fused_gemm_bf16 on wgmma, with TMA loads and a cluster's split-K
-// reduction: x and w must be 16-byte aligned with 16-byte-aligned rows (the
-// wrapper routes other buffers to satae_fused_gemm_bf16). The plan: `splits`
-// (<= 16, one cluster per tile) K ranges of k_per_split (a multiple of 64)
-// each, on 64 x 64 tiles; no workspace. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a plan or buffer the kernel does not take.
-int satae_fused_gemm_bf16_tma(const __nv_bfloat16* x, const __nv_bfloat16* w,
-                              const float* scale, const float* shift,
-                              __nv_bfloat16* out, int M, int N, int K,
-                              int act, int trans_a, int trans_b, int splits,
-                              int k_per_split, void* stream) {
-  return satae::launch_tma_plan<__nv_bfloat16>(
-      x, w, scale, shift, out, 1, M, N, K, act, trans_a, trans_b, splits,
-      k_per_split, stream);
-}
-
-// satae_fused_gemm on wgmma (3xTF32), with TMA loads and a cluster's
-// split-K reduction: x and w must be 16-byte aligned with 16-byte-aligned
-// rows (the wrapper routes other buffers to satae_fused_gemm). The plan:
-// `splits` (<= 16, one cluster per tile) K ranges of k_per_split (a
-// multiple of 32) each, on 64 x 64 tiles; no workspace. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a plan or buffer the
-// kernel does not take.
-int satae_fused_gemm_tma(const float* x, const float* w, const float* scale,
-                         const float* shift, float* out, int M, int N, int K,
-                         int act, int trans_a, int trans_b, int splits,
-                         int k_per_split, void* stream) {
-  return satae::launch_tma_plan<float>(x, w, scale, shift, out, 1, M, N, K,
-                                       act, trans_a, trans_b, splits,
-                                       k_per_split, stream);
-}
-
 // for c < C, out[c] (M, N) = act((A[c] @ B[c]) * scale[c] + shift[c]), all
-// float32, in one launch of satae_fused_gemm's kernel. x, w and out hold C
-// contiguous slices in satae_fused_gemm's layouts (x: C x (M, K), or
-// C x (K, M) with trans_a; w: C x (K, N), or C x (N, K) with trans_b; out
-// C x (M, N)); scale and shift are C x N, or null. One plan for every
-// config; with splits > 1, ws holds C * splits * M * N floats and counters
-// one zeroed int per tile of every config. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a plan the kernel does not take (C * splits
-// above 65,535 among them).
+// float32, in one launch of the mma.sync loop; a 2-D product is C = 1. A[c]
+// is x's slice c, a row-major (M, K) buffer, or with trans_a read as the
+// transpose of a row-major (K, M) buffer; B[c] is w's slice c, row-major
+// (K, N), or with trans_b the transpose of a row-major (N, K) buffer; out
+// holds C contiguous (M, N) slices. scale and shift are C x N, or null (1 /
+// 0). One plan for every config: tile_n (32 or 64) columns per tile,
+// `splits` K ranges of k_per_split (a multiple of 32) each; with splits >
+// 1, ws holds C * splits * M * N floats and counters one zeroed int per
+// tile of every config. Launches on `stream` and returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for a plan the kernel does not
+// take (C * splits above 65,535 among them).
 int satae_fused_gemm_batched(const float* x, const float* w,
                              const float* scale, const float* shift,
                              float* out, float* ws, int* counters, int C,
@@ -883,8 +822,9 @@ int satae_fused_gemm_batched(const float* x, const float* w,
 }
 
 // satae_fused_gemm_batched with bf16 x, w and out, on the bf16 mma.sync
-// loop, for buffers TMA cannot read; scale, shift and the workspace stay
-// float32.
+// loop, for buffers TMA cannot read; scale, shift and the split-K
+// workspace stay float32, and out is rounded once (to nearest even) after
+// the float32 epilogue.
 int satae_fused_gemm_batched_bf16(const __nv_bfloat16* x,
                                   const __nv_bfloat16* w, const float* scale,
                                   const float* shift, __nv_bfloat16* out,
@@ -897,14 +837,15 @@ int satae_fused_gemm_batched_bf16(const __nv_bfloat16* x,
       trans_b, tile_n, splits, k_per_split, stream);
 }
 
-// satae_fused_gemm_batched_bf16 on satae_fused_gemm_bf16_tma's wgmma kernel:
-// x and w (C contiguous slices each, in its layouts) 16-byte aligned with
-// 16-byte-aligned rows; config c is the outermost coordinate of 3-D tensor
-// maps. The plan: `splits` (<= 16, one cluster per tile, C * splits <=
-// 65,535) K ranges of k_per_split (a multiple of 64) each, the same for
-// every config; one split runs a persistent grid. No workspace. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a plan or buffer the
-// kernel does not take.
+// satae_fused_gemm_batched_bf16 on wgmma, with TMA loads and a cluster's
+// split-K reduction: x and w (C contiguous slices each, in its layouts)
+// 16-byte aligned with 16-byte-aligned rows (the wrapper routes other
+// buffers to satae_fused_gemm_batched_bf16); config c is the outermost
+// coordinate of 3-D tensor maps. The plan: `splits` (<= 16, one cluster
+// per tile, C * splits <= 65,535) K ranges of k_per_split (a multiple of
+// 64) each, on 64 x 64 tiles, the same for every config; one split runs a
+// persistent grid. No workspace. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a plan or buffer the kernel does not take.
 int satae_fused_gemm_batched_bf16_tma(const __nv_bfloat16* x,
                                       const __nv_bfloat16* w,
                                       const float* scale, const float* shift,
@@ -917,12 +858,13 @@ int satae_fused_gemm_batched_bf16_tma(const __nv_bfloat16* x,
       k_per_split, stream);
 }
 
-// satae_fused_gemm_batched on satae_fused_gemm_tma's wgmma kernel (3xTF32):
-// x and w (C contiguous slices each, in its layouts) 16-byte aligned with
-// 16-byte-aligned rows; config c is the outermost coordinate of 3-D tensor
-// maps. The plan: `splits` (<= 16, one cluster per tile, C * splits <=
-// 65,535) K ranges of k_per_split (a multiple of 32) each, the same for
-// every config; one split runs a persistent grid. No workspace.
+// satae_fused_gemm_batched on wgmma (3xTF32), with TMA loads and a
+// cluster's split-K reduction: x and w as satae_fused_gemm_batched_bf16_tma
+// takes them (the wrapper routes other buffers to
+// satae_fused_gemm_batched). The plan: `splits` (<= 128, one cluster per
+// tile of up to 16 blocks of 1, 2, 4 or 8 partials; C * splits <= 65,535)
+// K ranges of k_per_split (a multiple of 32) each, on 64 x 64 tiles, the
+// same for every config; one split runs a persistent grid. No workspace.
 int satae_fused_gemm_batched_tma(const float* x, const float* w,
                                  const float* scale, const float* shift,
                                  float* out, int C, int M, int N, int K,

@@ -35,25 +35,20 @@ BUILD_ROOT = _PKG / "_build"
 # its pointers (x, w, scale, shift, out, then K1's split-K workspace and
 # counters), its int arguments, then the stream, and returns
 # cudaGetLastError() (``satae_conv2d_bn_act_tma`` takes a third pointer
-# after x and w, the weight's TF32 halves). Each kernel has a float32 and a bf16
+# after x and w, the weight's TF32 halves). K2 has a float32 and a bf16
 # launcher on gemm_tile.cuh's mma.sync loop (bf16: x, w and out bf16;
 # scale, shift and the workspace float32), and one of each on wgmma with
-# TMA loads
-# (``_tma``, ``_bf16_tma``) for buffers TMA can read; K1 also has batched
-# ones (``_batched``, ``_batched_bf16``, ``_batched_tma``,
-# ``_batched_bf16_tma``: C products in one launch of the unbatched
-# launcher's kernel, the config count C first among the ints), and a wide
-# bf16 one in a library of its own (``gemm_wide``: x, w, scale, shift,
-# out; M, N, K, act), for the ViT encoder's large products. The ViT
-# encoder's kernels are bf16 only: attention (qkv, out; B, L, H) and
-# LayerNorm (x, r, w, b, sum, out; M, N; then one float, eps): a third
+# TMA loads (``_tma``, ``_bf16_tma``) for buffers TMA can read. K1 has the
+# same four, each over a leading config axis (``_batched``,
+# ``_batched_bf16``, ``_batched_tma``, ``_batched_bf16_tma``: C products in
+# one launch, the config count C first among the ints; a 2-D product is C
+# = 1), and a wide bf16 one in a library of its own (``gemm_wide``: x, w,
+# scale, shift, out; M, N, K, act), for the ViT encoder's large products.
+# The ViT encoder's kernels are bf16 only: attention (qkv, out; B, L, H)
+# and LayerNorm (x, r, w, b, sum, out; M, N; then one float, eps): a third
 # count, where there is one, is the launcher's float arguments, after its
 # ints.
-LAUNCHERS = {"fused_gemm": {"satae_fused_gemm": (7, 9),
-                            "satae_fused_gemm_bf16": (7, 9),
-                            "satae_fused_gemm_tma": (5, 8),
-                            "satae_fused_gemm_bf16_tma": (5, 8),
-                            "satae_fused_gemm_batched": (7, 10),
+LAUNCHERS = {"fused_gemm": {"satae_fused_gemm_batched": (7, 10),
                             "satae_fused_gemm_batched_bf16": (7, 10),
                             "satae_fused_gemm_batched_tma": (5, 9),
                             "satae_fused_gemm_batched_bf16_tma": (5, 9)},

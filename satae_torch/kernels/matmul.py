@@ -22,6 +22,16 @@ shapes the mma.sync loop runs faster, take that loop. The ViT encoder's
 large bf16 products run K1's wide kernel instead (:func:`k1_wide`,
 satae_torch/csrc/gemm_wide.cu).
 
+Every function here also takes operands with a leading config axis: x (C,
+M, K), w (C, K, N) or (C, N, K), scale (C, N) or None, shift (C, N), out
+(C, M, N). satae's config-batched sweep (satae/train/vmap_sweep.py) runs
+every linear layer under ``jax.vmap``, which gives ``_mm_kernel``'s
+pallas_call a batch grid axis; the port's counterpart is one K1 launch over
+the C configs of a stacked linear, forward and backward, with one plan for
+every config and every config's tiles counted toward the plan's wave. The
+launchers of csrc/fused_gemm.cu all take C, and 2-D operands launch them
+with C = 1; the wide kernel takes 2-D operands only.
+
 Operands are float32, or bf16 as in satae's bf16 recipe: x and w of one
 dtype (a mixed pair raises; the callers cast, as satae's layers do), scale
 and shift float32, the product accumulated and the epilogue taken in
@@ -32,9 +42,11 @@ gradient and ``g * scale`` in bf16, dX and dW as bf16 K1 launches, dscale
 and dshift in float32. Each wrapper's ``launches`` counts its launches per
 instantiation, keyed by the launcher suffix ("" float32, "_bf16" bf16;
 ``satae_torch.kernels.launch_counts`` names them ``fused_gemm_bf16`` and so
-on), so a count shows which instantiation ran. Each launch is counted by its
-span (:class:`launch_span`: ``satae.k1``), the one point of instrumentation
-of a launch.
+on), so a count shows which instantiation ran; a launch over a config axis
+is counted apart, in the wrapper's ``batched_launches`` (``launch_counts``'
+``fused_gemm_batched`` and ``fused_gemm_batched_bwd``). Each launch is
+counted by its span (:class:`launch_span`: ``satae.k1``), the one point of
+instrumentation of a launch.
 """
 
 from __future__ import annotations
@@ -70,7 +82,12 @@ def fused_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     """The plain PyTorch version of K1: float32 product (of the bf16 values,
     exact in float32, for bf16 operands) and epilogue, output in x's dtype,
     rounded once. ``w`` is (K, N); pass ``w.t()`` for an (N, K) weight. A
-    scale of None is 1."""
+    scale of None is 1. A stack (C, M, K) runs each config's slices in
+    turn, stacked, so each is bit for bit the 2-D version's."""
+    if x.dim() == 3:
+        return torch.stack([fused_matmul_plain(
+            x[c], w[c], None if scale is None else scale[c], shift[c], act)
+            for c in range(x.shape[0])])
     y = x.float() @ w.float()
     if scale is not None:
         y = y * scale.float()
@@ -112,7 +129,15 @@ def fused_matmul_bwd_plain(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     in g's dtype, dw in w's own layout, dscale and dshift in float32; an
     entry whose ``needs`` flag is False is None. A scale of None is 1 and
     has no gradient. For "gelu" the activation's input is recomputed from
-    x, w, scale and ``shift`` (None is 0)."""
+    x, w, scale and ``shift`` (None is 0). A stack (C, M, K) runs each
+    config's slices in turn, each gradient stacked over the configs."""
+    if x.dim() == 3:
+        per = [fused_matmul_bwd_plain(
+            g[c], x[c], w[c], None if scale is None else scale[c], y[c], act,
+            needs, w_nk, shift=None if shift is None else shift[c])
+            for c in range(x.shape[0])]
+        return tuple(None if parts[0] is None else torch.stack(parts)
+                     for parts in zip(*per))
     w_kn = w.t() if w_nk else w
     pre = None
     if act == "gelu":
@@ -231,9 +256,9 @@ F32_MMA_BATCHED_MACS = 1 << 20
 
 def k1_loader(x: torch.Tensor, w: torch.Tensor, trans_a: bool = False,
               trans_b: bool = False) -> str:
-    """Which loader K1 runs on the buffers x and w, read as
-    :func:`fused_gemm` (2-D) or :func:`fused_gemm_batched` (the (C, ., .)
-    stacks) reads them with ``trans_a`` / ``trans_b``: "tma" -- the wgmma
+    """Which loader K1 runs on the buffers x and w, 2-D or (C, ., .)
+    stacks, read as :func:`fused_gemm` reads them with ``trans_a`` /
+    ``trans_b``: "tma" -- the wgmma
     kernel, TMA loads into an mbarrier ring (bf16, or float32 as 3xTF32) --
     for a pair that TMA can read (:func:`tma_ok`), else "cp.async",
     gemm_tile.cuh's mma.sync loop. A fixed function of dtype, shape,
@@ -252,7 +277,7 @@ def k1_loader(x: torch.Tensor, w: torch.Tensor, trans_a: bool = False,
     n = w.shape[-2] if trans_b else w.shape[-1]
     if n <= F32_MMA_MAX_N:
         return "cp.async"
-    if len(xs) == 3:  # batched
+    if len(xs) == 3:  # a config axis
         return ("cp.async" if not trans_b
                 and m * n * k >= F32_MMA_BATCHED_MACS else "tma")
     if k < 2 * F32_MMA_SPLIT_K:  # no split of that depth
@@ -369,18 +394,21 @@ def split_k_workspace(m: int, n: int, splits: int,
 
 
 class launch_span:
-    """``with launch_span(name, wrapper, dtype): <one launch>``: the launch
-    inside the span ``name`` (on the card too, :func:`span`'s
+    """``with launch_span(name, wrapper, dtype[, batched]): <one launch>``:
+    the launch inside the span ``name`` (on the card too, :func:`span`'s
     ``device=True``, with the span's ``counts``), counted as one launch of
     ``wrapper``'s kernel in ``dtype``'s instantiation when the block ends
-    without raising, whether or not a profiler is on (a ``wrapper`` of None
-    counts nothing)."""
+    without raising, whether or not a profiler is on: in
+    ``wrapper.launches``, or for a K1 launch over a leading config axis
+    (``batched``) in ``wrapper.batched_launches``. A ``wrapper`` of None
+    counts nothing."""
     __slots__ = ("span", "counter", "key")
 
     def __init__(self, name: str, wrapper, dtype: torch.dtype,
-                 **counts: float):
+                 batched: bool = False, **counts: float):
         self.span = span(name, device=True, **counts)
-        self.counter = None if wrapper is None else wrapper.launches
+        self.counter = None if wrapper is None else (
+            wrapper.batched_launches if batched else wrapper.launches)
         self.key = _build.OPERAND_DTYPES[dtype]
 
     def __enter__(self) -> None:
@@ -394,8 +422,8 @@ class launch_span:
 
 
 # one int32 counter per output tile of a split-K launch, per device; a
-# split-K plan has fewer than WAVE_BLOCKS tiles (a batched one fewer than
-# WAVE_BLOCKS over all its configs), and the kernel leaves every counter at 0
+# split-K plan has fewer than WAVE_BLOCKS tiles over all its configs, and
+# the kernel leaves every counter at 0
 _counters = {}
 
 
@@ -415,59 +443,74 @@ def fused_gemm(x: torch.Tensor, w: torch.Tensor,
     """One launch of K1 on CUDA tensors: act((A @ B) * scale + shift) with
     A = x, or x read in place as its transpose (``trans_a``: x is a (K, M)
     buffer), and B = w, or w read in place as its transpose (``trans_b``: w
-    is an (N, K) buffer), in x's dtype, float32 or bf16:
-    :func:`fused_gemm_wide` where :func:`k1_wide` takes the launch, else
-    ``satae_fused_gemm_tma`` / ``satae_fused_gemm_bf16_tma`` on wgmma where
-    :func:`k1_loader` says "tma", with :func:`split_k_plan_tma`'s plan for
-    the dtype, else ``satae_fused_gemm`` / ``satae_fused_gemm_bf16`` on the
-    mma.sync loop with :func:`split_k_plan`'s, where a split-K launch takes
-    a workspace of splits * M * N floats. A scale or shift of None is 1 or
-    0, and nothing is allocated for it. Raises on a refused launch. The
-    launch runs inside the span ``satae.k1`` (:class:`launch_span`), whose
-    counter ``wide`` is 1 on the wide route and 0 on the others, and is
-    counted in ``counted.launches``, the wrapper the training and serving
-    paths pass (:func:`fused_matmul`, :func:`fused_matmul_bwd`); None counts
-    nothing."""
+    is an (N, K) buffer), in x's dtype, float32 or bf16; scale and shift
+    (N,). With a leading config axis -- x C x (M, K) or C x (K, M), w C x
+    (K, N) or C x (N, K), scale and shift (C, N) -- the C products are one
+    launch, out (C, M, N); 2-D operands are C = 1.
+
+    The route: :func:`fused_gemm_wide` where :func:`k1_wide` takes the
+    launch (2-D only), else ``satae_fused_gemm_batched_tma`` /
+    ``_batched_bf16_tma`` on wgmma where :func:`k1_loader` says "tma", with
+    ``split_k_plan_tma(m, n, k, batch=C, dtype=x.dtype)``, else
+    ``satae_fused_gemm_batched`` / ``_batched_bf16`` on the mma.sync loop
+    with ``split_k_plan(m, n, k, batch=C)``, where a split-K launch takes a
+    workspace of C * splits * M * N floats. A scale or shift of None is 1 or
+    0, and nothing is allocated for it. Raises on a refused launch; never
+    falls back to C launches. The launch runs inside the span ``satae.k1``
+    (:class:`launch_span`), whose counter ``wide`` is 1 on the wide route
+    and 0 on the others, and is counted in ``counted``, the wrapper the
+    training and serving paths pass (:func:`fused_matmul`,
+    :func:`fused_matmul_bwd`): a 3-D launch in its ``batched_launches``;
+    None counts nothing."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_gemm: K1 runs on CUDA tensors, x is on "
                          f"{x.device}")
-    m, k = (x.shape[1], x.shape[0]) if trans_a else x.shape
-    n, kw = (w.shape[0], w.shape[1]) if trans_b else (w.shape[1], w.shape[0])
+    xs, wsh = x.shape, w.shape
+    batched = len(xs) == 3
+    if len(xs) not in (2, 3) or len(wsh) != len(xs) or (
+            batched and wsh[0] != xs[0]):
+        raise ValueError(f"fused_gemm: x {tuple(xs)} and w {tuple(wsh)} "
+                         "must be (., .) or (C, ., .) of one C")
+    c = xs[0] if batched else 1
+    m, k = (xs[-1], xs[-2]) if trans_a else (xs[-2], xs[-1])
+    n, kw = (wsh[-2], wsh[-1]) if trans_b else (wsh[-1], wsh[-2])
     if k != kw:
         raise ValueError(f"fused_gemm: inner sizes {k} and {kw} differ")
     suffix = _build.check_operands("fused_gemm", x.device, x, w,
                                    scale=scale, shift=shift)
-    if max(m * k, k * n, m * n) >= 2 ** 31:
-        raise ValueError(f"fused_gemm: shape {(m, k, n)} exceeds int32 "
+    if max(c * m * k, c * k * n, c * m * n) >= 2 ** 31:
+        raise ValueError(f"fused_gemm: {c} x {(m, k, n)} exceeds int32 "
                          "indexing")
-    if any(t is not None and t.shape != (n,) for t in (scale, shift)):
-        raise ValueError(f"fused_gemm: scale/shift must be ({n},)")
+    vec = (c, n) if batched else (n,)
+    if any(t is not None and t.shape != vec for t in (scale, shift)):
+        raise ValueError(f"fused_gemm: scale/shift must be {vec}")
     _check_gelu("fused_gemm", x, w, act, trans_a, trans_b)
-    out = torch.empty((m, n), device=x.device, dtype=x.dtype)
-    if m == 0 or n == 0:
+    out = torch.empty((c, m, n) if batched else (m, n), device=x.device,
+                      dtype=x.dtype)
+    if c == 0 or m == 0 or n == 0:
         return out
     if k1_wide(x, w, trans_a, trans_b):
         fused_gemm_wide(x, w, scale, shift, act, out, counted=counted)
         return out
     if k1_loader(x, w, trans_a, trans_b) == "tma":
-        _, _, splits, k_per_split = split_k_plan_tma(m, n, k,
+        _, _, splits, k_per_split = split_k_plan_tma(m, n, k, batch=c,
                                                      dtype=x.dtype)
-        with launch_span("satae.k1", counted, x.dtype, wide=0):
+        with launch_span("satae.k1", counted, x.dtype, batched, wide=0):
             _build.launch(_build.load("fused_gemm"),
-                          "satae_fused_gemm" + suffix + "_tma", x.device,
-                          x.data_ptr(), w.data_ptr(), _ptr(scale),
-                          _ptr(shift), out.data_ptr(), m, n, k,
+                          "satae_fused_gemm_batched" + suffix + "_tma",
+                          x.device, x.data_ptr(), w.data_ptr(), _ptr(scale),
+                          _ptr(shift), out.data_ptr(), c, m, n, k,
                           ACTS.index(act), int(trans_a), int(trans_b), splits,
                           k_per_split)
         return out
-    _, tile_n, splits, k_per_split = split_k_plan(m, n, k)
-    ws = split_k_workspace(m, n, splits, x.device)
+    _, tile_n, splits, k_per_split = split_k_plan(m, n, k, batch=c)
+    ws = split_k_workspace(c * m, n, splits, x.device)
     counters = None if ws is None else _tile_counters(x.device)
-    with launch_span("satae.k1", counted, x.dtype, wide=0):
-        _build.launch(_build.load("fused_gemm"), "satae_fused_gemm" + suffix,
-                      x.device,
+    with launch_span("satae.k1", counted, x.dtype, batched, wide=0):
+        _build.launch(_build.load("fused_gemm"),
+                      "satae_fused_gemm_batched" + suffix, x.device,
                       x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
-                      out.data_ptr(), _ptr(ws), _ptr(counters), m, n, k,
+                      out.data_ptr(), _ptr(ws), _ptr(counters), c, m, n, k,
                       ACTS.index(act), int(trans_a), int(trans_b), tile_n,
                       splits, k_per_split)
     return out
@@ -514,10 +557,12 @@ def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     PyTorch ops, as they stay XLA ops outside the Pallas kernel in satae;
     all but the float32 column sums run in g's dtype. For "gelu" the
     activation's input is one more K1 launch (act "none", scale and
-    ``shift``).
+    ``shift``). Operands with a leading config axis (C, ., .) take one
+    launch per product over all configs, dscale and dshift (C, N).
 
-    A CUDA x launches K1 (counted in ``fused_matmul_bwd.launches``); a CPU
-    x takes :func:`fused_matmul_bwd_plain`."""
+    A CUDA x launches K1 (counted in ``fused_matmul_bwd.launches``, a 3-D
+    launch in ``fused_matmul_bwd.batched_launches``); a CPU x takes
+    :func:`fused_matmul_bwd_plain`."""
     if x.device.type == "cpu":
         return fused_matmul_bwd_plain(g, x, w, scale, y, act, needs, w_nk,
                                       shift=shift)
@@ -528,7 +573,8 @@ def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
         pre = fused_gemm(x, w, scale, shift, "none", False, w_nk,
                          counted=fused_matmul_bwd)
     g = _act_grad(g, y, act, pre)
-    gs = (g if scale is None else g * scale.to(g.dtype)).contiguous()
+    gs = (g if scale is None else
+          g * scale.unsqueeze(-2).to(g.dtype)).contiguous()
 
     def product(a, b, trans_a, trans_b):  # scale 1, shift 0, no act
         return fused_gemm(a, b, None, None, "none", trans_a, trans_b,
@@ -541,19 +587,21 @@ def fused_matmul_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
         dw = product(gs, x, True, False) if w_nk else \
             product(x, gs, True, False)
     if needs[2]:
-        dscale = (g * product(x, w, False, w_nk)).sum(0).float()
-    dshift = g.sum(0).float() if needs[3] else None
+        dscale = (g * product(x, w, False, w_nk)).sum(-2).float()
+    dshift = g.sum(-2).float() if needs[3] else None
     return dx, dw, dscale, dshift
 
 
 fused_matmul_bwd.launches = _build.launch_counter()
+fused_matmul_bwd.batched_launches = _build.launch_counter()
 
 
 def _forward(x, w, scale, shift, act, w_nk):
     if x.device.type == "cuda":
         return fused_gemm(x, w, scale, shift, act, False, w_nk,
                           counted=fused_matmul)
-    return fused_matmul_plain(x, w.t() if w_nk else w, scale, shift, act)
+    return fused_matmul_plain(x, w.transpose(-1, -2) if w_nk else w, scale,
+                              shift, act)
 
 
 class _FusedMatmul(torch.autograd.Function):
@@ -582,21 +630,30 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
     """act((x @ W) * scale + shift) for x (M, K), per-column scale/shift
     (N,), and W = w, a row-major (K, N) weight, or W = w.T for an (N, K)
     weight with ``w_nk=True`` (an ``nn.Linear`` weight, read in place).
+    With a leading config axis, C products at once (satae's layers under
+    ``jax.vmap``): x (C, M, K), w (C, K, N) or (C, N, K), scale and shift
+    (C, N) -> (C, M, N), one launch on the card.
     A scale of None is 1 (a linear layer: nothing is allocated for it).
     x and w are both float32 or both bf16, scale and shift float32; the
     output is in x's dtype. Differentiable in x, w, scale and shift
     (:func:`fused_matmul_bwd`).
 
-    A CUDA x launches K1 (counted in ``fused_matmul.launches``); a CPU x
-    takes :func:`fused_matmul_plain`."""
+    A CUDA x launches K1 (counted in ``fused_matmul.launches``, a 3-D
+    launch in ``fused_matmul.batched_launches``); a CPU x takes
+    :func:`fused_matmul_plain`."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
-    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[int(w_nk)]:
-        raise ValueError(f"fused_matmul: bad shapes x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}{' (N, K)' if w_nk else ''}")
-    n = w.shape[1 - int(w_nk)]
-    if (scale is not None and scale.shape != (n,)) or shift.shape != (n,):
-        raise ValueError(f"fused_matmul: scale/shift must be ({n},), got "
+    xs, wsh = x.shape, w.shape
+    batched = len(xs) == 3
+    if (len(xs) not in (2, 3) or len(wsh) != len(xs)
+            or (batched and wsh[0] != xs[0])
+            or xs[-1] != wsh[-1 if w_nk else -2]):
+        raise ValueError(f"fused_matmul: bad shapes x {tuple(xs)}, "
+                         f"w {tuple(wsh)}{' (N, K)' if w_nk else ''}")
+    n = wsh[-2 if w_nk else -1]
+    vec = (xs[0], n) if batched else (n,)
+    if (scale is not None and scale.shape != vec) or shift.shape != vec:
+        raise ValueError(f"fused_matmul: scale/shift must be {vec}, got "
                          f"{None if scale is None else tuple(scale.shape)}, "
                          f"{tuple(shift.shape)}")
     if x.device.type == "cpu":  # a CUDA x is checked where K1 launches
@@ -611,234 +668,4 @@ def fused_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 fused_matmul.launches = _build.launch_counter()
-
-
-# ---- batched K1: C independent products in one launch ----------------------
-#
-# satae's config-batched sweep (satae/train/vmap_sweep.py) runs every linear
-# layer under jax.vmap, which gives _mm_kernel's pallas_call a batch grid
-# axis. The port's counterpart is one launch of K1's batched entries
-# (satae_torch/csrc/fused_gemm.cu) over the C configs of a stacked linear,
-# forward and backward: x (C, M, K), W (C, K, N) or, with ``w_nk``, an
-# (N, K) weight per config (C, N, K), scale (C, N) or None, shift (C, N),
-# out (C, M, N). Where :func:`k1_loader` says "tma" it runs the wgmma
-# kernel (float32 as 3xTF32, or bf16) with the config as the outermost
-# coordinate of 3-D tensor maps, on split_k_plan_tma's batched plan;
-# otherwise (the head's 10-wide cotangent, and float32's 4096-wide dX and
-# dW and the head's forward) the mma.sync kernel with the
-# config folded into the grid's z, on split_k_plan's plan with every
-# config's tiles counted toward the wave. The plan is the same for all
-# configs.
-
-
-def fused_matmul_batched_plain(x: torch.Tensor, w: torch.Tensor,
-                               scale: Optional[torch.Tensor],
-                               shift: torch.Tensor, act: str = "none",
-                               w_nk: bool = False) -> torch.Tensor:
-    """The plain version of the batched K1: :func:`fused_matmul_plain` on
-    each config's slices in turn, stacked (so each slice is bit for bit the
-    unbatched plain version's)."""
-    return torch.stack([fused_matmul_plain(
-        x[c], w[c].t() if w_nk else w[c], None if scale is None else scale[c],
-        shift[c], act) for c in range(x.shape[0])])
-
-
-def fused_matmul_batched_bwd_plain(g: torch.Tensor, x: torch.Tensor,
-                                   w: torch.Tensor,
-                                   scale: Optional[torch.Tensor],
-                                   y: torch.Tensor, act: str = "none",
-                                   needs: Sequence[bool] = (True, True, True,
-                                                            True),
-                                   w_nk: bool = False, *,
-                                   shift: Optional[torch.Tensor] = None
-                                   ) -> Grads:
-    """The plain backward of the batched K1: :func:`fused_matmul_bwd_plain`
-    on each config's slices, each gradient stacked over the configs (None
-    where ``needs`` says so)."""
-    per = [fused_matmul_bwd_plain(g[c], x[c], w[c],
-                                  None if scale is None else scale[c], y[c],
-                                  act, needs, w_nk,
-                                  shift=None if shift is None else shift[c])
-           for c in range(x.shape[0])]
-    return tuple(None if parts[0] is None else torch.stack(parts)
-                 for parts in zip(*per))
-
-
-def fused_gemm_batched(x: torch.Tensor, w: torch.Tensor,
-                       scale: Optional[torch.Tensor] = None,
-                       shift: Optional[torch.Tensor] = None,
-                       act: str = "none", trans_a: bool = False,
-                       trans_b: bool = False, *,
-                       counted=None) -> torch.Tensor:
-    """One launch of the batched K1 on CUDA tensors: for each config c,
-    act((A[c] @ B[c]) * scale[c] + shift[c]) with A[c] = x[c], or x[c] read
-    as its transpose (``trans_a``: x is C x (K, M)), and B[c] = w[c], or
-    w[c] read as its transpose (``trans_b``: w is C x (N, K)), in x's dtype:
-    ``satae_fused_gemm_batched_tma`` / ``_batched_bf16_tma`` on wgmma where
-    :func:`k1_loader` says "tma", with ``split_k_plan_tma(m, n, k, batch=C,
-    dtype=x.dtype)``, else ``satae_fused_gemm_batched`` / ``_batched_bf16``
-    with ``split_k_plan(m, n, k, batch=C)``, where a split-K launch takes a
-    workspace of C * splits * M * N floats. Raises on a refused launch;
-    never falls back to C unbatched launches. The launch runs inside the
-    span ``satae.k1`` (counter ``wide`` 0) and is counted in
-    ``counted.launches``
-    (:func:`fused_matmul_batched`, :func:`fused_matmul_batched_bwd`), as in
-    :func:`fused_gemm`."""
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_gemm_batched: K1 runs on CUDA tensors, x is "
-                         f"on {x.device}")
-    if x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0]:
-        raise ValueError(f"fused_gemm_batched: x {tuple(x.shape)} and w "
-                         f"{tuple(w.shape)} must be (C, ., .) of one C")
-    c = x.shape[0]
-    m, k = (x.shape[2], x.shape[1]) if trans_a else x.shape[1:]
-    n, kw = (w.shape[1], w.shape[2]) if trans_b else (w.shape[2], w.shape[1])
-    if k != kw:
-        raise ValueError(f"fused_gemm_batched: inner sizes {k} and {kw} "
-                         "differ")
-    suffix = _build.check_operands("fused_gemm_batched", x.device, x, w,
-                                   scale=scale, shift=shift)
-    if max(c * m * k, c * k * n, c * m * n) >= 2 ** 31:
-        raise ValueError(f"fused_gemm_batched: {c} x {(m, k, n)} exceeds "
-                         "int32 indexing")
-    if any(t is not None and t.shape != (c, n) for t in (scale, shift)):
-        raise ValueError(f"fused_gemm_batched: scale/shift must be {(c, n)}")
-    _check_gelu("fused_gemm_batched", x, w, act, trans_a, trans_b)
-    out = torch.empty((c, m, n), device=x.device, dtype=x.dtype)
-    if c == 0 or m == 0 or n == 0:
-        return out
-    if k1_loader(x, w, trans_a, trans_b) == "tma":
-        _, _, splits, k_per_split = split_k_plan_tma(m, n, k, batch=c,
-                                                     dtype=x.dtype)
-        with launch_span("satae.k1", counted, x.dtype, wide=0):
-            _build.launch(_build.load("fused_gemm"),
-                          "satae_fused_gemm_batched" + suffix + "_tma",
-                          x.device, x.data_ptr(), w.data_ptr(), _ptr(scale),
-                          _ptr(shift), out.data_ptr(), c, m, n, k,
-                          ACTS.index(act), int(trans_a), int(trans_b), splits,
-                          k_per_split)
-        return out
-    _, tile_n, splits, k_per_split = split_k_plan(m, n, k, batch=c)
-    ws = split_k_workspace(c * m, n, splits, x.device)
-    counters = None if ws is None else _tile_counters(x.device)
-    with launch_span("satae.k1", counted, x.dtype, wide=0):
-        _build.launch(_build.load("fused_gemm"),
-                      "satae_fused_gemm_batched" + suffix, x.device,
-                      x.data_ptr(), w.data_ptr(), _ptr(scale), _ptr(shift),
-                      out.data_ptr(), _ptr(ws), _ptr(counters), c, m, n, k,
-                      ACTS.index(act), int(trans_a), int(trans_b), tile_n,
-                      splits, k_per_split)
-    return out
-
-
-def fused_matmul_batched_bwd(g: torch.Tensor, x: torch.Tensor,
-                             w: torch.Tensor, scale: Optional[torch.Tensor],
-                             y: torch.Tensor, act: str = "none",
-                             needs: Sequence[bool] = (True, True, True, True),
-                             w_nk: bool = False, *,
-                             shift: Optional[torch.Tensor] = None) -> Grads:
-    """The backward of :func:`fused_matmul_batched`, as
-    :func:`fused_matmul_bwd` per config: dx = gs @ W^T and dw = x^T @ gs
-    (or gs^T @ x for (N, K) weights) as one batched K1 launch each over all
-    configs, z = x @ W recomputed on it for dscale only when ``needs[2]``
-    (and for "gelu" the activation's input, with scale and ``shift``);
-    dscale and dshift (C, N) in float32.
-
-    A CUDA x launches K1 (counted in ``fused_matmul_batched_bwd.launches``);
-    a CPU x takes :func:`fused_matmul_batched_bwd_plain`."""
-    if x.device.type == "cpu":
-        return fused_matmul_batched_bwd_plain(g, x, w, scale, y, act, needs,
-                                              w_nk, shift=shift)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_matmul_batched_bwd: no kernel for device "
-                         f"{x.device}")
-    pre = None
-    if act == "gelu":
-        pre = fused_gemm_batched(x, w, scale, shift, "none", False, w_nk,
-                                 counted=fused_matmul_batched_bwd)
-    g = _act_grad(g, y, act, pre)
-    gs = (g if scale is None else g * scale[:, None].to(g.dtype)).contiguous()
-
-    def product(a, b, trans_a, trans_b):  # scale 1, shift 0, no act
-        return fused_gemm_batched(a, b, None, None, "none", trans_a,
-                                  trans_b, counted=fused_matmul_batched_bwd)
-
-    dx = dw = dscale = None
-    if needs[0]:
-        dx = product(gs, w, False, not w_nk)
-    if needs[1]:
-        dw = product(gs, x, True, False) if w_nk else \
-            product(x, gs, True, False)
-    if needs[2]:
-        dscale = (g * product(x, w, False, w_nk)).sum(1).float()
-    dshift = g.sum(1).float() if needs[3] else None
-    return dx, dw, dscale, dshift
-
-
-fused_matmul_batched_bwd.launches = _build.launch_counter()
-
-
-def _forward_batched(x, w, scale, shift, act, w_nk):
-    if x.device.type == "cuda":
-        return fused_gemm_batched(x, w, scale, shift, act, False, w_nk,
-                                  counted=fused_matmul_batched)
-    return fused_matmul_batched_plain(x, w, scale, shift, act, w_nk)
-
-
-class _FusedMatmulBatched(torch.autograd.Function):
-    """The batched K1 (or its plain version) with satae's VJP per config as
-    the backward."""
-
-    @staticmethod
-    def forward(ctx, x, w, scale, shift, act, w_nk):
-        y = _forward_batched(x, w, scale, shift, act, w_nk)
-        ctx.save_for_backward(x, w, scale, y,
-                              shift if act == "gelu" else None)
-        ctx.act, ctx.w_nk = act, w_nk
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w, scale, y, shift = ctx.saved_tensors
-        grads = fused_matmul_batched_bwd(g, x, w, scale, y, ctx.act,
-                                         ctx.needs_input_grad[:4], ctx.w_nk,
-                                         shift=shift)
-        return (*grads, None, None)
-
-
-def fused_matmul_batched(x: torch.Tensor, w: torch.Tensor,
-                         scale: Optional[torch.Tensor], shift: torch.Tensor,
-                         act: str = "none", *,
-                         w_nk: bool = False) -> torch.Tensor:
-    """:func:`fused_matmul` for C configs at once: x (C, M, K), w (C, K, N)
-    or (C, N, K) with ``w_nk``, scale (C, N) or None, shift (C, N) ->
-    (C, M, N). Differentiable in x, w, scale and shift
-    (:func:`fused_matmul_batched_bwd`).
-
-    A CUDA x launches the batched K1 once (counted in
-    ``fused_matmul_batched.launches``); a CPU x takes
-    :func:`fused_matmul_batched_plain`."""
-    if act not in ACTS:
-        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
-    if (x.dim() != 3 or w.dim() != 3 or x.shape[0] != w.shape[0]
-            or x.shape[2] != w.shape[1 + int(w_nk)]):
-        raise ValueError(f"fused_matmul_batched: bad shapes x "
-                         f"{tuple(x.shape)}, w {tuple(w.shape)}"
-                         f"{' (C, N, K)' if w_nk else ''}")
-    cn = (x.shape[0], w.shape[2 - int(w_nk)])
-    if (scale is not None and scale.shape != cn) or shift.shape != cn:
-        raise ValueError(f"fused_matmul_batched: scale/shift must be {cn}, "
-                         f"got {None if scale is None else tuple(scale.shape)}"
-                         f", {tuple(shift.shape)}")
-    if x.device.type == "cpu":
-        _build.check_dtypes("fused_matmul_batched", x, w, scale, shift)
-    elif x.device.type != "cuda":
-        raise ValueError(f"fused_matmul_batched: no kernel for device "
-                         f"{x.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, w, scale, shift)):
-        return _FusedMatmulBatched.apply(x, w, scale, shift, act, w_nk)
-    return _forward_batched(x, w, scale, shift, act, w_nk)
-
-
-fused_matmul_batched.launches = _build.launch_counter()
+fused_matmul.batched_launches = _build.launch_counter()

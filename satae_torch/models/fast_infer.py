@@ -21,6 +21,14 @@ are contiguous HWIO, which K1's and K2's bf16 wgmma kernels read MN-major.
 Either way the values are the same. A caller that changes the modules'
 weights folds again (satae_torch.api does so when it sees them change).
 
+A folded encoder serves its family's input by itself: ``fe.host(images)``
+checks and converts what a caller passes (:class:`FoldedEncoder`: uint8
+images, or floats in [0, 1]; :class:`FoldedViT`: int16 chips of its
+config), and ``fe(chunk)`` turns a chunk of it on the device into latents
+(:func:`encoder_infer` on the normalised images, :func:`vit_encoder_infer`
+on the chips, each looked up when called), so the serving loop, extraction
+and the data-parallel step never ask which family they hold.
+
 In bf16 (``fold_encoder(enc, torch.bfloat16)``) the encoder is served as
 satae serves it (api.py:399-415, kernels/conv.py:27-33): its weights, biases
 and BatchNorm parameters and stats are cast to bf16 once, scale and shift
@@ -49,6 +57,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from satae_torch.config import ViTConfig
@@ -97,8 +106,43 @@ class FoldedLinear:
 
 @dataclass(frozen=True)
 class FoldedEncoder:
+    """The autoencoder's encoder folded for the kernels
+    (:func:`fold_encoder`): :meth:`host` checks the images a caller
+    passes, and calling it on a chunk of them on the device gives the
+    latents."""
     convs: Tuple[FoldedConv, ...]
     proj: FoldedLinear  # rows in the NHWC flatten order of K2's output
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype it was folded for."""
+        return self.proj.w.dtype
+
+    @staticmethod
+    def host(images) -> np.ndarray:
+        """The encoder's input on the host: uint8 images, or floats in
+        [0,1] rounded back to the uint8 grid. Floats on a 0-255 scale, or
+        below 0, are rejected rather than silently saturated."""
+        imgs = np.asarray(images)
+        if imgs.dtype == np.uint8:
+            return imgs
+        mx = float(imgs.max(initial=0.0))
+        if mx > 1.0 + 1e-3:
+            raise ValueError(
+                f"float images must be normalized to [0,1] (max={mx:.3g}); "
+                "pass uint8 for raw 0-255 pixel values")
+        mn = float(imgs.min(initial=0.0))
+        if mn < -1e-3:
+            raise ValueError(
+                f"float images must be normalized to [0,1] (min={mn:.3g}); "
+                "[-1,1]-standardized inputs would have every negative pixel "
+                "silently clipped to 0")
+        return np.rint(np.clip(imgs, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+    def __call__(self, chunk: torch.Tensor) -> torch.Tensor:
+        """uint8 NHWC images on the device -> latents in :attr:`dtype`:
+        normalised, then :func:`encoder_infer`."""
+        return encoder_infer(self, normalize(chunk, self.dtype))
 
 
 @dataclass(frozen=True)
@@ -190,6 +234,10 @@ class FoldedViTBlock:
 
 @dataclass(frozen=True)
 class FoldedViT:
+    """The ViT encoder folded for the kernels (:func:`fold_vit`), served as
+    :class:`FoldedEncoder` is: :meth:`host` checks the chips a caller
+    passes, and calling it on a chunk of them on the device gives the
+    latents."""
     cfg: ViTConfig
     band_mean: torch.Tensor  # (in_chans,) float32
     band_std: torch.Tensor
@@ -198,6 +246,26 @@ class FoldedViT:
     pos: torch.Tensor  # pos_embed[1:], (num_patches, embed_dim)
     blocks: Tuple[FoldedViTBlock, ...]
     norm: Tuple[torch.Tensor, torch.Tensor]
+
+    def host(self, images) -> np.ndarray:
+        """The encoder's input on the host: int16 reflectance chips (N,
+        bands, frames, H, W) of its config, as they are; any other dtype or
+        shape is refused (uint8 images are the autoencoder's)."""
+        imgs = np.asarray(images)
+        shape = self.cfg.chip_shape
+        if imgs.dtype != np.int16:
+            raise TypeError(f"the ViT encoder takes int16 reflectance chips "
+                            f"(N, {', '.join(map(str, shape))}), got "
+                            f"{imgs.dtype}")
+        if imgs.ndim != 5 or imgs.shape[1:] != shape:
+            raise ValueError(f"chips must be (N, {', '.join(map(str, shape))})"
+                             f", got {imgs.shape}")
+        return imgs
+
+    def __call__(self, chunk: torch.Tensor) -> torch.Tensor:
+        """int16 chips on the device -> float32 latents:
+        :func:`vit_encoder_infer`."""
+        return vit_encoder_infer(self, chunk)
 
 
 def _vit_linear(lin: torch.nn.Linear, dtype: torch.dtype,
@@ -287,7 +355,6 @@ def make_encode_classify(enc: Encoder, mlp: MLP,
 
     @torch.no_grad()
     def run(imgs_u8: torch.Tensor) -> torch.Tensor:
-        z = encoder_infer(fe, normalize(imgs_u8, compute_dtype))
-        return torch.argmax(mlp_infer(fm, z.float()), dim=-1)
+        return torch.argmax(mlp_infer(fm, fe(imgs_u8).float()), dim=-1)
 
     return run

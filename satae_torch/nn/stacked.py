@@ -11,8 +11,8 @@ the reference layout of satae_torch.nn.layers (conv OIHW, transposed conv
     ``groups=C`` (cuDNN on the card, as the port's single-config training
     convolutions are), and a BatchNorm over the folded channel axis is per
     config and per channel;
-  * the linears' (C, B, features): one launch of the batched K1 forward
-    (satae_torch.kernels.matmul.fused_matmul_batched) and one each for dX
+  * the linears' (C, B, features): one launch of K1 over the config axis
+    forward (satae_torch.kernels.matmul.fused_matmul) and one each for dX
     and dW backward on the card; its plain version on the CPU.
 
 The arithmetic is satae_torch.nn.layers' per config: bf16 compute casts the
@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from satae_torch.kernels.matmul import fused_matmul_batched
+from satae_torch.kernels.matmul import fused_matmul
 from satae_torch.nn import layers as L
 
 
@@ -137,8 +137,8 @@ def keep_mask(shape, rate: float, generator: Optional[torch.Generator],
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            act: str = "none") -> torch.Tensor:
     """act(x[c] @ w[c].T + b[c]) for every config c: x (C, B, in), w
-    (C, out, in), b (C, out) -> (C, B, out) in x's dtype, one batched K1
-    launch on a CUDA x (and one each for dX and dW in the backward), as
-    satae_torch.nn.layers.linear per config."""
-    return fused_matmul_batched(x.contiguous(), w.to(x.dtype), None,
-                                b.to(x.dtype).float(), act, w_nk=True)
+    (C, out, in), b (C, out) -> (C, B, out) in x's dtype, one K1 launch
+    over the configs on a CUDA x (and one each for dX and dW in the
+    backward), as satae_torch.nn.layers.linear per config."""
+    return fused_matmul(x.contiguous(), w.to(x.dtype), None,
+                        b.to(x.dtype).float(), act, w_nk=True)

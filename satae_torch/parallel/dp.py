@@ -24,7 +24,6 @@ from typing import Callable
 import torch
 
 from satae_torch.config import DataConfig
-from satae_torch.data.augment import normalize
 from satae_torch.models import fast_infer
 from satae_torch.models.decoder import Decoder
 from satae_torch.parallel.mesh import Mesh
@@ -86,18 +85,15 @@ def make_dp_ae_eval_step_weighted(mesh: Mesh,
     return step
 
 
-def make_dp_encode_step(mesh: Mesh,
-                        compute_dtype: torch.dtype = torch.float32
-                        ) -> Callable:
+def make_dp_encode_step(mesh: Mesh) -> Callable:
     """``encode(fe, imgs_u8)`` -> latents of the whole batch: this rank's
     rows through the folded encoder ``fe`` (fast_infer: K2 per conv layer
-    and K1 for the projection on the card), all-gathered."""
+    and K1 for the projection on the card, in the dtype it was folded
+    for), all-gathered."""
 
     @torch.no_grad()
     def encode(fe: fast_infer.FoldedEncoder, imgs_u8: torch.Tensor):
-        z = fast_infer.encoder_infer(
-            fe, normalize(mesh.shard(imgs_u8), compute_dtype))
-        return mesh.gather_rows(z)
+        return mesh.gather_rows(fe(mesh.shard(imgs_u8)))
 
     return encode
 

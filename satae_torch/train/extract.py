@@ -29,7 +29,6 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 
-from satae_torch.data.augment import normalize
 from satae_torch.data.pipeline import ArrayDataset
 from satae_torch.models import fast_infer
 from satae_torch.models.decoder import Decoder
@@ -53,12 +52,11 @@ def extract_features(enc: Encoder, ds: ArrayDataset, batch_size: int = 64,
         return (np.zeros((0, enc.proj.out_features), np.float32),
                 np.asarray(ds.labels, np.int32))
     chunk = extract_chunk(n, batch_size)
-    step = lambda fe, u8: fast_infer.encoder_infer(
-        fe, normalize(u8, compute_dtype))
+    step = lambda fe, u8: fe(u8)
     if mesh is not None:
         from satae_torch.parallel.dp import make_dp_encode_step
         chunk = -(-chunk // mesh.data_size) * mesh.data_size
-        step = make_dp_encode_step(mesh, compute_dtype)
+        step = make_dp_encode_step(mesh)
     pad = (-n) % chunk
     imgs = torch.zeros((n + pad,) + ds.images.shape[1:], dtype=torch.uint8,
                        device=device)

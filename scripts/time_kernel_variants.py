@@ -204,16 +204,12 @@ def main() -> int:
         shift = torch.rand(c, n, device=dev, generator=g) - 0.5
         out = torch.empty(c, m, n, device=dev, dtype=dt)
         _, _, splits, kps = split_k_plan_tma(m, n, k, batch=c, dtype=dt)
-        # C = 1 through the unbatched entry, C > 1 the batched one: the same
-        # kernel
-        entry, lead = ((f"satae_fused_gemm{sfx}_tma", ()) if c == 1 else
-                       (f"satae_fused_gemm_batched{sfx}_tma", (c,)))
         for name in K1_VARIANTS:
             lib = libs[("fused_gemm", name)]
             run = lambda: _build.launch(
-                lib, entry, dev, a.data_ptr(), b.data_ptr(),
-                scale.data_ptr(), shift.data_ptr(), out.data_ptr(), *lead, m,
-                n, k, 0, int(ta), int(tb), splits, kps)
+                lib, f"satae_fused_gemm_batched{sfx}_tma", dev, a.data_ptr(),
+                b.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                out.data_ptr(), c, m, n, k, 0, int(ta), int(tb), splits, kps)
             us = chip_smoke.device_us(run, 0.0, f"K1 {name}", 50)
             rows.append(dict(kernel="fused_gemm" + sfx, batch=c,
                              shape=[m, k, n], trans=[ta, tb], splits=splits,

@@ -489,8 +489,8 @@ def test_k1_loader_by_alignment(case):
     assert TM.k1_loader(x, w) == want
 
 
-# the buffers of each batched K1 launch of a stacked AE step (C = 45) as
-# fused_gemm_batched gets them (x, w, trans_a, trans_b): forward x @ W^T
+# the buffers of each K1 launch of a stacked AE step (C = 45) as
+# fused_gemm gets them over the config axis (x, w, trans_a, trans_b): forward x @ W^T
 # with the (out, in) weights read in place, dX = gs @ W, dW = gs^T @ x (gs
 # read transposed); and the loader each takes in bf16 and in float32
 _STACKED_AE_LAUNCHES = {

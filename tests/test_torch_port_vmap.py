@@ -100,9 +100,9 @@ def splits():
 @pytest.mark.parametrize("act", TM.ACTS)
 @pytest.mark.parametrize("with_scale", [False, True])
 def test_batched_plain_k1_equals_unbatched_per_slice(w_nk, act, with_scale):
-    """Forward and backward (autograd through the batched Function) against
-    the unbatched plain K1 on each config's slices: bit for bit, since the
-    plain version computes slice by slice."""
+    """Forward and backward (autograd through K1's Function on a config
+    axis) against the 2-D plain K1 on each config's slices: bit for bit,
+    since the plain version computes slice by slice."""
     rng = np.random.default_rng(0)
     c, m, k, n = 4, 7, 33, 10
     x = rng.normal(size=(c, m, k)).astype(np.float32)
@@ -113,7 +113,7 @@ def test_batched_plain_k1_equals_unbatched_per_slice(w_nk, act, with_scale):
     g = rng.normal(size=(c, m, n)).astype(np.float32)
     leaves = [None if a is None else _t(a).requires_grad_()
               for a in (x, w, scale, shift)]
-    y = TM.fused_matmul_batched(*leaves, act, w_nk=w_nk)
+    y = TM.fused_matmul(*leaves, act, w_nk=w_nk)
     grads = torch.autograd.grad(y, [t for t in leaves if t is not None],
                                 _t(g))
     for i in range(c):
@@ -126,9 +126,9 @@ def test_batched_plain_k1_equals_unbatched_per_slice(w_nk, act, with_scale):
         for a, b in zip(grads, gi):
             assert torch.equal(a[i], b)
     # the backward's plain version on its own, every gradient asked for
-    bwd = TM.fused_matmul_batched_bwd(_t(g), _t(x), _t(w),
-                                      None if scale is None else _t(scale),
-                                      y.detach(), act, w_nk=w_nk)
+    bwd = TM.fused_matmul_bwd(_t(g), _t(x), _t(w),
+                              None if scale is None else _t(scale),
+                              y.detach(), act, w_nk=w_nk)
     for i in range(c):
         ref = TM.fused_matmul_bwd_plain(_t(g[i]), _t(x[i]), _t(w[i]),
                                         None if scale is None
@@ -141,33 +141,30 @@ def test_batched_plain_k1_equals_unbatched_per_slice(w_nk, act, with_scale):
 def test_batched_k1_refuses_what_the_kernel_does_not_take():
     x = torch.zeros(2, 4, 8)
     with pytest.raises(ValueError, match="CUDA"):
-        TM.fused_gemm_batched(x, torch.zeros(2, 8, 3))
+        TM.fused_gemm(x, torch.zeros(2, 8, 3))
     with pytest.raises(ValueError, match="bad shapes"):
-        TM.fused_matmul_batched(x, torch.zeros(3, 8, 5), None,
-                                torch.zeros(3, 5))
+        TM.fused_matmul(x, torch.zeros(3, 8, 5), None, torch.zeros(3, 5))
     with pytest.raises(ValueError, match="scale/shift"):
-        TM.fused_matmul_batched(x, torch.zeros(2, 5, 8), None,
-                                torch.zeros(5), w_nk=True)
+        TM.fused_matmul(x, torch.zeros(2, 5, 8), None, torch.zeros(5),
+                        w_nk=True)
     with pytest.raises(TypeError):
-        TM.fused_matmul_batched(x, torch.zeros(2, 8, 5, dtype=torch.bfloat16),
-                                None, torch.zeros(2, 5))
-    # the batched launchers, in K1's library: on the mma.sync loop seven
-    # pointers, then C, M, N, K, act, trans_a, trans_b, tile_n, splits,
-    # k_per_split; on wgmma (bf16 buffers TMA reads) x, w, scale, shift,
-    # out, then C, M, N, K, act, trans_a, trans_b, splits, k_per_split --
-    # the unbatched wgmma launcher's layout with C first among the ints
+        TM.fused_matmul(x, torch.zeros(2, 8, 5, dtype=torch.bfloat16), None,
+                        torch.zeros(2, 5))
+    # K1's launchers, every one over a config axis (2-D products are C =
+    # 1): on the mma.sync loop seven pointers, then C, M, N, K, act,
+    # trans_a, trans_b, tile_n, splits, k_per_split; on wgmma (buffers TMA
+    # reads) x, w, scale, shift, out, then C, M, N, K, act, trans_a,
+    # trans_b, splits, k_per_split
     launchers = _build.LAUNCHERS["fused_gemm"]
+    assert len(launchers) == 4
     for sfx in ("", "_bf16"):
         assert launchers["satae_fused_gemm_batched" + sfx] == (7, 10)
-    n_ptrs, n_ints = launchers["satae_fused_gemm_bf16_tma"]
-    assert launchers["satae_fused_gemm_batched_bf16_tma"] == (n_ptrs,
-                                                               n_ints + 1)
-    assert (n_ptrs, n_ints) == (5, 8)
+        assert launchers["satae_fused_gemm_batched" + sfx + "_tma"] == (5, 9)
     # a bf16 stack with a 20-byte row is not refused: it takes the
     # mma.sync loop, and only on the card
     with pytest.raises(ValueError, match="CUDA"):
-        TM.fused_gemm_batched(torch.zeros(2, 4, 10, dtype=torch.bfloat16),
-                              torch.zeros(2, 10, 8, dtype=torch.bfloat16))
+        TM.fused_gemm(torch.zeros(2, 4, 10, dtype=torch.bfloat16),
+                      torch.zeros(2, 10, 8, dtype=torch.bfloat16))
 
 
 # the batched K1's plans on the vmap path (C = 45 AE configs, 11 MLP lrs):
