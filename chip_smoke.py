@@ -421,14 +421,16 @@ K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
 # wgmma; the ViT encoder's attention and LayerNorm, one each) and those of
 # them on wgmma (fused_gemm_tma_kernel x 4 layouts x float32 and bf16,
 # fused_gemm_wide_kernel x 4, conv_im2col_tma_kernel: bf16 x 2 N
-# tiles and float32, conv_rows_kernel in float32 and bf16)
+# tiles and float32, conv_rows_kernel in float32 and bf16, the ViT's
+# attention_kernel)
 N_INSTANTIATIONS = 40
-N_WGMMA = 18
+N_WGMMA = 19
 
 
 def hgmma_counts() -> dict:
     """{kernel: HGMMA instructions in its SASS} for every kernel of the
-    build in namespace satae::hopper (cuobjdump -sass of the libraries)."""
+    build in namespace satae::hopper, and the ViT's attention kernel
+    (cuobjdump -sass of the libraries)."""
     from satae_torch.kernels import _build
 
     tool = str(Path(_build.nvcc_path()).parent / "cuobjdump")
@@ -440,7 +442,8 @@ def hgmma_counts() -> dict:
         for ln in sass.splitlines():
             if "Function :" in ln:
                 fn = ln.split("Function :")[1].strip()
-                fn = fn if "hopper" in fn else None
+                fn = fn if "hopper" in fn or "attention_kernel" in fn \
+                    else None
                 if fn:
                     counts[fn] = 0
             elif fn and "HGMMA" in ln:
@@ -4364,11 +4367,86 @@ VIT_THRESHOLDS = ((VIT_ROWS, 64, VIT_DIM), (VIT_ROWS, 128, VIT_DIM),
                   (4096, VIT_DIM, VIT_DIM), (8448, VIT_DIM, VIT_DIM))
 
 
+# the attention kernel's shapes (chips, tokens, heads): the main path's
+# chunk first, then chip boundaries, the tail tiles of 128 keys and one
+# query tile
+VIT_ATTN_SHAPES = ((VIT_CHIPS, VIT_TOKENS, VIT_HEADS), (3, 77, 2), (2, 1, 1),
+                   (2, 64, 1), (2, 65, 3), (2, 128, 1), (2, 129, 1),
+                   (1, 1024, 12))
+
+
+def vit_attention_rows(g) -> list:
+    """Phase 30a's attention: the kernel against its plain version on the
+    same card at each of VIT_ATTN_SHAPES, within one bf16 ulp + 2^-8 sum_j
+    p_j |v_j| + 1e-6, finite, and two calls bitwise equal; the main path's
+    shape (the first) timed beside SDPA and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from satae_torch.kernels.attention import attention, attention_plain
+
+    dev = torch.device("cuda")
+    rows = []
+    for chips, tokens, heads in VIT_ATTN_SHAPES:
+        what = f"attention {chips}x{tokens}x{heads}x64"
+        # qkv at the scale a block's LayerNorm'd input gives it
+        qkv = (torch.randn(chips * tokens, 3 * heads * 64, generator=g,
+                           device=dev) * 1.5).to(torch.bfloat16)
+        out = attention(qkv, chips, heads)
+        ref = attention_plain(qkv, chips, heads)
+        err = (out.float() - ref.float()).abs()
+        # the kernel rounds P to bf16 (2^-9 of each weight) before P V, so
+        # an output's error scales with sum_j p_j |v_j| (the plain version
+        # on |v|), not with the output, which may cancel; then the output's
+        # own rounding
+        e = 2 * heads * 64
+        scale = attention_plain(
+            torch.cat([qkv[:, :e], qkv[:, e:].abs()], 1), chips,
+            heads).float()
+        lim = bf16_ulp(ref) + scale * 2.0 ** -8 + 1e-6
+        check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+        check(bool((err <= lim).all()), f"{what}: max |err| "
+              f"{float(err.max()):.3g}, {float((err / lim).max()):.3g} x the "
+              "bound of one bf16 ulp + 2^-8 sum_j p_j |v_j|")
+        check(torch.equal(out, attention(qkv, chips, heads)),
+              f"{what}: two calls differ")
+        row = dict(kernel="attention", shape=[chips, tokens, heads, 64],
+                   max_abs_err=float(err.max()),
+                   max_err_over_bound=float((err / lim).max()),
+                   mean_abs_err=float(err.mean()),
+                   bit_equal=float((out == ref).float().mean()))
+        msg = ""
+        if not rows:  # the main path's shape: timed
+            flops = 4.0 * chips * heads * tokens ** 2 * 64
+            nbytes = chips * tokens * 4 * heads * 64 * 2.0
+            b = bounds(flops, nbytes, bf16=True)
+            us = device_us(lambda: attention(qkv, chips, heads),
+                           b["bound_ms"] * 1e3, "attention")
+            q, k, v = qkv.view(chips, tokens, 3, heads, 64) \
+                .permute(2, 0, 3, 1, 4)
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            sdpa_us = device_us(
+                lambda: F.scaled_dot_product_attention(q, k, v),
+                b["bound_ms"] * 1e3, "SDPA")
+            row.update(device_us=us, sdpa_device_us=sdpa_us,
+                       bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"])
+            msg = (f"{us:.1f} us (SDPA {sdpa_us:.1f}, bound "
+                   f"{b['bound_ms'] * 1e3:.1f} by {b['bound_by']}), ")
+            del q, k, v
+        rows.append(row)
+        print(f"{what}: {msg}max |err| {row['max_abs_err']:.3g}, "
+              f"{row['max_err_over_bound']:.3g} of the bound, bit-equal "
+              f"{row['bit_equal']:.5f}", flush=True)
+        del qkv, out, ref, err, lim, scale
+    return rows
+
+
 def vit_kernels_phase(card: str) -> dict:
     """Phase 30a: the attention and LayerNorm kernels and K1 at the ViT's
     shapes (fc1 with GELU in its epilogue) against their plain versions on
     the same card (TF32 off), each timed (device us) beside its bound and a
-    library yardstick: SDPA, F.layer_norm, bf16 torch.matmul. K1 on the
+    library yardstick: SDPA, F.layer_norm, bf16 torch.matmul; attention also
+    at the edge shapes of vit_attention_rows. K1 on the
     wide route fused_gemm takes there (one bf16 ulp + 1e-6, >= 99 %
     bit-equal) and, for comparison, on the 64 x 64 wgmma route; then both
     routes at and around the wide route's thresholds (VIT_THRESHOLDS)."""
@@ -4376,7 +4454,6 @@ def vit_kernels_phase(card: str) -> dict:
     import torch.nn.functional as F
 
     from satae_torch.kernels import _build
-    from satae_torch.kernels.attention import attention, attention_plain
     from satae_torch.kernels.layernorm import layer_norm, layer_norm_plain
     from satae_torch.kernels.matmul import (ACTS, fused_gemm,
                                             fused_gemm_wide,
@@ -4404,49 +4481,7 @@ def vit_kernels_phase(card: str) -> dict:
     def k1_wide_launch(a, wt, sh, act):  # the wide kernel, any shape it takes
         return k1_launch("gemm_wide", "satae_fused_gemm_bf16_wide", a, wt,
                          sh, act, ())
-    # attention: a chunk's qkv at the scale a block's LayerNorm'd input
-    # gives it, and the 589-key tail
-    qkv = (torch.randn(VIT_ROWS, 3 * VIT_DIM, generator=g, device=dev)
-           * 1.5).to(torch.bfloat16)
-    out = attention(qkv, VIT_CHIPS, VIT_HEADS)
-    ref = attention_plain(qkv, VIT_CHIPS, VIT_HEADS)
-    err = (out.float() - ref.float()).abs()
-    # the kernel rounds P to bf16 (2^-9 of each weight) before P V, so an
-    # output's error scales with sum_j p_j |v_j| (the plain version on |v|),
-    # not with the output, which may cancel; then the output's own rounding
-    scale = attention_plain(
-        torch.cat([qkv[:, :2 * VIT_DIM], qkv[:, 2 * VIT_DIM:].abs()], 1),
-        VIT_CHIPS, VIT_HEADS).float()
-    lim = bf16_ulp(ref) + scale * 2.0 ** -8 + 1e-6
-    check(bool(torch.isfinite(out).all()), "attention: non-finite output")
-    check(bool((err <= lim).all()), f"attention: max |err| "
-          f"{float(err.max()):.3g}, {float((err / lim).max()):.3g} x the "
-          "bound of one bf16 ulp + 2^-8 sum_j p_j |v_j|")
-    check(torch.equal(out, attention(qkv, VIT_CHIPS, VIT_HEADS)),
-          "attention: two calls differ")
-    flops = 4.0 * VIT_CHIPS * VIT_HEADS * VIT_TOKENS ** 2 * 64
-    nbytes = VIT_ROWS * 4 * VIT_DIM * 2.0
-    b = bounds(flops, nbytes, bf16=True)
-    us = device_us(lambda: attention(qkv, VIT_CHIPS, VIT_HEADS),
-                   b["bound_ms"] * 1e3, "attention")
-    q, k, v = qkv.view(VIT_CHIPS, VIT_TOKENS, 3, VIT_HEADS, 64) \
-        .permute(2, 0, 3, 1, 4)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    sdpa_us = device_us(lambda: F.scaled_dot_product_attention(q, k, v),
-                        b["bound_ms"] * 1e3, "SDPA")
-    rows.append(dict(kernel="attention", shape=[VIT_CHIPS, VIT_TOKENS,
-                                                VIT_HEADS, 64],
-                     max_abs_err=float(err.max()),
-                     max_err_over_bound=float((err / lim).max()),
-                     mean_abs_err=float(err.mean()),
-                     bit_equal=float((out == ref).float().mean()),
-                     device_us=us, sdpa_device_us=sdpa_us,
-                     bound_us=b["bound_ms"] * 1e3, bound_by=b["bound_by"]))
-    print(f"attention {VIT_CHIPS}x{VIT_TOKENS}x{VIT_HEADS}x64: "
-          f"{us:.1f} us (SDPA {sdpa_us:.1f}, bound {b['bound_ms'] * 1e3:.1f}"
-          f" by {b['bound_by']}), max |err| {float(err.max()):.3g}",
-          flush=True)
-    del qkv, out, ref, q, k, v, err, lim, scale
+    rows += vit_attention_rows(g)
     # LayerNorm, plain and with the residual add
     x = (torch.randn(VIT_ROWS, VIT_DIM, generator=g, device=dev) * 3
          + 0.5).to(torch.bfloat16)
@@ -4670,24 +4705,28 @@ def vit_main() -> int:
     # checked after the phase, whose times a failed build still reports
     spilled = len(ptxas) != 6 or any(r["spill_stores"] or r["spill_loads"]
                                      for r in ptxas)
-    log = (_build.build_dir() / "gemm_wide.log").read_text()
-    notes = [ln.strip() for ln in log.splitlines()
-             if "C75" in ln or "setmaxnreg" in ln]
-    print(f"  ptxas notes of the wide K1: {notes or 'none'}", flush=True)
+    notes = [f"{name}: {ln.strip()}" for name in ("gemm_wide", "attention")
+             for ln in (_build.build_dir() / f"{name}.log").read_text()
+             .splitlines() if "C75" in ln or "setmaxnreg" in ln]
+    print(f"  ptxas notes of the wide K1 and attention: {notes or 'none'}",
+          flush=True)
     if spilled:  # where: the SASS around each local-memory access
         tool = str(Path(_build.nvcc_path()).parent / "cuobjdump")
-        sass = subprocess.run(
-            [tool, "-sass", str(_build.build_all()["gemm_wide"])],
-            capture_output=True, text=True, timeout=300).stdout.splitlines()
-        for i, ln in enumerate(sass):
-            if "Function :" in ln or "STL" in ln or "LDL" in ln:
-                near = sass[max(i - 2, 0):i + 2]
-                print("  sass " + " | ".join(x.strip()[:60] for x in near),
-                      flush=True)
-    hgmma = {k: v for k, v in hgmma_counts().items() if "wide" in k}
-    print(f"  SASS HGMMA of the wide K1: {hgmma}", flush=True)
-    check(len(hgmma) == 4 and all(hgmma.values()),
-          f"wide K1 instantiations with HGMMA: {hgmma}")
+        for name in ("gemm_wide", "attention"):
+            sass = subprocess.run(
+                [tool, "-sass", str(_build.build_all()[name])],
+                capture_output=True, text=True,
+                timeout=300).stdout.splitlines()
+            for i, ln in enumerate(sass):
+                if "Function :" in ln or "STL" in ln or "LDL" in ln:
+                    near = sass[max(i - 2, 0):i + 2]
+                    print("  sass " + " | ".join(x.strip()[:60]
+                                                 for x in near), flush=True)
+    hgmma = {k: v for k, v in hgmma_counts().items()
+             if "wide" in k or "attention" in k}
+    print(f"  SASS HGMMA of the wide K1 and attention: {hgmma}", flush=True)
+    check(len(hgmma) == 5 and all(hgmma.values()),
+          f"wide K1 and attention instantiations with HGMMA: {hgmma}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {"card": card, "ptxas": ptxas, "ptxas_notes": notes}
@@ -4704,8 +4743,8 @@ def vit_main() -> int:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out, indent=1, default=str))
     check(not spilled, f"attention / LayerNorm / wide K1: {ptxas}")
-    check(not notes, f"wide K1: ptxas serialised its wgmmas or ignored "
-          f"setmaxnreg: {notes}")
+    check(not notes, f"wide K1 / attention: ptxas serialised wgmmas or "
+          f"ignored setmaxnreg: {notes}")
     print(json.dumps({"ok": True, "card": card}), flush=True)
     return 0
 

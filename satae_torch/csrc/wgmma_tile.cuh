@@ -332,6 +332,28 @@ __device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 
+// d (+)= A @ B for one m64n64k16 bf16 product, float32 accumulate, A from
+// registers (the .rs form: the warp's m16n8k16 A fragment, rows g and g + 8
+// of its 16, k 2q, 2q + 1 and + 8, two bf16 a register, the lower k in the
+// low half -- the layout of a float32 accumulator's columns rounded in
+// pairs), B in shared memory; kTB: B MN-major (the transpose bit).
+template <int kTB>
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(kTB));
+}
+
 
 template <int kN, int kTA, int kTB>
 __device__ __forceinline__ void mma_k16(float (&d)[kN / 2], uint64_t da,

@@ -172,14 +172,18 @@ def _textbook_attention(qkv, chips, heads):
     return out
 
 
+@pytest.mark.parametrize("tokens", [1, 65, 129, 589])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_plain_is_the_textbook_formula_at_589_tokens(dtype):
-    """Two chips of 589 tokens (the tail of 9 x 64 + 13 keys), two heads of
-    64: the plain version is the formula in float32, rounded once."""
+def test_attention_plain_is_the_textbook_formula_at_589_tokens(dtype,
+                                                               tokens):
+    """Two chips of 589 tokens (the kernel's last key tile of 128 holds 77),
+    and at the edges the kernel's tiles meet: one token, 65 and 129 (one key
+    past a tile of 64 and of 128); two heads of 64: the plain version is the
+    formula in float32, rounded once."""
     g = torch.Generator().manual_seed(5)
-    qkv = (torch.randn(2 * 589, 3 * 2 * 64, generator=g) * 1.5).to(dtype)
+    qkv = (torch.randn(2 * tokens, 3 * 2 * 64, generator=g) * 1.5).to(dtype)
     got = attention(qkv, 2, 2)
-    assert got.dtype == dtype and got.shape == (2 * 589, 128)
+    assert got.dtype == dtype and got.shape == (2 * tokens, 128)
     assert torch.equal(got, attention_plain(qkv, 2, 2))
     want = _textbook_attention(qkv, 2, 2)
     tol = 1e-5 if dtype == torch.float32 else 2 ** -8
