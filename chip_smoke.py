@@ -8,6 +8,7 @@
     python3 chip_smoke.py --parallel       # build, phases 10 and 12, 25-28
     python3 chip_smoke.py --example        # the build and phase 29 alone
     python3 chip_smoke.py --vit            # the build and phase 30 alone
+    python3 chip_smoke.py --swin           # the build and phase 31 alone
 
 Phases, in order; any failure exits non-zero:
 
@@ -418,19 +419,21 @@ K2_SHAPES = tuple((CHUNK, 64 >> i, c, c2) for i, (c, c2) in enumerate(
 # the kernel instantiations of a build (ptxas report: K1 16 mma.sync + 9
 # wgmma, which the batched entries launch too, one of them the bf16 GELU
 # epilogue's, and the wide kernel's 4, one per activation; K2 4 mma.sync + 5
-# wgmma; the ViT encoder's attention and LayerNorm, one each) and those of
-# them on wgmma (fused_gemm_tma_kernel x 4 layouts x float32 and bf16,
+# wgmma; the ViT encoder's attention, LayerNorm in its two modes, and the
+# Swin encoder's window attention) and those of them on wgmma
+# (fused_gemm_tma_kernel x 4 layouts x float32 and bf16,
 # fused_gemm_wide_kernel x 4, conv_im2col_tma_kernel: bf16 x 2 N
 # tiles and float32, conv_rows_kernel in float32 and bf16, the ViT's
 # attention_kernel)
-N_INSTANTIATIONS = 40
+N_INSTANTIATIONS = 42
 N_WGMMA = 19
 
 
 def hgmma_counts() -> dict:
     """{kernel: HGMMA instructions in its SASS} for every kernel of the
-    build in namespace satae::hopper, and the ViT's attention kernel
-    (cuobjdump -sass of the libraries)."""
+    build in namespace satae::hopper, and the ViT's attention kernel (not
+    the Swin's window attention, on mma.sync; cuobjdump -sass of the
+    libraries)."""
     from satae_torch.kernels import _build
 
     tool = str(Path(_build.nvcc_path()).parent / "cuobjdump")
@@ -442,7 +445,8 @@ def hgmma_counts() -> dict:
         for ln in sass.splitlines():
             if "Function :" in ln:
                 fn = ln.split("Function :")[1].strip()
-                fn = fn if "hopper" in fn or "attention_kernel" in fn \
+                fn = fn if "hopper" in fn or ("attention_kernel" in fn
+                                              and "window" not in fn) \
                     else None
                 if fn:
                     counts[fn] = 0
@@ -475,7 +479,7 @@ def counts(**given) -> dict:
     every kernel and dtype not in ``given`` at 0."""
     names = ("fused_gemm", "fused_gemm_bwd", "conv2d_bn_act",
              "fused_gemm_batched", "fused_gemm_batched_bwd", "attention",
-             "layer_norm", "fused_gemm_wide")
+             "layer_norm", "fused_gemm_wide", "window_attention")
     out = {n + s: 0 for s in ("", "_bf16") for n in names}
     check(set(given) <= set(out), f"unknown kernel names {set(given)}")
     out.update(given)
@@ -1293,7 +1297,7 @@ def main() -> int:
     check(len(ptxas) == N_INSTANTIATIONS, f"{len(ptxas)} kernel "
           f"instantiations in the ptxas report, expected {N_INSTANTIATIONS} "
           "(K1 16 mma.sync + 9 wgmma + 4 wide, K2 4 mma.sync + 5 wgmma "
-          "+ 1, attention 1, LayerNorm 1)")
+          "+ 1, attention 1, LayerNorm 2, window attention 1)")
     spilled = [r["kernel"] for r in ptxas
                if r["spill_stores"] or r["spill_loads"]]
     check(not spilled, f"ptxas spills registers in {spilled}")
@@ -4703,7 +4707,7 @@ def vit_main() -> int:
               f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded",
               flush=True)
     # checked after the phase, whose times a failed build still reports
-    spilled = len(ptxas) != 6 or any(r["spill_stores"] or r["spill_loads"]
+    spilled = len(ptxas) != 7 or any(r["spill_stores"] or r["spill_loads"]
                                      for r in ptxas)
     notes = [f"{name}: {ln.strip()}" for name in ("gemm_wide", "attention")
              for ln in (_build.build_dir() / f"{name}.log").read_text()
@@ -4723,7 +4727,7 @@ def vit_main() -> int:
                     print("  sass " + " | ".join(x.strip()[:60]
                                                  for x in near), flush=True)
     hgmma = {k: v for k, v in hgmma_counts().items()
-             if "wide" in k or "attention" in k}
+             if "wide" in k or "attention_kernel" in k}
     print(f"  SASS HGMMA of the wide K1 and attention: {hgmma}", flush=True)
     check(len(hgmma) == 5 and all(hgmma.values()),
           f"wide K1 and attention instantiations with HGMMA: {hgmma}")
@@ -4745,6 +4749,279 @@ def vit_main() -> int:
     check(not spilled, f"attention / LayerNorm / wide K1: {ptxas}")
     check(not notes, f"wide K1 / attention: ptxas serialised wgmmas or "
           f"ignored setmaxnreg: {notes}")
+    print(json.dumps({"ok": True, "card": card}), flush=True)
+    return 0
+
+
+# phase 31's shapes: SatlasPretrain's Sentinel-2 Swin-v2-B on a 64-chip
+# serving chunk of 512-px chips (stage sides 128, 64, 32, 16; 4, 8, 16 and
+# 32 heads of 32): the window attention of each stage, unshifted and
+# shifted (chips, side, heads, shift), and the post-mode LayerNorm's (rows,
+# width)
+SWIN_CHIPS = 64
+SWIN_STAGES = ((128, 4), (64, 8), (32, 16), (16, 32))
+SWIN_WATTN_SHAPES = tuple((SWIN_CHIPS, side, heads, shift)
+                          for side, heads in SWIN_STAGES for shift in (0, 4))
+SWIN_LN_SHAPES = tuple((SWIN_CHIPS * side * side, 32 * heads)
+                       for side, heads in SWIN_STAGES)
+
+
+def swin_kernels_phase(card: str) -> dict:
+    """Phase 31a: the window-attention kernel at SWIN_WATTN_SHAPES and the
+    LayerNorm kernel's post mode at SWIN_LN_SHAPES against their plain
+    versions on the same card, at the bounds of
+    tests/test_torch_port_window_attention_card.py (window attention: one
+    bf16 ulp + 2^-8 sum_j p_j |v_j| + 1e-6; post LayerNorm: one bf16 ulp +
+    2^-16 (|h| + 8)), finite, one launch a call, two calls bitwise equal,
+    each timed (device us) beside its bound."""
+    import torch
+
+    from satae_torch.kernels.layernorm import (layer_norm, layer_norm_post,
+                                               layer_norm_post_plain)
+    from satae_torch.kernels.window_attention import (window_attention,
+                                                      window_attention_plain)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    rows = []
+    for chips, side, heads, shift in SWIN_WATTN_SHAPES:
+        what = f"window_attention {chips}x{side}^2x{heads}x32 shift {shift}"
+        c, e = 32 * heads, 64 * heads
+        # qkv at the scale a post-norm residual stream gives it; a bias as
+        # 16 sigmoid(CPB) spans; logit scales on both sides of the clamp
+        qkv = (torch.randn(chips * side * side, 3 * c, generator=g,
+                           device=dev) * 1.5).to(torch.bfloat16)
+        bias = 16 * torch.sigmoid(torch.randn(heads, 64, 64, generator=g,
+                                              device=dev))
+        tau = torch.rand(heads, generator=g, device=dev) \
+            * (math.log(100.0) + 0.5 - math.log(10.0)) + math.log(10.0)
+        scale = torch.clamp(tau, max=math.log(100.0)).exp()
+        args = (chips, side, heads, 8, shift, bias, scale)
+        before = window_attention.launches["_bf16"]
+        out = window_attention(qkv, *args)
+        check(window_attention.launches["_bf16"] == before + 1,
+              f"{what}: not one launch")
+        ref = window_attention_plain(qkv, *args)
+        mag = window_attention_plain(
+            torch.cat([qkv[:, :e], qkv[:, e:].abs()], 1), *args).float()
+        lim = bf16_ulp(ref) + mag * 2.0 ** -8 + 1e-6
+        err = (out.float() - ref.float()).abs()
+        check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+        check(bool((err <= lim).all()), f"{what}: max |err| "
+              f"{float(err.max()):.3g}, {float((err / lim).max()):.3g} x the "
+              "bound of one bf16 ulp + 2^-8 sum_j p_j |v_j|")
+        check(torch.equal(out, window_attention(qkv, *args)),
+              f"{what}: two calls differ")
+        tokens = chips * side * side
+        b = bounds(4.0 * 64 * c * tokens,
+                   tokens * 4 * c * 2.0 + heads * 64 * 64 * 4.0, bf16=True)
+        us = device_us(lambda: window_attention(qkv, *args),
+                       b["bound_ms"] * 1e3, what)
+        rows.append(dict(kernel="window_attention",
+                         shape=[chips, side, heads, shift],
+                         max_abs_err=float(err.max()),
+                         max_err_over_bound=float((err / lim).max()),
+                         bit_equal=float((out == ref).float().mean()),
+                         device_us=us, bound_us=b["bound_ms"] * 1e3,
+                         bound_by=b["bound_by"]))
+        print(f"{what}: {us:.1f} us (bound {b['bound_ms'] * 1e3:.1f} by "
+              f"{b['bound_by']}), max |err| {float(err.max()):.3g}, "
+              f"{rows[-1]['max_err_over_bound']:.3g} of the bound, "
+              f"bit-equal {rows[-1]['bit_equal']:.5f}", flush=True)
+        del qkv, out, ref, mag, lim, err
+    for m, n in SWIN_LN_SHAPES:
+        what = f"layer_norm_post {m}x{n}"
+        h = (torch.randn(m, n, generator=g, device=dev) * 3) \
+            .to(torch.bfloat16)
+        x = (torch.randn(m, n, generator=g, device=dev) * 0.7 + 0.2) \
+            .to(torch.bfloat16)
+        w = torch.randn(n, generator=g, device=dev) * 0.1 + 1.0
+        bb = torch.randn(n, generator=g, device=dev) * 0.1
+        want = layer_norm_post_plain(h.clone(), x, w, bb, 1e-5)
+        got, again = h.clone(), h.clone()
+        before = layer_norm.launches["_bf16"]  # both modes count there
+        check(layer_norm_post(got, x, w, bb, 1e-5) is got,
+              f"{what}: not in place")
+        check(layer_norm.launches["_bf16"] == before + 1,
+              f"{what}: not one launch")
+        # the row's float32 sums in another order, each rounded once to
+        # bf16: one ulp, or where the add cancels near 0 that difference
+        lim = bf16_ulp(want) + 2.0 ** -16 * (h.float().abs() + 8.0)
+        err = (got.float() - want.float()).abs()
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+        check(bool((err <= lim).all()), f"{what}: max |err| "
+              f"{float(err.max()):.3g}, {float((err / lim).max()):.3g} x the "
+              "bound of one bf16 ulp + 2^-16 (|h| + 8)")
+        layer_norm_post(again, x, w, bb, 1e-5)
+        check(torch.equal(got, again), f"{what}: two calls differ")
+        b = bounds(10.0 * m * n, m * n * 2.0 * 3, bf16=True)
+        us = device_us(lambda: layer_norm_post(again, x, w, bb, 1e-5),
+                       b["bound_ms"] * 1e3, what)
+        rows.append(dict(kernel="layer_norm_post", shape=[m, n],
+                         max_abs_err=float(err.max()),
+                         max_err_over_bound=float((err / lim).max()),
+                         bit_equal=float((got == want).float().mean()),
+                         device_us=us, bound_us=b["bound_ms"] * 1e3,
+                         bound_by=b["bound_by"]))
+        print(f"{what}: {us:.1f} us (bound {b['bound_ms'] * 1e3:.1f} by "
+              f"{b['bound_by']}), max |err| {float(err.max()):.3g}, "
+              f"{rows[-1]['max_err_over_bound']:.3g} of the bound, "
+              f"bit-equal {rows[-1]['bit_equal']:.5f}", flush=True)
+        del h, x, want, got, again, lim, err
+    return {"card": card, "rows": rows}
+
+
+def swin_encoder_phase(card: str) -> dict:
+    """Phase 31b: the Swin encoder (swin_encoder_infer on weights folded by
+    fold_swin, from tests/satlas_swin_reference.py's seeded init) on a
+    64-chip chunk of int16 chips: exact launch counts, zeroed just before
+    the call (K1 100 bf16, of them on the wide route those k1_wide picks;
+    window attention 24; LayerNorm 52: the embedding's, two a block, one a
+    merge; nothing else of the port), K1's route for each product, no
+    roll kernel and no library attention or LayerNorm kernel in the
+    profile of a call, the
+    latents of 8 chips within the cell's latent_gap limit (0.04 relative
+    L2) of the plain float32 reference, and the call timed."""
+    import torch
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import satlas_swin_reference as SR
+    from satae_torch import config as C
+    from satae_torch import kernels
+    from satae_torch.kernels.matmul import k1_loader, k1_wide
+    from satae_torch.models import fast_infer as FI
+    from satae_torch.models import swin as SW
+
+    dev = torch.device("cuda")
+    sc = C.SATLAS_SWINV2B_S2MS
+    m = {k: getattr(sc, k) for k in (
+        "img_size", "patch_size", "in_chans", "embed_dim", "depths",
+        "num_heads", "window_size", "mlp_ratio", "norm_eps", "band_scale")}
+    p = SR.init_params(m, torch.Generator(device=dev).manual_seed(31), dev)
+    enc = SW.SwinEncoder(sc).to(dev).eval()
+    enc.load_state_dict(SW.swin_state_dict(p))
+    fs = FI.fold_swin(enc, sc, torch.bfloat16)
+    del enc
+    # chips that differ: a level per chip and band, a stripe texture and
+    # noise, the 8-bit bands in [0, 255] and the 16-bit ones in [0, 16,000]
+    n, s = SWIN_CHIPS, sc.img_size
+    g = torch.Generator(device=dev).manual_seed(32)
+    top = torch.tensor([255.0] * 3 + [16000.0] * (sc.in_chans - 3),
+                       device=dev).view(1, -1, 1, 1)
+    ax = torch.arange(s, device=dev, dtype=torch.float32)
+    freq = torch.rand(n, 1, 1, 1, generator=g, device=dev) * 0.2 + 0.02
+    wave = torch.sin(freq * (ax.view(1, 1, -1, 1) + ax.view(1, 1, 1, -1)))
+    level = torch.rand(n, sc.in_chans, 1, 1, generator=g, device=dev) \
+        * 0.8 + 0.05
+    x = (level + 0.1 * wave) * top
+    x += torch.randn(x.shape, generator=g, device=dev) * 0.02 * top
+    chips = torch.minimum(x.clamp_(min=0), top).round_().to(torch.int16)
+    del x, wave
+
+    # K1's route for each product of the chunk, on buffers of its shape
+    routes = collections.Counter()
+    prods = [("patch", n * sc.sides[0] ** 2, fs.patch)]
+    for i, blocks in enumerate(fs.stages):
+        rows_i = n * sc.sides[i] ** 2
+        for blk in blocks:
+            prods += [(f"s{i + 1}.{nm}", rows_i, getattr(blk, nm))
+                      for nm in ("qkv", "proj", "fc1", "fc2")]
+        if i < len(fs.merges):
+            prods.append((f"m{i + 1}", rows_i // 4, fs.merges[i].reduction))
+    route_of = {}
+    for name, rows_i, fl in prods:
+        a = torch.empty(rows_i, fl.w.shape[0], device=dev,
+                        dtype=torch.bfloat16)
+        r = "wide" if k1_wide(a, fl.w) else k1_loader(a, fl.w)
+        routes[r] += 1
+        key = f"{name} {rows_i}x{fl.w.shape[0]}x{fl.w.shape[1]} {fl.act}"
+        if route_of.setdefault(key, r) != r:
+            check(False, f"K1 {key}: routes {route_of[key]} and {r}")
+        del a
+    for key, r in route_of.items():
+        print(f"  K1 {key}: {r}", flush=True)
+
+    FI.swin_encoder_infer(fs, chips)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    z = FI.swin_encoder_infer(fs, chips)
+    torch.cuda.synchronize()
+    got = kernels.launch_counts()
+    blocks = sum(sc.depths)
+    want = counts(fused_gemm_bf16=len(prods),
+                  fused_gemm_wide_bf16=routes["wide"],
+                  window_attention_bf16=blocks,
+                  layer_norm_bf16=1 + 2 * blocks + len(fs.merges))
+    check(len(prods) == 1 + 4 * blocks + len(fs.merges) == 100,
+          f"{len(prods)} K1 products, expected 100")
+    check(got == want, f"Swin encoder launches {got}, expected {want}")
+    records, _ = device_records(lambda: FI.swin_encoder_infer(fs, chips), 1,
+                                pad_s=0.05, warm=True)
+    names = sorted({e.name for e in records})
+    banned = [nm for nm in names if "roll_cuda_kernel" in nm or (
+        any(b in nm.lower() for b in (
+            "flash", "fmha", "attention_kernel_", "efficient_attention",
+            "layer_norm_kernel", "layernorm_kernel"))
+        and "satae" not in nm)]
+    check(not banned, f"roll or library kernels on the Swin path: {banned}")
+    sel = chips[:8]
+    with SR.no_tf32():
+        z_ref = SR.latents(p, m, sel)
+    rel = float(((z[:8] - z_ref).norm(dim=1) / z_ref.norm(dim=1)).max())
+    print(f"Swin encoder, {n} chips of {s} px: launches {got}; K1 routes "
+          f"{dict(routes)}; latent worst relative L2 gap {rel:.4g} of the "
+          "float32 reference", flush=True)
+    check(bool(torch.isfinite(z).all()), "non-finite Swin latents")
+    check(rel < 0.04, f"Swin latents {rel:.4g} off the float32 reference")
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: FI.swin_encoder_infer(fs, chips), reps=5, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"Swin encoder of {n} chips: {ms:.2f} ms a chunk, "
+          f"{n / ms * 1e3:.0f} chips/s; memory peak {peak / 1e9:.2f} GB",
+          flush=True)
+    device_ops = collections.Counter()
+    for e in records:
+        device_ops[e.name[:100]] += (e.time_range.end - e.time_range.start)
+    return {"launches": got, "k1_routes": route_of,
+            "kernel_names": names[:60], "latent_rel_l2": rel,
+            "chunk_ms": ms, "memory_peak_bytes": peak,
+            "device_us_by_op": device_ops.most_common(15)}
+
+
+def swin_main() -> int:
+    """The build and phase 31 (the Swin encoder's kernels and a chunk
+    through it) alone -> chiprun_out/swin.json."""
+    import torch
+
+    from satae_torch.kernels import _build
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    card = card_line()
+    print(card, flush=True)
+    t0 = time.perf_counter()
+    _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.2f} s", flush=True)
+    report = _build.ptxas_report()
+    check(len(report) == N_INSTANTIATIONS, f"{len(report)} kernel "
+          f"instantiations in the ptxas report, expected {N_INSTANTIATIONS}")
+    ptxas = [r for r in report
+             if r["source"] in ("window_attention", "layernorm")]
+    for r in ptxas:
+        print(f"  ptxas {r['kernel']}: {r['registers']} registers, "
+              f"{r['smem']} B static shared memory, spills "
+              f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded",
+              flush=True)
+    check(len(ptxas) == 3 and not any(r["spill_stores"] or r["spill_loads"]
+                                      for r in ptxas),
+          f"window attention / LayerNorm: {ptxas}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"card": card, "ptxas": ptxas}
+    out["kernels"] = swin_kernels_phase(card)
+    out["encoder"] = swin_encoder_phase(card)
+    path = REPO / "chiprun_out" / "swin.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=1, default=str))
     print(json.dumps({"ok": True, "card": card}), flush=True)
     return 0
 
@@ -5390,8 +5667,10 @@ if __name__ == "__main__":
         sys.exit(parallel_main())
     if sys.argv[1:] == ["--vit"]:
         sys.exit(vit_main())
+    if sys.argv[1:] == ["--swin"]:
+        sys.exit(swin_main())
     if len(sys.argv) > 1:
         raise SystemExit(f"usage: {sys.argv[0]} [--ab PARENT_DIR | "
                          "--split-sweep | --vmap | --parallel | "
-                         "--example | --vit]")
+                         "--example | --vit | --swin]")
     sys.exit(main())

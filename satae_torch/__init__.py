@@ -5,7 +5,8 @@ reference config, optionally into a run directory in satae's format), and
 ``satae_torch.SatAEPipeline`` loads, saves, evaluates or serves a fitted one
 (``encode``, ``predict``) on hand-written CUDA kernels
 (``satae_torch.kernels``), with the autoencoder's encoder or a frozen ViT
-encoder (``ViTConfig``; ``PRITHVI_EO1_100M``). It imports neither JAX nor
+encoder (``ViTConfig``; ``PRITHVI_EO1_100M``; ``SwinConfig``;
+``SATLAS_SWINV2B_S2MS``). It imports neither JAX nor
 the ``satae`` package.
 """
 
@@ -20,6 +21,8 @@ from satae_torch.config import (  # noqa: F401
     PipelineConfig,
     PRITHVI_EO1_100M,
     RuntimeConfig,
+    SATLAS_SWINV2B_S2MS,
+    SwinConfig,
     ViTConfig,
     default_config,
 )

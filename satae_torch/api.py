@@ -67,9 +67,16 @@ chips (N, bands, frames, H, W), uploaded as int16 and normalised per band
 on the card; ``encode``, ``predict`` and ``predict_proba`` (and their
 ``_batched`` forms) serve it through the same chunks and upload, each chunk
 on ``fast_infer.vit_encoder_infer`` (K1 for every Linear, the attention
-and LayerNorm kernels, bf16 on the card). Training it (MAE pretraining),
-decoding and the run-directory formats are the autoencoder's alone: those
-methods raise.
+and LayerNorm kernels, bf16 on the card). ``encoder=SwinConfig(...)``
+serves a Swin Transformer V2 encoder the same way (satae_torch.models.swin:
+torchvision's ``swin_v2_b`` features, as SatlasPretrain ships them for
+Sentinel-2, loaded under torchvision's keys, a wrapper's ``backbone.``
+prefix stripped): int16 chips (N, bands, H, W), each chunk on
+``fast_infer.swin_encoder_infer`` (K1, the window-attention kernel and the
+LayerNorm kernel in both modes), the MLP on its ``latent_dim`` = 8 x
+``embed_dim``. Training either (MAE or Satlas pretraining), decoding and
+the run-directory formats are the autoencoder's alone: those methods
+raise.
 
 ``runtime.n_devices = N`` runs satae's multi-device paths over a world of
 N ranks, one process and one device each (satae_torch.parallel: a process
@@ -93,12 +100,13 @@ import json
 import time
 import warnings
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from satae_torch.config import PipelineConfig, ViTConfig, default_config
+from satae_torch.config import (PipelineConfig, SwinConfig, ViTConfig,
+                                default_config)
 from satae_torch.data.ingest import RawDataset, load_dataset
 from satae_torch.data.pipeline import ArrayDataset, make_splits
 from satae_torch.eval import metrics as M
@@ -106,6 +114,7 @@ from satae_torch.io import checkpoint, convert
 from satae_torch.models import fast_infer
 from satae_torch.models.mlp import MLP
 from satae_torch.models.supervised_ae import SupervisedAE
+from satae_torch.models.swin import SwinEncoder, swin_state_dict
 from satae_torch.models.vit import ViTEncoder, encoder_state_dict
 from satae_torch.nn.layers import float32_convs
 from satae_torch.parallel import make_grid_mesh, make_mesh
@@ -141,6 +150,18 @@ def resolve_device(device=None) -> torch.device:
                 "pass device='cpu' to run the plain PyTorch path on the CPU")
         device = "cuda"
     return local_device(device)
+
+
+# the frozen encoder families: config -> (module, the checkpoint's keys it
+# loads, fold)
+FROZEN = {ViTConfig: (ViTEncoder, encoder_state_dict, fast_infer.fold_vit),
+          SwinConfig: (SwinEncoder, swin_state_dict, fast_infer.fold_swin)}
+FrozenConfig = Union[ViTConfig, SwinConfig]
+
+
+def _family(cfg) -> str:
+    """The encoder family's name: "ViT", "Swin"."""
+    return type(cfg).__name__[:-len("Config")]
 
 
 def serve_chunk(n: int, batch_size: int, n_devices: int = 1) -> int:
@@ -192,21 +213,27 @@ class FitSummary:
 
 class SatAEPipeline:
     """Autoencoder + MLP, fitted or loaded, run on ``device`` through the
-    kernels; with ``encoder`` a ViT encoder (loaded, frozen) + MLP."""
+    kernels; with ``encoder`` a ViT or Swin encoder (loaded, frozen) +
+    MLP."""
 
     def __init__(self, config: Optional[PipelineConfig] = None, device=None,
-                 encoder: Optional[ViTConfig] = None):
+                 encoder: Optional[FrozenConfig] = None):
         self.config = config or default_config()
         rt = self.config.runtime
-        self.vit_config = encoder
+        self.encoder_config = encoder
         if encoder is not None:
-            if self.config.model.latent_dim != encoder.embed_dim:
+            if type(encoder) not in FROZEN:
+                raise TypeError(f"encoder must be one of "
+                                f"{[t.__name__ for t in FROZEN]}, got "
+                                f"{type(encoder).__name__}")
+            if self.config.model.latent_dim != encoder.latent_dim:
                 raise ValueError(
-                    f"the MLP on the ViT's latents needs model.latent_dim = "
-                    f"embed_dim ({encoder.embed_dim}), got "
+                    f"the MLP on the {_family(encoder)} encoder's "
+                    f"latents needs model.latent_dim = its latent width "
+                    f"({encoder.latent_dim}), got "
                     f"{self.config.model.latent_dim}")
             if rt.n_devices:
-                raise ValueError("the ViT encoder is served on one device "
+                raise ValueError("a frozen encoder is served on one device "
                                  "(runtime.n_devices unset)")
         # the process group first (a no-op unless asked for), then this
         # rank's device; the mesh's shape is checked before any work
@@ -219,7 +246,7 @@ class SatAEPipeline:
                                  f"divisible by grid_dp ({rt.grid_dp})")
         self._meshes: Dict[str, Any] = {}
         self.ae: Optional[SupervisedAE] = None
-        self.vit: Optional[ViTEncoder] = None
+        self.frozen: Optional[torch.nn.Module] = None  # a FROZEN encoder
         self.mlp: Optional[MLP] = None
         self.classes = None
         # the run directory the autoencoder was loaded from (resolved), so
@@ -550,13 +577,17 @@ class SatAEPipeline:
         With a ViT ``encoder``, ``ae_pt`` is its ``state_dict`` under the
         source's keys (``patch_embed.proj.weight``, ``blocks.{i}.attn.qkv``,
         ...); a full MAE checkpoint's decoder and mask token are left out,
-        every other key must match."""
+        every other key must match. With a Swin ``encoder``, torchvision's
+        ``features.*`` keys, buffers included, under a wrapper's
+        ``backbone.backbone.`` or ``backbone.`` prefix or none; the final
+        ``norm``, the ``head`` and a wrapper's other keys are left out."""
         load = lambda p: p if isinstance(p, dict) else \
             torch.load(p, map_location="cpu", weights_only=True)
-        if self.vit_config is not None:
-            vit = ViTEncoder(self.vit_config)
-            vit.load_state_dict(encoder_state_dict(load(ae_pt)), strict=True)
-            self.vit = vit.to(self.device).eval()
+        if self.encoder_config is not None:
+            module, keys, _ = FROZEN[type(self.encoder_config)]
+            enc = module(self.encoder_config)
+            enc.load_state_dict(keys(load(ae_pt)), strict=True)
+            self.frozen = enc.to(self.device).eval()
         else:
             self._install_ae(load(ae_pt))
         self._ae_src_dir = None  # a foreign checkpoint, no run directory
@@ -621,14 +652,15 @@ class SatAEPipeline:
     # -- inference ---------------------------------------------------------
 
     def _require_ae(self, what: str) -> None:
-        if self.vit_config is not None:
+        if self.encoder_config is not None:
             raise NotImplementedError(
-                f"{what}: the ViT encoder is served frozen from its loaded "
-                "weights; its MAE pretraining, decoder and the run-directory "
-                "formats are not implemented (they are the autoencoder's)")
+                f"{what}: the {_family(self.encoder_config)} encoder "
+                "is served frozen from its loaded weights; its pretraining, "
+                "decoder and the run-directory formats are not implemented "
+                "(they are the autoencoder's)")
 
     def _encoder(self):
-        return self.ae if self.vit_config is None else self.vit
+        return self.ae if self.encoder_config is None else self.frozen
 
     def _require_fitted(self, mlp: bool = False) -> None:
         if self._encoder() is None:
@@ -652,10 +684,10 @@ class SatAEPipeline:
         if src is None or src[0] is not enc or src[1] is not self.mlp \
                 or src[2] != versions:
             dtype = self.config.compute_dtype
+            cfg = self.encoder_config
             self._folded = (
-                fast_infer.fold_encoder(enc.enc, dtype)
-                if self.vit_config is None else
-                fast_infer.fold_vit(enc, self.vit_config, dtype),
+                fast_infer.fold_encoder(enc.enc, dtype) if cfg is None else
+                FROZEN[type(cfg)][2](enc, cfg, dtype),
                 None if self.mlp is None else fast_infer.fold_mlp(self.mlp))
             self._folded_src = (enc, self.mlp, versions)
         return self._folded
@@ -672,8 +704,9 @@ class SatAEPipeline:
         encoded in the compute dtype, its latents chained into ``head`` on
         the device as float32 (satae's api.py:569-570), through ``fe``, the
         folded encoder (:class:`fast_infer.FoldedEncoder` on uint8 images,
-        :class:`fast_infer.FoldedViT` on int16 chips, normalised on the
-        card), which checks the input (``fe.host``). Returns per-chunk
+        :class:`fast_infer.FoldedViT` and :class:`fast_infer.FoldedSwin` on
+        int16 chips, normalised on the card), which checks the input
+        (``fe.host``). Returns per-chunk
         outputs covering n + pad rows (padding rows never mix with real
         ones: eval-mode BN uses running stats, every layer is per image).
         With ``runtime.n_devices`` each rank runs its rows of every chunk,

@@ -14,7 +14,10 @@ over multi-temporal, multispectral chips (MAE's encoder, as
 Prithvi-EO-1.0-100M has it), handed to ``SatAEPipeline(..., encoder=)``;
 ``ModelConfig`` then gives the MLP on its latents (``latent_dim`` the
 ViT's ``embed_dim``). :data:`PRITHVI_EO1_100M` holds that model's
-published widths.
+published widths. :class:`SwinConfig` is the third: a Swin Transformer V2
+over multispectral chips (torchvision's ``swin_v2_b``, as SatlasPretrain
+ships it for Sentinel-2), its latent ``latent_dim`` = 8 x ``embed_dim``
+wide; :data:`SATLAS_SWINV2B_S2MS` holds that model's published widths.
 """
 
 from __future__ import annotations
@@ -145,12 +148,97 @@ class ViTConfig:
         return int(self.embed_dim * self.mlp_ratio)
 
     @property
+    def latent_dim(self) -> int:
+        return self.embed_dim
+
+    @property
     def chip_shape(self) -> Tuple[int, int, int, int]:
         """One chip's (bands, frames, height, width)."""
         return (self.in_chans, self.num_frames, self.img_size, self.img_size)
 
 
 PRITHVI_EO1_100M = ViTConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinConfig:
+    """A Swin Transformer V2 encoder served frozen: chips (in_chans,
+    img_size, img_size) of int16 digital numbers, each band scaled by
+    ``band_scale`` and clipped to [0, 1], cut into patch_size x patch_size
+    patches embedded to ``embed_dim`` and LayerNorm'd, then four stages of
+    ``depths`` res-post-norm blocks (shifted-window cosine attention of
+    ``num_heads`` heads over window x window tokens with a continuous
+    position bias; an MLP of ``mlp_ratio`` x the width with the exact
+    GELU), a 2 x 2 patch merging (width doubled) between stages. The latent
+    is the mean of the last stage's tokens, 8 x ``embed_dim`` wide, without
+    a final LayerNorm.
+
+    The defaults are SatlasPretrain's Sentinel-2 Swin-v2-B
+    (``Sentinel2_SwinB_SI_MS``: torchvision's ``swin_v2_b`` taking 9 bands,
+    B04, B03, B02, B05, B06, B07, B08, B11, B12) at 512 px: the 8-bit TCI
+    bands scaled by 1/255 and the 16-bit ones by 1/8160. Every stage's side
+    must be a multiple of the window; a stage whose side equals the window
+    is not shifted (torchvision's rule)."""
+
+    img_size: int = 512
+    patch_size: int = 4
+    in_chans: int = 9
+    embed_dim: int = 128
+    depths: Tuple[int, ...] = (2, 2, 18, 2)
+    num_heads: Tuple[int, ...] = (4, 8, 16, 32)
+    window_size: int = 8
+    mlp_ratio: float = 4.0
+    norm_eps: float = 1e-5
+    band_scale: Tuple[float, ...] = (1 / 255,) * 3 + (1 / 8160,) * 6
+
+    def __post_init__(self):
+        if len(self.depths) != len(self.num_heads) or not self.depths:
+            raise ValueError("depths and num_heads need one entry a stage")
+        if self.img_size % self.patch_size:
+            raise ValueError("img_size must be a multiple of patch_size")
+        for i, (side, heads) in enumerate(zip(self.sides, self.num_heads)):
+            width = self.embed_dim * 2 ** i
+            if side % self.window_size or side < self.window_size:
+                raise ValueError(
+                    f"stage {i + 1} is {side} tokens wide, not a multiple of "
+                    f"the window ({self.window_size}): torchvision pads "
+                    "there, which this encoder does not")
+            if width % heads:
+                raise ValueError(f"stage {i + 1}'s width {width} is not a "
+                                 f"multiple of its {heads} heads")
+        if len(self.band_scale) != self.in_chans:
+            raise ValueError(f"band_scale needs {self.in_chans} values, one "
+                             "a band")
+
+    @property
+    def sides(self) -> Tuple[int, ...]:
+        """Tokens along each side of each stage."""
+        side = self.img_size // self.patch_size
+        return tuple(side // 2 ** i for i in range(len(self.depths)))
+
+    @property
+    def widths(self) -> Tuple[int, ...]:
+        """Each stage's width."""
+        return tuple(self.embed_dim * 2 ** i for i in range(len(self.depths)))
+
+    @property
+    def latent_dim(self) -> int:
+        return self.widths[-1]
+
+    def shift(self, stage: int, block: int) -> int:
+        """The cyclic shift of a block: half the window in odd blocks, 0 in
+        even ones and where the stage's side is the window."""
+        if block % 2 == 0 or self.sides[stage] <= self.window_size:
+            return 0
+        return self.window_size // 2
+
+    @property
+    def chip_shape(self) -> Tuple[int, int, int]:
+        """One chip's (bands, height, width)."""
+        return (self.in_chans, self.img_size, self.img_size)
+
+
+SATLAS_SWINV2B_S2MS = SwinConfig()
 
 
 @dataclasses.dataclass(frozen=True)

@@ -45,9 +45,11 @@ BUILD_ROOT = _PKG / "_build"
 # = 1), and a wide bf16 one in a library of its own (``gemm_wide``: x, w,
 # scale, shift, out; M, N, K, act), for the ViT encoder's large products.
 # The ViT encoder's kernels are bf16 only: attention (qkv, out; B, L, H)
-# and LayerNorm (x, r, w, b, sum, out; M, N; then one float, eps): a third
-# count, where there is one, is the launcher's float arguments, after its
-# ints.
+# and LayerNorm (x, r, w, b, sum, out; M, N; then one float, eps; its post
+# mode: branch, w, b, sum; M, N; eps): a third count, where there is one,
+# is the launcher's float arguments, after its ints. The Swin encoder's
+# window attention (qkv, bias, scale, out; chips, side, heads, shift) is
+# bf16 only too.
 LAUNCHERS = {"fused_gemm": {"satae_fused_gemm_batched": (7, 10),
                             "satae_fused_gemm_batched_bf16": (7, 10),
                             "satae_fused_gemm_batched_tma": (5, 9),
@@ -58,7 +60,9 @@ LAUNCHERS = {"fused_gemm": {"satae_fused_gemm_batched": (7, 10),
                              "satae_conv2d_bn_act_bf16_tma": (5, 13)},
              "gemm_wide": {"satae_fused_gemm_bf16_wide": (5, 4)},
              "attention": {"satae_attention_bf16": (2, 3)},
-             "layernorm": {"satae_layernorm_bf16": (6, 2, 1)}}
+             "layernorm": {"satae_layernorm_bf16": (6, 2, 1),
+                           "satae_layernorm_post_bf16": (4, 2, 1)},
+             "window_attention": {"satae_window_attention_bf16": (4, 4)}}
 # the operand dtypes the kernels take, and each one's launcher suffix
 OPERAND_DTYPES = {torch.float32: "", torch.bfloat16: "_bf16"}
 SOURCES = tuple(LAUNCHERS)

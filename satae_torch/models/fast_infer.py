@@ -50,25 +50,45 @@ add, and the mean of the patch tokens in float32 (PyTorch). Every Linear is
 K1 with scale 1 and its bias as the shift; the residual stream stays in
 the compute dtype. On the card the attention and LayerNorm kernels are
 bf16 only; on the CPU the plain versions run in float32 or bf16.
+
+The Swin encoder (satae_torch.models.swin) too: :func:`fold_swin` packs its
+weights once per weight set, folding each block's continuous position bias
+(the CPB MLP on its fixed table, which depends on weights alone) into one
+(heads, 64, 64) float32 table and its logit scales into one float32 scalar
+a head, and zeroing qkv's k-part bias as torchvision does at every call;
+:func:`swin_encoder_infer` runs a chunk of int16 chips on the kernels.
+Per chunk: the patchify, per-band scale and clip (PyTorch, in the span
+``satae.swin.embed``), the patch embedding as one K1 launch and its
+LayerNorm launch; per block K1 for qkv, one window-attention launch (the
+shift, the windows and their inverses are the kernel's index arithmetic),
+K1 for proj, a post-mode LayerNorm launch adding LN(proj) into the
+residual stream, K1 for fc1 with GELU in its epilogue and K1 for fc2, a
+post-mode LayerNorm launch; between stages the 2 x 2 merge (one strided
+copy in PyTorch, in the span ``satae.swin.merge``), K1 for the reduction
+(a zero shift for its missing bias) and a LayerNorm launch; the mean of the
+last stage's tokens in float32 (PyTorch).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from satae_torch.config import ViTConfig
+from satae_torch.config import SwinConfig, ViTConfig
 from satae_torch.data.augment import normalize
 from satae_torch.kernels.attention import attention
 from satae_torch.kernels.conv import (bn_fold, conv2d_bn_act,
                                       pack_conv_weight, split_tf32)
-from satae_torch.kernels.layernorm import layer_norm
+from satae_torch.kernels.layernorm import layer_norm, layer_norm_post
 from satae_torch.kernels.matmul import fused_matmul
+from satae_torch.kernels.window_attention import window_attention
 from satae_torch.models.encoder import Encoder
 from satae_torch.models.mlp import MLP
+from satae_torch.models.swin import SwinEncoder, merge_patches
 from satae_torch.models.vit import ViTEncoder
 from satae_torch.utils.profiling import span
 
@@ -343,6 +363,150 @@ def vit_encoder_infer(fv: FoldedViT, x: torch.Tensor) -> torch.Tensor:
         r = blk.fc2(blk.fc1(xn))
     _, y = layer_norm(h, *fv.norm, c.norm_eps, residual=r)
     return torch.mean(y.view(n, t, d)[:, 1:], dim=1, dtype=torch.float32)
+
+
+@dataclass(frozen=True)
+class FoldedSwinBlock:
+    qkv: FoldedLinear  # its k-part bias zeroed
+    bias: torch.Tensor  # (heads, window^2, window^2) float32: 16 sigmoid(CPB)
+    scale: torch.Tensor  # (heads,) float32: exp(min(logit_scale, ln 100))
+    shift: int
+    proj: FoldedLinear
+    ln1: Tuple[torch.Tensor, torch.Tensor]  # post-norm of the attention
+    fc1: FoldedLinear  # GELU in its epilogue
+    fc2: FoldedLinear
+    ln2: Tuple[torch.Tensor, torch.Tensor]  # post-norm of the MLP
+
+
+@dataclass(frozen=True)
+class FoldedSwinMerge:
+    reduction: FoldedLinear  # 4C -> 2C, a zero shift
+    norm: Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclass(frozen=True)
+class FoldedSwin:
+    """The Swin encoder folded for the kernels (:func:`fold_swin`), served
+    as :class:`FoldedViT` is: :meth:`host` checks the chips a caller
+    passes, and calling it on a chunk of them on the device gives the
+    latents."""
+    cfg: SwinConfig
+    band_scale: torch.Tensor  # (in_chans,) float32
+    patch: FoldedLinear  # (in_chans * patch^2 -> embed_dim)
+    embed_norm: Tuple[torch.Tensor, torch.Tensor]
+    stages: Tuple[Tuple[FoldedSwinBlock, ...], ...]
+    merges: Tuple[FoldedSwinMerge, ...]
+
+    def host(self, images) -> np.ndarray:
+        """The encoder's input on the host: int16 digital-number chips (N,
+        bands, H, W) of its config, as they are; any other dtype or shape
+        is refused."""
+        imgs = np.asarray(images)
+        shape = self.cfg.chip_shape
+        if imgs.dtype != np.int16:
+            raise TypeError(f"the Swin encoder takes int16 chips (N, "
+                            f"{', '.join(map(str, shape))}), got {imgs.dtype}")
+        if imgs.ndim != 4 or imgs.shape[1:] != shape:
+            raise ValueError(f"chips must be (N, {', '.join(map(str, shape))})"
+                             f", got {imgs.shape}")
+        return imgs
+
+    def __call__(self, chunk: torch.Tensor) -> torch.Tensor:
+        """int16 chips on the device -> float32 latents:
+        :func:`swin_encoder_infer`."""
+        return swin_encoder_infer(self, chunk)
+
+
+@torch.no_grad()
+def fold_swin(enc: SwinEncoder, cfg: SwinConfig,
+              dtype: torch.dtype = torch.bfloat16) -> FoldedSwin:
+    """The encoder's launches for activations in ``dtype``: each weight
+    cast to ``dtype`` once and laid out for K1 (the patch convolution as its
+    (embed_dim, in_chans * patch^2) matrix, columns in (band, row, column)
+    order), biases, LayerNorm parameters, position biases and logit scales
+    float32. ``cfg`` gives the band scales and the shifts."""
+    dev = enc.features[0][0].weight.device
+    ln = lambda m: (m.weight.detach().float().contiguous(),
+                    m.bias.detach().float().contiguous())
+    conv = enc.features[0][0]
+    patch = FoldedLinear(
+        _linear_weight(conv.weight.reshape(conv.out_channels, -1).to(dtype)),
+        None, conv.bias.detach().float(), "none")
+    stages, merges = [], []
+    for i in range(len(cfg.depths)):
+        c = cfg.widths[i]
+        blocks = []
+        for j, blk in enumerate(enc.features[2 * i + 1]):
+            at = blk.attn
+            qkv_b = at.qkv.bias.detach().float().clone()
+            qkv_b[c:2 * c] = 0.0
+            blocks.append(FoldedSwinBlock(
+                FoldedLinear(_linear_weight(at.qkv.weight.to(dtype)), None,
+                             qkv_b, "none"),
+                at.position_bias().float().contiguous(),
+                torch.clamp(at.logit_scale.detach().float(),
+                            max=math.log(100.0)).exp().reshape(-1)
+                .contiguous(),
+                cfg.shift(i, j), _vit_linear(at.proj, dtype), ln(blk.norm1),
+                _vit_linear(blk.mlp[0], dtype, "gelu"),
+                _vit_linear(blk.mlp[3], dtype), ln(blk.norm2)))
+        stages.append(tuple(blocks))
+        if i + 1 < len(cfg.depths):
+            m = enc.features[2 * i + 2]
+            red = m.reduction.weight
+            merges.append(FoldedSwinMerge(
+                FoldedLinear(_linear_weight(red.to(dtype)), None,
+                             torch.zeros(red.shape[0], device=dev), "none"),
+                ln(m.norm)))
+    return FoldedSwin(cfg, torch.tensor(cfg.band_scale, dtype=torch.float32,
+                                        device=dev), patch,
+                      ln(enc.features[0][2]), tuple(stages), tuple(merges))
+
+
+def swin_patches(fs: FoldedSwin, x: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """int16 chips (n, in_chans, H, W) -> the patch matrix (n * side^2,
+    in_chans * patch^2) in ``dtype``, each band scaled and clipped to [0,
+    1] in float32: rows in (row, column) order of the patch grid, the
+    columns of the convolution weight's flatten."""
+    c = fs.cfg
+    n, p, side = len(x), c.patch_size, c.sides[0]
+    xs = x.view(n, c.in_chans, side, p, side, p) \
+        .permute(0, 2, 4, 1, 3, 5).float()
+    xs.mul_(fs.band_scale.view(-1, 1, 1)).clamp_(0.0, 1.0)
+    out = torch.empty(xs.shape, dtype=dtype, device=x.device)
+    out.copy_(xs)
+    return out.view(n * side * side, -1)
+
+
+def swin_encoder_infer(fs: FoldedSwin, x: torch.Tensor) -> torch.Tensor:
+    """Eval-mode Swin encoder on the kernels, as the module docstring says:
+    int16 chips (n, in_chans, H, W) -> the mean of the last stage's tokens,
+    (n, latent_dim) float32; the activations in the dtype ``fs`` was folded
+    for. The residual stream is updated in place by the post-mode
+    LayerNorms."""
+    c = fs.cfg
+    n, eps = len(x), c.norm_eps
+    dtype = fs.patch.w.dtype
+    with span("satae.swin.embed", device=True):
+        patches = swin_patches(fs, x, dtype)
+    _, h = layer_norm(fs.patch(patches), *fs.embed_norm, eps)
+    for i, blocks in enumerate(fs.stages):
+        side = c.sides[i]
+        for blk in blocks:
+            a = window_attention(blk.qkv(h), n, side, len(blk.scale),
+                                 c.window_size, blk.shift, blk.bias,
+                                 blk.scale)
+            layer_norm_post(h, blk.proj(a), *blk.ln1, eps)
+            layer_norm_post(h, blk.fc2(blk.fc1(h)), *blk.ln2, eps)
+        if i < len(fs.merges):
+            mg = fs.merges[i]
+            with span("satae.swin.merge", device=True):
+                m = merge_patches(h.view(n, side, side, -1)).reshape(
+                    n * (side // 2) ** 2, -1).contiguous()
+            _, h = layer_norm(mg.reduction(m), *mg.norm, eps)
+    return torch.mean(h.view(n, -1, c.latent_dim), dim=1,
+                      dtype=torch.float32)
 
 
 def make_encode_classify(enc: Encoder, mlp: MLP,

@@ -231,7 +231,7 @@ def test_state_dict_round_trip_through_load_torch(tmp_path, weights,
     pipe = _pipe().load_torch(str(tmp_path / "mae.pt"),
                               str(tmp_path / "head.pt"))
     for k, v in sd.items():
-        assert torch.equal(pipe.vit.state_dict()[k], v), k
+        assert torch.equal(pipe.frozen.state_dict()[k], v), k
     x = torch.from_numpy(chips[:5]).float()
     x = (x - torch.tensor(MEAN).view(1, 6, 1, 1, 1)) \
         / torch.tensor(STD).view(1, 6, 1, 1, 1)
